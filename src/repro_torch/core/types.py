@@ -1,0 +1,95 @@
+"""Port of repro/core/types.py (the serving path's share).
+
+Core datatypes of the bidirectional-offload engine: ``WriteBatch``
+(structure-of-arrays batch of write requests), the write-phase tags and
+``DecisionStats``. Everything is a NamedTuple of tensors on one explicit
+device. ``LatencyModel``, ``MTTConfig``, ``CPUTLBConfig`` and ``SpecStats``
+belong to the simulator and the speculative path and are not ported yet.
+
+Conventions: region ids and the other integer fields are int64 tensors
+(PyTorch's index type); the JAX package uses int32 for the same values.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+# Path labels (values of a decision mask).
+OFFLOAD = 0  # keep on the offloaded (RNIC / direct-scatter) path
+UNLOAD = 1   # reroute to the unload (staging buffer + local copy) path
+
+# Write-phase tags (values of ``WriteBatch.phase``).
+PHASE_SCATTERED = 0  # single-row decode-time write (routing is adaptive)
+PHASE_BULK = 1       # contiguous prefill-chunk write (always offload)
+
+
+class WriteBatch(NamedTuple):
+    """A batch of RDMA-write-like requests (structure of arrays).
+
+    region:  int[n]  destination region / page / expert id
+    offset:  int[n]  byte offset within the region (framework: slot id)
+    size:    int[n]  payload bytes (paper evaluates 16 B inlined writes)
+    hint:    int[n]  application hint: 1 = "offload me"; 0 = no hint
+    phase:   int[n]  PHASE_SCATTERED or PHASE_BULK; None means scattered
+    """
+
+    region: torch.Tensor
+    offset: torch.Tensor
+    size: torch.Tensor
+    hint: torch.Tensor
+    phase: Optional[torch.Tensor] = None
+
+    @property
+    def n(self) -> int:
+        return self.region.shape[0]
+
+
+def _ints(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, device=device).to(torch.int64)
+
+
+def make_write_batch(region, offset=None, size=None, hint=None, phase=None,
+                     device=None) -> WriteBatch:
+    """``device`` defaults to ``region``'s own when it is a tensor."""
+    if device is None:
+        device = region.device if isinstance(region, torch.Tensor) else "cpu"
+    region = _ints(region, device)
+    n = region.shape[0]
+    if offset is None:
+        offset = torch.zeros((n,), dtype=torch.int64, device=device)
+    if size is None:  # paper: 16 B inlined writes
+        size = torch.full((n,), 16, dtype=torch.int64, device=device)
+    if hint is None:
+        hint = torch.zeros((n,), dtype=torch.int64, device=device)
+    if phase is None:
+        phase = torch.full((n,), PHASE_SCATTERED, dtype=torch.int64,
+                           device=device)
+    return WriteBatch(region, _ints(offset, device), _ints(size, device),
+                      _ints(hint, device), _ints(phase, device))
+
+
+class DecisionStats(NamedTuple):
+    """Aggregated routing statistics. ``n_bulk`` splits the offloaded tally
+    by phase: bulk writes are pinned to the offload path, so ``n_offloaded -
+    n_bulk`` is the scattered traffic the policy chose to keep direct."""
+
+    n_offloaded: torch.Tensor
+    n_unloaded: torch.Tensor
+    n_bulk: torch.Tensor
+
+    @staticmethod
+    def from_mask(unload_mask: torch.Tensor, valid=None,
+                  phase=None) -> "DecisionStats":
+        """``valid`` (bool[n], optional) restricts the tally to live
+        requests; ``phase`` tallies live PHASE_BULK writes separately."""
+        u = unload_mask.sum()
+        nb = torch.zeros((), dtype=torch.int64, device=unload_mask.device)
+        if phase is not None:
+            bulk = phase == PHASE_BULK
+            if valid is not None:
+                bulk = bulk & valid
+            nb = bulk.sum()
+        if valid is None:
+            return DecisionStats(unload_mask.shape[0] - u, u, nb)
+        return DecisionStats(valid.sum() - u, u, nb)

@@ -1,0 +1,37 @@
+"""Port of repro/kernels/ops.py: the public wrappers around the kernels.
+
+Dispatch rule: a CPU tensor runs the kernel's plain PyTorch version, a CUDA
+tensor launches the hand-written kernel or raises. There is no ``impl``
+switch and no fallback on the GPU. Each wrapper counts its launches
+(``wrapper.launches``); ``launch_counts`` sums them by kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from .flash_decode import flash_decode_paged, flash_decode_paged_ref
+from .staged_scatter import (staged_scatter, staged_scatter_layers,
+                             staged_scatter_ref)
+
+_WRAPPERS = {
+    "staged_scatter": (staged_scatter, staged_scatter_layers),
+    "flash_decode_paged": (flash_decode_paged,),
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel launches since the last reset, by kernel name."""
+    return {k: sum(w.launches for w in ws) for k, ws in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for ws in _WRAPPERS.values():
+        for w in ws:
+            w.launches = 0
+
+
+__all__ = [
+    "flash_decode_paged", "flash_decode_paged_ref", "staged_scatter",
+    "staged_scatter_layers", "staged_scatter_ref", "launch_counts",
+    "reset_launch_counts",
+]

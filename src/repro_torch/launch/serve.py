@@ -1,0 +1,113 @@
+"""Port of repro/launch/serve.py: ``python -m repro_torch.launch.serve
+--arch <id> [...]``.
+
+One front door (``repro_torch.serve.Engine``), two workload shapes:
+
+* default: serve ``--batch`` same-length prompts concurrently (one slot per
+  prompt) and report throughput.
+* ``--batched``: continuous batching, a stream of ``--requests`` synthetic
+  requests admitted FIFO into ``--slots`` serving slots, decoded in segments
+  with stop/max-len retirement between them.
+
+Runs on the GPU unless ``--device cpu`` is given (no GPU: it raises).
+``--full-width`` serves the architecture at its published widths instead of
+the reduced test variant.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from ..data import synthetic_requests
+from ..models.sampling import SamplingParams
+from ..serve import Engine, EngineConfig, build_model_and_params
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; raises without a GPU) or cpu")
+    ap.add_argument("--full-width", action="store_true",
+                    help="published widths instead of the reduced variant")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--write-mode", "--path", dest="path", default="adaptive",
+                    help="registered WritePath name (direct/staged/adaptive)")
+    ap.add_argument("--policy", default=None,
+                    help="registered RoutingPolicy name (default: the "
+                         "path's default policy)")
+    ap.add_argument("--attention", default="auto",
+                    help="auto | fused | reference")
+    ap.add_argument("--ring-size", type=int, default=8)
+    ap.add_argument("--batched", action="store_true",
+                    help="continuous batching over the paged KV pool")
+    ap.add_argument("--requests", type=int, default=16,
+                    help="(--batched) synthetic request count")
+    ap.add_argument("--slots", type=int, default=8,
+                    help="(--batched) serving slots")
+    ap.add_argument("--segment-len", type=int, default=16,
+                    help="(--batched) decode steps per segment")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights")
+    args = ap.parse_args(argv)
+
+    cfg, model = build_model_and_params(
+        args.arch, args.max_seq, seed=args.seed,
+        reduced=not args.full_width, device=args.device)
+    sp = SamplingParams(max_tokens=args.gen_len)
+    common = dict(max_seq=args.max_seq, path=args.path, policy=args.policy,
+                  page_size=args.page_size, ring_size=args.ring_size,
+                  attention=args.attention, device=args.device)
+
+    def sync():
+        if torch.device(args.device).type == "cuda":
+            torch.cuda.synchronize()
+
+    if args.batched:
+        queue = synthetic_requests(args.requests, args.prompt_len, cfg.vocab,
+                                   args.gen_len, params=sp)
+        eng = Engine.from_config(EngineConfig(
+            n_slots=args.slots, segment_len=args.segment_len, **common),
+            model)
+        sync()
+        t0 = time.perf_counter()
+        outputs = eng.serve(queue)
+        sync()
+        dt = time.perf_counter() - t0
+        n_toks = sum(len(t) for t in outputs.values())
+        print(f"[{eng.layout}, {eng.attention}, {args.device}] served "
+              f"{len(outputs)} requests / {n_toks} tokens in {dt:.2f}s "
+              f"({n_toks / dt:.1f} tok/s)")
+        if eng.ttft:
+            ms = sorted(v * 1e3 for v in eng.ttft.values())
+            print(f"ttft: mean {sum(ms) / len(ms):.1f} ms, "
+                  f"max {ms[-1]:.1f} ms")
+        print(f"write-path stats: {eng.stats}")
+        return
+
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, cfg.vocab, size=args.prompt_len)
+               for _ in range(args.batch)]
+    eng = Engine.from_config(EngineConfig(n_slots=args.batch, **common),
+                             model)
+    sync()
+    t0 = time.perf_counter()
+    comps = eng.generate(prompts, sp)
+    sync()
+    dt = time.perf_counter() - t0
+    n_toks = sum(c.n_tokens for c in comps)
+    print(f"[{eng.layout}, {eng.attention}, {args.device}] generated "
+          f"{len(comps)} x {args.gen_len} tokens in {dt:.2f}s "
+          f"({n_toks / dt:.1f} tok/s)")
+    print(f"write-path stats: {eng.stats}")
+
+
+if __name__ == "__main__":
+    main()

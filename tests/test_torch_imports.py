@@ -1,0 +1,148 @@
+"""The port stands alone: no module under ``src/repro_torch/`` and not
+``chip_smoke.py`` imports ``jax`` or anything of the JAX package, and the
+GPU entry points refuse to carry on on the CPU."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "src", "repro_torch")
+BANNED = ("jax", "jaxlib", "repro", "flax", "optax")
+
+
+def _sources():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(PKG):
+        files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_nothing_of_jax(path):
+    bad = _imported_roots(path) & set(BANNED)
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {sorted(bad)}"
+
+
+def test_package_has_every_ported_module():
+    want = ["configs/base.py", "kernels/staged_scatter.py",
+            "kernels/flash_decode.py", "kernels/ops.py", "kernels/build.py",
+            "kernels/csrc/staged_scatter.cu",
+            "kernels/csrc/flash_decode_paged.cu", "core/types.py",
+            "core/ring.py", "core/monitor.py", "core/policy.py",
+            "core/decision.py", "core/paths.py", "models/layers.py",
+            "models/transformer.py", "models/model.py", "models/sampling.py",
+            "kvcache/paged.py", "data/pipeline.py", "serve/traffic/sched.py",
+            "serve/scheduler.py", "serve/api.py", "launch/serve.py",
+            "checkpoint/checkpoint.py"]
+    missing = [w for w in want if not os.path.isfile(os.path.join(PKG, w))]
+    assert not missing, missing
+
+
+def _run(code, **kw):
+    # CUDA_VISIBLE_DEVICES="" hides any GPU from the child, so the refusals
+    # below are shown on every machine
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                          capture_output=True, text=True, timeout=240, **kw)
+
+
+def test_importing_the_package_loads_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{BANNED!r})\n"
+        "assert not bad, bad\n"
+        "assert 'triton' not in sys.modules\n"
+        "print('clean', len([k for k in sys.modules if "
+        "k.startswith('repro_torch')]))\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.startswith("clean")
+
+
+_REFUSALS = """
+import pytest, torch
+from repro_torch.core.paths import resolve_device
+from repro_torch.serve import Engine, EngineConfig, build_model_and_params
+assert not torch.cuda.is_available()
+with pytest.raises(RuntimeError, match="is_available"):
+    EngineConfig(max_seq=32, arch="stablelm-1.6b")      # device="cuda"
+with pytest.raises(RuntimeError, match="is_available"):
+    resolve_device("cuda")
+with pytest.raises(RuntimeError, match="is_available"):
+    build_model_and_params("stablelm-1.6b")
+eng = Engine.from_config(EngineConfig(max_seq=32, arch="stablelm-1.6b",
+                                      device="cpu"))
+assert eng.scheduler.device.type == "cpu"
+assert eng.attention == "reference"
+print("refused")
+"""
+
+
+def test_cuda_device_raises_without_cuda():
+    res = _run(_REFUSALS)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("refused")
+
+
+def test_launcher_refuses_to_fall_back_to_cpu():
+    res = _run("from repro_torch.launch.serve import main\n"
+               "main(['--arch', 'stablelm-1.6b', '--batched'])\n")
+    assert res.returncode != 0
+    assert "is_available" in res.stderr
+
+
+def test_launcher_serves_on_cpu_when_asked():
+    res = _run("from repro_torch.launch.serve import main\n"
+               "main(['--arch', 'stablelm-1.6b', '--device', 'cpu', "
+               "'--batched', '--requests', '4', '--slots', '2', "
+               "'--prompt-len', '8', '--gen-len', '6', '--max-seq', '32', "
+               "'--segment-len', '4', '--ring-size', '2', '--page-size', "
+               "'4'])\n")
+    assert res.returncode == 0, res.stderr
+    assert "served 4 requests / 24 tokens" in res.stdout
+    assert "write-path stats" in res.stdout
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
+                         env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=240)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+
+
+def test_unported_archs_and_families_raise():
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.configs.base import MOE
+    from repro_torch.models import build_model
+    import dataclasses
+    assert sorted(ARCHS) == ["nemotron-4-15b", "qwen2-7b", "stablelm-1.6b"]
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        get_config("mamba2-130m")
+    with pytest.raises(KeyError):
+        get_config("no-such-arch")
+    moe = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              family=MOE)
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        build_model(moe)
