@@ -8,12 +8,20 @@ Phases, each failing the run on any exception or mismatch:
   env      the card's name and power limit, torch / CUDA / nvcc versions
   build    builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
   kernels  each kernel against its plain PyTorch version on the card, and
-           their times at the shapes the engine phase gives them
+           their times at the shapes the engine phases give them
   engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
-           a seed) serves 16 requests through ``Engine.from_config``; both
-           kernels' launch counts must be non-zero
-  parity   the same arch at 4 layers, fp32: direct / staged / adaptive and
-           fused / reference give identical greedy token streams
+           a seed) serves 16 requests through ``Engine.from_config`` on the
+           paged layout; the launch counts of staged_scatter,
+           flash_decode_paged and flash_attention must be non-zero
+  lanes    h2o-danube-3-4b at full width (24 layers, bf16, sliding window
+           4096) serves 12 requests with prompts up to 4608 tokens on the
+           lanes layout; flash_attention's and flash_decode's launch counts
+           must be non-zero
+  parity   stablelm-1.6b at 4 layers, fp32: direct / staged / adaptive,
+           fused / reference and paged / lanes give identical greedy token
+           streams; h2o-danube-3-4b at 2 layers (window cut to 128), fp32:
+           the engine on the card and the same weights on the CPU (the
+           plain versions) give identical greedy token streams
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
@@ -43,8 +51,10 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import synthetic_requests  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
-from repro_torch.kernels import (flash_decode_paged,  # noqa: E402
-                                 flash_decode_paged_ref, launch_counts,
+from repro_torch.kernels import (flash_attention,  # noqa: E402
+                                 flash_attention_ref, flash_decode,
+                                 flash_decode_paged, flash_decode_paged_ref,
+                                 flash_decode_ref, launch_counts,
                                  reset_launch_counts, staged_scatter,
                                  staged_scatter_layers, staged_scatter_ref)
 from repro_torch.models import build_model  # noqa: E402
@@ -61,19 +71,27 @@ SLICE = dict(arch="stablelm-1.6b", reduced=False, max_seq=2048, n_slots=8,
              page_size=16, segment_len=16, ring_size=8, path="adaptive")
 N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, [128, 256, 384, 512], 64
 ENGINE_RUNS = 3  # the timed serve is repeated so its spread is seen
+# the lanes slice: the sliding-window model; max_seq 6144 makes the cache
+# 4096 = the window, and 4608-token prompts exceed it, so prefill masks with
+# the window, the cache keeps a rolled ring and decode wraps it
+LANES = dict(arch="h2o-danube-3-4b", reduced=False, max_seq=6144, n_slots=8,
+             segment_len=16, path="direct")
+LANES_REQUESTS, LANES_PROMPTS, LANES_NEW = 12, [512, 2048, 4608], 64
+LANES_GROUP = 2  # 4608-token prompts per prefill call (the first admission's)
 
-# K2 tolerances against the plain version on the same inputs.
+# Tolerances against the plain version on the same inputs.
 # fp32: the JAX package's own kernel-vs-oracle bound (sums in another order).
 TOL_F32 = dict(atol=2e-6, rtol=1e-4)
 # bf16: the plain version rounds q.k to bf16 before the softmax (its einsum
 # returns bf16), the kernel keeps fp32 scores; both round p and the output
 # to bf16. The result is a few bf16 ulps (2^-8 relative) apart. This bound
-# suits the small cases, whose outputs are of order 1; at the slice's shape
+# suits K2's small cases, whose outputs are of order 1; at the slice's shape
 # (a mean over ~1300 keys, outputs of order 0.05) ``check_k2_slice`` holds
-# the kernel to an fp32 reference instead.
+# the kernel to an fp32 reference instead, and so does ``check_bf16`` for
+# every bf16 case of K3 and K4.
 TOL_BF16 = dict(atol=8e-3, rtol=1.6e-2)
-# at the slice's shape in bf16: the kernel's error against the fp32 reference
-# on the same inputs may be at most this many times the plain version's
+# bf16: the kernel's error against the plain version run in fp32 on the same
+# inputs may be at most this many times the plain bf16 version's
 SLICE_ERR_FACTOR = 2.0
 
 
@@ -389,16 +407,323 @@ def time_k2(gen):
                       f"blocks[{b},{p}] ring[{b},{r},{hkv},{d}] bf16")
 
 
+# ---------------------------------------------------------------------------
+# K3 flash_attention
+# ---------------------------------------------------------------------------
+
+
+def _k3_inputs(gen, dtype, b, hq, hkv, s, t, d, model_layout=True):
+    """q [B,Hq,S,D], k/v [B,Hkv,T,D]; by default [B,S,H,D] tensors seen
+    transposed, as the model passes them."""
+    def rn(h, n):
+        if model_layout:
+            return torch.randn((b, n, h, d), generator=gen,
+                               device=DEV).to(dtype).transpose(1, 2)
+        return torch.randn((b, h, n, d), generator=gen, device=DEV).to(dtype)
+    return rn(hq, s), rn(hkv, t), rn(hkv, t)
+
+
+# b, hq, hkv, s, t, d, causal, window: head_dim 64 / 120 / 128, GQA group 1
+# and 4, S = T and S < T, window 0 and < S, ragged S and T; the paged
+# engine's prefill shapes (stablelm: 32 heads of 64, S = T = 384 and 512);
+# a window that cuts 64-key tiles partway (4000 at S = T = 4608)
+K3_CASES = [(1, 4, 4, 1, 1, 64, True, 0), (2, 4, 1, 37, 37, 120, True, 0),
+            (1, 8, 2, 37, 1000, 128, True, 16),
+            (1, 4, 4, 1000, 1000, 120, True, 300),
+            (2, 8, 2, 128, 128, 64, False, 0),
+            (1, 4, 1, 64, 200, 120, False, 50),
+            (1, 4, 1, 300, 4608, 64, True, 4096),
+            (1, 2, 2, 700, 700, 120, True, 0),
+            (1, 4, 1, 4608, 4608, 120, True, 4096),
+            (2, 32, 32, 512, 512, 64, True, 0),
+            (2, 32, 32, 384, 384, 64, True, 0),
+            (1, 4, 1, 4608, 4608, 120, True, 4000)]
+# bf16 is held block by block: K3 by its query tile (64 rows of one head),
+# so the rows past the window form blocks of their own; K4 row by row
+K3_TILE, K4_ROWS = 64, 1
+
+
+def _block_max(x, rows):
+    """max |x| over each block of ``rows`` consecutive query rows of one
+    (batch, head): ``[B,H,S,D]`` -> ``[B,H,ceil(S/rows)]``; a ``[B,H,D]``
+    decode output counts as S = 1."""
+    x = x.abs()
+    if x.dim() == 3:
+        x = x[:, :, None]
+    pad = -x.shape[2] % rows
+    x = F.pad(x, (0, 0, 0, pad))
+    return x.reshape(x.shape[0], x.shape[1], -1, rows * x.shape[3]).amax(-1)
+
+
+def held_bf16(name, case, got, plain, ref32, rows):
+    """The bf16 rule. ``ref32`` is the plain version run in fp32 on the same
+    (upcast) inputs. Over the whole tensor the kernel may err at most
+    SLICE_ERR_FACTOR times as far from it as the plain bf16 version. Block by
+    block (``_block_max``), the same, plus half a bf16 ulp of the block's
+    largest value, the error of rounding an exact result to bf16, which both
+    versions pay. (The plain version rounds q.k to bf16 before the softmax,
+    the kernels keep fp32 scores, so a fixed tolerance against the plain bf16
+    output does not fit every case.) Returns what the phase reports."""
+    diff, diff_plain = got.float() - ref32, plain.float() - ref32
+    err, err_plain = float(diff.abs().max()), float(diff_plain.abs().max())
+    if not err <= SLICE_ERR_FACTOR * err_plain:
+        raise AssertionError(
+            f"{name} bf16 {case}: error {err} against the fp32 reference, "
+            f"the plain version's is {err_plain}")
+    blk, blk_plain = _block_max(diff, rows), _block_max(diff_plain, rows)
+    limit = SLICE_ERR_FACTOR * blk_plain + 2.0 ** -8 * _block_max(ref32, rows)
+    share = float((blk / limit.clamp(min=1e-30)).max())
+    if not bool((blk <= limit).all()):
+        i = int((blk - limit).argmax())
+        raise AssertionError(
+            f"{name} bf16 {case}: block {i} ({rows} rows each) errs "
+            f"{float(blk.flatten()[i])}, its limit is "
+            f"{float(limit.flatten()[i])} (the plain version's error there "
+            f"is {float(blk_plain.flatten()[i])})")
+    return dict(err=err, err_plain=err_plain, worst_block_share=share,
+                err_vs_plain=float((got.float() - plain.float()).abs().max()))
+
+
+def check_bf16(name, case, kernel, plain, args, rows):
+    """``held_bf16`` on the kernel's and the plain version's outputs; returns
+    the kernel's max abs difference from the plain bf16 version and the
+    largest share of its block limit that any block used."""
+    got, want = kernel(*args), plain(*args)
+    ref32 = plain(*_as_f32(args))
+    torch.cuda.synchronize()
+    if not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name} non-finite, bf16 {case}")
+    h = held_bf16(name, case, got, want, ref32, rows)
+    return h["err_vs_plain"], h["worst_block_share"]
+
+
+def check_k3(gen):
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases, share = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, (b, hq, hkv, s, t, d, causal, w) in enumerate(K3_CASES):
+            q, k, v = _k3_inputs(gen, dtype, b, hq, hkv, s, t, d,
+                                 model_layout=i % 2 == 0)
+            if dtype == torch.bfloat16:
+                e, sh = check_bf16(
+                    "flash_attention", K3_CASES[i],
+                    lambda *a: flash_attention(*a, causal, w),
+                    lambda *a: flash_attention_ref(*a, causal, w), (q, k, v),
+                    K3_TILE)
+                errs[dtype], share = max(errs[dtype], e), max(share, sh)
+                cases += 1
+                continue
+            got = flash_attention(q, k, v, causal, w)
+            want = flash_attention_ref(q, k, v, causal, w)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(
+                got, want, **TOL_F32,
+                msg=lambda m: f"flash_attention fp32 {K3_CASES[i]}: {m}")
+            errs[dtype] = max(errs[dtype], float((got - want).abs().max()))
+            cases += 1
+    return errs, cases, share
+
+
+def _k3_slice_inputs(gen, dtype=torch.bfloat16):
+    c = get_config(LANES["arch"])
+    return _k3_inputs(gen, dtype, LANES_GROUP, c.n_heads, c.n_kv_heads,
+                      max(LANES_PROMPTS), max(LANES_PROMPTS),
+                      c.resolved_head_dim)
+
+
+def check_k3_slice(gen):
+    """At the lanes slice's prefill shape: fp32 within TOL_F32 of the plain
+    version; bf16 by ``held_bf16``, block by block of 64 query rows."""
+    window = get_config(LANES["arch"]).sliding_window
+    args = _k3_slice_inputs(gen)
+    args32 = tuple(x.float() for x in args)
+    ref32 = flash_attention_ref(*args32, True, window)
+    got32 = flash_attention(*args32, True, window)
+    torch.testing.assert_close(
+        got32, ref32, **TOL_F32,
+        msg=lambda m: f"flash_attention fp32, slice shape: {m}")
+    err_f32 = float((got32 - ref32).abs().max())
+    del got32
+    got = flash_attention(*args, True, window)
+    plain = flash_attention_ref(*args, True, window)
+    torch.cuda.synchronize()
+    h = held_bf16("flash_attention", "slice shape", got, plain, ref32, K3_TILE)
+    out_rms = float(ref32.square().mean().sqrt())
+    del got, plain, ref32
+    torch.cuda.empty_cache()
+    return dict(err_f32=err_f32, err_bf16_vs_f32_ref=h["err"],
+                plain_err_bf16_vs_f32_ref=h["err_plain"],
+                worst_block_share=h["worst_block_share"], out_rms=out_rms)
+
+
+def live_pairs(s, t, causal, window):
+    """(query, key) pairs the mask lets through, counted per head."""
+    qa = torch.arange(s, dtype=torch.int64) + (t - s)
+    hi = qa if causal else torch.full_like(qa, t - 1)
+    lo = (qa - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(qa)
+    return int((hi.clamp(max=t - 1) - lo + 1).clamp(min=0).sum())
+
+
+def time_k3(gen):
+    window = get_config(LANES["arch"]).sliding_window
+    q, k, v = _k3_slice_inputs(gen)
+    b, hq, s, d = q.shape
+    t = k.shape[2]
+    t_ = timings(lambda: flash_attention(q, k, v, True, window),
+                 lambda: flash_attention_ref(q, k, v, True, window),
+                 # yardstick only: causal, no window (SDPA takes no window
+                 # rule but an explicit mask, which would time its masked path)
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True, enable_gqa=True))
+    pairs = live_pairs(s, t, True, window)
+    flops = 4 * d * hq * b * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / HBM_BYTES_PER_S
+    return dict(**t_, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                live_pairs_per_head=pairs,
+                shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{t},{d}] "
+                      f"bf16 (strided views of [B,S,H,D]), causal, window "
+                      f"{window}")
+
+
+# ---------------------------------------------------------------------------
+# K4 flash_decode
+# ---------------------------------------------------------------------------
+
+
+def _k4_inputs(gen, dtype, b, hq, hkv, t, d, special=False):
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+    q, k, v = rn(b, hq, d), rn(b, t, hkv, d), rn(b, t, hkv, d)
+    mask = torch.rand((b, t), generator=gen, device=DEV) > 0.35
+    if special:
+        mask[0] = False             # no live key: the uniform mean
+        if b > 1:
+            mask[1] = False
+            mask[1, t // 2] = True  # one live key
+    return q, k, v, mask
+
+
+K4_CASES = [(3, 4, 4, 1, 64), (2, 8, 2, 37, 120), (2, 4, 1, 1000, 128),
+            (4, 32, 32, 700, 64), (8, 32, 8, 4096, 120), (2, 8, 8, 300, 16),
+            (3, 6, 3, 129, 32)]
+
+
+def check_k4(gen):
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases, share = 0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shp in K4_CASES:
+            for special in (False, True):
+                args = _k4_inputs(gen, dtype, *shp, special=special)
+                cases += 1
+                if dtype == torch.bfloat16:
+                    e, sh = check_bf16("flash_decode", (shp, special),
+                                       flash_decode, flash_decode_ref, args,
+                                       K4_ROWS)
+                    errs[dtype], share = max(errs[dtype], e), max(share, sh)
+                    continue
+                got = flash_decode(*args)
+                want = flash_decode_ref(*args)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(
+                    got, want, **TOL_F32,
+                    msg=lambda m: f"flash_decode fp32 {shp} "
+                                  f"special={special}: {m}")
+                errs[dtype] = max(errs[dtype], float(
+                    (got - want).abs().max()))
+    return errs, cases, share
+
+
+def _k4_slice_inputs(gen, all_live):
+    """The lanes cache at the slice's shape: 8 slots x 4096 slots of 8 KV
+    heads; every key live (every slot past the window), or slot i live up to
+    a position drawn from 600-4095 as early in a request."""
+    c = get_config(LANES["arch"])
+    b, t = LANES["n_slots"], c.sliding_window
+    q, k, v, _ = _k4_inputs(gen, torch.bfloat16, b, c.n_heads, c.n_kv_heads,
+                            t, c.resolved_head_dim)
+    if all_live:
+        mask = torch.ones((b, t), dtype=torch.bool, device=DEV)
+    else:
+        pos = torch.randint(600, t, (b, 1), generator=gen, device=DEV)
+        mask = torch.arange(t, device=DEV)[None] <= pos
+    return q, k, v, mask
+
+
+def check_k4_slice(gen, all_live):
+    args = _k4_slice_inputs(gen, all_live)
+    args32 = _as_f32(args)
+    ref32 = flash_decode_ref(*args32)
+    got32 = flash_decode(*args32)
+    torch.testing.assert_close(
+        got32, ref32, **TOL_F32,
+        msg=lambda m: f"flash_decode fp32, slice shape: {m}")
+    got, plain = flash_decode(*args), flash_decode_ref(*args)
+    torch.cuda.synchronize()
+    h = held_bf16("flash_decode", "slice shape", got, plain, ref32, K4_ROWS)
+    return dict(all_live=all_live, err_f32=float((got32 - ref32).abs().max()),
+                err_bf16_vs_f32_ref=h["err"],
+                plain_err_bf16_vs_f32_ref=h["err_plain"],
+                worst_block_share=h["worst_block_share"],
+                out_rms=float(ref32.square().mean().sqrt()))
+
+
+def time_k4(gen):
+    q, k, v, mask = _k4_slice_inputs(gen, all_live=True)
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+
+    def library():
+        # yardstick only: one fused PyTorch attention call over the lanes
+        return F.scaled_dot_product_attention(
+            q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask[:, None, None, :], enable_gqa=True)
+    t_ = timings(lambda: flash_decode(q, k, v, mask),
+                 lambda: flash_decode_ref(q, k, v, mask), library)
+    es = q.element_size()
+    n_live = int(mask.sum())      # the work depends on the data: live keys
+    nbytes = n_live * hkv * d * 2 * es + 2 * q.numel() * es + mask.numel()
+    flops = 4 * hq * n_live * d
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q.dtype]
+    return dict(**t_, bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                live_keys=n_live,
+                shape=f"q[{b},{hq},{d}] k/v[{b},{t},{hkv},{d}] bf16, "
+                      f"{n_live} live keys")
+
+
 def phase_kernels():
     gen = torch.Generator(device=DEV).manual_seed(0)
     k1_err, k1_cases = check_k1(gen)
     k2_errs, k2_cases = check_k2(gen)
     k2_slice = [check_k2_slice(gen, c) for c in (1, 8)]
+    k3_errs, k3_cases, k3_share = check_k3(gen)
+    k3_slice = check_k3_slice(gen)
+    k4_errs, k4_cases, k4_share = check_k4(gen)
+    k4_slice = [check_k4_slice(gen, live) for live in (True, False)]
     k1_t, k2_t = time_k1(gen), time_k2(gen)
+    k3_t, k4_t = time_k3(gen), time_k4(gen)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
         flash_decode_paged_max_abs_err_f32=k2_errs[torch.float32],
         flash_decode_paged_max_abs_err_bf16=k2_errs[torch.bfloat16],
+        flash_attention_cases=k3_cases,
+        bf16_rule_k3_k4="error vs the fp32 plain version <= "
+                        "slice_err_factor x the plain bf16 version's, over "
+                        "the tensor and in each block (+ half a bf16 ulp of "
+                        "the block's largest value there)",
+        bf16_blocks=dict(flash_attention=f"{K3_TILE} query rows of a head",
+                         flash_decode=f"{K4_ROWS} row"),
+        flash_attention_max_abs_err_f32=k3_errs[torch.float32],
+        flash_attention_max_abs_err_bf16=k3_errs[torch.bfloat16],
+        flash_attention_bf16_worst_block_share=k3_share,
+        flash_decode_cases=k4_cases,
+        flash_decode_max_abs_err_f32=k4_errs[torch.float32],
+        flash_decode_max_abs_err_bf16=k4_errs[torch.bfloat16],
+        flash_decode_bf16_worst_block_share=k4_share,
         tol_f32=TOL_F32, tol_bf16=TOL_BF16,
         staged_scatter_ms_no_valid_rows=k1_t.pop("ms_no_valid_rows"),
         staged_scatter_shape=k1_t.pop("shape"),
@@ -407,6 +732,12 @@ def phase_kernels():
         flash_decode_paged_all_keys=k2_t.pop("all_keys"),
         flash_decode_paged_all_rows_ms=k2_t.pop("all_rows_ms"),
         flash_decode_paged_slice=k2_slice,
+        flash_attention_shape=k3_t.pop("shape"),
+        flash_attention_live_pairs_per_head=k3_t.pop("live_pairs_per_head"),
+        flash_attention_slice=k3_slice,
+        flash_decode_shape=k4_t.pop("shape"),
+        flash_decode_live_keys=k4_t.pop("live_keys"),
+        flash_decode_slice=k4_slice,
         slice_err_factor=SLICE_ERR_FACTOR)
     return [
         dict(name="staged_scatter", route="cuda",
@@ -417,6 +748,14 @@ def phase_kernels():
              source="src/repro_torch/kernels/csrc/flash_decode_paged.cu",
              replaces="src/repro/kernels/flash_decode.py:135",
              launches=None, max_abs_err=max(k2_errs.values()), **k2_t),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:83",
+             launches=None, max_abs_err=max(k3_errs.values()), **k3_t),
+        dict(name="flash_decode", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_decode.cu",
+             replaces="src/repro/kernels/flash_decode.py:271",
+             launches=None, max_abs_err=max(k4_errs.values()), **k4_t),
     ]
 
 
@@ -480,17 +819,98 @@ def phase_engine(kernels):
         assert pc["direct"] + pc["staged"] == NEW_TOKENS - 1, pc
     assert stats["admitted"] == stats["retired"] == N_REQUESTS, stats
     assert stats["staged_writes"] > 0 and stats["drains"] > 0, stats
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
-        if k["launches"] <= 0:
-            raise AssertionError(f"{k['name']} was never launched by the "
-                                 f"engine: {counts}")
-    engine_profile(eng, cfg)
+    take_launches(kernels, counts, ("staged_scatter", "flash_decode_paged"))
+    if counts["flash_attention"] <= 0:   # prefill runs K3 on this path too
+        raise AssertionError(f"flash_attention was never launched by the "
+                             f"paged engine: {counts}")
+    engine_profile(eng, cfg, SLICE, PROMPT_LENS)
     del eng
     torch.cuda.empty_cache()
 
 
-def engine_profile(eng, cfg):
+def take_launches(kernels, counts, names):
+    """The launch counts of one main path's run, for the kernels it owns."""
+    for k in kernels:
+        if k["name"] in names:
+            k["launches"] = counts[k["name"]]
+            if k["launches"] <= 0:
+                raise AssertionError(f"{k['name']} was never launched by "
+                                     f"the engine: {counts}")
+
+
+def phase_lanes(kernels):
+    """The sliding-window model on the lanes layout: 12 requests, prompts of
+    512 / 2048 / 4608 tokens (the longest past the 4096 window), 64 new
+    tokens each, three timed serves in turn after an uncounted warm-up."""
+    cfg = get_config(LANES["arch"])
+    t0 = time.perf_counter()
+    eng = Engine.from_config(EngineConfig(**LANES))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    assert eng.layout == "lanes" and eng.attention == "reference", (
+        eng.layout, eng.attention)
+    t0 = time.perf_counter()
+    eng.serve(synthetic_requests(len(LANES_PROMPTS), LANES_PROMPTS, cfg.vocab,
+                                 2, params=SamplingParams(max_tokens=2)))
+    eng.reset()
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    sp = SamplingParams(max_tokens=LANES_NEW)
+
+    def timed_serve():
+        queue = synthetic_requests(LANES_REQUESTS, LANES_PROMPTS, cfg.vocab,
+                                   LANES_NEW, params=sp)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.serve(queue)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, eng.completions()
+
+    reset_launch_counts()           # counts = 0 just before the main path
+    torch.cuda.reset_peak_memory_stats()
+    outputs, dt, comps = timed_serve()
+    counts = launch_counts()        # read just after
+    peak = torch.cuda.max_memory_allocated()
+    stats = dict(eng.stats)
+    n_toks = sum(len(t) for t in outputs.values())
+    seconds, ttfts = [dt], [sorted(c.ttft_s for c in comps.values())]
+    for _ in range(ENGINE_RUNS - 1):
+        eng.reset()
+        again, dt_i, comps_i = timed_serve()
+        seconds.append(dt_i)
+        ttfts.append(sorted(c.ttft_s for c in comps_i.values()))
+        for rid, toks in outputs.items():
+            assert (again[rid] == toks).all(), f"request {rid} did not repeat"
+    # one prefill call of a group of 4608-token prompts, device time
+    prompts = torch.randint(0, cfg.vocab, (LANES_GROUP, max(LANES_PROMPTS)),
+                            generator=torch.Generator(device=DEV).manual_seed(1),
+                            device=DEV)
+    prefill_ms = device_ms(lambda: eng.model.prefill(prompts, LANES["max_seq"]),
+                           reps=3)
+    say("lanes", config=LANES, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        layout=eng.layout, requests=len(outputs), tokens=n_toks,
+        seconds=seconds, tok_per_s=[n_toks / x for x in seconds],
+        ttft_median_s=[x[len(x) // 2] for x in ttfts],
+        ttft_min_max_s=[[x[0], x[-1]] for x in ttfts],
+        prefill_device_ms=prefill_ms,
+        prefill_shape=f"{LANES_GROUP} x {max(LANES_PROMPTS)} tokens",
+        model_build_seconds=t_build, warm_up_seconds=t_warm, stats=stats,
+        launches=counts, peak_mem_gb=peak / 1e9)
+    assert len(outputs) == LANES_REQUESTS
+    for rid, toks in outputs.items():
+        assert toks.shape == (LANES_NEW,), (rid, toks.shape)
+        assert ((toks >= 0) & (toks < cfg.vocab)).all(), rid
+        pc = comps[rid].path_counts
+        assert pc["direct"] == LANES_NEW - 1 and pc["staged"] == 0, pc
+    assert stats["admitted"] == stats["retired"] == LANES_REQUESTS, stats
+    assert stats["staged_writes"] == 0 and stats["drains"] == 0, stats
+    take_launches(kernels, counts, ("flash_attention", "flash_decode"))
+    engine_profile(eng, cfg, LANES, LANES_PROMPTS)
+    del eng
+    torch.cuda.empty_cache()
+
+
+def engine_profile(eng, cfg, shape, prompt_lens):
     """Where one decode segment's time goes: 8 live slots, three segments
     timed on the host clock (the median is used), the next one under the
     profiler (device time by kernel name, and the device's busy share of the
@@ -498,9 +918,9 @@ def engine_profile(eng, cfg):
     from torch.profiler import ProfilerActivity, profile
     eng.reset()
     sch = eng.scheduler
-    n_new = 6 * SLICE["segment_len"]    # 5 segments run below
+    n_new = 6 * shape["segment_len"]    # 5 segments run below
     sch.admit(synthetic_requests(
-        SLICE["n_slots"], PROMPT_LENS, cfg.vocab, n_new,
+        shape["n_slots"], prompt_lens, cfg.vocab, n_new,
         params=SamplingParams(max_tokens=n_new)))
     sch.run_segment()               # warm
     torch.cuda.synchronize()
@@ -514,13 +934,14 @@ def engine_profile(eng, cfg):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         sch.run_segment()
         torch.cuda.synchronize()
-    steps = SLICE["segment_len"]
+    steps = shape["segment_len"]
     rows = sorted(
         ((getattr(e, "self_device_time_total",
                   getattr(e, "self_cuda_time_total", 0.0)), e.count, e.key)
          for e in prof.key_averages()), reverse=True)
     dev_ms = sum(r[0] for r in rows) / 1e3
-    say("engine_profile", slots=SLICE["n_slots"], steps=steps,
+    say("engine_profile", arch=shape["arch"], layout=eng.layout,
+        slots=shape["n_slots"], steps=steps,
         segment_ms=seg, step_ms=seg_ms / steps,
         device_ms_per_step=dev_ms / steps,
         device_busy_share=dev_ms / seg_ms if dev_ms else None,
@@ -530,8 +951,9 @@ def engine_profile(eng, cfg):
 
 
 def phase_parity():
-    """Smaller depth, full width, fp32: the write paths and the two read
-    implementations must emit identical greedy token streams."""
+    """Smaller depth, full width, fp32: the write paths, the two paged read
+    implementations and the two layouts must emit identical greedy token
+    streams; so must the sliding-window model on the card and on the CPU."""
     cfg = dataclasses.replace(get_config(SLICE["arch"]), n_layers=4,
                               dtype="float32")
     model = build_model(cfg, device=DEV).init(1)
@@ -539,30 +961,67 @@ def phase_parity():
                  ring_size=4)
     plens, new = [128, 200, 256], 24
 
-    def run(path, attention):
+    def run(path, attention, layout="auto"):
         eng = Engine.from_config(EngineConfig(
-            path=path, attention=attention, **shape), model)
+            path=path, attention=attention, kv_layout=layout, **shape), model)
         out = eng.serve(synthetic_requests(6, plens, cfg.vocab, new))
         stats = dict(eng.stats)
+        assert eng.layout == ("paged" if layout == "auto" else layout)
         del eng
         torch.cuda.empty_cache()
         return out, stats
 
     base, base_stats = run("direct", "fused")
     report = {}
-    for path, attention in (("staged", "fused"), ("adaptive", "fused"),
-                            ("adaptive", "reference"), ("staged", "reference")):
-        out, stats = run(path, attention)
+    for path, attention, layout in (
+            ("staged", "fused", "auto"), ("adaptive", "fused", "auto"),
+            ("adaptive", "reference", "auto"), ("staged", "reference", "auto"),
+            ("direct", "auto", "lanes")):
+        out, stats = run(path, attention, layout)
         for rid in base:
             if not (out[rid] == base[rid]).all():
                 raise AssertionError(
-                    f"token streams differ: {path}/{attention} vs "
+                    f"token streams differ: {path}/{attention}/{layout} vs "
                     f"direct/fused, request {rid}: {out[rid]} vs {base[rid]}")
-        report[f"{path}/{attention}"] = {
+        report[f"{path}/{attention}/{layout}"] = {
             k: stats[k] for k in ("direct_writes", "staged_writes", "drains")}
+    del model
+    torch.cuda.empty_cache()
+    swa = phase_parity_swa()
     say("parity", n_layers=cfg.n_layers, dtype=cfg.dtype, requests=len(base),
         tokens=sum(len(t) for t in base.values()), identical_streams=True,
-        runs=report)
+        runs=report, swa=swa)
+
+
+def phase_parity_swa():
+    """h2o-danube-3-4b at 2 layers and full width, fp32, the window cut to
+    128 so that it and the ring's wrap bite at short prompts: the engine on
+    the card (flash_attention, flash_decode) and the same weights in a CPU
+    engine (their plain versions) give identical greedy streams."""
+    cfg = dataclasses.replace(get_config(LANES["arch"]), n_layers=2,
+                              dtype="float32", sliding_window=128)
+    shape = dict(max_seq=512, n_slots=4, segment_len=8, path="direct")
+    plens, new = [100, 200, 300], 24
+    gpu_model = build_model(cfg, device=DEV).init(2)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    outs = {}
+    for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+        eng = Engine.from_config(EngineConfig(device=dev, **shape), model)
+        assert eng.layout == "lanes"
+        outs[dev] = eng.serve(synthetic_requests(6, plens, cfg.vocab, new))
+        del eng
+    for rid in outs["cpu"]:
+        if not (outs["cuda"][rid] == outs["cpu"][rid]).all():
+            raise AssertionError(
+                f"sliding-window streams differ, card vs CPU, request {rid}: "
+                f"{outs['cuda'][rid]} vs {outs['cpu'][rid]}")
+    del gpu_model, cpu_model
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, n_layers=cfg.n_layers, window=cfg.sliding_window,
+                requests=len(outs["cpu"]),
+                tokens=sum(len(t) for t in outs["cpu"].values()),
+                identical_streams=True)
 
 
 def main():
@@ -571,6 +1030,7 @@ def main():
     phase_build()
     kernels = phase_kernels()
     phase_engine(kernels)
+    phase_lanes(kernels)
     phase_parity()
     say("done", seconds=round(time.perf_counter() - t0, 1))
     print(json.dumps({"kernels": kernels}), flush=True)

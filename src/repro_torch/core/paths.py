@@ -10,8 +10,8 @@ registry. :func:`validate` is the one config -> plan entry point.
 Features of the JAX package's ``validate`` that are not ported yet raise
 ``NotImplementedError("not ported yet: ...")`` at config time: the
 ``parallel`` mesh, ``spec`` (speculative decoding), ``memory.prefix_cache``
-and ``memory.host_tier``, ``chunked=True``, a ``sched`` other than
-``"fifo"``, ``kv_layout="lanes"``, sampled decoding, and
+and ``memory.host_tier``, ``chunked=True`` (on either layout), a ``sched``
+other than ``"fifo"``, sampled decoding, and
 ``AttentionConfig.drain_kernel`` (in this package the device decides: a
 CUDA tensor drains through the kernel, a CPU tensor through its plain
 version).
@@ -298,8 +298,6 @@ def validate(cfg, *, paged_capable: bool = True,
         raise ValueError(
             f"paged KV serves the linear-addressed dense family; "
             f"{arch_name or 'this model'} needs kv_layout='lanes'")
-    if layout == "lanes":
-        raise _not_ported("kv_layout='lanes' (the dense-lane serving layout)")
     if bool(getattr(cfg, "chunked", False)):
         raise _not_ported("chunked=True (in-scan chunked prefill)")
     parallel = getattr(cfg, "parallel", None)
@@ -338,7 +336,8 @@ def validate(cfg, *, paged_capable: bool = True,
     n_slots = getattr(cfg, "n_slots", 8)
     max_pages = -(-int(getattr(cfg, "max_seq")) // int(ps))
     n_blocks = int(getattr(cfg, "n_blocks", 0) or n_slots * max_pages)
-    n_regions = n_blocks
+    # lanes: one region per (slot, page-sized span of its lane)
+    n_regions = n_blocks if layout == "paged" else n_slots * max_pages
     path_name = (getattr(cfg, "path", None)
                  or getattr(cfg, "write_mode", None) or "direct")
     path, decision = build_decision(

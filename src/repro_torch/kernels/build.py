@@ -167,3 +167,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_decode_paged_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, vp,
         i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, vp]
+    lib.flash_attention_launch.restype = i32
+    lib.flash_attention_launch.argtypes = (
+        [vp] * 4 + [i32] * 6 + [i64] * 12 + [i32, i32, ctypes.c_float, i32, vp])
+    lib.flash_decode_launch.restype = i32
+    lib.flash_decode_launch.argtypes = (
+        [vp] * 7 + [i32] * 8 + [ctypes.c_float, i32, vp])

@@ -1,8 +1,9 @@
-"""Port of repro/kernels/flash_decode.py, paged part (+
-``flash_decode_paged_ref`` of repro/kernels/ref.py): the fused paged read.
+"""Port of repro/kernels/flash_decode.py (+ ``flash_decode_paged_ref`` and
+``flash_decode_ref`` of repro/kernels/ref.py): the fused paged read and the
+dense (lanes-layout) decode read.
 
-Source note
------------
+Source note, ``flash_decode_paged``
+-----------------------------------
 Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py::
 flash_decode_paged`` (``_paged_kernel``): softmax(q.K^T * D^-1/2, masked to
 -1e30) over (pool rows reached through the page table) U (staging-ring
@@ -25,8 +26,26 @@ exactly 0 wherever a live one exists), ``n_live * Hkv * D * 2 * elemsize``.
 The kernel as written reads all ``B * (P*ps + R)`` rows, K twice: ``wgmma``,
 TMA, split-KV and skipping dead pages are later work.
 
-On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises.
+Source note, ``flash_decode``
+-----------------------------
+Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py::
+flash_decode`` (``_decode_kernel``): one query row per head against a dense
+``[B, T, Hkv, D]`` cache masked by ``kv_mask [B, T]``. Bound: bytes, those of
+the live K and V rows (``n_live * Hkv * D * 2 * elemsize``) plus q, the mask
+and the output. ``csrc/flash_decode.cu`` is K2's organisation over the dense
+cache: one block per (slot, KV head) serves the whole GQA group, so each row
+leaves device memory once, and the time axis is split across blocks with a
+log-sum-exp combine (a second small launch), because the slots x KV heads of
+a decode batch are far fewer than the card's SMs. Masked rows are not read:
+they add exactly 0 wherever the slot has a live key. A slot with no live key
+gives the plain version's finite uniform mean over all T rows (the Pallas
+kernel gives 0 there; the paged reference read hands dead slots to this
+function, and the port follows ``ref``/``sdpa`` as K2 does). The kernel keeps
+the probabilities in fp32 (online form); the plain version rounds them to
+the I/O type, about one output ulp apart in bf16.
+
+On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
+launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -160,3 +179,98 @@ def flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
 
 
 flash_decode_paged.launches = 0
+
+
+def flash_decode_ref(
+    q: torch.Tensor,        # [B, Hq, D]
+    k: torch.Tensor,        # [B, T, Hkv, D]
+    v: torch.Tensor,        # [B, T, Hkv, D]
+    kv_mask: torch.Tensor,  # bool [B, T] valid cache slots
+) -> torch.Tensor:
+    """Plain PyTorch version, op for op ``ref.flash_decode_ref``: fp32
+    logits, -1e30 mask, fp32 softmax cast to ``q.dtype``, then P.V."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    if hkv != hq:
+        k = k.repeat_interleave(hq // hkv, dim=2)
+        v = v.repeat_interleave(hq // hkv, dim=2)
+    logits = torch.einsum("bhd,bthd->bht", q, k).float() * (d ** -0.5)
+    logits = torch.where(kv_mask.bool()[:, None, :], logits,
+                         torch.tensor(-1e30, device=q.device))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bht,bthd->bhd", probs, v)
+
+
+# key splits: enough blocks for two waves over the card's SMs, at least this
+# many keys each
+_MIN_SPLIT_KEYS = 64
+
+
+def _splits(dev: torch.device, b: int, hkv: int, t: int):
+    """(n_split, keys per split) for a ``[B, T, Hkv, D]`` cache. Depends on
+    the shapes and the card only, so a result never depends on timing."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = max(1, -(-2 * sms // (b * hkv)))
+    kps = -(-t // min(want, max(1, t // _MIN_SPLIT_KEYS)))
+    kps = -(-kps // _MIN_SPLIT_KEYS) * _MIN_SPLIT_KEYS
+    return -(-t // kps), kps
+
+
+def flash_decode(q, k, v, kv_mask) -> torch.Tensor:
+    """One-token decode attention over a dense cache: q ``[B,Hq,D]``, k/v
+    ``[B,T,Hkv,D]``, ``kv_mask`` bool ``[B,T]`` -> ``[B,Hq,D]`` in
+    ``q.dtype``."""
+    if q.dim() != 3 or k.dim() != 4:
+        raise ValueError("q must be [B,Hq,D] and k/v [B,T,Hkv,D]")
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or hq % hkv:
+        raise ValueError(f"bad head geometry: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if kv_mask.shape != (b, t):
+        raise ValueError(f"kv_mask must be {(b, t)}, got "
+                         f"{tuple(kv_mask.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("q, k and v must share one dtype")
+    if any(x.device != q.device for x in (k, v, kv_mask)):
+        raise ValueError("all flash_decode operands must share a device")
+    if q.device.type == "cpu":
+        return flash_decode_ref(q, k, v, kv_mask)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_decode takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    vec = 16 // q.element_size()
+    lpk = 1 << max(0, (-(-d // vec) - 1).bit_length())  # lanes per key row
+    if t == 0 or d % vec or lpk > 32:
+        raise ValueError(f"head_dim {d} in {q.dtype}: the row must be at most "
+                         f"32 16-byte pieces, a whole number of them, and "
+                         f"T > 0 (T={t})")
+    if not all(x.is_contiguous() for x in (q, k, v)):
+        raise ValueError("flash_decode needs contiguous q, k and v")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_decode needs 16-byte aligned q, k and v")
+    mask = kv_mask.to(torch.bool).contiguous()
+    n_split, kps = _splits(q.device, b, hkv, t)
+    out = torch.empty_like(q)
+    part_acc = part_ml = None
+    if n_split > 1:
+        part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, hq, n_split, 2), dtype=torch.float32,
+                              device=q.device)
+    with build.on_device(q.device):
+        err = build.load_library().flash_decode_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(),
+            part_acc.data_ptr() if n_split > 1 else None,
+            part_ml.data_ptr() if n_split > 1 else None,
+            b, hq, hkv, t, d, lpk, n_split, kps, float(d ** -0.5),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
+    # two kernels when the keys are split: the split pass and the combine
+    flash_decode.launches += 1 + (n_split > 1)
+    return out
+
+
+flash_decode.launches = 0

@@ -9,13 +9,17 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .flash_decode import flash_decode_paged, flash_decode_paged_ref
+from .flash_attention import flash_attention, flash_attention_ref
+from .flash_decode import (flash_decode, flash_decode_paged,
+                           flash_decode_paged_ref, flash_decode_ref)
 from .staged_scatter import (staged_scatter, staged_scatter_layers,
                              staged_scatter_ref)
 
 _WRAPPERS = {
     "staged_scatter": (staged_scatter, staged_scatter_layers),
     "flash_decode_paged": (flash_decode_paged,),
+    "flash_attention": (flash_attention,),
+    "flash_decode": (flash_decode,),
 }
 
 
@@ -31,7 +35,9 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "flash_decode_paged", "flash_decode_paged_ref", "staged_scatter",
+    "flash_attention", "flash_attention_ref", "flash_decode",
+    "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
+    "staged_scatter",
     "staged_scatter_layers", "staged_scatter_ref", "launch_counts",
     "reset_launch_counts",
 ]

@@ -11,7 +11,9 @@ One front door (``repro_torch.serve.Engine``), two workload shapes:
 
 Runs on the GPU unless ``--device cpu`` is given (no GPU: it raises).
 ``--full-width`` serves the architecture at its published widths instead of
-the reduced test variant.
+the reduced test variant. An architecture the paged pool cannot serve (the
+sliding-window h2o-danube-3-4b) runs on the lanes layout, which is
+direct-only: ``--write-mode`` is downgraded to ``direct`` with a message.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ import torch
 from ..data import synthetic_requests
 from ..models.sampling import SamplingParams
 from ..serve import Engine, EngineConfig, build_model_and_params
+from ..serve.scheduler import paged_capable
 
 
 def main(argv=None) -> None:
@@ -46,7 +49,8 @@ def main(argv=None) -> None:
                     help="auto | fused | reference")
     ap.add_argument("--ring-size", type=int, default=8)
     ap.add_argument("--batched", action="store_true",
-                    help="continuous batching over the paged KV pool")
+                    help="continuous batching over the paged KV pool (the "
+                         "lanes layout for a sliding-window arch)")
     ap.add_argument("--requests", type=int, default=16,
                     help="(--batched) synthetic request count")
     ap.add_argument("--slots", type=int, default=8,
@@ -61,8 +65,13 @@ def main(argv=None) -> None:
     cfg, model = build_model_and_params(
         args.arch, args.max_seq, seed=args.seed,
         reduced=not args.full_width, device=args.device)
+    path = args.path
+    if path != "direct" and not paged_capable(model):
+        print(f"[serve] {cfg.name}: lanes layout is direct-only; "
+              f"downgrading --write-mode {path} -> direct")
+        path = "direct"
     sp = SamplingParams(max_tokens=args.gen_len)
-    common = dict(max_seq=args.max_seq, path=args.path, policy=args.policy,
+    common = dict(max_seq=args.max_seq, path=path, policy=args.policy,
                   page_size=args.page_size, ring_size=args.ring_size,
                   attention=args.attention, device=args.device)
 

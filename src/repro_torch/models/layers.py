@@ -19,6 +19,13 @@ Conventions
   compute-type copy cast once (``tensors(dtype)``): same values, no cast per
   step. The functions still call ``.to(dtype)``, a no-op on such a copy.
 
+The attention cores run through the hand-written kernels: prefill through
+``flash_attention`` (causal, sliding window, GQA by index), decode through
+``flash_decode`` (dense KV set) or ``flash_decode_paged`` (the paged pool);
+on a CPU tensor each runs its plain version, which keeps the JAX package's
+``_sdpa_once`` op order (fp32 logits, -1e30 mask, fp32 softmax, cast to
+``q.dtype``, then P.V).
+
 TP head padding, ``shard_batch``, ``chunk_attention``/``write_chunk``
 (dense-lane chunked prefill) and ``cross_entropy_loss`` (training) are not
 ported yet.
@@ -205,77 +212,31 @@ def _qkv(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     return q, k, v
 
 
-def repeat_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """Expand [B, T, Hkv, Dh] -> [B, T, Hq, Dh] for GQA."""
-    hkv = k.shape[2]
-    if hkv == n_heads:
-        return k
-    return k.repeat_interleave(n_heads // hkv, dim=2)
+def attention_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
+                   v: torch.Tensor, causal: bool = True) -> torch.Tensor:
+    """Prefill attention core: q ``[B, S, Hq, Dh]`` against k/v
+    ``[B, T, Hkv, Dh]`` -> ``[B, S, Hq, Dh]`` through ``flash_attention``
+    (its plain version on a CPU tensor), causal with the model's sliding
+    window, GQA by index. The tensors go in transposed, without a copy."""
+    from ..kernels import flash_attention
 
-
-# above this many score elements per batch entry, sdpa processes queries in
-# blocks so the fp32 score tensor never materializes at [S, T]
-_SDPA_BLOCK_THRESHOLD = 4096 * 2048
-_SDPA_QBLOCK = 1024
-
-
-def _sdpa_once(q, k, v, mask, scale):
-    logits = torch.einsum("bshk,bthk->bhst", q, k).float() * scale
-    if mask is not None:
-        logits = torch.where(mask, logits,
-                             torch.tensor(-1e30, device=q.device))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhst,bthk->bshk", probs, v)
-
-
-def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         mask: Optional[torch.Tensor]) -> torch.Tensor:
-    """Scaled dot-product attention, fp32 softmax. q: [B, S, H, Dh]; k/v:
-    [B, T, H, Dh]; mask: broadcastable to [B, H, S, T] (True = attend).
-    Long sequences run BLOCKED over queries (exact per-block softmax)."""
-    scale = q.shape[-1] ** -0.5
-    s, t = q.shape[1], k.shape[1]
-    if s * t <= _SDPA_BLOCK_THRESHOLD or s <= _SDPA_QBLOCK or s % _SDPA_QBLOCK:
-        return _sdpa_once(q, k, v, mask, scale)
-    outs = []
-    for i in range(0, s, _SDPA_QBLOCK):
-        qb = q[:, i: i + _SDPA_QBLOCK]
-        mb = None
-        if mask is not None:
-            mb = mask[:, :, i: i + _SDPA_QBLOCK] if mask.dim() == 4 else mask
-        outs.append(_sdpa_once(qb, k, v, mb, scale))
-    return torch.cat(outs, dim=1)
-
-
-def causal_mask(s: int, t: int, window: int = 0, offset: int = 0,
-                device="cpu") -> torch.Tensor:
-    """[1, 1, s, t] causal (optionally sliding-window) mask. ``offset``:
-    absolute position of query row 0 minus key col 0."""
-    qpos = torch.arange(s, device=device)[:, None] + offset
-    kpos = torch.arange(t, device=device)[None, :]
-    m = kpos <= qpos
-    if window > 0:
-        m = m & (kpos > qpos - window)
-    return m[None, None]
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal,
+                          window=cfg.sliding_window if causal else 0)
+    return out.transpose(1, 2)
 
 
 def attention(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
               positions: torch.Tensor, *,
               kv_x: Optional[torch.Tensor] = None,
-              mask: Optional[torch.Tensor] = None,
               use_rope: bool = True) -> torch.Tensor:
-    """Full (prefill) attention. Causal unless ``kv_x`` given."""
-    dims = attn_dims(cfg)
+    """Full (prefill) attention. Causal (with the sliding window) unless
+    ``kv_x`` given."""
     q, k, v = _qkv(cfg, p, x, kv_x)
     if use_rope and kv_x is None:
         q = apply_rope(cfg, q, positions)
         k = apply_rope(cfg, k, positions)
-    k = repeat_kv(k, dims.n_heads)
-    v = repeat_kv(v, dims.n_heads)
-    if mask is None and kv_x is None:
-        mask = causal_mask(x.shape[1], k.shape[1], cfg.sliding_window,
-                           device=x.device)
-    out = sdpa(q, k, v, mask)
+    out = attention_core(cfg, q, k, v, causal=kv_x is None)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 
@@ -297,15 +258,15 @@ def decode_attention(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
                      pos: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, kv_len_mask: torch.Tensor,
                      use_rope: bool = True) -> torch.Tensor:
-    """One-token decode against a KV set. x: [B, 1, D]; pos: [B];
-    k_cache/v_cache: [B, S, Hkv, Dh], already holding the new token's kv;
+    """One-token decode against a KV set through ``flash_decode`` (its plain
+    version on a CPU tensor). x: [B, 1, D]; pos: [B]; k_cache/v_cache:
+    [B, S, Hkv, Dh], already holding the new token's kv, GQA un-repeated;
     kv_len_mask: bool [B, S]."""
-    dims = attn_dims(cfg)
+    from ..kernels import flash_decode
+
     q = project_q(cfg, p, x, pos[:, None], use_rope)
-    k = repeat_kv(k_cache, dims.n_heads)
-    v = repeat_kv(v_cache, dims.n_heads)
-    out = sdpa(q, k, v, kv_len_mask[:, None, None, :])
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+    out = flash_decode(q[:, 0].contiguous(), k_cache, v_cache, kv_len_mask)
+    return torch.einsum("bhk,hkd->bd", out, p["wo"].to(x.dtype))[:, None]
 
 
 def fused_paged_attention(

@@ -2,14 +2,20 @@
 
 Dense decoder-only transformer as an ``nn.Module``: ``init`` (the JAX
 package's scales, from a seeded ``torch.Generator``), ``init_cache``,
-``prefill`` and ``decode_step_paged`` with ``attention="reference"`` (gather
-the per-slot view from the pool, concatenate the ring) and ``"fused"`` (the
-``flash_decode_paged`` kernel walks the page table and folds the ring lanes
-into the same softmax). The layer stack is a Python loop over
-``nn.ModuleList`` blocks where the JAX package scans stacked parameters.
+``prefill`` (attention through the ``flash_attention`` kernel, causal with
+the sliding window; a sliding-window cache keeps the last ``cache_len``
+positions at slot ``pos % cache_len``), the dense-lane ``decode_step`` (the
+lanes layout: one cache lane per slot, read by the ``flash_decode`` kernel)
+and ``decode_step_paged`` with ``attention="reference"`` (gather the
+per-slot view from the pool, concatenate the ring, read it through
+``flash_decode``) and ``"fused"`` (the ``flash_decode_paged`` kernel walks
+the page table and folds the ring lanes into the same softmax). The layer
+stack is a Python loop over ``nn.ModuleList`` blocks where the JAX package
+scans stacked parameters.
 
-``decode_chunk_paged``, ``chunk_prefill``, the dense-lane ``decode_step``,
-the VLM cross-attention blocks and sliding-window caches are not ported yet.
+``decode_chunk_paged``, ``chunk_prefill``, the staging-ring overlay on the
+lanes cache (``kvcache/staged.py``) and the VLM cross-attention blocks are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -19,6 +25,7 @@ import torch
 from torch import nn
 
 from ..configs.base import DENSE, ModelConfig
+from ..core.paths import resolve_device
 from ..kvcache import paged as PG
 from . import layers as L
 
@@ -44,33 +51,77 @@ class DenseBlock(nn.Module):
         self.mlp.init_(cfg, gen)
 
 
-def dense_block(cfg: ModelConfig, blk: DenseBlock, x: torch.Tensor,
-                positions: torch.Tensor,
-                mask: Optional[torch.Tensor]) -> torch.Tensor:
-    dt = x.dtype
-    x = x + L.attention(cfg, blk.attn.tensors(dt),
-                        L.apply_norm(cfg, blk.ln1.tensors(), x), positions,
-                        mask=mask)
-    x = x + L.apply_mlp(cfg, blk.mlp.tensors(dt),
-                        L.apply_norm(cfg, blk.ln2.tensors(), x))
-    return x
+# ---------------------------------------------------------------------------
+# Decode-time KV handling (dense lanes)
+# ---------------------------------------------------------------------------
+
+
+def lane_write_plan(slots: torch.Tensor, s: int):
+    """Where one decode step writes in a ``[B, S, ...]`` lane cache, shared
+    by every layer: ``(rows, at, keep)``, ``at`` the slots clamped into
+    ``[0, S)``, ``keep`` False where a slot falls outside (dropped)."""
+    rows = torch.arange(slots.shape[0], device=slots.device)
+    keep = ((slots >= 0) & (slots < s))[:, None, None]
+    return rows, slots.clamp(0, s - 1).long(), keep
+
+
+def write_lanes(kc: torch.Tensor, vc: torch.Tensor, k_new: torch.Tensor,
+                v_new: torch.Tensor, plan) -> None:
+    """Write one step's K/V rows at ``plan = lane_write_plan(...)``, IN
+    PLACE; a dropped row rewrites what it holds."""
+    rows, at, keep = plan
+    for c, new in ((kc, k_new), (vc, v_new)):
+        c[rows, at] = torch.where(keep, new[:, 0].to(c.dtype), c[rows, at])
+
+
+def direct_kv_write(kc: torch.Tensor, vc: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, slots: torch.Tensor):
+    """Default (offload-path) writer: per-sequence scatter, IN PLACE.
+    kc/vc: [B, S, Hkv, Dh]; k_new/v_new: [B, 1, Hkv, Dh]; slots: int [B].
+    Out-of-range slots (outside ``[0, S)``) are DROPPED, as the JAX
+    package's ``mode="drop"`` does: such a row rewrites what it holds, so
+    nothing is read on the host."""
+    write_lanes(kc, vc, k_new, v_new, lane_write_plan(slots, kc.shape[1]))
+    return kc, vc
+
+
+def cache_slots(cfg: ModelConfig, pos: torch.Tensor,
+                cache_len: int) -> torch.Tensor:
+    """Ring addressing for SWA caches; linear otherwise."""
+    if cfg.sliding_window and cache_len <= cfg.sliding_window:
+        return pos % cache_len
+    return torch.clamp(pos, max=cache_len - 1)
+
+
+def valid_mask(cfg: ModelConfig, pos: torch.Tensor,
+               cache_len: int) -> torch.Tensor:
+    """bool [B, S]: which cache slots hold live keys after writing at
+    ``pos``. Linear cache: slots 0..pos. SWA ring: all slots once
+    ``pos >= cache_len - 1``, else slots 0..pos."""
+    slot_ids = torch.arange(cache_len, device=pos.device)[None, :]
+    linear = slot_ids <= pos[:, None]
+    if cfg.sliding_window and cache_len <= cfg.sliding_window:
+        return linear | (pos[:, None] >= cache_len - 1)
+    return linear
 
 
 class DecoderLM(nn.Module):
-    """Dense decoder-only LM. Parameters are fp32 masters created on
-    ``device``; activations and the KV cache use ``cfg.dtype``."""
+    """Dense decoder-only LM, with or without a sliding window. Parameters
+    are fp32 masters created on ``device`` (the GPU unless the caller asks
+    for the CPU; ``"cuda"`` without CUDA raises); activations and the KV
+    cache use ``cfg.dtype``."""
 
-    def __init__(self, cfg: ModelConfig, device="cpu"):
+    def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.family != DENSE or cfg.cross_attn_every or cfg.sliding_window:
+        if cfg.family != DENSE or cfg.cross_attn_every:
             raise NotImplementedError(
                 f"not ported yet: {cfg.name} (family {cfg.family!r}, "
-                f"cross_attn_every={cfg.cross_attn_every}, "
-                f"sliding_window={cfg.sliding_window}); the dense, "
-                f"linear-addressed decoder only")
+                f"cross_attn_every={cfg.cross_attn_every}); the dense "
+                f"decoder only")
+        device = resolve_device(device)
         self.cfg = cfg
         self.is_vlm = False
-        self.device = torch.device(device)
+        self.device = device
         self.embed = L.Embed(cfg, device)
         self.ln_f = L.Norm(cfg, device)
         self.blocks = nn.ModuleList(
@@ -89,6 +140,8 @@ class DecoderLM(nn.Module):
 
     # -- KV cache ----------------------------------------------------------
     def cache_len(self, max_seq: int) -> int:
+        if self.cfg.sliding_window:
+            return min(max_seq, self.cfg.sliding_window)
         return max_seq
 
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> Cache:
@@ -106,30 +159,76 @@ class DecoderLM(nn.Module):
                 max_seq: int) -> Tuple[torch.Tensor, Cache]:
         """Run the full prompt, build the cache, return last-token logits
         (fp32 [B, V]). Prefill writes the whole prompt's KV in one dense
-        slice: the offload/direct path."""
+        slice: the offload/direct path. A prompt longer than the cache
+        (sliding window) keeps its last ``cache_len`` positions, each at
+        slot ``pos % cache_len``."""
         cfg = self.cfg
         dtype = compute_dtype(cfg)
-        dims = L.attn_dims(cfg)
         b, s = tokens.shape
-        dev = tokens.device
         x = L.embed_tokens(cfg, self.embed.tensors(), tokens, dtype)
-        positions = torch.arange(s, device=dev).expand(b, s)
-        mask = L.causal_mask(s, s, device=dev)
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
         cache = self.init_cache(b, max_seq, dtype)
+        clen = cache["k"].shape[2]
+
+        def keep_ring(dst, kv):
+            """Last ``clen`` positions, placed at slot = pos % clen."""
+            if s <= clen:
+                dst[:, :s] = kv
+            else:
+                dst.copy_(torch.roll(kv[:, -clen:], s % clen, dims=1))
+
         for i, blk in enumerate(self.blocks):
             pa = blk.attn.tensors(dtype)
             hn = L.apply_norm(cfg, blk.ln1.tensors(), x)
             # q/k/v once: the values layers.attention would recompute
             q = L.project_q(cfg, pa, hn, positions)
             k, v = L.project_kv(cfg, pa, hn, positions)
-            cache["k"][i, :, :s] = k
-            cache["v"][i, :, :s] = v
-            out = L.sdpa(q, L.repeat_kv(k, dims.n_heads),
-                         L.repeat_kv(v, dims.n_heads), mask)
+            keep_ring(cache["k"][i], k)
+            keep_ring(cache["v"][i], v)
+            out = L.attention_core(cfg, q, k, v)
             x = x + torch.einsum("bshk,hkd->bsd", out, pa["wo"].to(dtype))
             x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
                                 L.apply_norm(cfg, blk.ln2.tensors(), x))
         x = L.apply_norm(cfg, self.ln_f.tensors(), x[:, -1:])
+        logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
+        return logits, cache
+
+    # -- decode (dense lanes) ----------------------------------------------
+    @torch.no_grad()
+    def decode_step(self, cache: Cache, tokens: torch.Tensor,
+                    pos: torch.Tensor,
+                    write_mask: Optional[torch.Tensor] = None,
+                    ) -> Tuple[torch.Tensor, Cache]:
+        """One decode step against the dense lane cache, updated IN PLACE.
+        tokens [B], pos [B] -> logits [B, V] (fp32), cache. Each layer's new
+        K/V row goes to ``cache_slots(pos)`` by direct scatter (the offload
+        path); ``write_mask`` [B] False sends a slot's rows to the drop row
+        ``cache_len``, so a retired slot never writes. Where each step
+        writes is worked out once for all layers. No value is read on the
+        host."""
+        if "ring_k" in cache:
+            raise NotImplementedError(
+                "not ported yet: the staging-ring overlay on the lanes cache "
+                "(kvcache/staged.py); the lanes layout is direct-only here")
+        cfg = self.cfg
+        dtype = compute_dtype(cfg)
+        x = L.embed_tokens(cfg, self.embed.tensors(), tokens[:, None], dtype)
+        clen = cache["k"].shape[2]
+        slots = cache_slots(cfg, pos, clen)
+        if write_mask is not None:
+            slots = torch.where(write_mask, slots, clen)
+        plan = lane_write_plan(slots, clen)
+        vmask = valid_mask(cfg, pos, clen)
+        for i, blk in enumerate(self.blocks):
+            pa = blk.attn.tensors(dtype)
+            kc, vc = cache["k"][i], cache["v"][i]
+            hn = L.apply_norm(cfg, blk.ln1.tensors(), x)
+            k_new, v_new = L.project_kv(cfg, pa, hn, pos[:, None])
+            write_lanes(kc, vc, k_new, v_new, plan)
+            x = x + L.decode_attention(cfg, pa, hn, pos, kc, vc, vmask)
+            x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
+                                L.apply_norm(cfg, blk.ln2.tensors(), x))
+        x = L.apply_norm(cfg, self.ln_f.tensors(), x)
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
         return logits, cache
 

@@ -63,10 +63,11 @@ class EngineConfig:
     ``repro_torch.core.policy`` registries. ``attention`` is an
     ``AttentionConfig`` or its ``impl`` string. ``device`` is where the
     engine runs: ``"cuda"`` (the default) raises when CUDA is unavailable,
-    ``"cpu"`` is for tests. ``chunked``, a ``sched`` other than fifo,
-    ``kv_layout="lanes"``, ``memory.prefix_cache``/``host_tier``,
-    ``parallel`` and ``spec`` raise ``NotImplementedError`` when the engine
-    is built."""
+    ``"cpu"`` is for tests. ``kv_layout="auto"`` picks ``paged`` for the
+    linear-addressed dense decoders and ``lanes`` for a sliding-window one
+    (direct writes only). ``chunked``, a ``sched`` other than fifo,
+    ``memory.prefix_cache``/``host_tier``, ``parallel`` and ``spec`` raise
+    ``NotImplementedError`` when the engine is built."""
 
     max_seq: int
     arch: Optional[str] = None        # None when a model is passed

@@ -1,9 +1,17 @@
-"""Port of repro/serve/scheduler.py (blocking admission, paged layout).
+"""Port of repro/serve/scheduler.py (blocking admission; paged and lanes
+layouts).
 
-Continuous-batching serve scheduler over the paged KV pool: a fixed array of
-serving SLOTS decodes in lock-step, each slot at its own position in its own
-request, so the DecisionModule sees an interleaved multi-tenant write stream
-(per-slot destination blocks in a SHARED physical pool).
+Continuous-batching serve scheduler: a fixed array of serving SLOTS decodes
+in lock-step, each slot at its own position in its own request, so the
+DecisionModule sees an interleaved multi-tenant write stream. Two cache
+layouts, as in the JAX package:
+
+* ``paged`` (linear-addressed dense decoders): per-slot destination blocks
+  in a SHARED physical pool, all three write paths;
+* ``lanes`` (the sliding-window dense decoder): one dense cache lane per
+  slot (``model.init_cache(n_slots, max_seq)``, ring-addressed under SWA),
+  direct writes only, read by the ``flash_decode`` kernel. The monitor's
+  region is ``slot * max_pages + pos // page_size``.
 
 * **SlotState**: per-slot token / position / done-flag / remaining-budget /
   request-id / stop table, fixed-shape tensors on the engine's device.
@@ -20,15 +28,18 @@ request, so the DecisionModule sees an interleaved multi-tenant write stream
   scanned in submission order and a request that does not fit is skipped in
   favour of later ones that do (bounded by ``skip_ahead_limit``). Prompts
   are prefilled at admission, same-length prompts in one batched call; the
-  rows land in the pool by a host-computed physical row list.
-* **KV writes**: every decode-time write resolves through the page table to
-  a physical pool row; direct writes scatter straight in, staged writes ride
-  the per-slot ring overlay and drain in bulk through
+  rows land in the pool by a host-computed physical row list (paged), or
+  the group's lane cache overwrites the slots' lanes wholesale (lanes).
+* **KV writes** (paged): every decode-time write resolves through the page
+  table to a physical pool row; direct writes scatter straight in, staged
+  writes ride the per-slot ring overlay and drain in bulk through
   ``core.ring.scatter_rows_layers``. The monitor's region is the BLOCK id.
+  (lanes): a retired slot's write goes to the drop row ``cache_len``.
 
-Chunked in-segment prefill, the lanes layout, the prefix cache, the host
-tier, preemption, speculative decoding, mesh sharding and the virtual-time
-cost model are not ported yet (``core.paths.validate`` raises on each).
+Chunked prefill (in-segment on paged, host-side on lanes), the prefix
+cache, the host tier, preemption, speculative decoding, mesh sharding and
+the virtual-time cost model are not ported yet (``core.paths.validate``
+raises on each).
 """
 from __future__ import annotations
 
@@ -185,8 +196,10 @@ class BatchedServeEngine:
         }
         self.reset()
 
-    def _make_cache(self) -> PG.PagedKV:
+    def _make_cache(self):
         cfg, mcfg = self.cfg, self.model.cfg
+        if self.layout == "lanes":
+            return self.model.init_cache(cfg.n_slots, cfg.max_seq)
         return PG.make_paged_kv(
             mcfg.n_layers, self.n_blocks, cfg.page_size, cfg.n_slots,
             self.max_pages, mcfg.n_kv_heads, mcfg.resolved_head_dim,
@@ -197,8 +210,9 @@ class BatchedServeEngine:
     def reset(self) -> None:
         """Fresh serving state (cache, slots, pool, monitor, outputs)."""
         cfg = self.cfg
-        self.pool = PG.BlockPool(self.n_blocks)
-        self.cache = None  # release the old pool before allocating anew
+        self.pool = (PG.BlockPool(self.n_blocks) if self.layout == "paged"
+                     else None)
+        self.cache = None  # release the old cache before allocating anew
         self.cache = self._make_cache()
         self.slots = make_slots(cfg.n_slots, self.device)
         self.mon_state = self.decision.init_state(self.device)
@@ -232,14 +246,16 @@ class BatchedServeEngine:
         """``segment_len`` decode steps: every live slot samples one token
         per step. Nothing in here reads a device value on the host."""
         model, cfg, dev = self.model, self.cfg, self.device
-        ring = self.uses_ring
-        ps, nb = cfg.page_size, self.n_blocks
+        paged = self.layout == "paged"
+        ring = paged and self.uses_ring
+        ps, nb, mp = cfg.page_size, self.n_blocks, self.max_pages
         decision, attn = self.decision, self.attention
         cache, st, mon = self.cache, self.slots, self.mon_state
         t_len, s = cfg.segment_len, cfg.n_slots
         # page-table products are segment-invariant (allocation is
         # host-side, between segments): derive them once
-        plan = PG.step_plan(cache)
+        plan = PG.step_plan(cache) if paged else None
+        lane_base = torch.arange(s, device=dev) * mp
         stats = torch.zeros((4,), dtype=torch.int64, device=dev)
         swrites = torch.zeros((s, 3), dtype=torch.int64, device=dev)
         emits = torch.full((t_len, s), -1, dtype=torch.int64, device=dev)
@@ -249,8 +265,11 @@ class BatchedServeEngine:
         for t in range(t_len):
             active = ~st.done & enabled
             live_pos = torch.where(active, st.pos, -1)
-            dest = PG.logical_to_physical(cache, live_pos)
-            region = torch.clamp(dest // ps, max=nb - 1)
+            if paged:
+                dest = PG.logical_to_physical(cache, live_pos)
+                region = torch.clamp(dest // ps, max=nb - 1)
+            else:
+                region = lane_base + torch.clamp(st.pos // ps, 0, mp - 1)
             unload, mon, _ = decision(
                 mon, WriteBatch(region, *self._batch_tail), active=active)
             n_u = unload.sum()
@@ -261,10 +280,14 @@ class BatchedServeEngine:
                 logits, cache = model.decode_step_paged(
                     cache, st.token, st.pos, active, unload_mask=unload,
                     attention=attn, plan=plan)
-            else:
+            elif paged:
                 logits, cache = model.decode_step_paged(
                     cache, st.token, st.pos, active, attention=attn,
                     plan=plan)
+            else:
+                # retired slots never write: their rows go to the drop row
+                logits, cache = model.decode_step(cache, st.token, st.pos,
+                                                  write_mask=active)
             nxt, key = SMP.sample_tokens(logits, st.key, st.sampling,
                                          mode=mode)
             nxt = torch.where(active, nxt, st.token)
@@ -318,7 +341,10 @@ class BatchedServeEngine:
     def _admission_plan(self, slot: int, req) -> Optional[dict]:
         """Reserve ``req``'s whole footprint for ``slot``: the one place
         admission touches the pool. None when the pool can't cover it (the
-        request keeps its queue position)."""
+        request keeps its queue position). The lanes layout has no pool: a
+        free slot is the whole footprint."""
+        if self.pool is None:
+            return {"blocks": None}
         blocks = self.pool.alloc(
             slot, self._pages_needed(req.prompt_len, req.max_new))
         if blocks is None:
@@ -340,24 +366,35 @@ class BatchedServeEngine:
                                   device=dev).long()
         slot_arr = torch.as_tensor(slots, device=dev).long()
 
-        logits, pc = self.model.prefill(prompts, plen)
-        cache = self.cache
-        l = cache["pages_k"].shape[0]
-        # prefill rows land in the pool by a host-computed row list
-        rows = np.arange(plen)
-        phys = torch.as_tensor(np.concatenate(
-            [b[rows // ps].astype(np.int64) * ps + rows % ps
-             for b in blocks]), device=dev)
-        for pk, src in (("pages_k", "k"), ("pages_v", "v")):
-            tail = cache[pk].shape[3:]
-            flat = cache[pk].view((l, -1) + tail)
-            flat.index_copy_(1, phys, pc[src][:, :, :plen].reshape(
-                (l, g * plen) + tail))
-        padded = np.full((g, self.max_pages), -1, np.int64)
-        for i, b in enumerate(blocks):
-            padded[i, : len(b)] = b
-        cache["page_table"][slot_arr] = torch.as_tensor(padded, device=dev)
-        regions = np.concatenate([b[rows // ps] for b in blocks])
+        if self.layout == "paged":
+            logits, pc = self.model.prefill(prompts, plen)
+            cache = self.cache
+            l = cache["pages_k"].shape[0]
+            # prefill rows land in the pool by a host-computed row list
+            rows = np.arange(plen)
+            phys = torch.as_tensor(np.concatenate(
+                [b[rows // ps].astype(np.int64) * ps + rows % ps
+                 for b in blocks]), device=dev)
+            for pk, src in (("pages_k", "k"), ("pages_v", "v")):
+                tail = cache[pk].shape[3:]
+                flat = cache[pk].view((l, -1) + tail)
+                flat.index_copy_(1, phys, pc[src][:, :, :plen].reshape(
+                    (l, g * plen) + tail))
+            padded = np.full((g, self.max_pages), -1, np.int64)
+            for i, b in enumerate(blocks):
+                padded[i, : len(b)] = b
+            cache["page_table"][slot_arr] = torch.as_tensor(padded,
+                                                            device=dev)
+            regions = np.concatenate([b[rows // ps] for b in blocks])
+        else:
+            # the group's lane cache overwrites the slots' lanes wholesale,
+            # and is freed right after the copy
+            logits, pc = self.model.prefill(prompts, cfg.max_seq)
+            for name in ("k", "v"):
+                self.cache[name][:, slot_arr] = pc[name]
+            del pc
+            regions = np.concatenate([
+                s * self.max_pages + np.arange(plen) // ps for s in slots])
         # prefill writes are dense/contiguous -> offload path; they still
         # heat the page counters (the monitor sees every write that lands)
         self.mon_state = self.decision.heat(self.mon_state, regions)
@@ -398,7 +435,7 @@ class BatchedServeEngine:
             self._slot_req[slot] = req.req_id
             self._slot_plen[slot] = req.prompt_len
             self._slot_max_new[slot] = p.max_tokens
-            self._slot_pages[slot] = len(b)
+            self._slot_pages[slot] = 0 if b is None else len(b)
             self.req_arrival[req.req_id] = req.arrival_s
             self.outputs[req.req_id] = [int(t0)]
             self.req_params[req.req_id] = p
@@ -410,13 +447,14 @@ class BatchedServeEngine:
 
     def _retire(self, slots: List[int]) -> None:
         for slot in slots:
-            self.pool.free_slot(slot)
+            if self.pool is not None:
+                self.pool.free_slot(slot)
             self._occupied[slot] = False
             self._slot_req[slot] = -1
             self._slot_plen[slot] = 0
             self._slot_max_new[slot] = 0
             self._slot_pages[slot] = 0
-        if slots:
+        if self.pool is not None and slots:
             self.cache["page_table"][
                 torch.as_tensor(slots, device=self.device).long()] = -1
         self.stats["retired"] += len(slots)
@@ -446,11 +484,12 @@ class BatchedServeEngine:
                     f"request {req.req_id}: prompt_len+max_new "
                     f"{req.prompt_len + req.max_new} > max_seq "
                     f"{self.cfg.max_seq}")
-            total = self._pages_needed(req.prompt_len, req.max_new)
-            if total > self.pool.n_blocks:
-                raise ValueError(
-                    f"request {req.req_id} needs {total} blocks; "
-                    f"pool holds {self.pool.n_blocks}")
+            if self.pool is not None:
+                total = self._pages_needed(req.prompt_len, req.max_new)
+                if total > self.pool.n_blocks:
+                    raise ValueError(
+                        f"request {req.req_id} needs {total} blocks; "
+                        f"pool holds {self.pool.n_blocks}")
             plan = self._admission_plan(free[0], req)
             if plan is None:
                 if k == 0:

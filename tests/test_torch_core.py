@@ -12,6 +12,7 @@ from repro.core import monitor as jmon
 from repro.core import paths as jpaths
 from repro.core import ring as jring
 from repro.core import types as jtypes
+from repro.serve.scheduler import BatchConfig as JaxBatchConfig
 from repro_torch.core import monitor as tmon
 from repro_torch.core import paths as tpaths
 from repro_torch.core import policy as tpolicy
@@ -257,7 +258,8 @@ def test_validate_resolves_a_plan():
 
 NOT_PORTED = {
     "chunked": dict(chunked=True),
-    "lanes": dict(kv_layout="lanes"),
+    # the lanes layout is ported; its host-side chunked prefill is not
+    "lanes": dict(kv_layout="lanes", chunked=True),
     "sched-priority": dict(sched="sched/priority"),
     "sched-deadline": dict(sched="sched/deadline"),
     "sched-preempt": dict(sched="sched/preempt"),
@@ -282,8 +284,16 @@ def test_validate_rejects_unknown_layout_and_unpaged_model():
     with pytest.raises(ValueError, match="unknown kv_layout"):
         tpaths.validate(BatchConfig(max_seq=32, kv_layout="rows",
                                     device="cpu"))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tpaths.validate(BatchConfig(max_seq=32, device="cpu"),
+    # an unpaged model resolves to the lanes layout, direct-only, one
+    # region per (slot, page-sized span of its lane), as in the JAX package
+    plan = tpaths.validate(BatchConfig(max_seq=32, device="cpu"),
+                           paged_capable=False)
+    jplan = jpaths.validate(JaxBatchConfig(max_seq=32), paged_capable=False)
+    assert (plan.layout, plan.attention, plan.n_regions) == (
+        jplan.layout, jplan.attention, jplan.n_regions) == (
+        "lanes", "reference", 8 * 4)
+    with pytest.raises(ValueError, match="direct-only"):
+        tpaths.validate(BatchConfig(max_seq=32, path="staged", device="cpu"),
                         paged_capable=False)
     with pytest.raises(ValueError, match="needs kv_layout='lanes'"):
         tpaths.validate(BatchConfig(max_seq=32, kv_layout="paged",

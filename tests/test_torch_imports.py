@@ -40,9 +40,12 @@ def test_source_imports_nothing_of_jax(path):
 
 def test_package_has_every_ported_module():
     want = ["configs/base.py", "kernels/staged_scatter.py",
-            "kernels/flash_decode.py", "kernels/ops.py", "kernels/build.py",
+            "kernels/flash_decode.py", "kernels/flash_attention.py",
+            "kernels/ops.py", "kernels/build.py",
             "kernels/csrc/staged_scatter.cu",
-            "kernels/csrc/flash_decode_paged.cu", "core/types.py",
+            "kernels/csrc/flash_decode_paged.cu",
+            "kernels/csrc/flash_attention.cu", "kernels/csrc/flash_decode.cu",
+            "configs/h2o_danube_3_4b.py", "core/types.py",
             "core/ring.py", "core/monitor.py", "core/policy.py",
             "core/decision.py", "core/paths.py", "models/layers.py",
             "models/transformer.py", "models/model.py", "models/sampling.py",
@@ -104,6 +107,24 @@ def test_cuda_device_raises_without_cuda():
     assert res.stdout.strip().endswith("refused")
 
 
+def test_build_model_defaults_to_the_card():
+    """``build_model(cfg)`` and ``DecoderLM(cfg)`` with no device run on the
+    card: without CUDA they raise and name ``device='cpu'``."""
+    res = _run(
+        "import pytest\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.models import build_model\n"
+        "from repro_torch.models.transformer import DecoderLM\n"
+        "cfg = get_config('h2o-danube-3-4b').reduced()\n"
+        "for make in (build_model, DecoderLM):\n"
+        "    with pytest.raises(RuntimeError, match=\"device='cpu'\"):\n"
+        "        make(cfg)\n"
+        "assert build_model(cfg, device='cpu').device.type == 'cpu'\n"
+        "print('refused')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("refused")
+
+
 def test_launcher_refuses_to_fall_back_to_cpu():
     res = _run("from repro_torch.launch.serve import main\n"
                "main(['--arch', 'stablelm-1.6b', '--batched'])\n")
@@ -137,7 +158,8 @@ def test_unported_archs_and_families_raise():
     from repro_torch.configs.base import MOE
     from repro_torch.models import build_model
     import dataclasses
-    assert sorted(ARCHS) == ["nemotron-4-15b", "qwen2-7b", "stablelm-1.6b"]
+    assert sorted(ARCHS) == ["h2o-danube-3-4b", "nemotron-4-15b", "qwen2-7b",
+                             "stablelm-1.6b"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config("mamba2-130m")
     with pytest.raises(KeyError):
@@ -146,3 +168,17 @@ def test_unported_archs_and_families_raise():
                               family=MOE)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         build_model(moe)
+
+
+def test_launcher_downgrades_the_write_mode_on_lanes():
+    """A sliding-window arch serves from the direct-only lanes layout: the
+    CLI downgrades --write-mode as the JAX launcher does, and serves."""
+    res = _run("from repro_torch.launch.serve import main\n"
+               "main(['--arch', 'h2o-danube-3-4b', '--device', 'cpu', "
+               "'--batched', '--requests', '3', '--slots', '2', "
+               "'--prompt-len', '40', '--gen-len', '6', '--max-seq', '64', "
+               "'--segment-len', '4', '--write-mode', 'staged'])\n")
+    assert res.returncode == 0, res.stderr
+    assert "downgrading --write-mode staged -> direct" in res.stdout
+    assert "[lanes, reference, cpu] served 3 requests / 18 tokens" \
+        in res.stdout

@@ -245,4 +245,9 @@ def test_launch_counters_count_kernel_launches_only():
     K.flash_decode_paged(*args)
     K.staged_scatter(torch.zeros(4, 8), torch.ones(2, 8),
                      torch.tensor([1, 2]), torch.tensor([True, True]))
-    assert K.launch_counts() == {"staged_scatter": 0, "flash_decode_paged": 0}
+    K.flash_attention(torch.zeros(1, 2, 4, 8), torch.zeros(1, 1, 4, 8),
+                      torch.zeros(1, 1, 4, 8))
+    K.flash_decode(torch.zeros(1, 2, 8), torch.zeros(1, 4, 1, 8),
+                   torch.zeros(1, 4, 1, 8), torch.ones(1, 4, dtype=torch.bool))
+    assert K.launch_counts() == {"staged_scatter": 0, "flash_decode_paged": 0,
+                                 "flash_attention": 0, "flash_decode": 0}
