@@ -22,12 +22,29 @@ Phases, each failing the run on any exception or mismatch:
            streams; h2o-danube-3-4b at 2 layers (window cut to 128), fp32:
            the engine on the card and the same weights on the CPU (the
            plain versions) give identical greedy token streams
+  write_engine  the flat RemoteWriteEngine at the paper's section 4 size:
+           4 GiB of registered fp32 memory (2^20 regions of 4 KB, four uMTT
+           registrations), 64 batches of 4096 writes of 16-256 B to
+           Zipf(0.5) regions, through four decision planes (always offload,
+           always unload, frequency and hysteresis over a count-min sketch);
+           the four memories must be bit-identical and equal a sequential
+           last-write-wins oracle, nothing rejected, both sketch engines
+           must unload a share strictly between 0 and 1 and launch
+           cms_update and cms_query once per batch; the stream, made again
+           from its seed, must be the same, and the card must draw the
+           regions the CPU draws from the same uniforms
+  write_parity  the same four engines on the card and on the CPU (the
+           plain versions) at 2^12 regions, with 1 write in 64 carrying a
+           wrong stag: memory, telemetry and ring state identical
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
-profiler's trace, warm, mean of 20 calls. The time between CUDA events around
-one call (median of 30) stands beside it as ``*event_ms``; for calls shorter
-than their own enqueue it measures the host. The last line is
+profiler's trace, warm, mean of 20 calls. A trace that holds no device event
+is taken again, up to three times in all; where none does, the time is that
+between CUDA events around the 20 calls, and the ``done`` line names it under
+``traces_without_device_time``. The time between CUDA events around one call
+(median of 30) stands beside it as ``*event_ms``; for calls shorter than
+their own enqueue it measures the host. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import dataclasses
@@ -49,9 +66,15 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import (AlwaysOffload, AlwaysUnload,  # noqa: E402
+                              CMSMonitor, DecisionModule, FrequencyPolicy,
+                              HysteresisPolicy, RemoteWriteEngine, make_umtt,
+                              make_write_batch, register, zipf_regions)
+from repro_torch.kernels.cms import cms_hash  # noqa: E402
 from repro_torch.data import synthetic_requests  # noqa: E402
 from repro_torch.kernels import build as kbuild  # noqa: E402
-from repro_torch.kernels import (flash_attention,  # noqa: E402
+from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
+                                 cms_update, cms_update_ref, flash_attention,
                                  flash_attention_ref, flash_decode,
                                  flash_decode_paged, flash_decode_paged_ref,
                                  flash_decode_ref, launch_counts,
@@ -78,6 +101,20 @@ LANES = dict(arch="h2o-danube-3-4b", reduced=False, max_seq=6144, n_slots=8,
              segment_len=16, path="direct")
 LANES_REQUESTS, LANES_PROMPTS, LANES_NEW = 12, [512, 2048, 4608], 64
 LANES_GROUP = 2  # 4608-token prompts per prefill call (the first admission's)
+
+# the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
+WRITE = dict(log2_regions=20, region_elems=1024, batches=64, batch=4096,
+             width=64, ring=8192, cms=(4, 16), decay_every=65536,
+             threshold=4, lo=2, hi=8, umtt=64, registrations=4, bad_every=0)
+# the same engines, small, on the card and on the CPU, with bad stags
+WRITE_PARITY = dict(log2_regions=12, region_elems=256, batches=32, batch=256,
+                    width=64, ring=512, cms=(4, 10), decay_every=2048,
+                    threshold=4, lo=2, hi=8, umtt=64, registrations=4,
+                    bad_every=64)
+WRITE_ENGINES = ("direct", "staged", "adaptive-cms", "hysteresis-cms")
+# the sketch kernels are timed at the JAX default sketch and at the write
+# engine's, at one engine batch and at 2^20 ids
+CMS_TIMED = [(4, 12, 4096), (4, 16, 4096), (4, 12, 1 << 20), (4, 16, 1 << 20)]
 
 # Tolerances against the plain version on the same inputs.
 # fp32: the JAX package's own kernel-vs-oracle bound (sums in another order).
@@ -117,32 +154,55 @@ def time_ms(fn, warm=5, reps=30):
     return times[len(times) // 2]
 
 
-def device_ms(fn, reps=20):
-    """Mean device time of one call: the sum of the kernels' own times as the
-    profiler's CUPTI trace gives them, host gaps left out."""
+# Profiler traces that came back without a device event, by what was traced:
+# CUPTI now and then delivers none for a short trace, so every trace is
+# retried and a miss that lasts is reported in the ``done`` line.
+TRACE_MISSES = []
+
+
+def trace_rows(run, what, tries=3):
+    """``(self device us, calls, kernel name)`` for every kernel that ``run``
+    launches, from the profiler's CUPTI trace, largest first. A trace with no
+    device time is taken again, up to ``tries`` times; then ``[]``."""
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        rows = sorted(
+            ((getattr(e, "self_device_time_total",
+                      getattr(e, "self_cuda_time_total", 0.0)), e.count, e.key)
+             for e in prof.key_averages()), reverse=True)
+        if sum(r[0] for r in rows) > 0:
+            return rows
+    TRACE_MISSES.append(what)
+    return []
+
+
+def device_ms(fn, what, reps=20):
+    """Mean device time of one call: the sum of the kernels' own times as the
+    profiler's CUPTI trace gives them, host gaps left out. Where no trace
+    holds a device event, the time between CUDA events around ``reps`` calls
+    in a row, over ``reps`` (host gaps in), and ``what`` is in
+    ``TRACE_MISSES``."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    total_us = 0.0
-    for e in prof.key_averages():
-        total_us += getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0.0))
-    if total_us <= 0:
-        raise RuntimeError("the profiler's trace shows no device time")
-    return total_us / reps / 1e3
+    rows = trace_rows(run, what)
+    if rows:
+        return sum(r[0] for r in rows) / reps / 1e3
+    return time_ms(run, warm=1, reps=5) / reps
 
 
-def timings(kernel, plain, library):
+def timings(name, kernel, plain, library):
     """Device time of the three (``ms``, ``plain_ms``, ``library_ms``) and,
     under its own keys, the time between CUDA events around one call."""
     out = {}
     for key, fn in (("ms", kernel), ("plain_ms", plain),
                     ("library_ms", library)):
-        out[key] = device_ms(fn)
+        out[key] = device_ms(fn, f"{name} {key}")
         out[key.replace("ms", "event_ms")] = time_ms(fn)
     return out
 
@@ -232,10 +292,11 @@ def time_k1(gen):
         for i in range(l):
             staged_scatter_ref(dest[i], staging[i], rows, valid, inplace=True)
 
-    t = timings(lambda: staged_scatter_layers(dest, staging, rows, valid),
+    t = timings("staged_scatter",
+                lambda: staged_scatter_layers(dest, staging, rows, valid),
                 plain, lambda: dest.index_copy_(1, rows, staging))
     empty = lambda: staged_scatter_layers(dest, staging, rows, none)  # noqa: E731
-    ms_empty = device_ms(empty)
+    ms_empty = device_ms(empty, "staged_scatter, no valid row")
     n_valid = int(valid.sum())
     nbytes = 2 * n_valid * w * 2 * l + n * 5
     return dict(**t,
@@ -379,7 +440,7 @@ def time_k2(gen):
         mask = torch.cat([view_ok, rok[:, None, :].expand(b, c, r)], 2)
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k, v, attn_mask=mask[:, None])
-    t = timings(lambda: flash_decode_paged(*args),
+    t = timings("flash_decode_paged", lambda: flash_decode_paged(*args),
                 lambda: flash_decode_paged_ref(*args), library)
     es = q.element_size()
     # The work depends on the data: a masked key adds exactly 0 to a row with
@@ -569,7 +630,8 @@ def time_k3(gen):
     q, k, v = _k3_slice_inputs(gen)
     b, hq, s, d = q.shape
     t = k.shape[2]
-    t_ = timings(lambda: flash_attention(q, k, v, True, window),
+    t_ = timings("flash_attention",
+                 lambda: flash_attention(q, k, v, True, window),
                  lambda: flash_attention_ref(q, k, v, True, window),
                  # yardstick only: causal, no window (SDPA takes no window
                  # rule but an explicit mask, which would time its masked path)
@@ -681,7 +743,7 @@ def time_k4(gen):
         return F.scaled_dot_product_attention(
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask[:, None, None, :], enable_gqa=True)
-    t_ = timings(lambda: flash_decode(q, k, v, mask),
+    t_ = timings("flash_decode", lambda: flash_decode(q, k, v, mask),
                  lambda: flash_decode_ref(q, k, v, mask), library)
     es = q.element_size()
     n_live = int(mask.sum())      # the work depends on the data: live keys
@@ -695,6 +757,130 @@ def time_k4(gen):
                       f"{n_live} live keys")
 
 
+# ---------------------------------------------------------------------------
+# K5 cms_update, K6 cms_query
+# ---------------------------------------------------------------------------
+
+
+def _cms_ids(gen, n, dtype=torch.int32):
+    """n ids over the whole int32 range, negatives included."""
+    return torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                         device=DEV, dtype=torch.int64).to(dtype)
+
+
+def _cms_case(counts, ids, mask, what):
+    """K5 and K6 against their plain versions on the same inputs: exact."""
+    want = cms_update_ref(counts, ids, mask)
+    got = cms_update(counts.clone(), ids, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"cms_update mismatch: {what}")
+    est, est_want = cms_query(got, ids), cms_query_ref(want, ids)
+    torch.cuda.synchronize()
+    if est.dtype != torch.int32 or not torch.equal(est, est_want):
+        raise AssertionError(f"cms_query mismatch: {what}")
+    return 1
+
+
+def check_cms(gen):
+    """Depth 1-4, k in {0, 4, 6, 10, 12, 16}, n in {0, 1, 255, 256, 1000,
+    4096, 2^20}, each masked and not; ids over the whole int32 range, int32
+    and int64 alternating, both at one engine batch (4096); zero and non-zero
+    starting counts. Then the write engines' own ids (int64, Zipf(0.5) over
+    their regions, many duplicates) at their sketches and batches, 256 equal
+    ids, distinct ids that share a bucket, and negative ids."""
+    cases = 0
+    for depth in (1, 2, 3, 4):
+        for ki, k in enumerate((0, 4, 6, 10, 12, 16)):
+            for ni, n in enumerate((0, 1, 255, 256, 1000, 4096, 1 << 20)):
+                dts = ((torch.int32, torch.int64) if n == 4096 else
+                       (torch.int64 if (ki + ni) % 2 else torch.int32,))
+                start = (torch.randint(0, 5, (depth, 1 << k), generator=gen,
+                                       device=DEV, dtype=torch.int32)
+                         if (depth + ki) % 2 else
+                         torch.zeros((depth, 1 << k), dtype=torch.int32,
+                                     device=DEV))
+                mask = torch.rand((n,), generator=gen, device=DEV) > 0.3
+                for dt in dts:
+                    ids = _cms_ids(gen, n, dt)
+                    for m in (None, mask):
+                        cases += _cms_case(start, ids, m,
+                                           f"depth={depth} k={k} n={n} {dt} "
+                                           f"masked={m is not None}")
+    for shape in (WRITE, WRITE_PARITY):
+        depth, k = shape["cms"]
+        start = torch.randint(0, 5, (depth, 1 << k), generator=gen,
+                              device=DEV, dtype=torch.int32)
+        ids = zipf_regions(shape["batch"], 1 << shape["log2_regions"], 0.5,
+                           generator=gen, device=DEV)
+        mask = torch.rand(ids.shape, generator=gen, device=DEV) > 0.3
+        for m in (None, mask):
+            cases += _cms_case(start, ids, m,
+                               f"Zipf(0.5) ids, depth={depth} k={k} "
+                               f"n={ids.numel()} masked={m is not None}")
+    same = torch.full((256,), 12345, dtype=torch.int32, device=DEV)
+    zero = torch.zeros((4, 1 << 10), dtype=torch.int32, device=DEV)
+    cases += _cms_case(zero, same, None, "256 equal ids")
+    if int(cms_query(cms_update(zero.clone(), same), same[:1])[0]) != 256:
+        raise AssertionError("cms: 256 equal ids do not count 256")
+    h = cms_hash(torch.arange(2048), 0, 4)
+    bucket = torch.nonzero(h == h[0]).flatten()[:8].to(DEV)
+    one = torch.zeros((1, 16), dtype=torch.int32, device=DEV)
+    cases += _cms_case(one, bucket, None, "8 ids in one bucket")
+    if int(cms_update(one.clone(), bucket)[0, int(h[0])]) != 8:
+        raise AssertionError("cms: 8 ids in one bucket do not stack")
+    neg = torch.tensor([-5, -1, -2 ** 31, 7, -5], device=DEV)
+    for dt in (torch.int32, torch.int64):
+        cases += _cms_case(zero, neg.to(dt), None, f"negative ids {dt}")
+    return cases
+
+
+def _cms_flat(counts, ids):
+    """Flat bucket index of every (row, id), for the library calls."""
+    depth, width = counts.shape
+    k = width.bit_length() - 1
+    return torch.cat([r * width + cms_hash(ids, r, k) for r in range(depth)])
+
+
+def _sector_bytes(flat):
+    """Bytes of the distinct 32-byte sectors (8 int32 counters) that the flat
+    bucket indices touch: what the counters must move from or to HBM."""
+    return torch.unique(flat // 8).numel() * 32
+
+
+def time_cms(gen):
+    """K5 and K6 at the four sizes of ``CMS_TIMED``, int64 ids as the engine
+    passes them, no mask (the engine's calls), uniform ids over 2^20
+    regions. The library calls take precomputed bucket indices: the hash is
+    excluded from them. The bounds count the ids once, the estimates once
+    (K6) and, once each way, the counter sectors this run's ids touch."""
+    rows = {"cms_update": [], "cms_query": []}
+    for depth, k, n in CMS_TIMED:
+        counts = torch.zeros((depth, 1 << k), dtype=torch.int32, device=DEV)
+        ids = torch.randint(0, 1 << 20, (n,), generator=gen, device=DEV)
+        flat = _cms_flat(counts, ids)
+        ones = torch.ones_like(flat, dtype=torch.int32)
+        cview = counts.view(-1)
+        ctr = _sector_bytes(flat)
+        shape = (f"counts[{depth},{1 << k}] int32, ids[{n}] int64, "
+                 f"{ctr // 32} counter sectors touched")
+        up = timings(f"cms_update {shape}", lambda: cms_update(counts, ids),
+                     lambda: cms_update_ref(counts, ids, inplace=True),
+                     lambda: cview.index_add_(0, flat, ones))
+        up_bytes = n * ids.element_size() + 2 * ctr
+        rows["cms_update"].append(dict(
+            **up, bound_ms=up_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            shape=shape))
+        q = timings(f"cms_query {shape}", lambda: cms_query(counts, ids),
+                    lambda: cms_query_ref(counts, ids),
+                    lambda: cview.take(flat).view(depth, n).amin(0))
+        q_bytes = n * ids.element_size() + n * 4 + ctr
+        rows["cms_query"].append(dict(
+            **q, bound_ms=q_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            shape=shape))
+    return rows
+
+
 def phase_kernels():
     gen = torch.Generator(device=DEV).manual_seed(0)
     k1_err, k1_cases = check_k1(gen)
@@ -704,8 +890,10 @@ def phase_kernels():
     k3_slice = check_k3_slice(gen)
     k4_errs, k4_cases, k4_share = check_k4(gen)
     k4_slice = [check_k4_slice(gen, live) for live in (True, False)]
+    cms_cases = check_cms(gen)
     k1_t, k2_t = time_k1(gen), time_k2(gen)
     k3_t, k4_t = time_k3(gen), time_k4(gen)
+    cms_t = time_cms(gen)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
         flash_decode_paged_max_abs_err_f32=k2_errs[torch.float32],
@@ -738,7 +926,18 @@ def phase_kernels():
         flash_decode_shape=k4_t.pop("shape"),
         flash_decode_live_keys=k4_t.pop("live_keys"),
         flash_decode_slice=k4_slice,
-        slice_err_factor=SLICE_ERR_FACTOR)
+        slice_err_factor=SLICE_ERR_FACTOR, cms_cases=cms_cases,
+        cms_exact=True)
+    # the kernels line: the write engine's sketch (depth 4, k 16) at one
+    # engine batch; all four timed sizes under "sizes"
+    cms_main = CMS_TIMED.index((4, 16, 4096))
+    cms_rows = []
+    for name, line in (("cms_update", 51), ("cms_query", 109)):
+        cms_rows.append(dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/cms.cu",
+            replaces=f"src/repro/kernels/cms.py:{line}", launches=None,
+            max_abs_err=0.0, **cms_t[name][cms_main], sizes=cms_t[name]))
     return [
         dict(name="staged_scatter", route="cuda",
              source="src/repro_torch/kernels/csrc/staged_scatter.cu",
@@ -756,7 +955,7 @@ def phase_kernels():
              source="src/repro_torch/kernels/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode.py:271",
              launches=None, max_abs_err=max(k4_errs.values()), **k4_t),
-    ]
+    ] + cms_rows
 
 
 # ---------------------------------------------------------------------------
@@ -885,8 +1084,9 @@ def phase_lanes(kernels):
     prompts = torch.randint(0, cfg.vocab, (LANES_GROUP, max(LANES_PROMPTS)),
                             generator=torch.Generator(device=DEV).manual_seed(1),
                             device=DEV)
-    prefill_ms = device_ms(lambda: eng.model.prefill(prompts, LANES["max_seq"]),
-                           reps=3)
+    prefill_ms = device_ms(
+        lambda: eng.model.prefill(prompts, LANES["max_seq"]),
+        "lanes prefill", reps=3)
     say("lanes", config=LANES, n_layers=cfg.n_layers, dtype=cfg.dtype,
         layout=eng.layout, requests=len(outputs), tokens=n_toks,
         seconds=seconds, tok_per_s=[n_toks / x for x in seconds],
@@ -915,10 +1115,9 @@ def engine_profile(eng, cfg, shape, prompt_lens):
     timed on the host clock (the median is used), the next one under the
     profiler (device time by kernel name, and the device's busy share of the
     timed segment). The requests are long enough to stay live throughout."""
-    from torch.profiler import ProfilerActivity, profile
     eng.reset()
     sch = eng.scheduler
-    n_new = 6 * shape["segment_len"]    # 5 segments run below
+    n_new = 8 * shape["segment_len"]    # at most 7 segments run below
     sch.admit(synthetic_requests(
         shape["n_slots"], prompt_lens, cfg.vocab, n_new,
         params=SamplingParams(max_tokens=n_new)))
@@ -931,14 +1130,9 @@ def engine_profile(eng, cfg, shape, prompt_lens):
         torch.cuda.synchronize()
         seg.append((time.perf_counter() - t0) * 1e3)
     seg_ms = sorted(seg)[1]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        sch.run_segment()
-        torch.cuda.synchronize()
+    # a retried trace runs one more segment: the requests stay live for it
+    rows = trace_rows(sch.run_segment, f"{shape['arch']} segment")
     steps = shape["segment_len"]
-    rows = sorted(
-        ((getattr(e, "self_device_time_total",
-                  getattr(e, "self_cuda_time_total", 0.0)), e.count, e.key)
-         for e in prof.key_averages()), reverse=True)
     dev_ms = sum(r[0] for r in rows) / 1e3
     say("engine_profile", arch=shape["arch"], layout=eng.layout,
         slots=shape["n_slots"], steps=steps,
@@ -1024,6 +1218,251 @@ def phase_parity_swa():
                 identical_streams=True)
 
 
+# ---------------------------------------------------------------------------
+# the flat write engine
+# ---------------------------------------------------------------------------
+
+
+def write_stream(shape, gen, device):
+    """The section 4 write stream, made on ``device`` from ``gen``: regions
+    Zipf(0.5) over 2^log2_regions, offsets 64 x U{0..regions_elems/64 - 1}
+    elements, sizes U{4..64} fp32 elements (16-256 B), payload [n, width],
+    each write carrying its region's registration stag (registration i
+    covers an equal share of the regions under stag 11 + i), and with
+    ``bad_every`` > 0 about one write in that many carrying stag 99. Two
+    writes of a batch either share (region, offset) or do not overlap."""
+    n_regions = 1 << shape["log2_regions"]
+    per_reg = n_regions // shape["registrations"]
+    n, w = shape["batch"], shape["width"]
+    stream = []
+    for _ in range(shape["batches"]):
+        region = zipf_regions(n, n_regions, 0.5, generator=gen, device=device)
+        offset = 64 * torch.randint(0, shape["region_elems"] // 64, (n,),
+                                    generator=gen, device=device)
+        size = torch.randint(4, 65, (n,), generator=gen, device=device)
+        stag = 11 + region // per_reg
+        if shape["bad_every"]:
+            bad = torch.randint(0, shape["bad_every"], (n,), generator=gen,
+                                device=device) == 0
+            stag = torch.where(bad, 99, stag)
+        payload = torch.randn((n, w), generator=gen, device=device)
+        stream.append((make_write_batch(region, offset, size), payload, stag))
+    return stream
+
+
+def check_stream_seeded(shape, stream, seed):
+    """The stream is its seed's own: made again from the seed it is the
+    same, and the card draws the regions the CPU draws from the same
+    uniforms."""
+    again = write_stream(shape, torch.Generator(device=DEV).manual_seed(seed),
+                         DEV)
+    for (b1, p1, s1), (b2, p2, s2) in zip(stream, again):
+        if not all(torch.equal(x, y)
+                   for x, y in zip((*b1, p1, s1), (*b2, p2, s2))):
+            raise AssertionError("the write stream differs when made again "
+                                 "from its seed")
+    n_regions = 1 << shape["log2_regions"]
+    u = torch.rand((1 << 20,), device=DEV,
+                   generator=torch.Generator(device=DEV).manual_seed(seed))
+    if not torch.equal(zipf_regions(0, n_regions, u=u).cpu(),
+                       zipf_regions(0, n_regions, u=u.cpu())):
+        raise AssertionError("zipf_regions: the card and the CPU draw other "
+                             "regions from the same uniforms")
+
+
+def write_table(shape, device):
+    n_regions = 1 << shape["log2_regions"]
+    per_reg = n_regions // shape["registrations"]
+    table = make_umtt(shape["umtt"], device=device)
+    for i in range(shape["registrations"]):
+        table = register(table, i * per_reg, per_reg, stag=11 + i)
+    return table
+
+
+def write_engines(shape):
+    """The four decision planes over one write engine shape. The sketch
+    engines share one CMSMonitor: the frequency policy's also sits on the
+    module (the module updates, the policy queries), the hysteresis
+    policy owns its own."""
+    depth, log2w = shape["cms"]
+    cms = CMSMonitor(depth=depth, log2_width=log2w,
+                     decay_every=shape["decay_every"])
+    planes = {
+        "direct": DecisionModule(policy=AlwaysOffload()),
+        "staged": DecisionModule(policy=AlwaysUnload()),
+        "adaptive-cms": DecisionModule(policy=FrequencyPolicy(
+            monitor=cms, threshold=shape["threshold"]), monitor=cms),
+        "hysteresis-cms": DecisionModule(policy=HysteresisPolicy(
+            monitor=cms, lo=shape["lo"], hi=shape["hi"],
+            n_regions=1 << shape["log2_regions"])),
+    }
+    return {name: RemoteWriteEngine(decision=d, ring_capacity=shape["ring"],
+                                    width=shape["width"])
+            for name, d in planes.items()}
+
+
+def write_pass(eng, table, mem, stream):
+    """One pass of the stream through a fresh engine state, then a flush."""
+    st = eng.init_state(table, device=mem.device)
+    for batch, payload, stag in stream:
+        st, mem = eng.write(st, mem, batch, payload, stag)
+    return eng.flush(st, mem)[0]
+
+
+def _telemetry(st):
+    return dict(n_offloaded=int(st.n_offloaded), n_unloaded=int(st.n_unloaded),
+                n_rejected=int(st.n_rejected))
+
+
+def _last_of_runs(keys):
+    """bool mask of the last element of each run of equal sorted keys."""
+    last = torch.ones_like(keys, dtype=torch.bool)
+    last[:-1] = keys[1:] != keys[:-1]
+    return last
+
+
+def oracle_mem(shape, stream, device):
+    """Sequential last-write-wins, written independently of the engine: a
+    write is dropped when a later write of its batch has the same (region,
+    offset); of the others, each element holds the last write that covers
+    it. Every stag of this stream is valid."""
+    n_regions, re = 1 << shape["log2_regions"], shape["region_elems"]
+    n = shape["batch"]
+    total = n * len(stream)
+    key = torch.cat([b.region * re + b.offset for b, _, _ in stream])
+    size = torch.cat([b.size for b, _, _ in stream])
+    payload = torch.cat([p for _, p, _ in stream])
+    order = torch.arange(total, device=device)
+    # within a batch, the last write per key survives
+    comb = ((order // n) * (n_regions * re) + key) * total + order
+    comb, _ = torch.sort(comb)
+    keep = torch.zeros(total, dtype=torch.bool, device=device)
+    keep[(comb % total)[_last_of_runs(comb // total)]] = True
+    # element by element, the last surviving write wins
+    w = shape["width"]
+    lane = torch.arange(w, device=device)
+    elem = keep[:, None] & (lane[None] < size[:, None])
+    flat = (key[:, None] + lane[None])[elem]
+    src = (order[:, None] * w + lane[None])[elem]
+    comb2, perm = torch.sort(flat * (total * w) + src)
+    win = _last_of_runs(comb2 // (total * w))
+    mem = torch.zeros((n_regions, re), dtype=torch.float32, device=device)
+    mem.view(-1)[flat[perm][win]] = payload.reshape(-1)[src[perm][win]]
+    return mem
+
+
+def phase_write_engine(kernels):
+    """The paper's flat write engine at its section 4 size on the card."""
+    shape = WRITE
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    n_regions = 1 << shape["log2_regions"]
+    stream = write_stream(shape, gen, DEV)
+    check_stream_seeded(shape, stream, 13)
+    table = write_table(shape, DEV)
+    n_writes = shape["batches"] * shape["batch"]
+    report, ref_mem, totals = {}, None, {"cms_update": 0, "cms_query": 0}
+    for name, eng in write_engines(shape).items():
+        torch.cuda.reset_peak_memory_stats()
+        mem = torch.zeros((n_regions, shape["region_elems"]),
+                          dtype=torch.float32, device=DEV)
+        write_pass(eng, table, mem, stream)      # warm-up, not counted
+        torch.cuda.synchronize()
+        seconds = []
+        for i in range(3):
+            if i == 0:
+                reset_launch_counts()   # counts = 0 just before the main path
+            t0 = time.perf_counter()
+            st = write_pass(eng, table, mem, stream)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                counts = launch_counts()        # read just after
+                tel = _telemetry(st)
+        ev = trace_rows(lambda: write_pass(eng, table, mem, stream),
+                        f"write_engine {name}")
+        dev_ms = sum(e[0] for e in ev) / 1e3
+        host_ms = sorted(seconds)[1] * 1e3 / shape["batches"]
+        per_batch = {k: counts[k] / shape["batches"]
+                     for k in ("cms_update", "cms_query")}
+        report[name] = dict(
+            writes_per_s=[n_writes / x for x in seconds],
+            host_ms_per_batch=host_ms,
+            device_ms_per_batch=dev_ms / shape["batches"],
+            device_busy_share=dev_ms / shape["batches"] / host_ms,
+            kernel_launches_per_batch=sum(e[1] for e in ev)
+            / shape["batches"],
+            top=[dict(kernel=k[:64], ms_per_batch=us / 1e3 / shape["batches"],
+                      calls_per_batch=c / shape["batches"])
+                 for us, c, k in ev[:8]],
+            cms_launches_per_batch=per_batch, **tel,
+            unload_share=tel["n_unloaded"] / n_writes,
+            peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+        sketch = name.endswith("-cms")
+        want = 1.0 if sketch else 0.0
+        if per_batch != {"cms_update": want, "cms_query": want}:
+            raise AssertionError(f"{name}: sketch launches per batch "
+                                 f"{per_batch}, expected {want}")
+        if sketch:
+            for k in totals:
+                totals[k] += counts[k]
+            if not 0.0 < report[name]["unload_share"] < 1.0:
+                raise AssertionError(f"{name}: unload share "
+                                     f"{report[name]['unload_share']}")
+        if tel["n_rejected"] != 0:
+            raise AssertionError(f"{name}: {tel['n_rejected']} rejected")
+        if ref_mem is None:
+            ref_mem = mem
+            oracle = oracle_mem(shape, stream, DEV)
+            if not torch.equal(mem, oracle):
+                raise AssertionError("direct engine's memory differs from "
+                                     "the last-write-wins oracle")
+            del oracle
+        else:
+            if not torch.equal(mem, ref_mem):
+                raise AssertionError(f"{name}: memory differs from the "
+                                     f"direct engine's")
+            del mem
+        torch.cuda.empty_cache()
+    del ref_mem
+    torch.cuda.empty_cache()
+    say("write_engine", shape=shape, writes=n_writes, engines=report,
+        identical_memories=True, matches_oracle=True, stream_seeded=True,
+        memory_gb=n_regions * shape["region_elems"] * 4 / 2 ** 30)
+    for k in kernels:
+        if k["name"] in totals:
+            k["launches"] = totals[k["name"]]
+
+
+def phase_write_parity():
+    """The four engines on the card and on the CPU, small, bad stags in the
+    stream: memory, telemetry and ring state identical."""
+    shape = WRITE_PARITY
+    gen = torch.Generator(device="cpu").manual_seed(14)
+    n_regions = 1 << shape["log2_regions"]
+    cpu_stream = write_stream(shape, gen, "cpu")
+    dev_stream = [(type(b)(*(t.to(DEV) for t in b)), p.to(DEV), s.to(DEV))
+                  for b, p, s in cpu_stream]
+    report = {}
+    for name, eng in write_engines(shape).items():
+        out = {}
+        for dev, stream in ((DEV, dev_stream), ("cpu", cpu_stream)):
+            mem = torch.zeros((n_regions, shape["region_elems"]),
+                              dtype=torch.float32, device=dev)
+            st = write_pass(eng, write_table(shape, dev), mem, stream)
+            out[str(dev)] = (mem.cpu(), _telemetry(st), st.ring.live.cpu(),
+                             int(st.ring.head))
+        (m_c, t_c, l_c, h_c), (m_p, t_p, l_p, h_p) = out[str(DEV)], out["cpu"]
+        if not torch.equal(m_c, m_p):
+            raise AssertionError(f"{name}: memory differs, card vs CPU")
+        if t_c != t_p or h_c != h_p or not torch.equal(l_c, l_p):
+            raise AssertionError(f"{name}: telemetry or ring differs, card "
+                                 f"{t_c} head {h_c} vs CPU {t_p} head {h_p}")
+        if t_c["n_rejected"] == 0 and name != "direct":
+            raise AssertionError(f"{name}: no bad stag was rejected")
+        report[name] = t_c
+    say("write_parity", shape=shape, engines=report, identical=True)
+
+
 def main():
     t0 = time.perf_counter()
     card = phase_env()
@@ -1032,7 +1471,10 @@ def main():
     phase_engine(kernels)
     phase_lanes(kernels)
     phase_parity()
-    say("done", seconds=round(time.perf_counter() - t0, 1))
+    phase_write_engine(kernels)
+    phase_write_parity()
+    say("done", seconds=round(time.perf_counter() - t0, 1),
+        traces_without_device_time=TRACE_MISSES)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 Decision module (paper section 3.2): intercept write requests, consult the
 monitor + policy, and emit per-request offload/unload routing decisions. The
 hot path is one counter update + one compare per request, vectorized over
-the batch. ``replicate_for_readback`` (mesh), ``expert_hot_mask`` and
-``page_threshold`` are not ported yet.
+the batch. ``replicate_for_readback`` (mesh) and ``expert_hot_mask`` (MoE)
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .types import PHASE_BULK, DecisionStats, WriteBatch
+from .monitor import calibrate_threshold
+from .types import PHASE_BULK, DecisionStats, WriteBatch, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,13 +25,28 @@ class DecisionModule:
     paper's order, increment the page's counter, then compare."""
 
     policy: object  # any RoutingPolicy (repro_torch.core.policy registry)
-    monitor: Optional[object] = None  # ExactMonitor
+    monitor: Optional[object] = None  # ExactMonitor | CMSMonitor
+
+    @classmethod
+    def from_names(cls, policy: Optional[str] = None, path: str = "direct",
+                   *, n_regions: int, hot_threshold: int = 4,
+                   **policy_kw) -> "DecisionModule":
+        """Registry-driven construction from ``(policy, path)`` names, with
+        capability negotiation (``core.paths.build_decision``); the resolved
+        write path is discarded."""
+        from .paths import build_decision  # local: paths imports decision
+
+        _, module = build_decision(path, policy, n_regions=n_regions,
+                                   hot_threshold=hot_threshold, **policy_kw)
+        return module
 
     def _policy_owns_state(self) -> bool:
         return getattr(self.policy, "owns_state",
                        not hasattr(self.policy, "decide"))
 
-    def init_state(self, device="cpu"):
+    def init_state(self, device="cuda"):
+        """The routing state, on the card unless ``device="cpu"``."""
+        device = resolve_device(device)
         if self._policy_owns_state():
             if self.monitor is not None:
                 raise ValueError(
@@ -87,3 +103,8 @@ class DecisionModule:
             f"implements no heat(state, regions): bulk prefill writes "
             f"will not warm its counters", stacklevel=2)
         return state
+
+
+def page_threshold(counts: torch.Tensor, offload_top_k: int) -> torch.Tensor:
+    """Count threshold putting about the top-k pages on the offload path."""
+    return calibrate_threshold(counts, offload_top_k)

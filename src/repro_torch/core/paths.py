@@ -27,6 +27,7 @@ import torch
 from .decision import DecisionModule
 from .monitor import ExactMonitor
 from .policy import get_policy_factory
+from .types import resolve_device
 
 CAP_DIRECT = "direct"
 CAP_STAGED = "staged"
@@ -162,18 +163,6 @@ def negotiate(path: WritePath, policy, *, layout: Optional[str] = None,
 ATTN_FUSED = "fused"
 ATTN_REFERENCE = "reference"
 _KNOWN_ATTN = ("auto", ATTN_FUSED, ATTN_REFERENCE)
-
-
-def resolve_device(device) -> torch.device:
-    """The engine's device. Asking for CUDA on a machine without it RAISES:
-    nothing carries on on the CPU by itself."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} was asked for but "
-            f"torch.cuda.is_available() is False; pass device='cpu' to run "
-            f"on the CPU on purpose")
-    return dev
 
 
 def resolve_attention(attention: str = "auto", *,

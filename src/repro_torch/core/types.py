@@ -8,6 +8,8 @@ belong to the simulator and the speculative path and are not ported yet.
 
 Conventions: region ids and the other integer fields are int64 tensors
 (PyTorch's index type); the JAX package uses int32 for the same values.
+``resolve_device`` lives here (and is re-exported by ``paths``) so that every
+core module can default its state to the card without an import cycle.
 """
 from __future__ import annotations
 
@@ -43,6 +45,18 @@ class WriteBatch(NamedTuple):
     @property
     def n(self) -> int:
         return self.region.shape[0]
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device state is made on. Asking for CUDA on a machine without it
+    RAISES: nothing carries on on the CPU by itself."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} was asked for but "
+            f"torch.cuda.is_available() is False; pass device='cpu' to run "
+            f"on the CPU on purpose")
+    return dev
 
 
 def _ints(x, device) -> torch.Tensor:

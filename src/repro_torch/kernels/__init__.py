@@ -10,10 +10,14 @@ hot spots of the serving path, each with a plain PyTorch version beside it.
                       index (``csrc/flash_attention.cu``)
   flash_decode        one-query decode over a dense per-slot cache, the
                       lanes layout's read (``csrc/flash_decode.cu``)
-
-``cms_update``/``cms_query`` of the JAX package are not ported yet.
+  cms_update          count-min-sketch update, the CMS monitor's counters
+  cms_query           count-min-sketch estimate (both ``csrc/cms.cu``)
 """
 from .ops import (
+    cms_query,
+    cms_query_ref,
+    cms_update,
+    cms_update_ref,
     flash_attention,
     flash_attention_ref,
     flash_decode,
@@ -28,6 +32,7 @@ from .ops import (
 )
 
 __all__ = [
+    "cms_query", "cms_query_ref", "cms_update", "cms_update_ref",
     "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "launch_counts",

@@ -173,3 +173,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_decode_launch.restype = i32
     lib.flash_decode_launch.argtypes = (
         [vp] * 7 + [i32] * 8 + [ctypes.c_float, i32, vp])
+    lib.cms_update_launch.restype = i32
+    lib.cms_update_launch.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp]
+    lib.cms_query_launch.restype = i32
+    lib.cms_query_launch.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp]

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from .cms import cms_query, cms_query_ref, cms_update, cms_update_ref
 from .flash_attention import flash_attention, flash_attention_ref
 from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_decode_paged_ref, flash_decode_ref)
@@ -20,6 +21,8 @@ _WRAPPERS = {
     "flash_decode_paged": (flash_decode_paged,),
     "flash_attention": (flash_attention,),
     "flash_decode": (flash_decode,),
+    "cms_update": (cms_update,),
+    "cms_query": (cms_query,),
 }
 
 
@@ -35,6 +38,7 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
+    "cms_query", "cms_query_ref", "cms_update", "cms_update_ref",
     "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "staged_scatter",

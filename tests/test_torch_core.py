@@ -1,8 +1,8 @@
 """The port's write plane and decision plane against the JAX package, element
 for element: ``core/ring.py`` functions, ``ExactMonitor``, the three default
 policies, ``DecisionModule`` (with ``active=`` and phase tags), the write-path
-registry, and ``validate``'s loud errors for what is not ported yet. All
-integer / boolean / copy logic: parity is exact."""
+and policy registries, and ``validate``'s loud errors for what is not ported
+yet. All integer / boolean / copy logic: parity is exact."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,6 +10,7 @@ import torch
 
 from repro.core import monitor as jmon
 from repro.core import paths as jpaths
+from repro.core import policy as jpolicy
 from repro.core import ring as jring
 from repro.core import types as jtypes
 from repro.serve.scheduler import BatchConfig as JaxBatchConfig
@@ -122,7 +123,7 @@ def test_exact_monitor(decay, masked):
     rng = np.random.RandomState(decay + masked)
     jm = jmon.ExactMonitor(16, decay_every=decay)
     tm = tmon.ExactMonitor(16, decay_every=decay)
-    js, ts = jm.init(), tm.init()
+    js, ts = jm.init(), tm.init(device="cpu")
     for _ in range(6):
         ids = rng.randint(0, 16, 7).astype(np.int32)   # repeated ids add up
         mask = (rng.rand(7) > 0.3) if masked else None
@@ -143,7 +144,7 @@ def _decisions(path, n_regions=12, thr=3, steps=8, use_active=True,
                                   hot_threshold=thr)
     _, td = tpaths.build_decision(path, n_regions=n_regions,
                                   hot_threshold=thr)
-    js, ts = jd.init_state(), td.init_state()
+    js, ts = jd.init_state(), td.init_state(device="cpu")
     out = []
     for _ in range(steps):
         region = rng.randint(0, n_regions, 6).astype(np.int32)
@@ -188,7 +189,8 @@ def test_decision_heat_matches_jax():
 def test_frequency_policy_rel_threshold():
     mon = tmon.ExactMonitor(8)
     pol = tpolicy.FrequencyPolicy(monitor=mon, rel=2.0)
-    st = mon.update(mon.init(), torch.tensor([0, 0, 0, 0, 1, 2, 3, 3]))
+    st = mon.update(mon.init(device="cpu"),
+                    torch.tensor([0, 0, 0, 0, 1, 2, 3, 3]))
     batch = ttypes.make_write_batch(torch.tensor([0, 1, 3, 5]),
                                     size=torch.tensor([16, 16, 16, 9999]))
     # thr = int(2.0 * 8 / 8) = 2: unload iff count < 2 and the write is small
@@ -202,15 +204,18 @@ def test_registries():
     for name in tpaths.available_paths():
         t, j = tpaths.get_path(name), jpaths.get_path(name)
         assert repr(t) == repr(j)
-    assert set(tpolicy.available_policies()) == {
-        "always-offload", "always-unload", "frequency"}
+    assert tpolicy.available_policies() == jpolicy.available_policies()
     with pytest.raises(ValueError, match="unknown write path"):
         tpaths.get_path("nope")
     with pytest.raises(ValueError, match="unknown policy"):
         tpolicy.get_policy_factory("nope")
+    # hint and hysteresis are ported: their factories build what JAX's do
     for name in ("hint", "hysteresis"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            tpolicy.get_policy_factory(name)
+        t = tpolicy.get_policy_factory(name)(n_regions=8, hot_threshold=6)
+        j = jpolicy.get_policy_factory(name)(n_regions=8, hot_threshold=6)
+        assert type(t).__name__ == type(j).__name__
+        for field in ("lo", "hi", "n_regions", "max_unload_size"):
+            assert getattr(t, field, None) == getattr(j, field, None), field
 
 
 @pytest.mark.parametrize("path,policy", [("direct", "always-unload"),
@@ -271,11 +276,24 @@ NOT_PORTED = {
     "sampled": dict(default_params=SamplingParams(temperature=0.7)),
     "policy-hysteresis": dict(path="adaptive", policy="hysteresis"),
 }
+# once raised, now ported: validate resolves them as the JAX package does
+NOW_PORTED = {"policy-hysteresis"}
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
 def test_validate_raises_on_unported_feature(name):
     cfg = EngineConfig(max_seq=32, device="cpu", **NOT_PORTED[name])
+    if name in NOW_PORTED:
+        plan = tpaths.validate(cfg.batch_config())
+        jplan = jpaths.validate(JaxBatchConfig(max_seq=32,
+                                               **NOT_PORTED[name]))
+        t, j = plan.decision.policy, jplan.decision.policy
+        assert type(t).__name__ == type(j).__name__
+        assert (t.lo, t.hi, t.n_regions) == (j.lo, j.hi, j.n_regions)
+        assert plan.decision.monitor is None and jplan.decision.monitor is None
+        assert (plan.path.name, plan.n_regions) == (jplan.path.name,
+                                                    jplan.n_regions)
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tpaths.validate(cfg.batch_config())
 

@@ -45,6 +45,8 @@ def test_package_has_every_ported_module():
             "kernels/csrc/staged_scatter.cu",
             "kernels/csrc/flash_decode_paged.cu",
             "kernels/csrc/flash_attention.cu", "kernels/csrc/flash_decode.cu",
+            "kernels/cms.py", "kernels/csrc/cms.cu", "core/umtt.py",
+            "core/unload.py", "core/staged_write.py", "core/simulator.py",
             "configs/h2o_danube_3_4b.py", "core/types.py",
             "core/ring.py", "core/monitor.py", "core/policy.py",
             "core/decision.py", "core/paths.py", "models/layers.py",

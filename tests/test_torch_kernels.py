@@ -249,5 +249,9 @@ def test_launch_counters_count_kernel_launches_only():
                       torch.zeros(1, 1, 4, 8))
     K.flash_decode(torch.zeros(1, 2, 8), torch.zeros(1, 4, 1, 8),
                    torch.zeros(1, 4, 1, 8), torch.ones(1, 4, dtype=torch.bool))
+    counts = K.cms_update(torch.zeros(2, 8, dtype=torch.int32),
+                          torch.arange(3))
+    K.cms_query(counts, torch.arange(3))
     assert K.launch_counts() == {"staged_scatter": 0, "flash_decode_paged": 0,
-                                 "flash_attention": 0, "flash_decode": 0}
+                                 "flash_attention": 0, "flash_decode": 0,
+                                 "cms_update": 0, "cms_query": 0}
