@@ -231,8 +231,17 @@ def phase_build():
     info = kbuild.build_info()
     ptxas = [ln.strip() for ln in str(info["log"]).splitlines()
              if "registers" in ln or "spill" in ln.lower()]
+    # -Xptxas -v of the two attention kernels in full: registers, shared
+    # memory, spills and any wgmma serialisation warning
+    attn, keep = [], False
+    for ln in str(info["log"]).splitlines():
+        if ln.startswith("== "):
+            keep = ln[3:] in ("flash_attention.cu", "flash_decode.cu")
+        if keep and ("ptxas" in ln or "warning" in ln.lower()):
+            attn.append(ln.strip())
     say("build", seconds=round(float(info["seconds"]), 2),
-        built=info["built"], sources=info["sources"], ptxas=ptxas[:24])
+        built=info["built"], sources=info["sources"], ptxas=ptxas[:24],
+        ptxas_attention=attn)
 
 
 # ---------------------------------------------------------------------------
@@ -486,8 +495,12 @@ def _k3_inputs(gen, dtype, b, hq, hkv, s, t, d, model_layout=True):
 
 # b, hq, hkv, s, t, d, causal, window: head_dim 64 / 120 / 128, GQA group 1
 # and 4, S = T and S < T, window 0 and < S, ragged S and T; the paged
-# engine's prefill shapes (stablelm: 32 heads of 64, S = T = 384 and 512);
-# a window that cuts 64-key tiles partway (4000 at S = T = 4608)
+# engine's prefill shapes (stablelm: 32 heads of 64, two prompts of 128,
+# 256, 384 and 512 tokens a call); a window that cuts 64-key tiles partway
+# (4000 at S = T = 4608). For the 192-row blocks and 64-key tiles of the
+# wgmma design: S and T not multiples of 64 (200 / 300, 333 / 1000),
+# windows that cut 64-key tiles (100 at 333 / 1000, 200 at 1000), GQA
+# group 8, and D = 128 with GQA at ragged S = T
 K3_CASES = [(1, 4, 4, 1, 1, 64, True, 0), (2, 4, 1, 37, 37, 120, True, 0),
             (1, 8, 2, 37, 1000, 128, True, 16),
             (1, 4, 4, 1000, 1000, 120, True, 300),
@@ -498,7 +511,14 @@ K3_CASES = [(1, 4, 4, 1, 1, 64, True, 0), (2, 4, 1, 37, 37, 120, True, 0),
             (1, 4, 1, 4608, 4608, 120, True, 4096),
             (2, 32, 32, 512, 512, 64, True, 0),
             (2, 32, 32, 384, 384, 64, True, 0),
-            (1, 4, 1, 4608, 4608, 120, True, 4000)]
+            (1, 4, 1, 4608, 4608, 120, True, 4000),
+            (2, 32, 32, 256, 256, 64, True, 0),
+            (2, 32, 32, 128, 128, 64, True, 0),
+            (2, 4, 2, 200, 300, 128, True, 0),
+            (1, 8, 1, 333, 1000, 120, True, 100),
+            (1, 8, 1, 1000, 1000, 64, True, 200),
+            (2, 8, 2, 200, 300, 120, False, 0),
+            (1, 16, 2, 333, 333, 128, True, 0)]
 # bf16 is held block by block: K3 by its query tile (64 rows of one head),
 # so the rows past the window form blocks of their own; K4 row by row
 K3_TILE, K4_ROWS = 64, 1
@@ -668,9 +688,17 @@ def _k4_inputs(gen, dtype, b, hq, hkv, t, d, special=False):
     return q, k, v, mask
 
 
+# b, hq, hkv, t, d: GQA groups 1, 2, 4, 8 and 32 (two blocks of 16 rows),
+# head_dim 16-128, T from 1 to 4096; each run plain and ``special`` (slot 0
+# with no live key, slot 1 with one: with several splits, splits with no
+# live key). With the split plan on 132 SMs: n_split 1 (T = 1, T = 37), 8
+# (T = 1000 and 4096 with one or two (slot, head)), 2-6 elsewhere; T not a
+# multiple of the 128-key tile (bf16) or the 64-key tile (fp32): 37, 129,
+# 300, 700, 1000, 1500
 K4_CASES = [(3, 4, 4, 1, 64), (2, 8, 2, 37, 120), (2, 4, 1, 1000, 128),
             (4, 32, 32, 700, 64), (8, 32, 8, 4096, 120), (2, 8, 8, 300, 16),
-            (3, 6, 3, 129, 32)]
+            (3, 6, 3, 129, 32), (1, 4, 1, 4096, 120), (1, 8, 1, 1500, 64),
+            (2, 16, 2, 700, 120), (2, 32, 1, 300, 64)]
 
 
 def check_k4(gen):

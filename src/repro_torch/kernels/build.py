@@ -26,6 +26,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# a launch that returns MAP_ERROR + n did not run: cuTensorMapEncodeTiled
+# refused one of its TMA tensor maps with CUresult n
+MAP_ERROR = 10000
+
 _lib: Optional[ctypes.CDLL] = None
 _info: Dict[str, object] = {}
 
@@ -172,7 +176,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         [vp] * 4 + [i32] * 6 + [i64] * 12 + [i32, i32, ctypes.c_float, i32, vp])
     lib.flash_decode_launch.restype = i32
     lib.flash_decode_launch.argtypes = (
-        [vp] * 7 + [i32] * 8 + [ctypes.c_float, i32, vp])
+        [vp] * 5 + [i32] * 7 + [ctypes.c_float, i32, vp])
     lib.cms_update_launch.restype = i32
     lib.cms_update_launch.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp]
     lib.cms_query_launch.restype = i32

@@ -10,32 +10,43 @@
 // What bounds it on this card: operations. A 4608-token prompt does
 // 4 * D * (live (q, k) pairs) FLOP per head against 2 * T * D * 2 B of K/V
 // per KV head, far above the ~295 FLOP/B at which the H100's bf16 tensor
-// cores, not its memory, are the limit. So the design puts both products on
-// the tensor cores and does no work the mask throws away:
-//   * one block owns 64 query rows of one head (4 warps x 16 rows) and loops
-//     over 64-key tiles of K/V, keeping the online-softmax state (running
-//     max m, sum l, fp32 accumulator) in registers;
+// cores, not its memory, are the limit. Only wgmma reaches their full rate,
+// so the bf16 path is built the way Hopper wants it:
+//   * one block owns 192 query rows of one head: three consumer warpgroups
+//     of 64 rows and one producer warpgroup (setmaxnreg moves its registers
+//     to the consumers: 24 against 160 a thread). The K/V loads set the
+//     pace (the kernel with no products and no softmax takes nearly all of
+//     its time), so a tile should serve as many query rows as the registers
+//     allow: 192 rows with 64-key tiles beat 128 rows with 128-key tiles;
+//   * producer threads issue TMA loads (cp.async.bulk.tensor, 4-D tensor
+//     maps over the caller's strides) of the query tile once and of 64-key
+//     K and V tiles into a ring of 5 stages (8 for head_dim <= 64). K and V
+//     are two pipelines, each stage with a full/empty mbarrier pair: a K
+//     tile is released as soon as its scores are in. Every tile is 128-byte
+//     swizzled, in boxes of 64 columns: head_dim 120 is two boxes whose
+//     columns 120-127 lie outside the tensor and arrive as zeros, so the
+//     padding costs no copy and is never stored;
+//   * S = Q.K^T is wgmma m64n64k16 with both operands read from shared
+//     memory through descriptors (K-major); the online softmax runs on the
+//     accumulator registers (fp32 running max m and sum l; a masked key adds
+//     exactly 0, as the plain version's -1e30 does in a row with a live
+//     key); P is rounded to bf16 unnormalised, as the Pallas kernel does,
+//     and fed from registers into O += P.V (wgmma, V read MN-major: the
+//     transposed B that bf16 allows). The scores of tile j are issued with
+//     P.V of tile j - 1, so the softmax of tile j overlaps that product;
 //   * key tiles wholly above the causal diagonal or wholly below the window
-//     are never visited; only tiles the mask cuts through are masked, by
-//     absolute position, masked scores set to -1e30 as the plain version does;
-//   * Q.K^T and P.V run as mma.sync m16n8k16 (bf16 in, fp32 accumulate), their
-//     K and V fragments read by ldmatrix (.trans for V); the
-//     unnormalised probabilities are rounded to bf16 for P.V, and l is kept
-//     in fp32 (as the Pallas kernel does: it differs from the plain version,
-//     which rounds the normalised probabilities, by about one bf16 ulp);
-//   * K/V tiles arrive by cp.async into two shared-memory stages, the next
-//     tile's copy in flight while the current one is multiplied;
-//   * a head_dim that is not a multiple of 16 (h2o-danube's 120) is padded
-//     with zero columns to 64 or 128 in shared memory; the padding is never
-//     stored;
+//     of the block's rows are never loaded (every warpgroup takes every tile
+//     of the block; one that masks all of a row's keys adds nothing to it);
+//     only tiles the mask cuts through are masked, by absolute position;
 //   * the heaviest query blocks (most key tiles under the causal mask) are
 //     scheduled first.
 // Every row a caller can give has at least one live key (the wrapper refuses
 // causal S > T), so no row is all-masked and the result is the plain
-// version's softmax. wgmma, TMA and warp specialisation are later work.
+// version's softmax.
 //
 // float32 inputs take a plain CUDA-core path (one key per lane for Q.K^T,
 // probabilities broadcast by shuffles for P.V), used by the fp32 parity runs.
+#include <cuda.h>  // CUtensorMap; the encoder comes through cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -46,6 +57,7 @@ namespace {
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 128;
 
 struct Geom {
   int Hq, Hkv, S, T, D, G, causal, window, off;  // off = T - S
@@ -67,50 +79,171 @@ __device__ __forceinline__ bool allowed(const Geom& g, int qa, int kpos) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores
+// bf16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
+constexpr int kConsumers = 3;   // warpgroups of 64 query rows
+constexpr int kBM = 64 * kConsumers;  // query rows per block
+constexpr int kBN = 64;         // keys per tile
+constexpr int kThreadsWS = (kConsumers + 1) * 128;
+constexpr int kBox = 64;        // columns of one 128-byte swizzled box
+constexpr int kQBoxBytes = kBM * 128;   // a box of the query tile
+constexpr int kKVBoxBytes = kBN * 128;  // a box of a K or V tile
+
+// shared memory, from a 1024-byte aligned base: Q [kNB boxes], K and V
+// [kStages][kNB boxes], then the barriers. As many stages as fit in 227 KB,
+// at most 8: 5 for head_dim > 64, 8 for <= 64
+template <int kNB>
+struct Smem {
+  static constexpr int kStages =
+      (227 * 1024 - 2048 - kNB * kQBoxBytes) / (2 * kNB * kKVBoxBytes) < 8
+          ? (227 * 1024 - 2048 - kNB * kQBoxBytes) / (2 * kNB * kKVBoxBytes)
+          : 8;
+  static constexpr int q = 0;
+  static constexpr int k = kNB * kQBoxBytes;
+  static constexpr int v = k + kStages * kNB * kKVBoxBytes;
+  static constexpr int bar = v + kStages * kNB * kKVBoxBytes;
+  // full and empty barriers of K and of V per stage, then Q's
+  static constexpr int bytes = bar + (4 * kStages + 1) * 8 + 1024;  // + align
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
 }
 
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity) : "memory");
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle. K-major tiles (Q, K):
+// rows of 128 B, 8-row groups 1024 B apart (SBO); the K offset of a k-step
+// is added to the start address. MN-major (V): LBO is the distance between
+// 64-column boxes, SBO between groups of 8 keys.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
 template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
+// keep the compiler from moving accumulator reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float* r) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d[32] (+)= A . B, m64n64k16, A and B from shared memory (K-major)
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da,
+                                             uint64_t db, int acc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
 }
 
-// four 8x8 b16 matrices from shared memory; lane t gives the address of row
-// t % 8 of matrix t / 8. Plain: lane t gets (row t/4, cols 2(t%4), +1) of
-// each; .trans: (rows 2(t%4), +1, col t/4), the lower index in the low half.
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+// d[64] += A . B, m64n128k16, A from registers, B from shared memory
+// (MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a,
+                                             uint64_t db) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}, "
+      "{%64,%65,%66,%67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[32] += A . B, m64n64k16, A from registers, B from shared memory
+// (MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a,
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32,%33,%34,%35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x, one MUFU op (-inf gives 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
@@ -118,201 +251,246 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-constexpr int kBQ = 64, kBK = 64, kThreads = 128;
-
-template <int kDp>
-constexpr int smem_bytes_bf16() {
-  return (kBQ + 4 * kBK) * (kDp + 8) * 2;  // Q + 2 stages of K and V
-}
-
-template <int kDp>
-__global__ void __launch_bounds__(kThreads) attn_bf16_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, Geom g) {
-  constexpr int kStride = kDp + 8;  // +16 B per row: no bank conflicts
-  constexpr int kChunks = kDp / 8;  // 16-byte pieces of a padded row
-  constexpr int kKS = kDp / 16;     // k-steps of Q.K^T
-  constexpr int kDN = kDp / 8;      // n-tiles of the output
+// kNB: 64-column boxes of the padded head_dim (1: D <= 64, 2: D <= 128)
+template <int kNB>
+__global__ void __launch_bounds__(kThreadsWS, 1) attn_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, Geom g) {
+  using L = Smem<kNB>;
+  constexpr int kDp = kNB * kBox;  // padded head_dim: the P.V product's N
+  constexpr int kStages = L::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + kBQ * kStride;      // [2][kBK][kStride]
-  __nv_bfloat16* Vs = Ks + 2 * kBK * kStride;  // [2][kBK][kStride]
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  // K and V run as two pipelines over the same stages: a K tile is released
+  // once its scores are in, a V tile once its P.V is
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(sm + L::bar);
+  uint64_t* empty_k = full_k + kStages;
+  uint64_t* full_v = empty_k + kStages;
+  uint64_t* empty_v = full_v + kStages;
+  uint64_t* qbar = empty_v + kStages;
 
   const int qb = gridDim.x - 1 - blockIdx.x;  // heaviest blocks first
   const int h = blockIdx.y, b = blockIdx.z, hk = h / g.G;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int gid = lane >> 2, tig = lane & 3;
-  const int q0 = qb * kBQ;
-  const int dch = g.D / 8;  // 16-byte pieces of a real row
-  const __nv_bfloat16* qp = q + b * g.q_sb + h * g.q_sh;
-  const __nv_bfloat16* kp = k + b * g.k_sb + hk * g.k_sh;
-  const __nv_bfloat16* vp = v + b * g.v_sb + hk * g.v_sh;
-
-  const int q_last = min(q0 + kBQ, g.S) - 1;
+  const int q0 = qb * kBM;
   int k_lo, k_hi;
-  key_range(g, q0, q_last, k_lo, k_hi);
-  const int kt0 = k_lo / kBK, kt1 = k_hi / kBK;
+  key_range(g, q0, min(q0 + kBM, g.S) - 1, k_lo, k_hi);
+  const int kt0 = k_lo / kBN, kt1 = k_hi / kBN;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
 
-  auto load_kv = [&](int stage, int kt) {
-    for (int i = tid; i < kBK * dch; i += kThreads) {
-      const int r = i / dch, c = i - r * dch, t = kt * kBK + r;
-      const bool in = t < g.T;
-      const long long row = in ? t : 0;
-      const int so = (stage * kBK + r) * kStride + c * 8;
-      cp_async16(Ks + so, kp + row * g.k_st + c * 8, in);
-      cp_async16(Vs + so, vp + row * g.v_st + c * 8, in);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full_k[i], 1);
+      mbar_init(&full_v[i], 1);
+      mbar_init(&empty_k[i], kConsumers * 4);  // lane 0 of every consumer warp
+      mbar_init(&empty_v[i], kConsumers * 4);
     }
-    cp_async_commit();
-  };
-  load_kv(0, kt0);
-
-  // the query tile, zero past the last row and in the padding columns; and
-  // zero padding columns in both K/V stages (the copies never write them)
-  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i - r * kChunks;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (c < dch && q0 + r < g.S)
-      val = *reinterpret_cast<const uint4*>(qp + (long long)(q0 + r) * g.q_ss + c * 8);
-    *reinterpret_cast<uint4*>(Qs + r * kStride + c * 8) = val;
-  }
-  for (int i = tid; i < 2 * kBK * (kChunks - dch); i += kThreads) {
-    const int r = i / (kChunks - dch), c = dch + i % (kChunks - dch);
-    *reinterpret_cast<uint4*>(Ks + r * kStride + c * 8) = make_uint4(0, 0, 0, 0);
-    *reinterpret_cast<uint4*>(Vs + r * kStride + c * 8) = make_uint4(0, 0, 0, 0);
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  const int r0 = warp * 16;
-  uint32_t qf[kKS][4];
-#pragma unroll
-  for (int kk = 0; kk < kKS; ++kk) {
-    const __nv_bfloat16* a = Qs + (r0 + gid) * kStride + kk * 16 + tig * 2;
-    qf[kk][0] = *reinterpret_cast<const uint32_t*>(a);
-    qf[kk][1] = *reinterpret_cast<const uint32_t*>(a + 8 * kStride);
-    qf[kk][2] = *reinterpret_cast<const uint32_t*>(a + 8);
-    qf[kk][3] = *reinterpret_cast<const uint32_t*>(a + 8 * kStride + 8);
-  }
-  float acc[kDN][4];
-#pragma unroll
-  for (int n = 0; n < kDN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  const int qa[2] = {q0 + r0 + gid + g.off, q0 + r0 + gid + 8 + g.off};
-  const float sl2 = g.scale * kLog2e;  // softmax in base 2, same function
-
-  for (int kt = kt0; kt <= kt1; ++kt) {
-    const int stage = (kt - kt0) & 1;
-    if (kt < kt1) {
-      load_kv(stage ^ 1, kt + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* Kst = Ks + stage * kBK * kStride;
-    const __nv_bfloat16* Vst = Vs + stage * kBK * kStride;
-
-    float s[kBK / 8][4];
-#pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-    // lane l addresses row l % 8 of matrix l / 8: (keys +8 for matrices 2-3,
-    // d +8 for matrices 1 and 3) gives b0, b1 of two key n-tiles
-    const int mi = lane >> 3, mr = lane & 7;
-    const __nv_bfloat16* kb = Kst + ((mi >> 1) * 8 + mr) * kStride + (mi & 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < kKS; ++kk) {
-#pragma unroll
-      for (int n = 0; n < kBK / 8; n += 2) {
-        uint32_t b[4];
-        ldsm_x4(b, kb + n * 8 * kStride + kk * 16);
-        mma_bf16(s[n], qf[kk], b[0], b[1]);
-        mma_bf16(s[n + 1], qf[kk], b[2], b[3]);
+  if (wg == kConsumers) {
+    // producer: warp 8's first thread keeps the K ring full (and loads Q),
+    // warp 9's the V ring
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (t == 0 || t == 32) {
+      const bool is_k = t == 0;
+      const CUtensorMap* map = is_k ? &tk : &tv;
+      uint64_t* full = is_k ? full_k : full_v;
+      uint64_t* empty = is_k ? empty_k : empty_v;
+      unsigned char* ring = sm + (is_k ? L::k : L::v);
+      if (is_k) {
+        mbar_expect_tx(qbar, kNB * kQBoxBytes);
+        for (int c = 0; c < kNB; ++c)
+          tma_load(sm + L::q + c * kQBoxBytes, &tq, qbar, c * kBox, q0, h, b);
+      }
+      for (int kt = kt0; kt <= kt1; ++kt) {
+        const int i = kt - kt0, st = i % kStages;
+        mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], kNB * kKVBoxBytes);
+        for (int c = 0; c < kNB; ++c)
+          tma_load(ring + (st * kNB + c) * kKVBoxBytes, map, &full[st], c * kBox,
+                   kt * kBN, hk, b);
       }
     }
+  } else {
+    // consumer warpgroup wg: query rows r0 .. r0 + 63
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 160;\n");
+    const int warp = t / 32, lane = t % 32, gid = lane / 4, tig = lane % 4;
+    const int r0 = q0 + wg * 64;
+    const int r_last = min(r0 + 63, g.S - 1);
+    const bool active = r0 < g.S;
+    const int qa[2] = {r0 + warp * 16 + gid + g.off, r0 + warp * 16 + gid + 8 + g.off};
+    const float sl2 = g.scale * kLog2e;  // softmax in base 2, same function
+    const uint32_t q_base = smem_u32(sm + L::q) + wg * 64 * 128;
 
-    // mask by absolute position where the tile is cut by the causal
-    // diagonal, the window or the end of the keys; scale; the online
-    // softmax of this thread's 2 rows
-    const int k0 = kt * kBK;
-    const bool cut = k0 + kBK > g.T || (g.causal && k0 + kBK - 1 > q0 + g.off) ||
-                     (g.window > 0 && k0 <= q_last + g.off - g.window);
-    float mx[2] = {m[0], m[1]};
+    float acc[kDp / 2];
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
+    for (int i = 0; i < kDp / 2; ++i) acc[i] = 0.f;
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+    float s[kBN / 2];          // scores, then probabilities, of the newest tile
+    uint32_t pa[kBN / 16][4];  // the previous tile's P: the A operand of P.V
+
+    // S = Q.K^T of the tile in stage st, issued (one commit group)
+    auto issue_s = [&](int st) {
+      const uint32_t k_base = smem_u32(sm + L::k + st * kNB * kKVBoxBytes);
+      wg_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + n * 8 + tig * 2 + (e & 1);
-        const float val =
-            (!cut || allowed(g, qa[e >> 1], kpos)) ? s[n][e] * sl2 : kMasked;
-        s[n][e] = val;
-        mx[e >> 1] = fmaxf(mx[e >> 1], val);
+      for (int kk = 0; kk < kDp / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss_n64(s, desc_sw128(q_base + (kk / 4) * kQBoxBytes + off, 16, 1024),
+                     desc_sw128(k_base + (kk / 4) * kKVBoxBytes + off, 16, 1024),
+                     kk > 0);
       }
-    }
+      wg_commit();
+    };
+    // O += P.V with the tile in stage st, issued (one commit group)
+    auto issue_pv = [&](int st) {
+      const uint32_t v_base = smem_u32(sm + L::v + st * kNB * kKVBoxBytes);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint64_t dv = desc_sw128(v_base + kk * 16 * 128, kKVBoxBytes, 1024);
+        if constexpr (kNB == 1) wgmma_rs_n64(acc, pa[kk], dv);
+        else wgmma_rs_n128(acc, pa[kk], dv);
+      }
+      wg_commit();
+    };
+    // the online softmax of tile kt's scores in s: masked keys (by absolute
+    // position, where the tile is cut by the causal diagonal, the window or
+    // the end of the keys) score -inf and add exactly 0, as the plain
+    // version's -1e30 does in a row with a live key (every real row has
+    // one); s becomes the probabilities exp2(s * scale * log2 e - m), l
+    // their running sum, and alpha[] the factor that takes the accumulator
+    // to the new max m
     float alpha[2];
+    auto softmax = [&](int kt) {
+      const int k0 = kt * kBN;
+      const bool cut = k0 + kBN > g.T ||
+                       (g.causal && k0 + kBN - 1 > r0 + g.off) ||
+                       (g.window > 0 && k0 <= r_last + g.off - g.window);
+      if (cut) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      alpha[r] = exp2f(m[r] - mx[r]);  // m = -inf on the first tile: 0
-      m[r] = mx[r];
-      l[r] *= alpha[r];
-    }
+        for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
-    for (int n = 0; n < kBK / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[n][e] - m[e >> 1]);
-        s[n][e] = p;
-        l[e >> 1] += p;
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + j * 8 + tig * 2 + (e & 1);
+            if (!allowed(g, qa[e >> 1], kpos)) s[4 * j + e] = -INFINITY;
+          }
+        }
       }
-    }
+      float mx[2] = {-INFINITY, -INFINITY};  // of the raw scores
 #pragma unroll
-    for (int n = 0; n < kDN; ++n) {
-      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
-    }
-
-    // P (the S accumulators, as bf16 A fragments) times V
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_f32(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_f32(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_f32(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_f32(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // .trans: matrices (keys +0/+8, d +0/+8) give b0, b1 of two d n-tiles
-      const __nv_bfloat16* vb =
-          Vst + (kk * 16 + (mi & 1) * 8 + mr) * kStride + (mi >> 1) * 8;
-#pragma unroll
-      for (int n = 0; n < kDN; n += 2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, vb + n * 8);
-        mma_bf16(acc[n], a, b[0], b[1]);
-        mma_bf16(acc[n + 1], a, b[2], b[3]);
+      for (int j = 0; j < kBN / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
       }
-    }
-    __syncthreads();  // this stage is refilled two tiles from now
-  }
+      float base[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // a row is spread over a quad
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        const float mn = fmaxf(m[r], mx[r] * sl2);
+        base[r] = mn == -INFINITY ? 0.f : mn;  // no live key yet: p = 0
+        alpha[r] = ex2(m[r] - base[r]);         // m = -inf: 0
+        m[r] = mn;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] = ex2(fmaf(s[4 * j + e], sl2, -base[e >> 1]));
+          l[e >> 1] += s[4 * j + e];
+        }
+      }
+    };
+    // P rounded to bf16, unnormalised, as the A operand (16 keys a k-step)
+    auto to_pa = [&]() {
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        pa[j / 2][(j & 1) * 2] = pack_f32(s[4 * j], s[4 * j + 1]);
+        pa[j / 2][(j & 1) * 2 + 1] = pack_f32(s[4 * j + 2], s[4 * j + 3]);
+      }
+    };
+    auto release = [&](uint64_t* empty, int st) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[st]);
+    };
 
-  // l is a per-thread partial over its columns: sum the quad, normalise, store
-  float inv[2];
+    // The block's tiles run as a pipeline: the scores of tile kt are issued
+    // with P.V of tile kt - 1, and the softmax of tile kt runs while P.V is
+    // in flight. Every warpgroup sees every tile of the block (a tile that
+    // masks all of a row's keys adds nothing to it); a warpgroup past the
+    // last row computes on zero rows and stores nothing. The first tile and
+    // the last P.V are peeled off, so every wait retires a fixed number of
+    // groups.
+    mbar_wait(qbar, 0);
+    int st = 0;
+    mbar_wait(&full_k[0], 0);
+    issue_s(0);
+    wg_wait<0>();
+    fence_regs<kBN / 2>(s);
+    release(empty_k, 0);
+    softmax(kt0);
+    to_pa();
+    for (int kt = kt0 + 1; kt <= kt1; ++kt) {
+      const int i = kt - kt0, prev = st;
+      st = i % kStages;
+      mbar_wait(&full_k[st], (i / kStages) & 1);
+      mbar_wait(&full_v[prev], ((i - 1) / kStages) & 1);
+      issue_s(st);
+      // the accumulator to the previous tile's max while the scores run
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(kFull, l[r], 1);
-    l[r] += __shfl_xor_sync(kFull, l[r], 2);
-    inv[r] = 1.f / l[r];
-  }
-  __nv_bfloat16* op = o + b * g.o_sb + h * g.o_sh;
+      for (int j = 0; j < kDp / 8; ++j) {
+        acc[4 * j] *= alpha[0]; acc[4 * j + 1] *= alpha[0];
+        acc[4 * j + 2] *= alpha[1]; acc[4 * j + 3] *= alpha[1];
+      }
+      issue_pv(prev);
+      wg_wait<1>();  // the scores are in: the K tile is free
+      fence_regs<kBN / 2>(s);
+      release(empty_k, st);
+      softmax(kt);
+      wg_wait<0>();  // P.V of the previous tile is done: pa and its V free
+      fence_regs<kDp / 2>(acc);
+      release(empty_v, prev);
+      to_pa();
+    }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = q0 + r0 + gid + 8 * r;
-    if (row >= g.S) continue;
-    __nv_bfloat16* orow = op + (long long)row * g.o_ss;
+    for (int j = 0; j < kDp / 8; ++j) {
+      acc[4 * j] *= alpha[0]; acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1]; acc[4 * j + 3] *= alpha[1];
+    }
+    mbar_wait(&full_v[st], ((kt1 - kt0) / kStages) & 1);
+    issue_pv(st);  // the last tile
+    wg_wait<0>();
+    fence_regs<kDp / 2>(acc);
+    release(empty_v, st);
+
+    // l is a per-thread partial over its columns: sum the quad, normalise,
+    // store the real columns of the real rows
+    if (active) {
+      float inv[2];
 #pragma unroll
-    for (int n = 0; n < kDN; ++n) {
-      const int col = n * 8 + tig * 2;
-      if (col < g.D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
-            acc[n][2 * r] * inv[r], acc[n][2 * r + 1] * inv[r]);
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(kFull, l[r], 1);
+        l[r] += __shfl_xor_sync(kFull, l[r], 2);
+        inv[r] = 1.f / l[r];
+      }
+      __nv_bfloat16* op = o + b * g.o_sb + h * g.o_sh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + warp * 16 + gid + 8 * r;
+        if (row >= g.S) continue;
+        __nv_bfloat16* orow = op + (long long)row * g.o_ss;
+#pragma unroll
+        for (int j = 0; j < kDp / 8; ++j) {
+          const int col = j * 8 + tig * 2;
+          if (col < g.D)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+                acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+        }
+      }
     }
   }
 }
@@ -414,16 +592,62 @@ int set_smem(Kernel kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-template <int kDp>
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 [batch, heads, rows, D] tensor with element strides (row, head,
+// batch) as a 4-D map (D, rows, heads, batch); boxes of 64 columns x 128
+// rows, 128-byte swizzled; what lies past D or past the last row reads as 0
+int make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
+             int batch, long long s_row, long long s_head, long long s_batch,
+             int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)heads,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)s_row * 2, (cuuint64_t)s_head * 2,
+                                 (cuuint64_t)s_batch * 2};
+  const cuuint32_t box[4] = {kBox, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;  // 10000 + the CUresult
+}
+
+template <int kNB>
 int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
                 const Geom& g, cudaStream_t s) {
-  constexpr size_t bytes = smem_bytes_bf16<kDp>();
-  const int e = set_smem(attn_bf16_kernel<kDp>, bytes);
+  CUtensorMap tq, tk, tv;
+  int e = make_map(&tq, q, g.D, g.S, g.Hq, B, g.q_ss, g.q_sh, g.q_sb, kBM);
+  if (!e) e = make_map(&tk, k, g.D, g.T, g.Hkv, B, g.k_st, g.k_sh, g.k_sb, kBN);
+  if (!e) e = make_map(&tv, v, g.D, g.T, g.Hkv, B, g.v_st, g.v_sh, g.v_sb, kBN);
   if (e) return e;
-  dim3 grid((g.S + kBQ - 1) / kBQ, g.Hq, B);
-  attn_bf16_kernel<kDp><<<grid, kThreads, bytes, s>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), g);
+  constexpr size_t bytes = Smem<kNB>::bytes;
+  e = set_smem(attn_wgmma_kernel<kNB>, bytes);
+  if (e) return e;
+  dim3 grid((g.S + kBM - 1) / kBM, g.Hq, B);
+  attn_wgmma_kernel<kNB><<<grid, kThreadsWS, bytes, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), g);
   return (int)cudaGetLastError();
 }
 
@@ -431,8 +655,10 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
 
 // q [B,Hq,S,D], k/v [B,Hkv,T,D], out like q, each with its own element strides
 // (the last dim dense). dtype: 0 = float32, 1 = bfloat16. D <= 128, a multiple
-// of 8 (bf16) or any (fp32); bf16 rows and strides 16-byte aligned. Causal
-// needs S <= T. Returns cudaGetLastError() after the launch (0 = launched).
+// of 8 (bf16) or any (fp32); bf16 pointers and strides 16-byte aligned (the
+// tensor maps' rule). Causal needs S <= T. Returns 0 when launched, a CUDA
+// error, or 10000 + the CUresult of cuTensorMapEncodeTiled when a tensor map
+// is refused.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int B, int Hq,
     int Hkv, int S, int T, int D, long long q_sb, long long q_sh, long long q_ss,
@@ -465,8 +691,8 @@ extern "C" int flash_attention_launch(
   }
   if (dtype == 1) {
     if (D % 8) return (int)cudaErrorInvalidValue;
-    return D <= 64 ? launch_bf16<64>(q, k, v, out, B, g, s)
-                   : launch_bf16<128>(q, k, v, out, B, g, s);
+    return D <= kBox ? launch_bf16<1>(q, k, v, out, B, g, s)
+                     : launch_bf16<2>(q, k, v, out, B, g, s);
   }
   return (int)cudaErrorInvalidValue;
 }

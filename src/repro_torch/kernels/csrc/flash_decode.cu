@@ -7,297 +7,714 @@
 //                 -1e30 where !kv_mask[b,t] ) @ v[b,t,hq/G,:]
 //
 // What bounds it on this card: bytes. Each K/V row is used by the G query
-// heads of its group for 2 * G * D FLOP against 2 * D * elemsize bytes; the
-// whole call is a read of the live part of the cache. So the design reads
-// each live row once and nothing else:
-//   * one block per (KV-time split, KV head, slot) serves the head's whole
-//     GQA group, so each K/V row leaves device memory once;
-//   * the cache's time axis is split across blocks (the "partial" mode the
-//     JAX module names): 8 slots x 8 KV heads are 64 (slot, head) pairs,
-//     far fewer than 132 SMs, so without the split most of the card would
-//     idle. Each split keeps a running (max, sum, fp32 accumulator); a second
-//     small kernel merges the splits by log-sum-exp;
-//   * a key's D-element row is read by a group of lanes, 16 bytes each
-//     (a head_dim of 120 bf16 values is 15 pieces: the group is 16 lanes and
-//     one idles), and several keys' loads are issued before the first is used;
-//   * masked keys are not read. A key that is masked scores -1e30 in the
-//     plain version, which adds exactly 0 wherever the slot has a live key;
-//     only a slot with no live key at all (a dead slot of the paged reference
-//     read) needs them, and there every key counts once, as the plain
-//     version's uniform mean over all T rows. Each block first ORs its slot's
-//     mask to know which case it is in.
-// The probabilities stay in fp32 (online form); the plain version rounds the
-// normalised ones to the I/O type before P.V, so in bf16 the two differ by
-// about one output ulp, and the kernel sits nearer an fp32 reference.
+// heads of its group for 4 * G * D FLOP against 2 * D * elemsize bytes; the
+// whole call is a read of the live part of the cache. So the design keeps
+// the memory busy and does as little per key as it can:
+//   * one block per (key split, KV head, group of 16 query rows, slot)
+//     serves the rows of the head's GQA group, so each K/V row leaves device
+//     memory once. The splits of one (slot, head, rows) form a thread-block
+//     cluster (at most 8, the portable size): 8 slots x 8 KV heads are 64
+//     pairs, far fewer than 132 SMs, so the time axis is split across blocks;
+//   * bf16 K/V tiles of 128 keys arrive by TMA (cp.async.bulk.tensor over a
+//     4-D map of the cache, 64-column boxes, 128-byte swizzled; columns past
+//     D and keys past T read as zeros) in a ring of 3 stages with an mbarrier
+//     each; thread-issued copies cap the bytes an SM has in flight well
+//     below what the memory needs. A tile with no live key is not loaded
+//     (unless the slot has none at all);
+//   * each of the 8 warps scores its 16 keys of a tile against the rows at
+//     once on the tensor cores (mma.sync m16n8k16, the rows padded to 16
+//     with zeros, K by ldmatrix from the swizzled tile), takes one max and
+//     one rescale per tile, rounds the unnormalised probabilities to bf16
+//     and adds P.V (V by ldmatrix.trans); l is kept in fp32. A warp whose 16
+//     keys hold no live key skips the tile;
+//   * float32 (the parity runs) takes the same structure with 64-key tiles
+//     copied by cp.async (16-byte pieces, masked keys unread) and the
+//     products on the CUDA cores;
+//   * at the end each block merges its warps through shared memory, and the
+//     blocks of a cluster merge by log-sum-exp through distributed shared
+//     memory: one launch a call, no partial results in device memory;
+//   * a masked key scores -1e30 in the plain version, which adds exactly 0
+//     wherever the slot has a live key; only a slot with no live key at all
+//     (a dead slot of the paged reference read) needs them, and there every
+//     key counts once, as the plain version's uniform mean over all T rows.
+//     Each block ORs the mask of its split, the cluster ORs the blocks'.
+#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap; the encoder comes through cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kAhead = 4;  // keys in flight per lane group
+constexpr int kRows = 16;    // query rows per block (the mma's M)
+constexpr int kMaxSplit = 8; // the portable cluster size
+constexpr int kBox = 64;     // bf16 columns of one 128-byte swizzled box
 constexpr float kMasked = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename T> struct Io;
-
-template <> struct Io<float> {
-  static constexpr int kVec = 4;
-  static __device__ __forceinline__ void unpack(const uint4& v, float* o) {
-    o[0] = __uint_as_float(v.x); o[1] = __uint_as_float(v.y);
-    o[2] = __uint_as_float(v.z); o[3] = __uint_as_float(v.w);
-  }
-  static __device__ __forceinline__ float from_float(float x) { return x; }
-};
-
-template <> struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static __device__ __forceinline__ void unpack(const uint4& v, float* o) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
-
 struct Geometry {
-  int Hq, Hkv, T, D, G, lpk, n_split, kps;  // lpk: lanes per key (power of 2)
+  int Hq, Hkv, T, D, G, n_split, kps, n_rg;  // n_rg: groups of kRows rows
+  float scale;
 };
 
-// merge (m2, l2, a2) into (m, l, a): the log-sum-exp combine
+// per type: values in a 16-byte piece, warps a block (each takes 16 keys of
+// a tile), ring stages
+template <typename T> struct Cfg;
+template <> struct Cfg<__nv_bfloat16> {
+  static constexpr int kVec = 8, kWarps = 8, kStages = 3;
+};
+template <> struct Cfg<float> {
+  static constexpr int kVec = 4, kWarps = 4, kStages = 2;
+};
+
+// Shared memory of one block. bf16, from a 1024-byte aligned base: the ring
+// of K and V tiles (kNB swizzled boxes of [kTK rows][128 B] a stage), the
+// query rows (padded by 16 bytes), each stage's key codes and barriers, the
+// live flag. fp32: the ring with rows padded by 16 bytes, the query rows,
+// the codes, the flag. After the loop the ring is reused for the merge: the
+// warps' (m, l, acc), then the block's, which the cluster reads.
+template <typename T, int kDp>
+struct Smem {
+  static constexpr bool kTma = sizeof(T) == 2;
+  static constexpr int kWarps = Cfg<T>::kWarps, kTK = 16 * kWarps;
+  static constexpr int kThreads = 32 * kWarps, kStages = Cfg<T>::kStages;
+  static constexpr int kNB = kDp / kBox;
+  static constexpr int kBoxBytes = kTK * 128;
+  static constexpr int kStride = kDp + 16 / (int)sizeof(T);  // q, fp32 tiles
+  static constexpr int kTile =
+      kTma ? kNB * kBoxBytes : kTK * kStride * (int)sizeof(T);
+  static constexpr int k = 0;
+  static constexpr int v = kStages * kTile;
+  static constexpr int q = 2 * v;
+  static constexpr int code = q + kRows * kStride * (int)sizeof(T);
+  static constexpr int bar = code + kStages * kTK;  // a multiple of 8
+  static constexpr int flag = bar + 8 * kStages;
+  static constexpr int bytes = flag + 16 + (kTma ? 1024 : 0);  // + alignment
+  // the merge, over the ring
+  static constexpr int red_acc = 0;                                 // [kWarps][kRows][kDp]
+  static constexpr int red_ml = red_acc + kWarps * kRows * kDp * 4; // [kWarps][kRows][2]
+  static constexpr int blk_acc = red_ml + kWarps * kRows * 2 * 4;   // [kRows][kDp]
+  static constexpr int blk_ml = blk_acc + kRows * kDp * 4;          // [kRows][2]
+  static_assert(blk_ml + kRows * 2 * 4 <= q, "merge area must fit the ring");
+  static_assert(bar % 8 == 0, "barriers are 8-byte aligned");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
 template <int N>
-__device__ __forceinline__ void merge(float& m, float& l, float* a, float m2,
-                                      float l2, const float* a2) {
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity) : "memory");
+}
+
+// one box of a 4-D tensor map (coordinates innermost first) into shared
+// memory; completion is counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// four 8x8 b16 matrices from shared memory; lane t gives the address of row
+// t % 8 of matrix t / 8. Plain: lane t gets (row t/4, cols 2(t%4), +1) of
+// each; .trans: (rows 2(t%4), +1, col t/4), the lower index in the low half.
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo = low half
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// 2^x, one MUFU op (inputs of -1e30 and below give 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// merge (m2, l2, a2) into (m, l, a): the log-sum-exp combine, base 2
+__device__ __forceinline__ void merge(float& m, float& l, float& a, float m2,
+                                      float l2, float a2) {
   const float mn = fmaxf(m, m2);
   if (mn == -INFINITY) return;  // both empty
-  const float w1 = expf(m - mn), w2 = expf(m2 - mn);
+  const float w1 = exp2f(m - mn), w2 = exp2f(m2 - mn);
   l = l * w1 + l2 * w2;
-#pragma unroll
-  for (int e = 0; e < N; ++e) a[e] = a[e] * w1 + a2[e] * w2;
+  a = a * w1 + a2 * w2;
   m = mn;
 }
 
-template <typename T, int kRows>
-__global__ void __launch_bounds__(kThreads) dense_decode_kernel(
+// a key of a tile: past the split (never counted), masked, or live
+constexpr unsigned char kPast = 0, kMaskedKey = 1, kLive = 2;
+
+// the score of a key for the tile's online softmax, base 2: -inf past the
+// split, -1e30 where masked, as the plain version
+__device__ __forceinline__ float score(float dot, float sl2, unsigned char code) {
+  return code == kLive ? dot * sl2 : code == kMaskedKey ? kMasked : -INFINITY;
+}
+
+// ---- one warp's 16 keys of a tile: bf16 on the tensor cores --------------
+
+template <int kDp>
+struct WarpBf16 {
+  static constexpr int kStride = kDp + 8, kDN = kDp / 8;
+  static constexpr int kBoxBytes = Smem<__nv_bfloat16, kDp>::kBoxBytes;
+  uint32_t qf[kDp / 16][4];
+  float acc[kDN][4];
+  float m[2], l[2];  // rows gid, gid + 8 (l: this thread's columns)
+
+  __device__ void init(const __nv_bfloat16* Qs, int, int lane) {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < kDp / 16; ++kk) {
+      const __nv_bfloat16* a = Qs + gid * kStride + kk * 16 + tig * 2;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(a);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(a + 8 * kStride);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(a + 8);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(a + 8 * kStride + 8);
+    }
+#pragma unroll
+    for (int n = 0; n < kDN; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    m[0] = m[1] = -INFINITY;
+    l[0] = l[1] = 0.f;
+  }
+
+  // Ks, Vs: the stage's tiles, boxes of [kTK rows][128 B] whose 16-byte
+  // chunk c of row r sits at chunk c ^ (r % 8) (the 128-byte swizzle); the
+  // warp's 16 keys are rows w16 .. w16 + 15
+  __device__ void tile(const unsigned char* Ks, const unsigned char* Vs,
+                       const unsigned char* code, int w16, float sl2, int lane) {
+    const int tig = lane & 3, mi = lane >> 3, mr = lane & 7;
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    // lane l addresses row l % 8 of matrix l / 8: (keys +8 for matrices
+    // 2-3, d +8 for matrices 1 and 3) gives b0, b1 of the two key n-tiles;
+    // every row this lane addresses is = mr (mod 8)
+    const unsigned char* krow = Ks + (w16 + (mi >> 1) * 8 + mr) * 128;
+#pragma unroll
+    for (int kk = 0; kk < kDp / 16; ++kk) {
+      const int cc = 2 * kk + (mi & 1);  // 16-byte chunk of the padded row
+      uint32_t b[4];
+      ldsm_x4(b, krow + (cc >> 3) * kBoxBytes + (((cc & 7) ^ mr) << 4));
+      mma_bf16(s[0], qf[kk], b[0], b[1]);
+      mma_bf16(s[1], qf[kk], b[2], b[3]);
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = score(s[n][e], sl2, code[w16 + n * 8 + tig * 2 + (e & 1)]);
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      alpha[r] = ex2(m[r] - mx[r]);  // m = -inf before the first key: 0
+      m[r] = mx[r];
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[n][e] = ex2(s[n][e] - m[e >> 1]);
+        l[e >> 1] += s[n][e];
+      }
+    }
+    uint32_t a[4];
+    a[0] = pack_f32(s[0][0], s[0][1]);
+    a[1] = pack_f32(s[0][2], s[0][3]);
+    a[2] = pack_f32(s[1][0], s[1][1]);
+    a[3] = pack_f32(s[1][2], s[1][3]);
+    // .trans: matrices (keys +0/+8, d +0/+8) give b0, b1 of two d n-tiles
+    const unsigned char* vrow = Vs + (w16 + (mi & 1) * 8 + mr) * 128;
+#pragma unroll
+    for (int n = 0; n < kDN; n += 2) {
+      acc[n][0] *= alpha[0]; acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1]; acc[n][3] *= alpha[1];
+      acc[n + 1][0] *= alpha[0]; acc[n + 1][1] *= alpha[0];
+      acc[n + 1][2] *= alpha[1]; acc[n + 1][3] *= alpha[1];
+      const int cc = n + (mi >> 1);
+      uint32_t b[4];
+      ldsm_x4_trans(b, vrow + (cc >> 3) * kBoxBytes + (((cc & 7) ^ mr) << 4));
+      mma_bf16(acc[n], a, b[0], b[1]);
+      mma_bf16(acc[n + 1], a, b[2], b[3]);
+    }
+  }
+
+  __device__ void store(float* red_acc, float* red_ml, int lane) {
+    const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(kFull, l[r], 1);
+      l[r] += __shfl_xor_sync(kFull, l[r], 2);
+      const int row = gid + 8 * r;
+      if (tig == 0) {
+        red_ml[row * 2] = m[r];
+        red_ml[row * 2 + 1] = l[r];
+      }
+#pragma unroll
+      for (int n = 0; n < kDN; ++n) {
+        red_acc[row * kDp + n * 8 + tig * 2] = acc[n][2 * r];
+        red_acc[row * kDp + n * 8 + tig * 2 + 1] = acc[n][2 * r + 1];
+      }
+    }
+  }
+};
+
+// ---- one warp's 16 keys of a tile: float32 on the CUDA cores -------------
+// lane = key (lane % 16) x half of the columns (lane / 16) for the scores;
+// lane = columns lane + 32 c for P.V
+
+template <int kDp>
+struct WarpF32 {
+  static constexpr int kStride = kDp + 4, kC = kDp / 32;
+  const float* Qs;
+  float acc[kRows][kC];
+  float m[kRows], l[kRows];
+  int rows;
+
+  __device__ void init(const float* q_smem, int n_rows, int) {
+    Qs = q_smem;
+    rows = n_rows;
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      m[r] = -INFINITY;
+      l[r] = 0.f;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[r][c] = 0.f;
+    }
+  }
+
+  __device__ void tile(const unsigned char* k_tile, const unsigned char* v_tile,
+                       const unsigned char* code, int w16, float sl2, int lane) {
+    const float* Ks = reinterpret_cast<const float*>(k_tile);
+    const float* Vs = reinterpret_cast<const float*>(v_tile);
+    const int j = lane & 15, half = lane >> 4;
+    const float* kr = Ks + (w16 + j) * kStride + half * (kDp / 2);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (r >= rows) break;
+      const float* qr = Qs + r * kStride + half * (kDp / 2);
+      float dot = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < kDp / 2; ++d) dot = fmaf(qr[d], kr[d], dot);
+      dot += __shfl_xor_sync(kFull, dot, 16);
+      const float sc = score(dot, sl2, code[w16 + j]);
+      float mx = sc;
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      mx = fmaxf(mx, m[r]);
+      const float alpha = exp2f(m[r] - mx);
+      const float p = exp2f(sc - mx);
+      float ps = p;
+#pragma unroll
+      for (int off = 1; off < 16; off <<= 1) ps += __shfl_xor_sync(kFull, ps, off);
+      l[r] = l[r] * alpha + ps;
+      m[r] = mx;
+#pragma unroll
+      for (int c = 0; c < kC; ++c) acc[r][c] *= alpha;
+#pragma unroll
+      for (int jj = 0; jj < 16; ++jj) {
+        const float pj = __shfl_sync(kFull, p, jj);
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          acc[r][c] = fmaf(pj, Vs[(w16 + jj) * kStride + lane + 32 * c], acc[r][c]);
+      }
+    }
+  }
+
+  __device__ void store(float* red_acc, float* red_ml, int lane) {
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      if (lane == 0) {
+        red_ml[r * 2] = m[r];
+        red_ml[r * 2 + 1] = l[r];
+      }
+#pragma unroll
+      for (int c = 0; c < kC; ++c) red_acc[r * kDp + lane + 32 * c] = acc[r][c];
+    }
+  }
+};
+
+template <typename T, int kDp> struct Warp;
+template <int kDp> struct Warp<__nv_bfloat16, kDp> : WarpBf16<kDp> {};
+template <int kDp> struct Warp<float, kDp> : WarpF32<kDp> {};
+
+// the tensor maps of a bf16 cache (unused by fp32)
+struct Maps {
+  CUtensorMap k, v;
+};
+
+template <typename T, int kDp>
+__global__ void __launch_bounds__(Smem<T, kDp>::kThreads) dense_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const unsigned char* __restrict__ mask, T* __restrict__ out,
-    float* __restrict__ part_acc, float* __restrict__ part_ml, Geometry g,
-    float scale) {
-  constexpr int kVec = Io<T>::kVec;
+    const __grid_constant__ Maps maps, const unsigned char* __restrict__ mask,
+    T* __restrict__ out, Geometry g) {
+  using L = Smem<T, kDp>;
+  constexpr int kVec = Cfg<T>::kVec, kStages = L::kStages;
+  constexpr int kWarps = L::kWarps, kTK = L::kTK, kThreads = L::kThreads;
+  constexpr int kStride = L::kStride;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int split = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  unsigned char* sm =
+      L::kTma ? smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023) : smem_raw;
+  T* Qs = reinterpret_cast<T*>(sm + L::q);
+  unsigned char* codes = sm + L::code;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bar);
+  int* flag = reinterpret_cast<int*>(sm + L::flag);
+  cg::cluster_group cluster = cg::this_cluster();
+
+  const int split = blockIdx.x;  // = the rank in the cluster (cluster = splits)
+  const int hk = blockIdx.y / g.n_rg, row0 = (blockIdx.y % g.n_rg) * kRows;
+  const int b = blockIdx.z;
+  const int rows = min(kRows, g.G - row0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int lpk = g.lpk, kpi = kThreads / lpk;  // keys per block iteration
-  const int kq = tid / lpk, d0 = (tid - kq * lpk) * kVec;
-  const bool has_d = d0 < g.D;
-  const int dw = lpk * kVec;  // padded row width held by a lane group
-  float* red_ml = reinterpret_cast<float*>(smem_raw);  // [kWarps][kRows][2]
-  float* red_acc = red_ml + kWarps * kRows * 2;        // [kWarps][kRows][dw]
   const int t_begin = split * g.kps, t_end = min(g.T, t_begin + g.kps);
   const unsigned char* mrow = mask + (long long)b * g.T;
+  const int dch = g.D / kVec;  // 16-byte pieces of a row
 
-  // does the slot have a live key anywhere? If not, every key counts
+  // does the slot have a live key anywhere? each block ORs its split, the
+  // cluster ORs the blocks (the splits cover all T keys)
   int any = 0;
-  for (int t = tid; t < g.T; t += kThreads) any |= mrow[t];
-  const bool live_any = __syncthreads_or(any) != 0;
+  for (int t = t_begin + tid; t < t_end; t += kThreads) any |= mrow[t];
+  any = __syncthreads_or(any);
+  if (tid == 0) {
+    *flag = any;
+    if constexpr (L::kTma) {
+      for (int i = 0; i < kStages; ++i) mbar_init(&full[i], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+  }
 
-  for (int r0 = 0; r0 < g.G; r0 += kRows) {
-    float qreg[kRows][kVec];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      uint4 raw = make_uint4(0, 0, 0, 0);
-      if (has_d && r0 + j < g.G)
-        raw = *reinterpret_cast<const uint4*>(
-            q + ((long long)b * g.Hq + h * g.G + r0 + j) * g.D + d0);
-      Io<T>::unpack(raw, qreg[j]);
+  // the query rows, zero past the group and in the padding columns; fp32:
+  // zero padding columns in every K/V stage (the copies never write them)
+  for (int i = tid; i < kRows * (kDp / kVec); i += kThreads) {
+    const int r = i / (kDp / kVec), c = i % (kDp / kVec);
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r < rows && c < dch)
+      val = *reinterpret_cast<const uint4*>(
+          q + ((long long)b * g.Hq + hk * g.G + row0 + r) * g.D + c * kVec);
+    *reinterpret_cast<uint4*>(Qs + r * kStride + c * kVec) = val;
+  }
+  if constexpr (!L::kTma) {
+    T* Ks = reinterpret_cast<T*>(sm + L::k);
+    T* Vs = reinterpret_cast<T*>(sm + L::v);
+    const int pad = kDp / kVec - dch;
+    for (int i = tid; i < kStages * kTK * pad; i += kThreads) {
+      const int r = i / pad, c = dch + i % pad;
+      *reinterpret_cast<uint4*>(Ks + r * kStride + c * kVec) = make_uint4(0, 0, 0, 0);
+      *reinterpret_cast<uint4*>(Vs + r * kStride + c * kVec) = make_uint4(0, 0, 0, 0);
     }
-    float m[kRows], l[kRows], acc[kRows][kVec];
+  }
+  cluster.sync();  // flags and barriers are set, and every block has started
+  int live_any = 0;
+  for (int r = 0; r < g.n_split; ++r) live_any |= *cluster.map_shared_rank(flag, r);
+
+  const int n_tiles = (t_end - t_begin + kTK - 1) / kTK;
+  // Tile i into stage st. bf16: warp 0 writes the key codes and, where the
+  // tile has a key to count, lane 0 loads it by TMA (else a plain arrive).
+  // fp32: a key row's 16-byte pieces on consecutive threads, masked keys
+  // unread, the first piece's thread writes the code.
+  auto load = [&](int st, int i) {
+    const int t0 = t_begin + i * kTK;
+    if constexpr (L::kTma) {
+      if (warp != 0) return;
+      bool need = false;
 #pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      m[j] = -INFINITY;
-      l[j] = 0.f;
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[j][e] = 0.f;
-    }
-    for (int t0 = t_begin; t0 < t_end; t0 += kpi * kAhead) {
-      uint4 kraw[kAhead], vraw[kAhead];
-      bool ok[kAhead], use[kAhead];
-#pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        const int t = t0 + u * kpi + kq;
+      for (int j = 0; j < kTK / 32; ++j) {
+        const int t = t0 + lane + 32 * j;
         const bool in = t < t_end;
-        ok[u] = in && mrow[t] != 0;
-        use[u] = in && (ok[u] || !live_any);
-        const long long off = (((long long)b * g.T + t) * g.Hkv + h) * g.D + d0;
-        kraw[u] = (ok[u] && has_d) ? *reinterpret_cast<const uint4*>(k + off)
-                                   : make_uint4(0, 0, 0, 0);
-        vraw[u] = (use[u] && has_d) ? *reinterpret_cast<const uint4*>(v + off)
-                                    : make_uint4(0, 0, 0, 0);
+        const bool live = in && mrow[t] != 0;
+        codes[st * kTK + lane + 32 * j] = live ? kLive : in ? kMaskedKey : kPast;
+        need |= live_any ? live : in;
       }
+      need = __any_sync(kFull, need);
+      __syncwarp();
+      if (lane == 0) {
+        if (need) {
+          mbar_expect_tx(&full[st], 2 * L::kTile);
 #pragma unroll
-      for (int u = 0; u < kAhead; ++u) {
-        float kf[kVec], vf[kVec];
-        Io<T>::unpack(kraw[u], kf);
-        Io<T>::unpack(vraw[u], vf);
-#pragma unroll
-        for (int j = 0; j < kRows; ++j) {
-          float dot = 0.f;
-#pragma unroll
-          for (int e = 0; e < kVec; ++e) dot = fmaf(qreg[j][e], kf[e], dot);
-          for (int off = lpk >> 1; off > 0; off >>= 1)
-            dot += __shfl_xor_sync(kFull, dot, off);
-          if (use[u]) {
-            const float s = ok[u] ? dot * scale : kMasked;
-            const float mn = fmaxf(m[j], s);
-            const float alpha = expf(m[j] - mn);
-            const float p = expf(s - mn);
-            l[j] = l[j] * alpha + p;
-#pragma unroll
-            for (int e = 0; e < kVec; ++e) acc[j][e] = fmaf(p, vf[e], acc[j][e] * alpha);
-            m[j] = mn;
+          for (int c = 0; c < L::kNB; ++c) {
+            tma_load(sm + L::k + st * L::kTile + c * L::kBoxBytes, &maps.k,
+                     &full[st], c * kBox, hk, t0, b);
+            tma_load(sm + L::v + st * L::kTile + c * L::kBoxBytes, &maps.v,
+                     &full[st], c * kBox, hk, t0, b);
           }
+        } else {
+          mbar_arrive(&full[st]);
         }
       }
-    }
-    // merge the lane groups of a warp, then the warps through shared memory
-    for (int off = lpk; off < 32; off <<= 1) {
+    } else {
+      constexpr int kPieces = kDp / kVec;
+      T* Ks = reinterpret_cast<T*>(sm + L::k);
+      T* Vs = reinterpret_cast<T*>(sm + L::v);
+      const int lr = tid / kPieces, lc = tid % kPieces;
 #pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        float a2[kVec];
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) a2[e] = __shfl_xor_sync(kFull, acc[j][e], off);
-        const float m2 = __shfl_xor_sync(kFull, m[j], off);
-        const float l2 = __shfl_xor_sync(kFull, l[j], off);
-        merge<kVec>(m[j], l[j], acc[j], m2, l2, a2);
-      }
-    }
-    if (lane < lpk) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        if (lane == 0) {
-          red_ml[(warp * kRows + j) * 2] = m[j];
-          red_ml[(warp * kRows + j) * 2 + 1] = l[j];
-        }
-#pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          red_acc[(warp * kRows + j) * dw + d0 + e] = acc[j][e];
-      }
-    }
-    __syncthreads();
-    for (int o = tid; o < kRows * g.D; o += kThreads) {
-      const int j = o / g.D, d = o - j * g.D;
-      if (r0 + j >= g.G) continue;
-      float mm = -INFINITY, ll = 0.f, aa = 0.f;
-      for (int w = 0; w < kWarps; ++w)
-        merge<1>(mm, ll, &aa, red_ml[(w * kRows + j) * 2],
-                 red_ml[(w * kRows + j) * 2 + 1], &red_acc[(w * kRows + j) * dw + d]);
-      const long long row = (long long)b * g.Hq + h * g.G + r0 + j;
-      if (g.n_split == 1) {
-        out[row * g.D + d] = Io<T>::from_float(aa / ll);
-      } else {
-        part_acc[(row * g.n_split + split) * g.D + d] = aa;
-        if (d == 0) {
-          part_ml[(row * g.n_split + split) * 2] = mm;
-          part_ml[(row * g.n_split + split) * 2 + 1] = ll;
+      for (int j = 0; j < kTK * kPieces / kThreads; ++j) {
+        const int r = lr + j * (kThreads / kPieces), t = t0 + r;
+        const bool in = t < t_end;
+        const bool live = in && mrow[t] != 0;
+        if (lc == 0) codes[st * kTK + r] = live ? kLive : in ? kMaskedKey : kPast;
+        if (lc < dch) {
+          const long long off =
+              (((long long)b * g.T + (in ? t : t_begin)) * g.Hkv + hk) * g.D + lc * kVec;
+          const int so = (st * kTK + r) * kStride + lc * kVec;
+          cp_async16(Ks + so, k + off, live);
+          cp_async16(Vs + so, v + off, live || (in && !live_any));
         }
       }
+      cp_async_commit();
     }
-    __syncthreads();
+  };
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < n_tiles) load(i, i);
+    else if constexpr (!L::kTma) cp_async_commit();  // keep the group count
   }
-}
 
-// out[b,hq,:] from the splits' (max, sum, accumulator)
-template <typename T>
-__global__ void __launch_bounds__(kThreads) combine_kernel(
-    const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    T* __restrict__ out, int D, int n_split) {
-  const long long row = (long long)blockIdx.y * gridDim.x + blockIdx.x;
-  const float* ml = part_ml + row * n_split * 2;
-  for (int d = threadIdx.x; d < D; d += kThreads) {
+  __syncthreads();  // the query rows are written
+  Warp<T, kDp> w;
+  w.init(Qs, rows, lane);
+  const float sl2 = g.scale * kLog2e;
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % kStages;
+    if constexpr (!L::kTma) cp_async_wait<kStages - 2>();
+    __syncthreads();  // every warp is done with tile i - 1: its stage is free
+    if (i + kStages - 1 < n_tiles) {
+      if constexpr (L::kTma) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load((i + kStages - 1) % kStages, i + kStages - 1);
+    } else if constexpr (!L::kTma) {
+      cp_async_commit();  // an empty group keeps the count
+    }
+    if constexpr (L::kTma) mbar_wait(&full[st], (i / kStages) & 1);
+    // a warp whose 16 keys hold none to count skips the tile
+    const unsigned char c = codes[st * kTK + warp * 16 + (lane & 15)];
+    if (__any_sync(kFull, live_any ? c == kLive : c != kPast))
+      w.tile(sm + L::k + st * L::kTile, sm + L::v + st * L::kTile, codes + st * kTK,
+             warp * 16, sl2, lane);
+  }
+  if constexpr (!L::kTma) cp_async_wait<0>();
+  __syncthreads();  // the ring is free: merge over it
+
+  float* red_acc = reinterpret_cast<float*>(sm + L::red_acc);
+  float* red_ml = reinterpret_cast<float*>(sm + L::red_ml);
+  float* blk_acc = reinterpret_cast<float*>(sm + L::blk_acc);
+  float* blk_ml = reinterpret_cast<float*>(sm + L::blk_ml);
+  w.store(red_acc + warp * kRows * kDp, red_ml + warp * kRows * 2, lane);
+  __syncthreads();
+  for (int i = tid; i < rows * g.D; i += kThreads) {
+    const int r = i / g.D, d = i - r * g.D;
     float mm = -INFINITY, ll = 0.f, aa = 0.f;
-    for (int i = 0; i < n_split; ++i)
-      merge<1>(mm, ll, &aa, ml[2 * i], ml[2 * i + 1],
-               &part_acc[(row * n_split + i) * D + d]);
-    out[row * D + d] = Io<T>::from_float(aa / ll);
+#pragma unroll
+    for (int ww = 0; ww < kWarps; ++ww)
+      merge(mm, ll, aa, red_ml[(ww * kRows + r) * 2], red_ml[(ww * kRows + r) * 2 + 1],
+            red_acc[(ww * kRows + r) * kDp + d]);
+    blk_acc[r * kDp + d] = aa;
+    if (d == 0) {
+      blk_ml[r * 2] = mm;
+      blk_ml[r * 2 + 1] = ll;
+    }
   }
+  cluster.sync();  // every block's partial is in its shared memory
+
+  // the cluster's merge: this block writes its share of the outputs
+  for (int i = split * kThreads + tid; i < rows * g.D; i += g.n_split * kThreads) {
+    const int r = i / g.D, d = i - r * g.D;
+    float mm = -INFINITY, ll = 0.f, aa = 0.f;
+    for (int rk = 0; rk < g.n_split; ++rk) {
+      const float* ml = cluster.map_shared_rank(blk_ml, rk);
+      const float* ac = cluster.map_shared_rank(blk_acc, rk);
+      merge(mm, ll, aa, ml[r * 2], ml[r * 2 + 1], ac[r * kDp + d]);
+    }
+    out[((long long)b * g.Hq + hk * g.G + row0 + r) * g.D + d] =
+        from_float<T>(aa / ll);
+  }
+  cluster.sync();  // no block leaves while its shared memory is read
 }
 
-template <typename T, int kRows>
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, reached through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &res) == cudaSuccess &&
+        res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a contiguous bf16 [B, T, Hkv, D] cache as a 4-D map (D, Hkv, T, B); boxes
+// of 64 columns x 1 head x kTK keys, 128-byte swizzled; what lies past D or
+// past the last key reads as 0
+int make_map(CUtensorMap* map, const void* ptr, int B, int T, int Hkv, int D,
+             int tk) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2,
+                                 (cuuint64_t)T * Hkv * D * 2};
+  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)tk, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(ptr), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 10000 + (int)r;  // 10000 + the CUresult
+}
+
+template <typename T, int kDp>
 int launch(const void* q, const void* k, const void* v, const unsigned char* mask,
-           void* out, float* part_acc, float* part_ml, int B, const Geometry& g,
-           float scale, cudaStream_t s) {
-  const size_t bytes =
-      (size_t)kWarps * kRows * (2 + g.lpk * Io<T>::kVec) * sizeof(float);
-  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
+           void* out, int B, const Geometry& g, cudaStream_t s) {
+  using L = Smem<T, kDp>;
+  if (g.kps % L::kTK) return (int)cudaErrorInvalidValue;
+  Maps maps{};
+  if constexpr (L::kTma) {
+    int e = make_map(&maps.k, k, B, g.T, g.Hkv, g.D, L::kTK);
+    if (!e) e = make_map(&maps.v, v, B, g.T, g.Hkv, g.D, L::kTK);
+    if (e) return e;
+  }
+  constexpr int bytes = L::bytes;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        dense_decode_kernel<T, kRows>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        dense_decode_kernel<T, kDp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  dense_decode_kernel<T, kRows><<<dim3(g.n_split, g.Hkv, B), kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      mask, static_cast<T*>(out), part_acc, part_ml, g, scale);
-  if (g.n_split > 1) {
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    combine_kernel<T><<<dim3(g.Hq, B), kThreads, 0, s>>>(
-        part_acc, part_ml, static_cast<T*>(out), g.D, g.n_split);
-  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.n_split, g.Hkv * g.n_rg, B);
+  cfg.blockDim = dim3(L::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, dense_decode_kernel<T, kDp>, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), maps, mask,
+      static_cast<T*>(out), g);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, const unsigned char* mask,
-             void* out, float* part_acc, float* part_ml, int B, const Geometry& g,
-             float scale, cudaStream_t s) {
-#define LAUNCH(N) \
-  return launch<T, N>(q, k, v, mask, out, part_acc, part_ml, B, g, scale, s)
-  if (g.G <= 1) LAUNCH(1);
-  if (g.G <= 2) LAUNCH(2);
-  if (g.G <= 4) LAUNCH(4);
-  LAUNCH(8);
-#undef LAUNCH
 }
 
 }  // namespace
 
-// q [B,Hq,D], k/v [B,T,Hkv,D], mask bool [B,T], out [B,Hq,D], all contiguous.
-// dtype: 0 = float32, 1 = bfloat16. lpk = lanes per key: a power of two
-// <= 32 with lpk * (16 / sizeof(T)) >= D; D * sizeof(T) a multiple of 16.
-// The time axis is cut into n_split pieces of kps keys; with n_split > 1,
-// part_acc [B,Hq,n_split,D] and part_ml [B,Hq,n_split,2] (fp32) are scratch.
-// Returns cudaGetLastError() after the launches (0 = launched).
+// q [B,Hq,D], k/v [B,T,Hkv,D], mask bool [B,T], out [B,Hq,D], all contiguous
+// and 16-byte aligned. dtype: 0 = float32, 1 = bfloat16. D <= 128, a whole
+// number of 16-byte pieces. The time axis is cut into n_split (<= 8) pieces
+// of kps keys, kps a multiple of the tile (128 keys in bf16, 64 in fp32),
+// (n_split - 1) * kps < T <= n_split * kps; the splits of one (slot, KV
+// head, 16 query rows) form one cluster. Returns 0 when launched, a CUDA
+// error, or 10000 + the CUresult of cuTensorMapEncodeTiled when a tensor map
+// is refused.
 extern "C" int flash_decode_launch(
     const void* q, const void* k, const void* v, const unsigned char* mask,
-    void* out, float* part_acc, float* part_ml, int B, int Hq, int Hkv, int T,
-    int D, int lpk, int n_split, int kps, float scale, int dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || Hq % Hkv || T <= 0 || D <= 0 || B > 65535 ||
-      Hkv > 65535 || Hq > 65535 || lpk < 1 || lpk > 32 || (lpk & (lpk - 1)) ||
-      n_split < 1 || kps < 1 || (long long)n_split * kps < T ||
-      (n_split > 1 && (part_acc == nullptr || part_ml == nullptr)))
+    void* out, int B, int Hq, int Hkv, int T, int D, int n_split, int kps,
+    float scale, int dtype, void* stream) {
+  if (B <= 0 || Hkv <= 0 || Hq % Hkv || T <= 0 || D <= 0 || D > 128 ||
+      B > 65535 || n_split < 1 || n_split > kMaxSplit || kps < 1 ||
+      (long long)n_split * kps < T || (long long)(n_split - 1) * kps >= T)
     return (int)cudaErrorInvalidValue;
   Geometry g;
   g.Hq = Hq; g.Hkv = Hkv; g.T = T; g.D = D; g.G = Hq / Hkv;
-  g.lpk = lpk; g.n_split = n_split; g.kps = kps;
+  g.n_split = n_split; g.kps = kps; g.n_rg = (g.G + kRows - 1) / kRows;
+  g.scale = scale;
+  if ((long long)Hkv * g.n_rg > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (D % 4 || lpk * 4 < D) return (int)cudaErrorInvalidValue;
-    return dispatch<float>(q, k, v, mask, out, part_acc, part_ml, B, g, scale, s);
+    if (D % 4) return (int)cudaErrorInvalidValue;
+    return D <= 64 ? launch<float, 64>(q, k, v, mask, out, B, g, s)
+                   : launch<float, 128>(q, k, v, mask, out, B, g, s);
   }
   if (dtype == 1) {
-    if (D % 8 || lpk * 8 < D) return (int)cudaErrorInvalidValue;
-    return dispatch<__nv_bfloat16>(q, k, v, mask, out, part_acc, part_ml, B, g,
-                                   scale, s);
+    if (D % 8) return (int)cudaErrorInvalidValue;
+    return D <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, mask, out, B, g, s)
+                   : launch<__nv_bfloat16, 128>(q, k, v, mask, out, B, g, s);
   }
   return (int)cudaErrorInvalidValue;
 }

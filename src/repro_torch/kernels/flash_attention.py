@@ -8,20 +8,26 @@ flash_attention`` (``_attn_kernel``): causal attention with the queries
 aligned to the END of the key stream (``q_offset = T - S``), an optional
 sliding window, GQA by index (kv head = q head // group). Bound: operations
 (``4 * D * Hq * live (q, k) pairs`` FLOP against one read of q, K, V and one
-write of the output). ``csrc/flash_attention.cu`` keeps the Pallas kernel's
-online-softmax form but on the tensor cores: one block per 64 query rows of a
-head loops over 64-key tiles, skips the tiles the causal diagonal and the
-window rule out, masks the rest by absolute position, and runs Q.K^T and
-P.V as ``mma.sync`` (bf16 in, fp32 accumulate) with the next K/V tile's
-``cp.async`` in flight. head_dim 120 is padded to 128 with zeros in shared
-memory. float32 takes a CUDA-core path. Masked scores are -1e30 as in the
-plain version; every row the wrapper accepts has a live key, so no row is
-all-masked. The Pallas wrapper's block-halving for ragged S and T does not
-carry over: the kernel masks its own edges.
+write of the output). ``csrc/flash_attention.cu`` keeps
+the Pallas kernel's online-softmax form, built for Hopper in bf16: one block
+per 192 query rows of a head, three consumer warpgroups of 64 rows and a
+producer warpgroup that loads Q once and 64-key K/V tiles through rings of
+stages by TMA (``cp.async.bulk.tensor`` over 4-D tensor maps of the caller's
+strides, 128-byte swizzled, ``mbarrier``s full/empty); Q.K^T and P.V run as
+``wgmma`` (bf16 in, fp32 accumulate, P from registers). Tiles the causal
+diagonal and the window rule out are never loaded; the rest are masked by
+absolute position. head_dim 120 is two 64-column boxes whose columns
+120-127 lie past the tensor and arrive as zeros. float32 takes a CUDA-core
+path. A masked key adds exactly 0, as the plain version's -1e30 does in a
+row with a live key, and every row the wrapper accepts has one. The Pallas wrapper's
+block-halving for ragged S and T does not carry over: the kernel masks its
+own edges.
 
 Layout: ``[B, H, S, D]`` as the JAX function takes it, with any strides whose
 last dimension is dense, so the model passes its ``[B, S, H, D]`` tensors
-transposed, without a copy; the output has the query's strides.
+transposed, without a copy; the output has the query's strides. In bf16 each
+operand becomes a tensor map (``tensor_map_geometry``): its pointer and
+strides must be whole 16-byte units.
 
 On a CPU tensor the wrapper runs the plain version (over blocks of 1024
 query rows once S * T passes 4096 * 2048, as the JAX package's ``sdpa``
@@ -87,6 +93,40 @@ def _ref_blocked(q, k, v, causal, window):
                       for i in range(0, s, _QBLOCK)], dim=2)
 
 
+# the bf16 kernel's TMA boxes are 64 columns (128 swizzled bytes) wide
+BOX_COLS = 64
+
+
+def tensor_map_geometry(x: torch.Tensor) -> dict:
+    """The 4-D TMA tensor map of a bf16 ``[B, H, N, D]`` operand of the
+    kernel (``csrc/flash_attention.cu::make_map``): ``dims`` innermost first
+    ``(D, N, H, B)``, ``byte_strides`` of ``(N, H, B)`` as the map takes
+    them, the element ``strides`` ``(batch, head, row)`` as the launch takes
+    them, and ``boxes``, the 64-column boxes that cover D (columns past D read as
+    zeros). A dimension of extent 1 is never stepped, so its stride becomes
+    one 16-byte unit. Raises ``ValueError`` where the map cannot be made:
+    a pointer or a stride that is not a whole number of 16-byte units, a
+    last dimension that is not dense, or D past 128."""
+    if x.dim() != 4 or x.element_size() != 2:
+        raise ValueError("a tensor map is made of a 16-bit [B, H, N, D] tensor")
+    b, h, n, d = x.shape
+    vec = 16 // x.element_size()
+    if d > 2 * BOX_COLS or d % vec or x.stride(3) != 1:
+        raise ValueError(f"head_dim {d} with stride {x.stride(3)}: a tensor "
+                         f"map takes a dense row of <= 128 columns, a "
+                         f"multiple of {vec}")
+    strides = tuple(vec if ext == 1 else st
+                    for ext, st in zip((b, h, n), x.stride()[:3]))
+    if x.data_ptr() % 16 or any(st <= 0 or st % vec for st in strides):
+        raise ValueError(f"bfloat16 flash_attention needs 16-byte aligned "
+                         f"rows (pointer {x.data_ptr()}, strides "
+                         f"{x.stride()})")
+    return dict(dims=(d, n, h, b), strides=strides,
+                byte_strides=tuple(st * x.element_size()
+                                   for st in strides[::-1]),
+                boxes=-(-d // BOX_COLS))
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError("q must be [B,Hq,S,D] and k/v [B,Hkv,T,D]")
@@ -125,18 +165,20 @@ def flash_attention(q, k, v, causal: bool = True,
     ts = (q, k, v, out)
     if any(x.stride(3) != 1 for x in ts):
         raise ValueError("flash_attention needs a dense last dimension")
-    if q.dtype == torch.bfloat16 and any(
-            x.data_ptr() % 16 or any(st % vec for st in x.stride()[:3])
-            for x in ts):
-        raise ValueError("bfloat16 flash_attention needs 16-byte aligned "
-                         "rows (pointers and strides)")
+    if q.dtype == torch.bfloat16:
+        strides = [tensor_map_geometry(x)["strides"] for x in ts]
+    else:
+        strides = [x.stride()[:3] for x in ts]
     with build.on_device(q.device):
         err = build.load_library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, hq, hkv, s, t, d, *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], *out.stride()[:3], int(causal), int(window),
+            b, hq, hkv, s, t, d, *strides[0], *strides[1], *strides[2],
+            *strides[3], int(causal), int(window),
             float(d ** -0.5), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= build.MAP_ERROR:
+        raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (CUresult {err - build.MAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1

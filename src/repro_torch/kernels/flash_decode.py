@@ -32,17 +32,22 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py::
 flash_decode`` (``_decode_kernel``): one query row per head against a dense
 ``[B, T, Hkv, D]`` cache masked by ``kv_mask [B, T]``. Bound: bytes, those of
 the live K and V rows (``n_live * Hkv * D * 2 * elemsize``) plus q, the mask
-and the output. ``csrc/flash_decode.cu`` is K2's organisation over the dense
-cache: one block per (slot, KV head) serves the whole GQA group, so each row
-leaves device memory once, and the time axis is split across blocks with a
-log-sum-exp combine (a second small launch), because the slots x KV heads of
-a decode batch are far fewer than the card's SMs. Masked rows are not read:
-they add exactly 0 wherever the slot has a live key. A slot with no live key
-gives the plain version's finite uniform mean over all T rows (the Pallas
-kernel gives 0 there; the paged reference read hands dead slots to this
-function, and the port follows ``ref``/``sdpa`` as K2 does). The kernel keeps
-the probabilities in fp32 (online form); the plain version rounds them to
-the I/O type, about one output ulp apart in bf16.
+and the output. ``csrc/flash_decode.cu``: one block per (key split, KV head,
+16 query rows, slot) serves the head's GQA group, so each row leaves device
+memory once; bf16 K/V tiles of 128 keys arrive by TMA through a ring of
+three stages (tiles with no live key unread; fp32: 64-key tiles by
+``cp.async``, masked keys unread); each warp scores its 16 keys on the
+tensor cores (the rows padded to 16), with one max and one rescale per tile.
+The splits of one (slot, head, rows) form a thread-block cluster and merge by
+log-sum-exp through distributed shared memory at the end of the same kernel:
+one launch a call. The split plan (``_splits``) depends on the shapes and
+the card's SM count only, so a result never depends on timing. A slot with
+no live key gives the plain version's finite uniform mean over all T rows
+(the Pallas kernel gives 0 there; the paged reference read hands dead slots
+to this function, and the port follows ``ref``/``sdpa`` as K2 does). The
+kernel rounds the unnormalised probabilities to bf16 for P.V and keeps l in
+fp32; the plain version rounds the normalised ones, about one output ulp
+apart in bf16. float32 runs the same structure on the CUDA cores.
 
 On a CPU tensor the wrappers run the plain versions; on a CUDA tensor they
 launch the kernel or raise.
@@ -201,19 +206,71 @@ def flash_decode_ref(
     return torch.einsum("bht,bthd->bhd", probs, v)
 
 
-# key splits: enough blocks for two waves over the card's SMs, at least this
-# many keys each
-_MIN_SPLIT_KEYS = 64
+# the kernel's blocks: query rows per block, at most this many splits
+# (blocks) in a cluster (the portable cluster size)
+BLOCK_ROWS = 16
+MAX_SPLIT = 8
+_SMEM_PER_SM = 228 * 1024   # an H100 SM's shared memory; 1 KB of it per block
 
 
-def _splits(dev: torch.device, b: int, hkv: int, t: int):
-    """(n_split, keys per split) for a ``[B, T, Hkv, D]`` cache. Depends on
+def tile_keys(elem_size: int) -> int:
+    """Keys per tile: 16 for each warp of a block, 8 warps in bf16, 4 in
+    fp32 (``csrc/flash_decode.cu::Cfg``)."""
+    return 128 if elem_size == 2 else 64
+
+
+def smem_bytes(elem_size: int, d: int) -> int:
+    """Dynamic shared memory of one block (``csrc/flash_decode.cu::Smem``).
+    bf16: 3 stages of K and V tiles in 64-column swizzled boxes of 128 rows
+    of 128 bytes, the 16 query rows padded by 16 bytes, a code byte per key
+    of each stage, a barrier per stage, a flag, and 1 KB to align the base.
+    fp32: 2 stages of 64-key tiles with rows padded by 16 bytes, the query
+    rows, the codes and the flag."""
+    dp = 64 if d <= 64 else 128
+    tk = tile_keys(elem_size)
+    if elem_size == 2:
+        tile = dp // 64 * tk * 128
+        return 2 * 3 * tile + 16 * (dp + 8) * 2 + 3 * tk + 8 * 3 + 16 + 1024
+    stride = (dp + 4) * 4
+    return 2 * 2 * tk * stride + 16 * stride + 2 * tk + 8 * 2 + 16
+
+
+def _splits(sms: int, b: int, hkv: int, g: int, t: int, elem_size: int = 2,
+            d: int = 128):
+    """(n_split, keys per split) for a ``[B, T, Hkv, D]`` cache read by GQA
+    groups of ``g`` rows on a card of ``sms`` SMs. The clusters are the
+    (slot, KV head, 16 rows) triples; each takes up to 8 splits, as many as
+    one wave of the card holds (the blocks that fit an SM's shared memory,
+    times its SMs) over the clusters, and never more than the tiles. Each
+    split is a whole number of tiles and holds at least one key. Depends on
     the shapes and the card only, so a result never depends on timing."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, -(-2 * sms // (b * hkv)))
-    kps = -(-t // min(want, max(1, t // _MIN_SPLIT_KEYS)))
-    kps = -(-kps // _MIN_SPLIT_KEYS) * _MIN_SPLIT_KEYS
+    clusters = b * hkv * -(-g // BLOCK_ROWS)
+    per_sm = max(1, _SMEM_PER_SM // (smem_bytes(elem_size, d) + 1024))
+    tk = tile_keys(elem_size)
+    tiles = -(-t // tk)
+    n = max(1, min(MAX_SPLIT, per_sm * sms // clusters, tiles))
+    kps = -(-tiles // n) * tk
     return -(-t // kps), kps
+
+
+def kernel_plan(q, k, v, sms: int):
+    """The kernel's ``(n_split, keys per split)`` for these operands on a
+    card of ``sms`` SMs (``_splits``). Raises ``ValueError`` on what the
+    kernel does not take: a head_dim that is not a whole number of 16-byte
+    pieces or is past 128, an empty cache, operands that are not contiguous
+    or not 16-byte aligned."""
+    b, hq, d = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    vec = 16 // q.element_size()
+    if t == 0 or d % vec or d > 128:
+        raise ValueError(f"head_dim {d} in {q.dtype}: the row must be a whole "
+                         f"number of 16-byte pieces, at most 128 values, and "
+                         f"T > 0 (T={t})")
+    if not all(x.is_contiguous() for x in (q, k, v)):
+        raise ValueError("flash_decode needs contiguous q, k and v")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_decode needs 16-byte aligned q, k and v")
+    return _splits(sms, b, hkv, hq // hkv, t, q.element_size(), d)
 
 
 def flash_decode(q, k, v, kv_mask) -> torch.Tensor:
@@ -239,37 +296,21 @@ def flash_decode(q, k, v, kv_mask) -> torch.Tensor:
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_decode takes float32 or bfloat16, got "
                         f"{q.dtype}")
-    vec = 16 // q.element_size()
-    lpk = 1 << max(0, (-(-d // vec) - 1).bit_length())  # lanes per key row
-    if t == 0 or d % vec or lpk > 32:
-        raise ValueError(f"head_dim {d} in {q.dtype}: the row must be at most "
-                         f"32 16-byte pieces, a whole number of them, and "
-                         f"T > 0 (T={t})")
-    if not all(x.is_contiguous() for x in (q, k, v)):
-        raise ValueError("flash_decode needs contiguous q, k and v")
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_decode needs 16-byte aligned q, k and v")
     mask = kv_mask.to(torch.bool).contiguous()
-    n_split, kps = _splits(q.device, b, hkv, t)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split, kps = kernel_plan(q, k, v, sms)
     out = torch.empty_like(q)
-    part_acc = part_ml = None
-    if n_split > 1:
-        part_acc = torch.empty((b, hq, n_split, d), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((b, hq, n_split, 2), dtype=torch.float32,
-                              device=q.device)
     with build.on_device(q.device):
         err = build.load_library().flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
-            out.data_ptr(),
-            part_acc.data_ptr() if n_split > 1 else None,
-            part_ml.data_ptr() if n_split > 1 else None,
-            b, hq, hkv, t, d, lpk, n_split, kps, float(d ** -0.5),
+            out.data_ptr(), b, hq, hkv, t, d, n_split, kps, float(d ** -0.5),
             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= build.MAP_ERROR:
+        raise RuntimeError(f"flash_decode: cuTensorMapEncodeTiled refused a "
+                           f"tensor map (CUresult {err - build.MAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
-    # two kernels when the keys are split: the split pass and the combine
-    flash_decode.launches += 1 + (n_split > 1)
+    flash_decode.launches += 1
     return out
 
 

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..core import ring as R
+from ..core.types import resolve_device
 
 PagedKV = Dict[str, torch.Tensor]
 
@@ -127,10 +128,12 @@ class BlockPool:
 
 def make_paged_kv(n_layers: int, n_blocks: int, page_size: int, n_slots: int,
                   max_pages: int, h: int, dh: int, dtype=torch.float32,
-                  ring_size: int = 0, device="cpu") -> PagedKV:
+                  ring_size: int = 0, device="cuda") -> PagedKV:
     """Paged cache dict; ``ring_size > 0`` attaches the staging overlay. The
     pool planes hold ``n_blocks + 1`` blocks: the last one is the drop
-    sink (see the module docstring)."""
+    sink (see the module docstring). On the card unless ``device`` says
+    otherwise (``device="cpu"`` runs on the CPU on purpose)."""
+    device = resolve_device(device)
     shape = (n_layers, n_blocks + 1, page_size, h, dh)
     cache = {
         "pages_k": torch.zeros(shape, dtype=dtype, device=device),

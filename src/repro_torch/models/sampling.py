@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core.types import resolve_device
+
 # Fixed width of the per-slot stop-token table (padded with -1, which no
 # vocabulary token equals). cfg.eos_id takes one entry.
 MAX_STOP_TOKENS = 4
@@ -67,7 +69,10 @@ class SlotParams(NamedTuple):
     stop: torch.Tensor
 
 
-def make_slot_params(n_slots: int, device="cpu") -> SlotParams:
+def make_slot_params(n_slots: int, device="cuda") -> SlotParams:
+    """Per-slot sampling parameters, on the card unless ``device`` says
+    otherwise."""
+    device = resolve_device(device)
     return SlotParams(
         temperature=torch.zeros((n_slots,), dtype=torch.float32, device=device),
         top_k=torch.zeros((n_slots,), dtype=torch.int64, device=device),

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from ..core.paths import MemoryConfig, normalize_groups, validate
-from ..core.types import WriteBatch, make_write_batch
+from ..core.types import WriteBatch, make_write_batch, resolve_device
 from ..data.pipeline import RequestQueue
 from ..kvcache import paged as PG
 from ..models import sampling as SMP
@@ -104,7 +104,9 @@ class SlotState(NamedTuple):
                           top_p=self.top_p, stop=self.stop)
 
 
-def make_slots(n_slots: int, device="cpu") -> SlotState:
+def make_slots(n_slots: int, device="cuda") -> SlotState:
+    """Per-slot decode state, on the card unless ``device`` says otherwise."""
+    device = resolve_device(device)
     sp = SMP.make_slot_params(n_slots, device)
 
     def ints(fill, *shape):

@@ -258,3 +258,162 @@ def test_attention_core_is_causal_sdpa_with_window():
                    JL.causal_mask(50, 50, cfg.sliding_window))
     got = TL.attention_core(cfg, *_t(q, k, v))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' Python side: the split plan of flash_decode's clusters, the
+# tensor maps of flash_attention's bf16 path, and what they refuse
+# ---------------------------------------------------------------------------
+
+import importlib  # noqa: E402
+
+# the modules (the package exports the wrappers under the same names)
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
+FD = importlib.import_module("repro_torch.kernels.flash_decode")
+
+# sms, b, hkv, g, t, elem_size, d: the lanes slice on an H100 (132 SMs),
+# head_dim 64 and fp32, one (slot, head) over a long cache (8 splits), a
+# 37-key cache (one split), many clusters (one split each), GQA group 32
+# (two clusters of 16 rows per head), a card of 16 SMs
+SPLIT_CASES = [(132, 8, 8, 4, 4096, 2, 120), (132, 8, 8, 4, 4096, 2, 64),
+               (132, 8, 8, 4, 4096, 4, 120), (132, 1, 1, 4, 1500, 2, 64),
+               (132, 2, 4, 1, 37, 2, 120), (132, 64, 8, 4, 700, 2, 120),
+               (132, 2, 1, 32, 300, 2, 64), (16, 4, 2, 4, 5000, 2, 128),
+               (132, 3, 4, 1, 1, 4, 64), (132, 1, 1, 1, 128 * 8 + 1, 2, 64)]
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_decode_split_plan_covers_every_key_once(case):
+    sms, b, hkv, g, t, es, d = case
+    n, kps = FD._splits(sms, b, hkv, g, t, es, d)
+    assert 1 <= n <= FD.MAX_SPLIT
+    assert kps % FD.tile_keys(es) == 0
+    spans = [(i * kps, min(t, (i + 1) * kps)) for i in range(n)]
+    assert all(lo < hi for lo, hi in spans)        # no empty split
+    covered = np.zeros(t, np.int64)
+    for lo, hi in spans:
+        covered[lo:hi] += 1
+    assert (covered == 1).all()
+    # no more blocks than one wave of the card holds, unless one split each
+    per_sm = max(1, FD._SMEM_PER_SM // (FD.smem_bytes(es, d) + 1024))
+    clusters = b * hkv * -(-g // FD.BLOCK_ROWS)
+    assert n == 1 or clusters * n <= per_sm * sms
+
+
+def test_flash_decode_split_plan_at_the_slice_shape():
+    """8 slots x 8 KV heads of 120 in bf16 on 132 SMs: one block fits an SM,
+    so 2 splits of 2048 keys make 128 blocks, one wave; the plan depends on
+    the SM count it is given, not on a card."""
+    assert FD.smem_bytes(2, 120) <= 227 * 1024 < 2 * FD.smem_bytes(2, 120)
+    assert FD._splits(132, 8, 8, 4, 4096, 2, 120) == (2, 2048)
+    assert FD._splits(66, 8, 8, 4, 4096, 2, 120) == (1, 4096)
+    assert FD._splits(264, 8, 8, 4, 4096, 2, 120) == (4, 1024)
+    assert FD._splits(132, 1, 1, 4, 4096, 2, 120) == (8, 512)
+
+
+@pytest.mark.parametrize("d,es,dp", [(16, 2, 64), (64, 2, 64), (120, 2, 128),
+                                     (128, 2, 128), (64, 4, 64),
+                                     (120, 4, 128)])
+def test_flash_decode_smem_bytes(d, es, dp):
+    """As ``Smem`` in the source. bf16: 3 stages of K and V in 64-column
+    boxes of 128 rows x 128 bytes, 16 query rows padded by 16 bytes, a code
+    byte per key and a barrier per stage, a flag, 1 KB of alignment. fp32: 2
+    stages of 64 keys with rows padded by 16 bytes, the query rows, codes
+    and flag. Every block fits the 227 KB a block may use."""
+    if es == 2:
+        want = (2 * 3 * (dp // 64) * 128 * 128 + 16 * (dp + 8) * 2
+                + 3 * 128 + 24 + 16 + 1024)
+    else:
+        want = 2 * 2 * 64 * (dp + 4) * 4 + 16 * (dp + 4) * 4 + 128 + 16 + 16
+    assert FD.tile_keys(es) == (128 if es == 2 else 64)
+    assert FD.smem_bytes(es, d) == want <= 227 * 1024
+
+
+def test_flash_decode_kernel_plan_refuses_what_the_kernel_does_not_take():
+    def ops(b=2, hq=4, hkv=2, t=64, d=16, dtype=torch.bfloat16):
+        return (torch.zeros(b, hq, d, dtype=dtype),
+                torch.zeros(b, t, hkv, d, dtype=dtype),
+                torch.zeros(b, t, hkv, d, dtype=dtype))
+    assert FD.kernel_plan(*ops(), 132) == (1, 128)
+    with pytest.raises(ValueError):
+        FD.kernel_plan(*ops(d=12), 132)            # not whole 16-byte pieces
+    with pytest.raises(ValueError):
+        FD.kernel_plan(*ops(d=136), 132)           # past 128
+    with pytest.raises(ValueError):
+        FD.kernel_plan(*ops(t=0), 132)             # an empty cache
+    q, k, v = ops(d=32)
+    with pytest.raises(ValueError):
+        FD.kernel_plan(q, k[:, :, :, :16], v[:, :, :, :16], 132)  # strided
+    q, k, v = ops()
+    with pytest.raises(ValueError):                # 8-byte aligned
+        FD.kernel_plan(q, k, torch.zeros(2 * 64 * 2 * 16 + 4,
+                                         dtype=torch.bfloat16)[4:].view(
+                                             2, 64, 2, 16), 132)
+    # fp32 takes 4 values a piece
+    assert FD.kernel_plan(*ops(d=4, dtype=torch.float32), 132)[0] == 1
+
+
+@pytest.mark.parametrize("d,boxes", [(64, 1), (120, 2), (128, 2), (8, 1)])
+def test_tensor_map_geometry_of_strided_views(d, boxes):
+    """The model's [B, S, H, D] tensors seen as [B, H, S, D]: the map's
+    dims are (D, S, H, B), its byte strides those of S, H and B, and its
+    64-column boxes cover D."""
+    b, s, h = 2, 37, 3
+    x = torch.zeros(b, s, h, d, dtype=torch.bfloat16).transpose(1, 2)
+    geo = FA.tensor_map_geometry(x)
+    assert geo["dims"] == (d, s, h, b)
+    assert geo["strides"] == (s * h * d, d, h * d)   # batch, head, row
+    assert geo["byte_strides"] == (2 * h * d, 2 * d, 2 * s * h * d)
+    assert geo["boxes"] == boxes
+    assert all(st % 16 == 0 for st in geo["byte_strides"])
+
+
+def test_tensor_map_geometry_extent_one_dims():
+    """A dimension of extent 1 is never stepped: whatever stride PyTorch
+    reports for it, the map gets one 16-byte unit."""
+    x = torch.zeros(1, 5, 1, 64, dtype=torch.bfloat16).transpose(1, 2)
+    geo = FA.tensor_map_geometry(x)
+    assert geo["dims"] == (64, 5, 1, 1)
+    assert geo["strides"] == (8, 8, 64)
+    q = torch.zeros(1, 4, 1, 64, dtype=torch.bfloat16)
+    assert FA.tensor_map_geometry(q)["strides"] == (8, 64, 8)
+
+
+def test_tensor_map_geometry_refuses_what_a_map_cannot_take():
+    base = torch.zeros(2, 4, 16, 24, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):               # row stride 12 values
+        FA.tensor_map_geometry(torch.zeros(2, 4, 16, 12,
+                                           dtype=torch.bfloat16)[..., :8])
+    with pytest.raises(ValueError):               # pointer 8 bytes off
+        FA.tensor_map_geometry(base[..., 4:12])
+    with pytest.raises(ValueError):               # D not a multiple of 8
+        FA.tensor_map_geometry(base[..., :20])
+    with pytest.raises(ValueError):               # D past 128
+        FA.tensor_map_geometry(torch.zeros(1, 1, 4, 136, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):               # a non-dense last dim
+        FA.tensor_map_geometry(base.transpose(2, 3)[..., :8, :])
+    with pytest.raises(ValueError):               # not a 16-bit tensor
+        FA.tensor_map_geometry(torch.zeros(1, 1, 4, 16))
+    assert FA.tensor_map_geometry(base[..., 8:16])["boxes"] == 1
+
+
+def test_state_helpers_default_to_the_card():
+    """The paged cache, the slot state and the sampling table are made on
+    the card unless the caller asks for the CPU; without a card the default
+    raises instead of falling back."""
+    from repro_torch.kvcache import make_paged_kv
+    from repro_torch.models.sampling import make_slot_params
+    from repro_torch.serve import make_slots
+
+    calls = [lambda **kw: make_paged_kv(1, 2, 2, 1, 1, 1, 8, **kw),
+             lambda **kw: make_slots(3, **kw),
+             lambda **kw: make_slot_params(3, **kw)]
+    for call in calls:
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError):
+                call()
+        state = call(device="cpu")
+        tensors = (state.values() if isinstance(state, dict)
+                   else [x for x in state if isinstance(x, torch.Tensor)])
+        assert all(x.device.type == "cpu" for x in tensors)

@@ -145,7 +145,7 @@ def test_decode_step_paged_matches_jax(pair, attention, ring):
     jcache = dict(jcache, pages_k=jnp.asarray(pk), pages_v=jnp.asarray(pv),
                   page_table=jnp.asarray(table))
     tcache = TP.make_paged_kv(l, NB, PS, B, MP, h, dh,
-                              ring_size=R if ring else 0)
+                              ring_size=R if ring else 0, device="cpu")
     tcache["pages_k"][:, :NB] = T(pk)
     tcache["pages_v"][:, :NB] = T(pv)
     tcache["page_table"] = T(table).long()

@@ -37,7 +37,8 @@ def _caches(seed, ring=True, fill=0):
     jc = JP.make_paged_kv(L, NB, PS, S, MP, H, DH, ring_size=R if ring else 0)
     jc = dict(jc, pages_k=jnp.asarray(pk), pages_v=jnp.asarray(pv),
               page_table=jnp.asarray(table))
-    tc = TP.make_paged_kv(L, NB, PS, S, MP, H, DH, ring_size=R if ring else 0)
+    tc = TP.make_paged_kv(L, NB, PS, S, MP, H, DH, ring_size=R if ring else 0,
+                          device="cpu")
     tc["pages_k"][:, :NB] = T(pk)
     tc["pages_v"][:, :NB] = T(pv)
     tc["page_table"] = T(table).long()
