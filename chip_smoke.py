@@ -48,6 +48,7 @@ their own enqueue it measures the host. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -83,6 +84,9 @@ from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.serve import (Engine, EngineConfig,  # noqa: E402
                                SamplingParams)
+
+# the module of K2 / K4 (the package exports the wrappers under its name)
+FD = importlib.import_module("repro_torch.kernels.flash_decode")
 
 DEV = torch.device("cuda")
 # published peaks of one H100 SXM (NVIDIA data sheet, dense)
@@ -120,12 +124,14 @@ CMS_TIMED = [(4, 12, 4096), (4, 16, 4096), (4, 12, 1 << 20), (4, 16, 1 << 20)]
 # fp32: the JAX package's own kernel-vs-oracle bound (sums in another order).
 TOL_F32 = dict(atol=2e-6, rtol=1e-4)
 # bf16: the plain version rounds q.k to bf16 before the softmax (its einsum
-# returns bf16), the kernel keeps fp32 scores; both round p and the output
-# to bf16. The result is a few bf16 ulps (2^-8 relative) apart. This bound
-# suits K2's small cases, whose outputs are of order 1; at the slice's shape
-# (a mean over ~1300 keys, outputs of order 0.05) ``check_k2_slice`` holds
-# the kernel to an fp32 reference instead, and so does ``check_bf16`` for
-# every bf16 case of K3 and K4.
+# returns bf16, as the JAX oracle's does), and so does K2; K3 and K4 keep
+# fp32 scores. Kernel and plain version round p and the output to bf16 (the
+# kernels the unnormalised p, the plain versions the normalised). The
+# result is a few bf16 ulps (2^-8 relative) apart. This bound
+# suits K2's small cases, whose outputs are of order 1; at the slice's and
+# the engine's shapes (means over ~130-2000 keys, outputs of order 0.05)
+# ``_check_k2_at`` holds the kernel to an fp32 reference by ``held_bf16``
+# instead, and so does ``check_bf16`` for every bf16 case of K3 and K4.
 TOL_BF16 = dict(atol=8e-3, rtol=1.6e-2)
 # bf16: the kernel's error against the plain version run in fp32 on the same
 # inputs may be at most this many times the plain bf16 version's
@@ -231,12 +237,13 @@ def phase_build():
     info = kbuild.build_info()
     ptxas = [ln.strip() for ln in str(info["log"]).splitlines()
              if "registers" in ln or "spill" in ln.lower()]
-    # -Xptxas -v of the two attention kernels in full: registers, shared
+    # -Xptxas -v of the three attention kernels in full: registers, shared
     # memory, spills and any wgmma serialisation warning
     attn, keep = [], False
     for ln in str(info["log"]).splitlines():
         if ln.startswith("== "):
-            keep = ln[3:] in ("flash_attention.cu", "flash_decode.cu")
+            keep = ln[3:] in ("flash_attention.cu", "flash_decode.cu",
+                              "flash_decode_paged.cu")
         if keep and ("ptxas" in ln or "warning" in ln.lower()):
             attn.append(ln.strip())
     say("build", seconds=round(float(info["seconds"]), 2),
@@ -321,7 +328,12 @@ def time_k1(gen):
 
 
 def _k2_inputs(gen, dtype, b, c, hq, hkv, d, nb, ps, p, r, ring_kind="partial",
-               dead_slot=False, masked_row=False):
+               dead_slot=False, masked_row=False, live="random"):
+    """K2's operands. ``live`` places the live view keys: "random" (65 %
+    of the keys), "first" / "last" (only in the first / last page of each
+    slot), "ring" (none in the view: only the ring's lanes), "holes" (live
+    pages with dead pages between them), "shared" (random, and every slot's
+    page table the same block ids, as a prefix cache makes it)."""
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
@@ -329,6 +341,17 @@ def _k2_inputs(gen, dtype, b, c, hq, hkv, d, nb, ps, p, r, ring_kind="partial",
     blocks = torch.randint(0, nb, (b, p), generator=gen, device=DEV,
                            dtype=torch.int32)
     view_ok = torch.rand((b, c, p * ps), generator=gen, device=DEV) > 0.35
+    page = torch.arange(p * ps, device=DEV) // ps
+    if live == "first":
+        view_ok &= page == 0
+    elif live == "last":
+        view_ok &= page == p - 1
+    elif live == "ring":
+        view_ok[:] = False
+    elif live == "holes":
+        view_ok &= page % 3 == 1
+    elif live == "shared":
+        blocks[:] = blocks[0]
     ring = (None, None, None)
     if r:
         ring_ok = {
@@ -349,25 +372,52 @@ def _k2_inputs(gen, dtype, b, c, hq, hkv, d, nb, ps, p, r, ring_kind="partial",
     return (q, pk, pv, blocks, view_ok) + ring
 
 
+# b, c, hq, hkv, d, nb, ps, p, r, live: the cases of the cluster design.
+# One (slot, head) over 64 pages of 16 has 8 splits on 132 SMs, so a
+# cluster holds blocks with live pages and blocks with none; live keys only
+# in the first page, the last page or the ring; dead pages between live
+# ones; one page table shared by every slot; C = 8 with GQA 28/4 and 48/8
+# at D = 128 (4 and 3 groups of 16 query rows, columns across the groups);
+# ragged pages (ps 3) past one 128-key group of the mask
+K2_LIVE_CASES = [(1, 1, 4, 1, 64, 80, 16, 64, 8, "first"),
+                 (1, 1, 4, 1, 64, 80, 16, 64, 8, "last"),
+                 (1, 1, 4, 1, 64, 80, 16, 64, 8, "ring"),
+                 (1, 1, 4, 1, 64, 80, 16, 64, 8, "holes"),
+                 (1, 2, 4, 1, 64, 80, 16, 64, 8, "random"),
+                 (3, 1, 4, 2, 64, 30, 16, 20, 8, "shared"),
+                 (2, 8, 28, 4, 128, 40, 16, 12, 8, "random"),
+                 (2, 8, 48, 8, 128, 40, 16, 12, 8, "holes"),
+                 (2, 8, 28, 4, 128, 40, 16, 12, 0, "last"),
+                 (2, 3, 4, 2, 32, 200, 3, 90, 5, "holes")]
+
+
 def check_k2(gen):
+    """Every case within TOL_F32 / TOL_BF16 of the plain version; returns
+    the largest error and the largest share of the tolerance used, by
+    dtype."""
     errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    share = {torch.float32: 0.0, torch.bfloat16: 0.0}
     cases = 0
-    shapes = []  # b, c, hq, hkv, d, nb, ps, p, r
+    shapes = []  # b, c, hq, hkv, d, nb, ps, p, r, live
     for d in (16, 64):
         for c in (1, 8):
             for (hq, hkv) in ((4, 4), (8, 2)):
-                shapes.append((3, c, hq, hkv, d, 12, 4, 5, 6))
-    shapes += [(2, 1, 8, 1, 128, 6, 8, 3, 4),     # MQA, D=128
-               (2, 3, 6, 3, 32, 9, 2, 6, 0),      # odd sizes, no ring
-               (2, 1, 4, 4, 64, 40, 16, 20, 8)]   # several tiles of keys
+                shapes.append((3, c, hq, hkv, d, 12, 4, 5, 6, "random"))
+    shapes += [(2, 1, 8, 1, 128, 6, 8, 3, 4, "random"),    # MQA, D=128
+               (2, 3, 6, 3, 32, 9, 2, 6, 0, "random"),     # odd sizes, no ring
+               (2, 1, 4, 4, 64, 40, 16, 20, 8, "random")]  # several tiles
+    shapes += K2_LIVE_CASES
     for dtype, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
         for shp in shapes:
-            r = shp[-1]
+            r, live = shp[-2], shp[-1]
             kinds = ("empty", "partial", "full") if r else ("none",)
+            if live != "random":
+                kinds = kinds[-1:] if live == "ring" else kinds[:1]
             for kind in kinds:
                 for dead, masked in ((False, False), (True, True)):
-                    args = _k2_inputs(gen, dtype, *shp, ring_kind=kind,
-                                      dead_slot=dead, masked_row=masked)
+                    args = _k2_inputs(gen, dtype, *shp[:-1], ring_kind=kind,
+                                      dead_slot=dead, masked_row=masked,
+                                      live=live)
                     got = flash_decode_paged(*args)
                     want = flash_decode_paged_ref(*args)
                     torch.cuda.synchronize()
@@ -379,8 +429,12 @@ def check_k2(gen):
                                       f"{kind} dead={dead}: {m}")
                     errs[dtype] = max(errs[dtype], float(
                         (got.float() - want.float()).abs().max()))
+                    share[dtype] = max(share[dtype], float((
+                        (got.float() - want.float()).abs()
+                        / (tol["atol"] + tol["rtol"] * want.float().abs())
+                    ).max()))
                     cases += 1
-    return errs, cases
+    return errs, cases, share
 
 
 def _k2_slice_inputs(gen, c):
@@ -406,39 +460,123 @@ def _as_f32(args):
                  for t in args)
 
 
-def check_k2_slice(gen, c):
-    """The kernel at the slice's shape. In fp32 it must meet the plain version
-    within TOL_F32, which a dropped key or ring lane breaks. In bf16 both are
-    held to the plain version run in fp32 on the same (upcast) inputs: the
-    kernel may err at most SLICE_ERR_FACTOR times as far as the plain bf16
-    version does."""
-    args = _k2_slice_inputs(gen, c)
+def _k2_engine_inputs(gen, dtype=torch.bfloat16):
+    """K2 at the paged engine's decode step (the slice: stablelm-1.6b, 8
+    slots, 128 pages of 16, ring of 8): slot i's live prefix is a prompt of
+    128 / 256 / 384 / 512 tokens plus up to 64 generated ones, 128-575 keys
+    of its 2048-row view; pages are allocated for the prefix only and the
+    rest of the page table is clamped to block 0, as ``kernel_blocks`` makes
+    it; the last 5 tokens sit in the ring's 5 live lanes, their view rows
+    shadowed out."""
+    b, hq, hkv, d, ps, p, r = 8, 32, 32, 64, 16, 128, 8
+    nb = b * p
+    pk = torch.randn((nb + 1, ps, hkv, d), generator=gen, device=DEV).to(dtype)
+    pv = torch.randn((nb + 1, ps, hkv, d), generator=gen, device=DEV).to(dtype)
+    q = torch.randn((b, 1, hq, d), generator=gen, device=DEV).to(dtype)
+    n = (torch.tensor(PROMPT_LENS * (b // len(PROMPT_LENS)), device=DEV)
+         + torch.randint(0, NEW_TOKENS, (b,), generator=gen, device=DEV))
+    pages = (n + ps - 1) // ps
+    ids = torch.randperm(nb, generator=gen, device=DEV).view(b, p)
+    blocks = torch.where(torch.arange(p, device=DEV)[None] < pages[:, None],
+                         ids, 0).to(torch.int32)
+    n_ring = 5
+    view_ok = (torch.arange(p * ps, device=DEV)[None]
+               < (n - n_ring)[:, None])[:, None, :].contiguous()
+    rk = torch.randn((b, r, hkv, d), generator=gen, device=DEV).to(dtype)
+    rv = torch.randn((b, r, hkv, d), generator=gen, device=DEV).to(dtype)
+    rok = (torch.arange(r, device=DEV)[None] < n_ring).expand(b, r)
+    return q, pk, pv, blocks, view_ok, rk, rv, rok.contiguous()
+
+
+def _check_k2_at(what, args):
+    """The kernel at a real shape. In fp32 it must meet the plain version
+    within TOL_F32, which a dropped key or ring lane breaks. In bf16 it is
+    held by ``held_bf16`` to the plain version run in fp32 on the same
+    (upcast) inputs, over the tensor and query row by query row."""
     args32 = _as_f32(args)
     ref32 = flash_decode_paged_ref(*args32)
     got32 = flash_decode_paged(*args32)
     torch.testing.assert_close(
         got32, ref32, **TOL_F32,
-        msg=lambda m: f"flash_decode_paged fp32, slice shape, C={c}: {m}")
+        msg=lambda m: f"flash_decode_paged fp32, {what}: {m}")
     got, plain = flash_decode_paged(*args), flash_decode_paged_ref(*args)
     torch.cuda.synchronize()
-    err = float((got.float() - ref32).abs().max())
-    err_plain = float((plain.float() - ref32).abs().max())
-    if not err <= SLICE_ERR_FACTOR * err_plain:
-        raise AssertionError(
-            f"flash_decode_paged bf16, slice shape, C={c}: error {err} "
-            f"against the fp32 reference, the plain version's is {err_plain}")
-    return dict(c=c, err_f32=float((got32 - ref32).abs().max()),
-                err_bf16_vs_f32_ref=err, plain_err_bf16_vs_f32_ref=err_plain,
-                err_bf16_vs_plain=float((got.float() - plain.float()).abs().max()),
+    b, c, hq, d = got.shape
+    rows = [x.reshape(b, c * hq, d) for x in (got, plain, ref32)]
+    h = held_bf16("flash_decode_paged", what, *rows, K2_ROWS)
+    return dict(err_f32=float((got32 - ref32).abs().max()),
+                err_bf16_vs_f32_ref=h["err"],
+                plain_err_bf16_vs_f32_ref=h["err_plain"],
+                worst_block_share=h["worst_block_share"],
+                err_bf16_vs_plain=h["err_vs_plain"],
                 out_rms=float(ref32.square().mean().sqrt()))
 
 
-def time_k2(gen):
-    args = _k2_slice_inputs(gen, 1)
+def check_k2_slice(gen, c):
+    return dict(c=c, **_check_k2_at(f"slice shape, C={c}",
+                                    _k2_slice_inputs(gen, c)))
+
+
+def check_k2_engine(gen):
+    return _check_k2_at("engine shape", _k2_engine_inputs(gen))
+
+
+def _k2_plan(args):
+    """(splits a cluster, blocks a call) of the kernel on these operands."""
+    q, pk, pv, blocks, _, rk, rv, _ = args
+    b, c, hq, _ = q.shape
+    hkv = pk.shape[2]
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    n_split = FD.paged_kernel_plan(q, pk, pv, blocks, rk, rv, sms)
+    return n_split, n_split * hkv * -(-c * hq // hkv // FD.BLOCK_ROWS) * b
+
+
+def _k2_bound(args):
+    """The least time of the function on these operands, and what sets it.
+    The work depends on the data: a masked key adds exactly 0 to a row with
+    one live key, so the function needs the K and V rows that some query
+    column of their slot sees, and no other."""
+    q, pk, _, blocks, view_ok, _, _, rok = args
+    b, c, hq, d = q.shape
+    hkv, es = pk.shape[2], q.element_size()
+    assert bool((view_ok.any(2) | rok.any(1)[:, None]).all()), \
+        "a row has no live key"
+    live_keys = int(view_ok.any(1).sum()) + int(rok.sum())
+    small = (2 * q.numel() * es                       # q in, out
+             + blocks.numel() * 4 + view_ok.numel() + rok.numel())
+    t_bytes = (live_keys * hkv * d * 2 * es + small) / HBM_BYTES_PER_S
+    t_ops = 4 * c * hq * live_keys * d / PEAK_FLOPS[q.dtype]
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def _k2_facts(args):
+    """What is stated beside K2's times on these operands: its live and all
+    keys, the time reading every view row and ring lane once (live or not)
+    would take at the memory's rate, its split plan, the shape."""
+    q, pk, _, blocks, view_ok, rk, _, rok = args
+    b, c, hq, d = q.shape
+    ps, hkv, es = pk.shape[1], pk.shape[2], q.element_size()
+    p, r = blocks.shape[1], rk.shape[1]
+    all_keys = b * (p * ps + r)
+    small = (2 * q.numel() * es + blocks.numel() * 4 + view_ok.numel()
+             + rok.numel())
+    n_split, n_blocks = _k2_plan(args)
+    return dict(live_keys=int(view_ok.any(1).sum()) + int(rok.sum()),
+                all_keys=all_keys,
+                all_rows_ms=(all_keys * hkv * d * 2 * es + small)
+                / HBM_BYTES_PER_S * 1e3,
+                splits_per_cluster=n_split, blocks_per_call=n_blocks,
+                shape=f"q[{b},{c},{hq},{d}] pages[{pk.shape[0]},{ps},{hkv},{d}] "
+                      f"blocks[{b},{p}] ring[{b},{r},{hkv},{d}] {q.dtype}")
+
+
+def _k2_timed(name, args):
+    """Device times of the kernel, the plain version and the library
+    yardstick on these operands, and the kernel's bound on them."""
     q, pk, pv, blocks, view_ok, rk, rv, rok = args
     b, c, hq, d = q.shape
-    ps, hkv = pk.shape[1], pk.shape[2]
-    p, r = blocks.shape[1], rk.shape[1]
+    ps, hkv, r = pk.shape[1], pk.shape[2], rk.shape[1]
 
     def library():
         # yardstick only: gathered view + one fused PyTorch attention call
@@ -449,32 +587,49 @@ def time_k2(gen):
         mask = torch.cat([view_ok, rok[:, None, :].expand(b, c, r)], 2)
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k, v, attn_mask=mask[:, None])
-    t = timings("flash_decode_paged", lambda: flash_decode_paged(*args),
+    t = timings(name, lambda: flash_decode_paged(*args),
                 lambda: flash_decode_paged_ref(*args), library)
-    es = q.element_size()
-    # The work depends on the data: a masked key adds exactly 0 to a row with
-    # one live key, so the function needs the K and V rows that some query
-    # column of their slot sees, and no other. These inputs have no row with
-    # every key masked.
-    assert bool(view_ok.any(2).all()), "a slice row has no live key"
-    live_keys = int(view_ok.any(1).sum()) + int(rok.sum())
-    all_keys = b * (p * ps + r)
-    small = (2 * q.numel() * es                       # q in, out
-             + blocks.numel() * 4 + view_ok.numel() + rok.numel())
-    nbytes = live_keys * hkv * d * 2 * es + small     # live K and V rows
-    flops = 4 * c * hq * live_keys * d
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[q.dtype]
-    return dict(**t,
-                bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                live_keys=live_keys, all_keys=all_keys,
-                # what the kernel as written reads (every view row and ring
-                # lane, live or not, once): a note on the design, not the bound
-                all_rows_ms=(all_keys * hkv * d * 2 * es + small)
-                / HBM_BYTES_PER_S * 1e3,
-                shape=f"q[{b},{c},{hq},{d}] pages[{pk.shape[0]},{ps},{hkv},{d}] "
-                      f"blocks[{b},{p}] ring[{b},{r},{hkv},{d}] bf16")
+    return dict(**t, **_k2_bound(args))
+
+
+# b, c, hq, hkv, d, nb, ps, p, r: shapes on which the split plan picks more
+# than one split (a single request decoding alone: stablelm-1.6b, and
+# qwen2-7b's GQA 28/4 at D = 128 with C = 8), over a 2048-row view
+K2_SPLIT_TIMED = [(1, 1, 32, 32, 64, 1024, 16, 128, 8),
+                  (1, 8, 28, 4, 128, 1024, 16, 128, 8)]
+
+
+def time_k2_splits(gen):
+    """K2 at the plan's splits and at one split on the same operands."""
+    out = []
+    for shp in K2_SPLIT_TIMED:
+        args = _k2_inputs(gen, torch.bfloat16, *shp)
+        facts = _k2_facts(args)
+        ms = device_ms(lambda: flash_decode_paged(*args), "K2 split plan")
+        plan = FD._paged_splits
+        FD._paged_splits = lambda *a, **k: 1
+        try:
+            ms_one = device_ms(lambda: flash_decode_paged(*args),
+                               "K2 one split")
+        finally:
+            FD._paged_splits = plan
+        out.append(dict(shape=facts["shape"], live_keys=facts["live_keys"],
+                        splits_per_cluster=facts["splits_per_cluster"],
+                        blocks_per_call=facts["blocks_per_call"], ms=ms,
+                        ms_one_split=ms_one, **_k2_bound(args)))
+    return out
+
+
+def time_k2(gen):
+    """At the slice shape (as timed since the first port) and at the engine's
+    own shape, where most of each view is dead: the kernels line's times and
+    bounds, and the facts beside them for the checks line."""
+    slice_args = _k2_slice_inputs(gen, 1)
+    engine_args = _k2_engine_inputs(gen)
+    t = _k2_timed("flash_decode_paged", slice_args)
+    t["engine_shape"] = _k2_timed("flash_decode_paged engine", engine_args)
+    return t, dict(slice=_k2_facts(slice_args), engine=_k2_facts(engine_args),
+                   split_plan=time_k2_splits(gen))
 
 
 # ---------------------------------------------------------------------------
@@ -520,8 +675,8 @@ K3_CASES = [(1, 4, 4, 1, 1, 64, True, 0), (2, 4, 1, 37, 37, 120, True, 0),
             (2, 8, 2, 200, 300, 120, False, 0),
             (1, 16, 2, 333, 333, 128, True, 0)]
 # bf16 is held block by block: K3 by its query tile (64 rows of one head),
-# so the rows past the window form blocks of their own; K4 row by row
-K3_TILE, K4_ROWS = 64, 1
+# so the rows past the window form blocks of their own; K2 and K4 row by row
+K3_TILE, K4_ROWS, K2_ROWS = 64, 1, 1
 
 
 def _block_max(x, rows):
@@ -909,30 +1064,41 @@ def time_cms(gen):
     return rows
 
 
+def timed_gen(seed):
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+
 def phase_kernels():
     gen = torch.Generator(device=DEV).manual_seed(0)
     k1_err, k1_cases = check_k1(gen)
-    k2_errs, k2_cases = check_k2(gen)
+    k2_errs, k2_cases, k2_share = check_k2(gen)
     k2_slice = [check_k2_slice(gen, c) for c in (1, 8)]
+    k2_engine = check_k2_engine(gen)
     k3_errs, k3_cases, k3_share = check_k3(gen)
     k3_slice = check_k3_slice(gen)
     k4_errs, k4_cases, k4_share = check_k4(gen)
     k4_slice = [check_k4_slice(gen, live) for live in (True, False)]
     cms_cases = check_cms(gen)
-    k1_t, k2_t = time_k1(gen), time_k2(gen)
-    k3_t, k4_t = time_k3(gen), time_k4(gen)
-    cms_t = time_cms(gen)
+    # each timing draws from a generator of its own, so a check added above
+    # never moves the inputs that are timed
+    k1_t, (k2_t, k2_facts) = time_k1(timed_gen(101)), time_k2(timed_gen(102))
+    k3_t, k4_t = time_k3(timed_gen(103)), time_k4(timed_gen(104))
+    cms_t = time_cms(timed_gen(105))
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
         flash_decode_paged_max_abs_err_f32=k2_errs[torch.float32],
         flash_decode_paged_max_abs_err_bf16=k2_errs[torch.bfloat16],
+        flash_decode_paged_tol_share_f32=k2_share[torch.float32],
+        flash_decode_paged_tol_share_bf16=k2_share[torch.bfloat16],
         flash_attention_cases=k3_cases,
-        bf16_rule_k3_k4="error vs the fp32 plain version <= "
+        bf16_rule_k2_k3_k4="error vs the fp32 plain version <= "
                         "slice_err_factor x the plain bf16 version's, over "
                         "the tensor and in each block (+ half a bf16 ulp of "
                         "the block's largest value there)",
         bf16_blocks=dict(flash_attention=f"{K3_TILE} query rows of a head",
-                         flash_decode=f"{K4_ROWS} row"),
+                         flash_decode=f"{K4_ROWS} row",
+                         flash_decode_paged=f"{K2_ROWS} row (slice and "
+                                            f"engine shapes)"),
         flash_attention_max_abs_err_f32=k3_errs[torch.float32],
         flash_attention_max_abs_err_bf16=k3_errs[torch.bfloat16],
         flash_attention_bf16_worst_block_share=k3_share,
@@ -943,11 +1109,9 @@ def phase_kernels():
         tol_f32=TOL_F32, tol_bf16=TOL_BF16,
         staged_scatter_ms_no_valid_rows=k1_t.pop("ms_no_valid_rows"),
         staged_scatter_shape=k1_t.pop("shape"),
-        flash_decode_paged_shape=k2_t.pop("shape"),
-        flash_decode_paged_live_keys=k2_t.pop("live_keys"),
-        flash_decode_paged_all_keys=k2_t.pop("all_keys"),
-        flash_decode_paged_all_rows_ms=k2_t.pop("all_rows_ms"),
+        flash_decode_paged_timed=k2_facts,
         flash_decode_paged_slice=k2_slice,
+        flash_decode_paged_engine_shape=k2_engine,
         flash_attention_shape=k3_t.pop("shape"),
         flash_attention_live_pairs_per_head=k3_t.pop("live_pairs_per_head"),
         flash_attention_slice=k3_slice,

@@ -5,8 +5,10 @@ per source, all started together), linked into ``libkernels.so`` with a
 plain C interface and loaded with ``ctypes``. The build happens at first
 use, from the sources in this package and nothing else, into ``build/`` at
 the root of the checkout (``REPRO_TORCH_BUILD_DIR`` overrides), in a
-directory named after a hash of the sources and flags, so an unchanged tree
-reuses its library. Nothing here runs when the package is imported.
+directory named after a hash of the flags, the sources and the headers
+they include (``csrc/*.cuh``), so an unchanged tree reuses its library and
+an edit to a header builds anew. Nothing here runs when the package is
+imported.
 """
 from __future__ import annotations
 
@@ -38,6 +40,10 @@ def sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def find_nvcc() -> str:
     cands = []
     for var in ("CUDA_HOME", "CUDA_PATH"):
@@ -63,9 +69,10 @@ def build_root() -> Path:
 
 
 def _source_hash(srcs) -> str:
+    """Of the flags, ``srcs`` and every header beside them."""
     h = hashlib.sha256()
     h.update(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in list(srcs) + headers():
         h.update(s.name.encode())
         h.update(s.read_bytes())
     return h.hexdigest()[:16]
@@ -170,7 +177,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_decode_paged_launch.restype = i32
     lib.flash_decode_paged_launch.argtypes = [
         vp, vp, vp, vp, vp, vp, vp, vp, vp,
-        i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, vp]
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, vp]
+    lib.flash_decode_paged_prepare.restype = i32
+    lib.flash_decode_paged_prepare.argtypes = []
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_launch.argtypes = (
         [vp] * 4 + [i32] * 6 + [i64] * 12 + [i32, i32, ctypes.c_float, i32, vp])

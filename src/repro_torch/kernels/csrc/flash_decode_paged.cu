@@ -1,354 +1,505 @@
 // flash_decode_paged: fused paged-attention read, for Hopper (sm_90a).
 //
-// out[b,c,hq,:] = softmax_t( q[b,c,hq,:] . K[t,:] * scale, masked to -1e30 ) @ V
-// over t in (pool rows reached through blocks[b,:]) U (ring lanes of slot b).
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_decode.py:135
+// flash_decode_paged (_paged_kernel, :70):
+//   out[b,c,hq,:] = softmax_t( q[b,c,hq,:] . K[t,:] * D^-1/2, masked to
+//                   -1e30 ) @ V
+// over t in (pool rows reached through blocks[b,:]) U (ring lanes of slot b),
+// K/V of pool row t = pages[blocks[b, t / ps], t % ps, hq / G, :], masked by
+// view_ok[b, c, t]; ring lane r masked by ring_ok[b, r].
 //
-// One block per (KV head, slot) serves the head's whole GQA group and all C
-// query columns, so each K/V row is read from device memory once per pass.
-// Two passes over K keep the arithmetic of the plain version (fp32 scores ->
-// mask to -1e30 -> fp32 softmax -> round to the I/O type -> weighted sum in
-// fp32) without holding all scores in shared memory:
-//   pass 1  running (max, sum) of every query row;
-//   pass 2  p = exp(s - m) / l rounded to the I/O type, times V.
-// Masked entries are scored -1e30, never skipped: an all-masked row comes
-// out as the uniform mean over every view row and ring lane, as the plain
-// version gives it.
-//
-// Thread layout: a key's [D] row is read by D / kVec neighbouring lanes, 16
-// bytes each, so a warp reads whole 128-byte lines of a few rows (rows of one
-// head lie Hkv * D elements apart). Each lane holds its slice of the query
-// rows in registers, forms a partial dot product and the lanes of a key sum
-// it by shuffles; every lane of the key then knows the score and scales its
-// own 16 bytes of the V row. Several keys' loads are issued before the first
-// is used. The partial (max, sum) and output sums of the keys handled by
-// different lane groups are combined by shuffles inside a warp and through
-// shared memory across warps. Query rows are processed kRows at a time.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// What bounds it on this card: bytes. Each K/V row serves the C x G query
+// rows of its (slot, KV head) for 4 * C * G * D FLOP against 2 * D * elemsize
+// bytes, and only the rows that some query column of the slot sees have to
+// be read: in the engine a slot's live keys are a prefix of its view, and the
+// unallocated tail of its page table is clamped to block 0. So the design
+// reads the live rows once and nothing else, and keeps the memory busy:
+//   * one pass with an online softmax (K is read once): per 16 keys one max
+//     and one rescale; q.k is rounded to the I/O type as the JAX oracle
+//     (src/repro/kernels/ref.py flash_decode_paged_ref) and the plain
+//     version round it, the unnormalised probabilities are rounded to the
+//     I/O type for P.V and l is kept in fp32, divided at the end. The
+//     Pallas kernel keeps fp32 scores: in bf16 this kernel follows the
+//     oracle's precision there, not the TPU kernel's;
+//   * dead pages are not read. Each block reads its slot's page-table row
+//     and view_ok bytes (C x P*ps, 4 bytes a lane, turned into bit planes by
+//     ballots), marks a page live when any query column of the slot sees a
+//     key in it, and the ring (one more unit after the last page) when any
+//     ring_ok lane is set. Within a live page a key that no query row of
+//     the block sees is not read either (cp.async zero-fills it);
+//   * the dead-row rule: a query column with no live key at all must give
+//     the plain version's uniform mean over all P*ps + R rows (retired slots
+//     of the engine). A slot with such a column counts every page live, and
+//     a block whose rows include one reads every V row and scores every key
+//     -1e30, decided before any K/V row is read;
+//   * key splits in a thread-block cluster: one block per (split, KV head,
+//     group of 16 query rows, slot), the splits of one (slot, head, rows) a
+//     cluster of at most 8 (the portable size). Each block counts the live
+//     units from the mask it holds and takes its share of them in page order
+//     (split s of n_split: live units [s n / n_split, (s + 1) n / n_split)
+//     of n, rounded down), so splits are even however the live pages lie,
+//     and a result never depends on timing. The
+//     splits merge by log-sum-exp through distributed shared memory at the
+//     end of the same kernel: one launch a call, no partial results in
+//     device memory. n_split comes from the shapes and the SM count only
+//     (kernels/flash_decode.py::_paged_splits);
+//   * page gathers by cp.async, 16-byte pieces, neighbouring lanes on the
+//     neighbouring bytes of a key row (rows of one head lie Hkv * D elements
+//     apart, pages anywhere in the pool): each warp walks its own chunks of
+//     16 keys (chunks w, w + kWarps, ...) through a ring of stages (8 warps
+//     and 3 stages in bf16), so a warp waits on its own copies only and no
+//     block barrier sits in the loop;
+//   * the rows of a (slot, KV head) are C x G (1 at stablelm's step decode,
+//     up to 56 for GQA 28/4 at C = 8), scored 16 at a time on the tensor
+//     cores (mma.sync m16n8k16, rows padded with zeros, K by ldmatrix and V
+//     by ldmatrix.trans from a 128-byte swizzled chunk); float32 takes the
+//     same structure on the CUDA cores.
+// The warp's softmax and the cluster merge are shared with flash_decode.cu
+// (decode_common.cuh).
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr float kMasked = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+using namespace decode;
 
-template <typename T> struct Io;
-
-template <> struct Io<float> {
-  static constexpr int kVec = 4;
-  static __device__ __forceinline__ void unpack(const uint4& v, float* o) {
-    o[0] = __uint_as_float(v.x); o[1] = __uint_as_float(v.y);
-    o[2] = __uint_as_float(v.z); o[3] = __uint_as_float(v.w);
-  }
-  static __device__ __forceinline__ float to_float(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-  static __device__ __forceinline__ float from_float(float x) { return x; }
-};
-
-template <> struct Io<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  static __device__ __forceinline__ void unpack(const uint4& v, float* o) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      o[2 * i] = f.x;
-      o[2 * i + 1] = f.y;
-    }
-  }
-  static __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ __nv_bfloat16 from_float(float x) {
-    return __float2bfloat16_rn(x);
-  }
-};
+constexpr uint32_t kIn = 1u << 31;  // a key word's bit: the key is in the split
+constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may use
+constexpr int kNoCol = 30;          // the column bit of a padding row: never set
 
 struct Geometry {
-  int C, Hq, Hkv, D, P, ps, R;
-  int G, NR, n_view, Tn;
+  int C, Hq, Hkv, D, P, ps, R, G, NR, n_rg, n_view, n_words, n_cg, n_split;
+  int al4;  // view_ok may be read 4 bytes at a time
+  float scale;
 };
 
-__device__ __forceinline__ void merge_ml(float& m, float& l, float m2, float l2) {
-  const float mn = fmaxf(m, m2);
-  if (mn == -INFINITY) { l = 0.f; return; }
-  l = l * expf(m - mn) + l2 * expf(m2 - mn);
-  m = mn;
+// per type: values in a 16-byte piece, warps a block, stages of each warp's
+// ring of 16-key chunks
+template <typename T> struct Cfg;
+template <> struct Cfg<__nv_bfloat16> {
+  static constexpr int kVec = 8, kWarps = 8, kStages = 3;
+};
+template <> struct Cfg<float> {
+  static constexpr int kVec = 4, kWarps = 4, kStages = 2;
+};
+
+// Shared memory of one block: the warps' K/V rings ([kWarps][kStages][K, V]
+// chunks of 16 keys: bf16 in kDp / 64 swizzled boxes of [16 rows][128 B],
+// fp32 in rows padded by 16 bytes), the 16 query rows (padded by 16 bytes),
+// the key words of every stage, then the slot's tables (``Tables``). After
+// the loop the rings hold the merge (``MergeArea``).
+template <typename T, int kDp>
+struct Smem {
+  static constexpr int kWarps = Cfg<T>::kWarps, kStages = Cfg<T>::kStages;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kStride = kDp + 16 / (int)sizeof(T);
+  static constexpr int kTile = sizeof(T) == 2 ? 16 * kDp * 2 : 16 * kStride * 4;
+  static constexpr int q = kWarps * kStages * 2 * kTile;
+  static constexpr int words = q + kRows * kStride * (int)sizeof(T);
+  static constexpr int fixed = words + kWarps * kStages * 16 * 4;
+  static_assert(MergeArea<kDp, kWarps>::bytes <= q, "merge area must fit the rings");
+};
+
+// The slot's tables, after Smem::fixed: the view_ok bit planes of the
+// block's query columns and their OR over all columns (bit l of word 4k + e
+// is key 128k + 4l + e), the page-table row, the live units in order (a page
+// index, or P for the ring), a byte per column (it has a live key) and per
+// ring lane, and the live-unit count.
+struct Tables {
+  int planes, anyw, phys, units, colf, rok, misc, bytes;
+};
+
+__host__ __device__ inline Tables tables(int fixed, const Geometry& g) {
+  Tables t;
+  t.planes = fixed;
+  t.anyw = t.planes + 4 * g.n_cg * g.n_words;
+  t.phys = t.anyw + 4 * g.n_words;
+  t.units = t.phys + 4 * g.P;
+  t.colf = t.units + 4 * (g.P + 1);
+  t.rok = t.colf + g.C;
+  t.misc = (t.rok + g.R + 3) & ~3;
+  t.bytes = t.misc + 16;
+  return t;
 }
 
-template <typename T, int kRows>
-__global__ void __launch_bounds__(kThreads) paged_decode_kernel(
+// any bit of keys [lo, hi) in planes laid out as Tables' anyw
+__device__ bool any_key(const uint32_t* w, int lo, int hi) {
+  for (int k = lo >> 7; k <= (hi - 1) >> 7; ++k) {
+    const int base = k << 7;
+    for (int e = 0; e < 4; ++e) {
+      const int a = max(lo - base - e, 0), z = hi - 1 - base - e;
+      if (z < 0) continue;
+      const int l0 = (a + 3) >> 2, l1 = min(z >> 2, 31);
+      if (l0 > l1) continue;
+      const uint32_t m = l1 - l0 == 31 ? kFull : ((1u << (l1 - l0 + 1)) - 1) << l0;
+      if (w[4 * k + e] & m) return true;
+    }
+  }
+  return false;
+}
+
+// q.k as the oracle's and the plain version's einsum returns it: rounded to
+// the I/O type (the Pallas kernel keeps it in fp32)
+template <typename T> __device__ __forceinline__ float round_io(float x);
+template <> __device__ __forceinline__ float round_io<float>(float x) { return x; }
+template <> __device__ __forceinline__ float round_io<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T, int kDp> struct Warp;
+template <int kDp> struct Warp<__nv_bfloat16, kDp> : WarpBf16<kDp, 16> {};
+template <int kDp> struct Warp<float, kDp> : WarpF32<kDp> {};
+
+// byte offset of 16-byte piece pc of key row r in a chunk
+template <typename T, int kDp>
+__device__ __forceinline__ int piece_at(int r, int pc) {
+  if constexpr (sizeof(T) == 2)
+    return (pc >> 3) * (16 * 128) + r * 128 + (((pc & 7) ^ (r & 7)) << 4);
+  else
+    return r * Smem<T, kDp>::kStride * 4 + pc * 16;
+}
+
+template <typename T, int kDp>
+__global__ void __launch_bounds__(Smem<T, kDp>::kThreads) paged_decode_kernel(
     const T* __restrict__ q, const T* __restrict__ pages_k,
     const T* __restrict__ pages_v, const int* __restrict__ blocks,
     const unsigned char* __restrict__ view_ok, const T* __restrict__ ring_k,
     const T* __restrict__ ring_v, const unsigned char* __restrict__ ring_ok,
-    T* __restrict__ out, Geometry g, float scale) {
-  constexpr int kVec = Io<T>::kVec;
-  constexpr int kAhead1 = kRows >= 8 ? 4 : 8;  // keys in flight, pass 1
-  constexpr int kAhead2 = kRows >= 8 ? 2 : 4;  // keys in flight, pass 2
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int lpk = g.D / kVec;        // lanes sharing one key (power of two)
-  const int kpi = kThreads / lpk;    // keys per iteration of the block
-  const int kq = tid / lpk;          // this lane's key within an iteration
-  const int d0 = (tid - kq * lpk) * kVec;
-  const int red_w = g.D > 2 ? g.D : 2;
-  float* q_s = reinterpret_cast<float*>(smem_raw);      // [NR][D]
-  float* red = q_s + g.NR * g.D;                        // [kWarps][kRows][red_w]
-  int* blk_s = reinterpret_cast<int*>(red + kWarps * kRows * red_w);  // [P]
+    T* __restrict__ out, Geometry g) {
+  using L = Smem<T, kDp>;
+  constexpr int kVec = Cfg<T>::kVec, kWarps = L::kWarps, kStages = L::kStages;
+  constexpr int kThreads = L::kThreads, kStride = L::kStride, kTile = L::kTile;
+  constexpr int kPieces = kDp / kVec;      // 16-byte pieces of a padded row
+  constexpr int kKeysPass = 32 / kPieces;  // keys a warp copies at once
+  extern __shared__ __align__(128) unsigned char sm[];
+  const Tables tb = tables(L::fixed, g);
+  uint32_t* planes = reinterpret_cast<uint32_t*>(sm + tb.planes);
+  uint32_t* anyw = reinterpret_cast<uint32_t*>(sm + tb.anyw);
+  int* phys = reinterpret_cast<int*>(sm + tb.phys);
+  int* units = reinterpret_cast<int*>(sm + tb.units);
+  unsigned char* colf = sm + tb.colf;
+  unsigned char* rok = sm + tb.rok;
+  int* misc = reinterpret_cast<int*>(sm + tb.misc);
+  T* Qs = reinterpret_cast<T*>(sm + L::q);
 
-  // query rows r = c * G + grp as fp32, and this slot's page table
-  for (int i = tid; i < g.NR * g.D; i += kThreads) {
-    const int r = i / g.D, d = i - r * g.D;
-    const int c = r / g.G, grp = r - c * g.G;
-    q_s[i] = Io<T>::to_float(
-        q[(((long long)b * g.C + c) * g.Hq + h * g.G + grp) * g.D + d]);
+  const int split = blockIdx.x;  // = the rank in the cluster (cluster = splits)
+  const int h = blockIdx.y / g.n_rg, row0 = (blockIdx.y % g.n_rg) * kRows;
+  const int b = blockIdx.z;
+  const int rows = min(kRows, g.NR - row0);
+  const int c_lo = row0 / g.G, n_cols = (row0 + rows - 1) / g.G - c_lo + 1;
+  const uint32_t gmask = (1u << n_cols) - 1;  // the block's columns
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int dch = g.D / kVec;  // 16-byte pieces of a row
+
+  // ---- the slot's tables, the query rows ----------------------------------
+  for (int i = tid; i < g.P; i += kThreads) phys[i] = blocks[(long long)b * g.P + i];
+  for (int i = tid; i < g.C; i += kThreads) colf[i] = 0;
+  for (int i = tid; i < g.n_words; i += kThreads) anyw[i] = 0;
+  int ring_any = 0;
+  for (int i = tid; i < g.R; i += kThreads) {
+    const unsigned char o = ring_ok[(long long)b * g.R + i] != 0;
+    rok[i] = o;
+    ring_any |= o;
   }
-  for (int i = tid; i < g.P; i += kThreads) blk_s[i] = blocks[(long long)b * g.P + i];
+  // query row r = row0 + r's (column, head of the group); zero past the
+  // group and in the padding columns
+  for (int i = tid; i < kRows * kPieces; i += kThreads) {
+    const int r = i / kPieces, pc = i % kPieces;
+    uint4 val = make_uint4(0, 0, 0, 0);
+    if (r < rows && pc < dch) {
+      const int row = row0 + r, c = row / g.G, grp = row - c * g.G;
+      val = *reinterpret_cast<const uint4*>(
+          q + (((long long)b * g.C + c) * g.Hq + h * g.G + grp) * g.D + pc * kVec);
+    }
+    *reinterpret_cast<uint4*>(Qs + r * kStride + pc * kVec) = val;
+  }
+  // the padding columns of every chunk of every ring (copies never write them)
+  if (dch < kPieces) {
+    const int per = kPieces - dch;
+    for (int i = tid; i < kWarps * kStages * 2 * 16 * per; i += kThreads) {
+      const int chunk = i / (16 * per), r = (i / per) % 16, pc = dch + i % per;
+      *reinterpret_cast<uint4*>(sm + chunk * kTile + piece_at<T, kDp>(r, pc)) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  ring_any = __syncthreads_or(ring_any);
+
+  // ---- view_ok into bit planes: warps take (column, 128 keys) pairs, a lane
+  // 4 bytes, four ballots a pair; four pairs' loads in flight a warp
+  {
+    const unsigned char* vrow = view_ok + (long long)b * g.C * g.n_view;
+    const int n_grp = (g.n_view + 127) >> 7, n_pairs = g.C * n_grp;
+    for (int p0 = warp; p0 < n_pairs; p0 += 4 * kWarps) {
+      uint32_t v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pr = p0 + j * kWarps;
+        v[j] = 0;
+        if (pr < n_pairs) {
+          const int c = pr / n_grp, t = (pr - c * n_grp) * 128 + lane * 4;
+          const unsigned char* src = vrow + (long long)c * g.n_view + t;
+          if (g.al4 && t < g.n_view) {
+            v[j] = *reinterpret_cast<const uint32_t*>(src);
+          } else {
+            for (int e = 0; e < 4; ++e)
+              if (t + e < g.n_view) v[j] |= (uint32_t)(src[e] != 0) << (8 * e);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pr = p0 + j * kWarps;  // the same for the whole warp
+        if (pr >= n_pairs) break;
+        const int c = pr / n_grp, k = pr - c * n_grp;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t word = __ballot_sync(kFull, (v[j] >> (8 * e)) & 0xffu);
+          if (lane == 0) {
+            if (c >= c_lo && c < c_lo + n_cols)
+              planes[(c - c_lo) * g.n_words + 4 * k + e] = word;
+            if (word) {
+              colf[c] = 1;
+              atomicOr(&anyw[4 * k + e], word);
+            }
+          }
+        }
+      }
+    }
+  }
   __syncthreads();
 
-  // this lane's 16 bytes of key t's K (or V) row
-  auto load_row = [&](const T* pages, const T* ring, int t) -> uint4 {
-    long long off;
-    const T* base;
-    if (t < g.n_view) {
-      const int page = t / g.ps;
-      const long long row = (long long)blk_s[page] * g.ps + (t - page * g.ps);
-      off = (row * g.Hkv + h) * g.D;
-      base = pages;
-    } else {
-      off = (((long long)b * g.R + (t - g.n_view)) * g.Hkv + h) * g.D;
-      base = ring;
+  // ---- the dead-row rule, decided before any K/V row is read --------------
+  int dead = 0, gdead = 0;
+  for (int c = tid; c < g.C; c += kThreads) {
+    const int d = !colf[c] && !ring_any;
+    dead |= d;
+    if (c >= c_lo && c < c_lo + n_cols) gdead |= d;
+  }
+  const bool slot_dead = __syncthreads_or(dead) != 0;
+  const bool group_dead = __syncthreads_or(gdead) != 0;
+
+  // ---- live units (pages, then the ring), compacted in order --------------
+  const int n_all = g.P + (g.R > 0 ? 1 : 0);
+  for (int u = tid; u < n_all; u += kThreads)
+    units[u] = slot_dead ||
+               (u < g.P ? any_key(anyw, u * g.ps, (u + 1) * g.ps) : ring_any != 0);
+  __syncthreads();
+  if (warp == 0) {  // in place: an entry is written at or before where it was read
+    int n = 0;
+    for (int u0 = 0; u0 < n_all; u0 += 32) {
+      const int u = u0 + lane;
+      const bool live = u < n_all && units[u] != 0;
+      const uint32_t bal = __ballot_sync(kFull, live);
+      if (live) units[n + __popc(bal & ((1u << lane) - 1))] = u;
+      n += __popc(bal);
     }
-    return *reinterpret_cast<const uint4*>(base + off + d0);
+    if (lane == 0) misc[0] = n;
+  }
+  __syncthreads();
+
+  // ---- this block's share: live units [lo, hi), the ring last -------------
+  const int n_u = misc[0];
+  const int lo = (int)((long long)split * n_u / g.n_split);
+  const int hi = (int)((long long)(split + 1) * n_u / g.n_split);
+  const bool has_ring = g.R > 0 && hi > lo && units[hi - 1] == g.P;
+  const int n_page_keys = (hi - lo - (has_ring ? 1 : 0)) * g.ps;
+  const int n_keys = n_page_keys + (has_ring ? g.R : 0);
+  const int n_chunks = (n_keys + 15) / 16;
+  const int mine = warp < n_chunks ? (n_chunks - 1 - warp) / kWarps + 1 : 0;
+
+  unsigned char* wring = sm + warp * kStages * 2 * kTile;
+  uint32_t* wwords = reinterpret_cast<uint32_t*>(sm + L::words) + warp * kStages * 16;
+  uint32_t need_bits = 0;  // bit st: stage st holds a chunk to count
+  // this warp's i-th chunk (keys 16 (warp + i kWarps) ..) into stage st: lane
+  // j < 16 works out key j's source row and word (bit c: column c_lo + c sees
+  // it; kIn: it is in the split), then every lane copies pieces of the keys
+  auto fetch = [&](int i, int st) {
+    long long off = 0;
+    uint32_t word = 0;
+    int in_ring = 0;
+    if (lane < 16) {
+      const int kk = (warp + i * kWarps) * 16 + lane;
+      if (kk < n_page_keys) {
+        const int j = kk / g.ps, r = kk - j * g.ps;
+        const int u = units[lo + j], t = u * g.ps + r;
+        off = (((long long)phys[u] * g.ps + r) * g.Hkv + h) * g.D;
+        const int wi = 4 * (t >> 7) + (t & 3), sh = (t >> 2) & 31;
+        word = kIn;
+        for (int jc = 0; jc < n_cols; ++jc)
+          word |= ((planes[jc * g.n_words + wi] >> sh) & 1u) << jc;
+      } else if (kk < n_keys) {
+        const int rr = kk - n_page_keys;
+        off = (((long long)b * g.R + rr) * g.Hkv + h) * g.D;
+        in_ring = 1;
+        word = kIn | (rok[rr] ? gmask : 0u);
+      }
+      wwords[st * 16 + lane] = word;
+    }
+    const bool need =
+        __any_sync(kFull, group_dead ? (word & kIn) != 0 : (word & gmask) != 0);
+    need_bits = (need_bits & ~(1u << st)) | ((uint32_t)need << st);
+    if (need) {
+      unsigned char* kt = wring + st * 2 * kTile;
+      const int pc = lane % kPieces;
+#pragma unroll
+      for (int p = 0; p < 16 / kKeysPass; ++p) {
+        const int key = p * kKeysPass + lane / kPieces;
+        const long long o =
+            ((long long)__shfl_sync(kFull, (int)(off >> 32), key) << 32) |
+            (unsigned)__shfl_sync(kFull, (int)off, key);
+        const uint32_t wd = __shfl_sync(kFull, word, key);
+        const int rg = __shfl_sync(kFull, in_ring, key);
+        if (pc < dch) {
+          const bool ldk = (wd & gmask) != 0;
+          const bool ldv = ldk || (group_dead && (wd & kIn));
+          const T* kb = rg ? ring_k : pages_k;
+          const T* vb = rg ? ring_v : pages_v;
+          const int so = piece_at<T, kDp>(key, pc);
+          cp_async16(kt + so, ldk ? kb + o + pc * kVec : pages_k, ldk);
+          cp_async16(kt + kTile + so, ldv ? vb + o + pc * kVec : pages_v, ldv);
+        }
+      }
+    }
+    cp_async_commit();
   };
 
-  const int n_iter = (g.Tn + kpi - 1) / kpi;
-  for (int r0 = 0; r0 < g.NR; r0 += kRows) {
-    float qreg[kRows][kVec];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e)
-        qreg[j][e] = (r0 + j < g.NR) ? q_s[(r0 + j) * g.D + d0 + e] : 0.f;
-    }
-
-    // scores of key t for the kRows rows; every lane of the key gets them
-    auto scores = [&](const uint4& kraw, int t, bool in, float* s) {
-      float kf[kVec];
-      Io<T>::unpack(kraw, kf);
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) dot = fmaf(qreg[j][e], kf[e], dot);
-        for (int off = lpk >> 1; off > 0; off >>= 1)
-          dot += __shfl_xor_sync(kFull, dot, off);
-        bool ok = false;
-        if (in && r0 + j < g.NR) {
-          if (t < g.n_view) {
-            const int c = (r0 + j) / g.G;
-            ok = view_ok[((long long)b * g.C + c) * g.n_view + t] != 0;
-          } else {
-            ok = ring_ok[(long long)b * g.R + (t - g.n_view)] != 0;
-          }
-        }
-        s[j] = ok ? dot * scale : kMasked;
-      }
-    };
-
-    // ---- pass 1: running max and sum of each row ---------------------------
-    float m[kRows], l[kRows];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) { m[j] = -INFINITY; l[j] = 0.f; }
-    for (int it0 = 0; it0 < n_iter; it0 += kAhead1) {
-      uint4 kraw[kAhead1];
-#pragma unroll
-      for (int u = 0; u < kAhead1; ++u) {
-        const int t = (it0 + u) * kpi + kq;
-        kraw[u] = t < g.Tn ? load_row(pages_k, ring_k, t) : make_uint4(0, 0, 0, 0);
-      }
-#pragma unroll
-      for (int u = 0; u < kAhead1; ++u) {
-        const int t = (it0 + u) * kpi + kq;
-        const bool in = t < g.Tn;
-        float s[kRows];
-        scores(kraw[u], t, in, s);
-        if (in) {
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) merge_ml(m[j], l[j], s[j], 1.f);
-        }
-      }
-    }
-    for (int off = lpk; off < 32; off <<= 1) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        const float m2 = __shfl_xor_sync(kFull, m[j], off);
-        const float l2 = __shfl_xor_sync(kFull, l[j], off);
-        merge_ml(m[j], l[j], m2, l2);
-      }
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-        red[(warp * kRows + j) * red_w] = m[j];
-        red[(warp * kRows + j) * red_w + 1] = l[j];
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-      m[j] = red[j * red_w];
-      l[j] = red[j * red_w + 1];
-      for (int w = 1; w < kWarps; ++w)
-        merge_ml(m[j], l[j], red[(w * kRows + j) * red_w],
-                 red[(w * kRows + j) * red_w + 1]);
-    }
-    __syncthreads();
-
-    // ---- pass 2: probabilities (rounded to T) times V ----------------------
-    float acc[kRows][kVec];
-#pragma unroll
-    for (int j = 0; j < kRows; ++j) {
-#pragma unroll
-      for (int e = 0; e < kVec; ++e) acc[j][e] = 0.f;
-    }
-    for (int it0 = 0; it0 < n_iter; it0 += kAhead2) {
-      uint4 kraw[kAhead2], vraw[kAhead2];
-#pragma unroll
-      for (int u = 0; u < kAhead2; ++u) {
-        const int t = (it0 + u) * kpi + kq;
-        if (t < g.Tn) {
-          kraw[u] = load_row(pages_k, ring_k, t);
-          vraw[u] = load_row(pages_v, ring_v, t);
-        } else {
-          kraw[u] = make_uint4(0, 0, 0, 0);
-          vraw[u] = make_uint4(0, 0, 0, 0);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < kAhead2; ++u) {
-        const int t = (it0 + u) * kpi + kq;
-        const bool in = t < g.Tn;
-        float s[kRows];
-        scores(kraw[u], t, in, s);
-        if (in) {
-          float vf[kVec];
-          Io<T>::unpack(vraw[u], vf);
-#pragma unroll
-          for (int j = 0; j < kRows; ++j) {
-            const float p = Io<T>::round(expf(s[j] - m[j]) / l[j]);
-#pragma unroll
-            for (int e = 0; e < kVec; ++e) acc[j][e] = fmaf(p, vf[e], acc[j][e]);
-          }
-        }
-      }
-    }
-    for (int off = lpk; off < 32; off <<= 1) {
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          acc[j][e] += __shfl_xor_sync(kFull, acc[j][e], off);
-      }
-    }
-    if (lane < lpk) {  // one lane group per warp holds the warp's sums
-#pragma unroll
-      for (int j = 0; j < kRows; ++j) {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e)
-          red[(warp * kRows + j) * red_w + d0 + e] = acc[j][e];
-      }
-    }
-    __syncthreads();
-    for (int o = tid; o < kRows * g.D; o += kThreads) {
-      const int j = o / g.D, d = o - j * g.D;
-      const int r = r0 + j;
-      if (r < g.NR) {
-        float sum = 0.f;
-        for (int w = 0; w < kWarps; ++w) sum += red[(w * kRows + j) * red_w + d];
-        const int c = r / g.G, grp = r - c * g.G;
-        out[(((long long)b * g.C + c) * g.Hq + h * g.G + grp) * g.D + d] =
-            Io<T>::from_float(sum);
-      }
-    }
-    __syncthreads();
+  Warp<T, kDp> w;
+  w.init(Qs, rows, lane);
+  const float sl2 = g.scale * kLog2e;
+  // a key's base-2 score for query row r: q.k rounded to the I/O type, as
+  // the plain version's einsum gives it, where live; -1e30 where masked (as
+  // the plain version), -inf past the split (never counted)
+  auto col_of = [&](int r) { return r < rows ? (row0 + r) / g.G - c_lo : kNoCol; };
+  const int col_lo = col_of(lane >> 2), col_hi = col_of((lane >> 2) + 8);
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < mine) fetch(i, i);
+    else cp_async_commit();  // an empty group keeps the count
   }
+  for (int i = 0; i < mine; ++i) {
+    const int st = i % kStages;
+    __syncwarp();  // the warp is done with chunk i - 1: its stage is free
+    if (i + kStages - 1 < mine) fetch(i + kStages - 1, (i + kStages - 1) % kStages);
+    else cp_async_commit();
+    cp_async_wait<kStages - 1>();  // chunk i's copies have landed
+    __syncwarp();
+    if (!((need_bits >> st) & 1u)) continue;
+    const uint32_t* wd = wwords + st * 16;
+    const unsigned char* kt = wring + st * 2 * kTile;
+    auto score = [&](float dot, int j, int col) {
+      const uint32_t word = wd[j];
+      return (word >> col) & 1u ? round_io<T>(dot) * sl2
+                                : (word & kIn) ? kMasked : -INFINITY;
+    };
+    if constexpr (sizeof(T) == 2)
+      w.tile(kt, kt + kTile, 0,
+             [&](float dot, int j, int hh) { return score(dot, j, hh ? col_hi : col_lo); },
+             lane);
+    else
+      w.tile(kt, kt + kTile, 0,
+             [&](float dot, int j, int r) { return score(dot, j, col_of(r)); }, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the rings are free: merge over them
+
+  merge_and_store<T, kDp, kWarps>(w, sm, rows, g.D, g.n_split, split, [&](int r) {
+    const int row = row0 + r, c = row / g.G, grp = row - c * g.G;
+    return out + (((long long)b * g.C + c) * g.Hq + h * g.G + grp) * g.D;
+  });
 }
 
-template <typename T, int kRows>
+template <typename T, int kDp>
 int launch(const void* q, const void* pages_k, const void* pages_v,
            const int* blocks, const unsigned char* view_ok, const void* ring_k,
            const void* ring_v, const unsigned char* ring_ok, void* out, int B,
-           const Geometry& g, float scale, cudaStream_t stream) {
-  const int red_w = g.D > 2 ? g.D : 2;
-  const size_t bytes = ((size_t)g.NR * g.D + (size_t)kWarps * kRows * red_w) *
-                           sizeof(float) +
-                       (size_t)g.P * sizeof(int);
-  if (bytes > 227 * 1024) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        paged_decode_kernel<T, kRows>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  dim3 grid(g.Hkv, B);
-  paged_decode_kernel<T, kRows><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(pages_k),
-      static_cast<const T*>(pages_v), blocks, view_ok,
-      static_cast<const T*>(ring_k), static_cast<const T*>(ring_v), ring_ok,
-      static_cast<T*>(out), g, scale);
+           const Geometry& g, cudaStream_t s) {
+  using L = Smem<T, kDp>;
+  const int bytes = tables(L::fixed, g).bytes;
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.n_split, g.Hkv * g.n_rg, B);
+  cfg.blockDim = dim3(L::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, paged_decode_kernel<T, kDp>, static_cast<const T*>(q),
+      static_cast<const T*>(pages_k), static_cast<const T*>(pages_v), blocks,
+      view_ok, static_cast<const T*>(ring_k), static_cast<const T*>(ring_v),
+      ring_ok, static_cast<T*>(out), g);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* pages_k, const void* pages_v,
-             const int* blocks, const unsigned char* view_ok,
-             const void* ring_k, const void* ring_v,
-             const unsigned char* ring_ok, void* out, int B, const Geometry& g,
-             float scale, cudaStream_t stream) {
-  const int lpk = g.D / Io<T>::kVec;
-  if (g.D % Io<T>::kVec || lpk < 1 || lpk > 32 || (lpk & (lpk - 1)))
-    return (int)cudaErrorInvalidValue;
-#define LAUNCH(N)                                                            \
-  return launch<T, N>(q, pages_k, pages_v, blocks, view_ok, ring_k, ring_v, \
-                      ring_ok, out, B, g, scale, stream)
-  if (g.NR <= 1) LAUNCH(1);
-  if (g.NR <= 2) LAUNCH(2);
-  if (g.NR <= 4) LAUNCH(4);
-  LAUNCH(8);
-#undef LAUNCH
+template <typename T, int kDp>
+int allow_smem() {
+  return (int)cudaFuncSetAttribute(paged_decode_kernel<T, kDp>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   kMaxSmem);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. R = 0 means no ring (ring pointers unused).
-// D / (16 / sizeof(T)) must be a power of two <= 32.
-// Returns cudaGetLastError() after the launch (0 = launched).
+// Lets every instantiation of the kernel take up to 227 KB of dynamic
+// shared memory on the current device; call once per device before the
+// first launch (the launches then make no other runtime call). Returns 0 or
+// a CUDA error.
+extern "C" int flash_decode_paged_prepare() {
+  int e = allow_smem<float, 64>();
+  if (!e) e = allow_smem<float, 128>();
+  if (!e) e = allow_smem<__nv_bfloat16, 64>();
+  if (!e) e = allow_smem<__nv_bfloat16, 128>();
+  return e;
+}
+
+// q [B,C,Hq,D], pages [n_blocks,ps,Hkv,D], blocks int32 [B,P], view_ok bool
+// [B,C,P*ps], ring [B,R,Hkv,D], ring_ok bool [B,R], out [B,C,Hq,D], all
+// contiguous, q / pages / ring / out 16-byte aligned. dtype: 0 = float32,
+// 1 = bfloat16. D <= 128, a whole number of 16-byte pieces. R = 0 means no
+// ring (ring pointers unused). The live units of a slot are shared among
+// n_split (1..8) blocks of a cluster. Returns 0 when launched, else a CUDA
+// error (cudaErrorInvalidValue for what the kernel does not take, shared
+// memory past 227 KB included).
 extern "C" int flash_decode_paged_launch(
     const void* q, const void* pages_k, const void* pages_v, const int* blocks,
     const unsigned char* view_ok, const void* ring_k, const void* ring_v,
     const unsigned char* ring_ok, void* out, int B, int C, int Hq, int Hkv,
-    int D, int P, int ps, int R, float scale, int dtype, void* stream) {
-  if (B <= 0 || C <= 0 || Hkv <= 0 || D <= 0 || Hq % Hkv != 0 || B > 65535)
+    int D, int P, int ps, int R, int n_split, float scale, int dtype,
+    void* stream) {
+  if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv || D <= 0 || D > 128 ||
+      B > 65535 || P < 0 || ps <= 0 || R < 0 || (long long)P * ps + R <= 0 ||
+      (long long)P * ps > (1 << 30) || n_split < 1 || n_split > kMaxSplit)
     return (int)cudaErrorInvalidValue;
   Geometry g;
   g.C = C; g.Hq = Hq; g.Hkv = Hkv; g.D = D; g.P = P; g.ps = ps; g.R = R;
-  g.G = Hq / Hkv; g.NR = C * g.G; g.n_view = P * ps; g.Tn = g.n_view + R;
-  if (g.Tn <= 0) return (int)cudaErrorInvalidValue;
+  g.G = Hq / Hkv; g.NR = C * g.G; g.n_rg = (g.NR + kRows - 1) / kRows;
+  g.n_view = P * ps; g.n_words = 4 * ((g.n_view + 127) / 128);
+  g.n_cg = 15 / g.G + 2;  // columns 16 consecutive query rows can span
+  if (g.n_cg > kRows) g.n_cg = kRows;
+  if (g.n_cg > C) g.n_cg = C;
+  g.n_split = n_split;
+  g.al4 = g.n_view % 4 == 0 && reinterpret_cast<uintptr_t>(view_ok) % 4 == 0;
+  g.scale = scale;
+  if ((long long)Hkv * g.n_rg > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<float>(q, pages_k, pages_v, blocks, view_ok, ring_k, ring_v,
-                           ring_ok, out, B, g, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, pages_k, pages_v, blocks, view_ok, ring_k,
-                                   ring_v, ring_ok, out, B, g, scale, s);
+  if (dtype == 0) {
+    if (D % 4) return (int)cudaErrorInvalidValue;
+    return D <= 64 ? launch<float, 64>(q, pages_k, pages_v, blocks, view_ok, ring_k,
+                                       ring_v, ring_ok, out, B, g, s)
+                   : launch<float, 128>(q, pages_k, pages_v, blocks, view_ok, ring_k,
+                                        ring_v, ring_ok, out, B, g, s);
+  }
+  if (dtype == 1) {
+    if (D % 8) return (int)cudaErrorInvalidValue;
+    return D <= 64
+               ? launch<__nv_bfloat16, 64>(q, pages_k, pages_v, blocks, view_ok, ring_k,
+                                           ring_v, ring_ok, out, B, g, s)
+               : launch<__nv_bfloat16, 128>(q, pages_k, pages_v, blocks, view_ok,
+                                            ring_k, ring_v, ring_ok, out, B, g, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

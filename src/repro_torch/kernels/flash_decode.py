@@ -4,27 +4,37 @@ dense (lanes-layout) decode read.
 
 Source note, ``flash_decode_paged``
 -----------------------------------
-Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py::
-flash_decode_paged`` (``_paged_kernel``): softmax(q.K^T * D^-1/2, masked to
--1e30) over (pool rows reached through the page table) U (staging-ring
-lanes), fp32 softmax, probabilities cast to ``q.dtype``, times V. The TPU
-kernel parks every score and value of a slot in VMEM and runs one
-full-width softmax at the last page; that scratch does not fit a Hopper
-block's shared memory for long views. ``csrc/flash_decode_paged.cu`` keeps
-the plain version's arithmetic with two passes over K instead: pass 1 the
-running max and sum of each query row, pass 2 ``p = exp(s - m) / l`` rounded
-to the I/O type, times V, with an fp32 accumulator. (The online-rescale form
-never rounds the probabilities and would differ from the plain version by
-about one bf16 ulp of the output; two passes do not.) One block per (slot,
-KV head) serves the whole GQA group and all C columns, so each K/V row
-leaves device memory once per pass; the block reads its own row of the page
-table; the ring lanes are one more KV source after the last page. Masked
-entries are scored -1e30, not skipped, so an all-masked row is the same
-finite uniform mean the plain version gives. Bound: bytes, those of the K
+Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py:135
+flash_decode_paged`` (``_paged_kernel`` :70): softmax(q.K^T * D^-1/2,
+masked to -1e30) over (pool rows reached through the page table) U
+(staging-ring lanes), fp32 softmax, times V. The TPU kernel parks every
+score and value of a slot in VMEM and runs one full-width softmax at the
+last page; that does not fit a Hopper block. Bound: bytes, those of the K
 and V rows that some query column of their slot sees (a masked key adds
-exactly 0 wherever a live one exists), ``n_live * Hkv * D * 2 * elemsize``.
-The kernel as written reads all ``B * (P*ps + R)`` rows, K twice: ``wgmma``,
-TMA, split-KV and skipping dead pages are later work.
+exactly 0 wherever a live one exists), ``n_live * Hkv * D * 2 * elemsize``;
+in the engine a slot's live keys are a prefix of its 2048-row view and the
+rest of its page table is clamped to block 0. ``csrc/flash_decode_paged.cu``
+reads those rows once and nothing else: one pass with an online softmax
+(per 16 keys one max and one rescale; q.k rounded to the I/O type as the
+JAX oracle ``ref.flash_decode_paged_ref`` and the plain version round it,
+where the Pallas kernel keeps fp32 scores, so in bf16 this kernel follows
+the oracle's precision and not the TPU kernel's; the unnormalised
+probabilities rounded to the I/O type for P.V, l in fp32, as
+``flash_decode``); each block turns
+its slot's ``view_ok`` into bit planes and loads only the live units (a
+page some query column sees a key of; the ring when a lane is live); a
+key no query row of the block sees is not read either. A slot
+with a query column that sees no key at all counts every unit live and
+scores masked keys -1e30, the plain version's uniform mean (the dead-row
+rule, decided before any K/V row is read). The live units of a (slot, KV
+head, 16 query rows) are shared in page order among the blocks of a
+thread-block cluster (split s of n takes live units ``[s n_live / n,
+(s + 1) n_live / n)``), merged by log-sum-exp through
+distributed shared memory: one launch a call; the number of splits comes
+from the shapes and the SM count only (``_paged_splits``). Pages arrive by
+cp.async in 16-byte pieces, each warp walking its own 16-key chunks through
+a ring of stages; the C x G query rows are scored 16 at a time on the
+tensor cores (``mma.sync``), float32 on the CUDA cores.
 
 Source note, ``flash_decode``
 -----------------------------
@@ -61,6 +71,8 @@ import torch
 from . import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# devices on which K2 may take its shared memory (``..._prepare`` ran)
+_PAGED_READY = set()
 
 
 def flash_decode_paged_ref(
@@ -149,31 +161,28 @@ def flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
     ps, hkv = pages_k.shape[1], pages_k.shape[2]
     p = blocks.shape[1]
     r = 0 if ring_k is None else ring_k.shape[1]
-    lanes = d // (16 // q.element_size())  # lanes sharing one K/V row
-    if d % (16 // q.element_size()) or not 1 <= lanes <= 32 \
-            or lanes & (lanes - 1):
-        raise ValueError(
-            f"head_dim {d} in {q.dtype}: the row must split into a power of "
-            f"two (<= 32) of 16-byte pieces")
-    if p * ps + r == 0:
-        raise ValueError("empty KV set")
-    ts = [q, pages_k, pages_v] + ([ring_k, ring_v] if r else [])
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("flash_decode_paged needs contiguous q, pages, ring")
-    if any(t.data_ptr() % 16 for t in ts[1:]):
-        raise ValueError("pages and ring planes must be 16-byte aligned")
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v,
+                                sms)
     blocks32 = blocks.to(torch.int32).contiguous()
     vok = view_ok.to(torch.bool).contiguous()
     rok = ring_ok.to(torch.bool).contiguous() if r else None
     out = torch.empty_like(q)
     with build.on_device(q.device):
-        err = build.load_library().flash_decode_paged_launch(
+        lib = build.load_library()
+        if q.device.index not in _PAGED_READY:
+            err = lib.flash_decode_paged_prepare()
+            if err != 0:
+                raise RuntimeError(f"flash_decode_paged: shared-memory limit "
+                                   f"refused, CUDA error {err}")
+            _PAGED_READY.add(q.device.index)
+        err = lib.flash_decode_paged_launch(
             q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
             blocks32.data_ptr(), vok.data_ptr(),
             ring_k.data_ptr() if r else None,
             ring_v.data_ptr() if r else None,
             rok.data_ptr() if r else None,
-            out.data_ptr(), b, c, hq, hkv, d, p, ps, r,
+            out.data_ptr(), b, c, hq, hkv, d, p, ps, r, n_split,
             float(d ** -0.5), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
@@ -251,6 +260,80 @@ def _splits(sms: int, b: int, hkv: int, g: int, t: int, elem_size: int = 2,
     n = max(1, min(MAX_SPLIT, per_sm * sms // clusters, tiles))
     kps = -(-tiles // n) * tk
     return -(-t // kps), kps
+
+
+# K2's blocks (``csrc/flash_decode_paged.cu::Cfg``), by element size: warps
+# a block, and stages of each warp's ring of 16-key chunks
+PAGED_WARPS = {2: 8, 4: 4}
+PAGED_STAGES = {2: 3, 4: 2}
+
+
+def paged_smem_bytes(elem_size: int, d: int, c: int, g: int, p: int,
+                     ps: int, r: int) -> int:
+    """Dynamic shared memory of one K2 block (``csrc/flash_decode_paged.cu::
+    Smem`` and ``Tables``): each warp's ring of K and V chunks of 16 keys
+    (bf16 rows of 64 or 128 columns, fp32 rows padded by 16 bytes), the 16
+    query rows padded by 16 bytes, a 4-byte word per key of every stage;
+    then the slot's tables: the ``view_ok`` bit planes of the block's
+    columns (at most ``min(C, 16, 15 // G + 2)``) and their OR, 4 bytes a
+    128-key group each, the page-table row, the live-unit list, a byte per
+    column and ring lane, 16 bytes of counters."""
+    dp = 64 if d <= 64 else 128
+    warps, stages = PAGED_WARPS[elem_size], PAGED_STAGES[elem_size]
+    stride = dp + 16 // elem_size
+    chunk = 16 * dp * 2 if elem_size == 2 else 16 * stride * 4
+    fixed = (warps * stages * 2 * chunk + 16 * stride * elem_size
+             + warps * stages * 16 * 4)
+    n_words = 4 * -(-(p * ps) // 128)
+    n_cg = min(c, BLOCK_ROWS, 15 // g + 2)
+    colf = fixed + 4 * (n_cg + 1) * n_words + 4 * p + 4 * (p + 1)
+    return ((colf + c + r + 3) & ~3) + 16
+
+
+def _paged_splits(sms: int, b: int, hkv: int, rows: int, units: int,
+                  keys: int, smem: int, elem_size: int = 2) -> int:
+    """K2's splits per cluster for ``rows`` = C x G query rows per (slot, KV
+    head) over ``units`` pages (+ the ring) of ``keys`` rows in all, on a
+    card of ``sms`` SMs. The clusters are the (slot, KV head, 16 rows)
+    triples; each takes up to 8 splits, as many as one wave of the card
+    holds (the blocks that fit an SM's shared memory, times its SMs) over
+    the clusters, never more than the units or the block-wide rounds of
+    16-key chunks. Depends on the shapes and the card only, so a result
+    never depends on timing."""
+    clusters = b * hkv * -(-rows // BLOCK_ROWS)
+    per_sm = max(1, _SMEM_PER_SM // (smem + 1024))
+    rounds = -(-keys // (16 * PAGED_WARPS[elem_size]))
+    return max(1, min(MAX_SPLIT, per_sm * sms // clusters, units, rounds))
+
+
+def paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v,
+                      sms: int) -> int:
+    """K2's ``n_split`` for these operands on a card of ``sms`` SMs
+    (``_paged_splits``). Raises ``ValueError`` on what the kernel does not
+    take: a head_dim that is not a whole number of 16-byte pieces or is past
+    128, an empty KV set, q / pages / ring not contiguous or not 16-byte
+    aligned, a block's shared memory past 227 KB."""
+    b, c, hq, d = q.shape
+    ps, hkv = pages_k.shape[1], pages_k.shape[2]
+    p = blocks.shape[1]
+    r = 0 if ring_k is None else ring_k.shape[1]
+    es = q.element_size()
+    if d % (16 // es) or d > 128:
+        raise ValueError(f"head_dim {d} in {q.dtype}: the row must be a whole "
+                         f"number of 16-byte pieces, at most 128 values")
+    if p * ps + r == 0:
+        raise ValueError("empty KV set")
+    ts = [q, pages_k, pages_v] + ([ring_k, ring_v] if r else [])
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("flash_decode_paged needs contiguous q, pages, ring")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("q, pages and ring planes must be 16-byte aligned")
+    smem = paged_smem_bytes(es, d, c, hq // hkv, p, ps, r)
+    if smem > 227 * 1024:
+        raise ValueError(f"a block would need {smem} bytes of shared memory "
+                         f"(C={c}, P={p}, ps={ps}, R={r}); at most 227 KB")
+    return _paged_splits(sms, b, hkv, c * hq // hkv, p + (r > 0), p * ps + r,
+                         smem, es)
 
 
 def kernel_plan(q, k, v, sms: int):
