@@ -22,7 +22,10 @@ from .types import PHASE_BULK, DecisionStats, WriteBatch, resolve_device
 class DecisionModule:
     """Routes write batches between the offload and unload paths.
     ``policy.decide`` consumes the (already-updated) monitor state: the
-    paper's order, increment the page's counter, then compare."""
+    paper's order, increment the page's counter, then compare. Where the
+    policy queries the module's own monitor (``policy.monitor ==
+    monitor``) the two are one ``monitor.observe`` and the policy decides
+    on its estimates."""
 
     policy: object  # any RoutingPolicy (repro_torch.core.policy registry)
     monitor: Optional[object] = None  # ExactMonitor | CMSMonitor
@@ -72,8 +75,13 @@ class DecisionModule:
         if self._policy_owns_state():
             unload, state = self.policy.route(state, batch, mask=active)
         elif self.monitor is not None:
-            state = self.monitor.update(state, batch.region, mask=active)
-            unload = self.policy.decide(state, batch)
+            if getattr(self.policy, "monitor", None) == self.monitor:
+                state, est = self.monitor.observe(state, batch.region,
+                                                  mask=active)
+                unload = self.policy.decide(state, batch, est=est)
+            else:
+                state = self.monitor.update(state, batch.region, mask=active)
+                unload = self.policy.decide(state, batch)
             if active is not None:
                 unload = unload & active
         elif hasattr(self.policy, "route"):

@@ -10,6 +10,11 @@ module (paper section 3.2).
   ``update`` adds the batch to ``state.counts`` IN PLACE and returns the new
   state, which holds the same tensor.
 
+Both monitors also take the step every routing call makes, update then
+query what was just updated, as one call: ``observe(state, ids, mask) ->
+(state, est)``. The CMS monitor's is one launch of the fused kernel
+``cms_update_query``; the exact monitor's is its ``update`` then ``query``.
+
 Counters optionally age by halving every ``decay_every`` writes, so the
 monitor tracks current heavy hitters. State is made on the card unless the
 caller passes ``device="cpu"``.
@@ -17,11 +22,11 @@ caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..kernels import cms_query, cms_update
+from ..kernels import cms_query, cms_update, cms_update_query
 from ..kernels.cms import CMS_MULTIPLIERS
 from .types import resolve_device
 
@@ -77,6 +82,14 @@ class ExactMonitor:
               region_ids: torch.Tensor) -> torch.Tensor:
         return state.counts[region_ids.long()]
 
+    def observe(self, state: MonitorState, region_ids: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                ) -> Tuple[MonitorState, torch.Tensor]:
+        """``update`` then ``query`` of the same ids (masked ones are
+        queried too): the new state and each id's count."""
+        state = self.update(state, region_ids, mask)
+        return state, self.query(state, region_ids)
+
 
 @dataclasses.dataclass(frozen=True)
 class CMSMonitor:
@@ -118,6 +131,16 @@ class CMSMonitor:
               region_ids: torch.Tensor) -> torch.Tensor:
         """K6: ``int32[n]`` count-min estimate of each region."""
         return cms_query(state.counts, region_ids)
+
+    def observe(self, state: MonitorState, region_ids: torch.Tensor,
+                mask: Optional[torch.Tensor] = None,
+                ) -> Tuple[MonitorState, torch.Tensor]:
+        """``update`` then ``query`` of the same ids (masked ones are
+        queried too) in one launch of ``cms_update_query``; the counts are
+        updated IN PLACE."""
+        counts, total, est = cms_update_query(
+            state.counts, state.total, region_ids, mask, self.decay_every)
+        return MonitorState(counts, total), est
 
 
 def calibrate_threshold(counts: torch.Tensor,

@@ -29,7 +29,8 @@ BOTH_PATHS = OFFLOADS | UNLOADS
 
 class _DecideRoute:
     """RoutingPolicy adapter for decide-style policies: the routing state is
-    the (optional) monitor counters; ``route`` = update + decide."""
+    the (optional) monitor counters; ``route`` = the monitor's ``observe``
+    (update, then query the same ids) + decide on those estimates."""
 
     owns_state = False
 
@@ -44,8 +45,10 @@ class _DecideRoute:
               mask: Optional[torch.Tensor] = None):
         mon = getattr(self, "monitor", None)
         if self.needs_monitor and mon is not None:
-            state = mon.update(state, batch.region, mask=mask)
-        unload = self.decide(state, batch)
+            state, est = mon.observe(state, batch.region, mask=mask)
+            unload = self.decide(state, batch, est=est)
+        else:
+            unload = self.decide(state, batch)
         if mask is not None:
             unload = unload & mask
         return unload, state
@@ -110,8 +113,12 @@ class FrequencyPolicy(_DecideRoute):
     needs_monitor: bool = True
     emits = BOTH_PATHS
 
-    def decide(self, state: MonitorState, batch: WriteBatch) -> torch.Tensor:
-        est = self.monitor.query(state, batch.region)
+    def decide(self, state: MonitorState, batch: WriteBatch,
+               est: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``est``: the monitor's estimate of each request's region, where
+        the caller already has it from ``observe``; else it is queried."""
+        if est is None:
+            est = self.monitor.query(state, batch.region)
         if self.threshold is not None:
             thr = int(self.threshold)
         elif self.rel is not None:
@@ -184,8 +191,7 @@ class HysteresisPolicy:
         and so write one value: the result does not depend on the scatter's
         order. Masked requests update neither the counters nor the memory
         (``ring.put_`` drops them) and never unload."""
-        mon = self.monitor.update(state.mon, batch.region, mask=mask)
-        est = self.monitor.query(mon, batch.region)
+        mon, est = self.monitor.observe(state.mon, batch.region, mask=mask)
         bucket = batch.region % state.last_unload.shape[0]
         prev = state.last_unload[bucket]
         band = self._band(est, prev)

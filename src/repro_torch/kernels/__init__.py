@@ -11,12 +11,22 @@ hot spots of the serving path, each with a plain PyTorch version beside it.
   flash_decode        one-query decode over a dense per-slot cache, the
                       lanes layout's read (``csrc/flash_decode.cu``)
   cms_update          count-min-sketch update, the CMS monitor's counters
-  cms_query           count-min-sketch estimate (both ``csrc/cms.cu``)
+  cms_query           count-min-sketch estimate
+  cms_update_query    the CMS monitor's whole step in one launch: update,
+                      total, decay, then estimate (all three
+                      ``csrc/cms.cu``)
+
+CPU tests of the plain versions against the JAX package: ``PYTHONPATH=src
+python -m pytest -q tests/test_torch_cms.py`` (the sketch kernels) and
+``tests/test_torch_*.py``; on the card ``python3 chip_smoke.py`` checks and
+times every kernel.
 """
 from .ops import (
     cms_query,
     cms_query_ref,
     cms_update,
+    cms_update_query,
+    cms_update_query_ref,
     cms_update_ref,
     flash_attention,
     flash_attention_ref,
@@ -32,7 +42,8 @@ from .ops import (
 )
 
 __all__ = [
-    "cms_query", "cms_query_ref", "cms_update", "cms_update_ref",
+    "cms_query", "cms_query_ref", "cms_update", "cms_update_query",
+    "cms_update_query_ref", "cms_update_ref",
     "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "launch_counts",

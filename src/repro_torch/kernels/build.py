@@ -190,3 +190,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cms_update_launch.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp]
     lib.cms_query_launch.restype = i32
     lib.cms_query_launch.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp]
+    lib.cms_update_query_launch.restype = i32
+    lib.cms_update_query_launch.argtypes = [
+        vp, vp, vp, vp, i32, vp, vp, i64, i32, i32, i64, i32, i32, vp]

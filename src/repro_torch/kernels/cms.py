@@ -19,10 +19,21 @@ multiply-shift hash ``hash_r(x) = ((uint32)x * A_r + B_r) >> (32 - k)``.
   per id. It is a separate launch after K5: a query must see the counts of
   the whole batch, and the second launch is that barrier.
 
+* ``cms_update_query``: the CMS monitor's whole step in one launch, as the
+  JAX ``CMSMonitor.update`` followed by ``.query`` computes it: add the
+  batch (K5), ``total_out = total_in + (unmasked ids)``, floor-halve every
+  counter where the total crossed a multiple of ``decay_every``, then K6's
+  estimate of every id (masked ones too), in one launch where
+  ``CMSMonitor.update`` then ``.query`` take nine (K5, the total's add,
+  six elementwise ops of the decay, K6). The grid is one thread-block
+  cluster with cluster-wide barriers between add, halving and query
+  (``csrc/cms.cu``).
+
 Bound: bytes. K5 reads the ids (and the mask) once and reads and writes
 once each 32-byte sector of counters that the batch touches; K6 reads the
 ids, writes the estimates and reads those sectors once (they fit L2). Both
-are launch-bound at an engine batch of 4096 ids.
+are launch-bound at an engine batch of 4096 ids. The fused step moves the
+sum of the two, and the whole table both ways when it halves.
 
 ``k = 0`` (width 1) is a shift by 32, undefined in C++; JAX gives 0, and so
 do both versions here. Negative ids are taken as their uint32 bits, as JAX's
@@ -88,6 +99,22 @@ def cms_query_ref(counts: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     est = torch.stack([counts[r, cms_hash(ids, r, k)]
                        for r in range(counts.shape[0])])
     return est.amin(0)
+
+
+def cms_update_query_ref(counts: torch.Tensor, total: torch.Tensor,
+                         ids: torch.Tensor,
+                         mask: Optional[torch.Tensor] = None,
+                         decay_every: int = 0, inplace: bool = False):
+    """Plain PyTorch version of the fused step: ``cms_update_ref``, the
+    total, the decay and ``cms_query_ref`` in sequence. Returns ``(counts,
+    total_out, est)``; ``total_out`` is a new int64 scalar."""
+    out = cms_update_ref(counts, ids, mask, inplace=inplace)
+    total_out = total + (ids.shape[0] if mask is None
+                         else mask.to(torch.int64).sum())
+    if decay_every:
+        do_decay = (total_out % decay_every) < (total % decay_every)
+        out.div_(1 + do_decay.to(out.dtype), rounding_mode="floor")
+    return out, total_out, cms_query_ref(out, ids)
 
 
 def _check(counts, ids, mask=None):
@@ -160,5 +187,64 @@ def cms_query(counts: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The fused step's grid is one thread-block cluster, at most 16 blocks (the
+# non-portable cluster size): the ids spread over all of them, one a thread,
+# at least 64 threads a block, so an engine batch of 4096 ids takes 16 x 256
+# threads; past 16 x 1024 ids the threads stride.
+FUSED_MAX_BLOCKS = 16
+
+
+def fused_grid(n: int):
+    """``(blocks, threads)`` of the fused launch for ``n`` ids."""
+    per_block = -(-n // FUSED_MAX_BLOCKS)
+    threads = min(1024, max(64, -(-per_block // 32) * 32))
+    return max(1, min(FUSED_MAX_BLOCKS, -(-n // threads))), threads
+
+
+def cms_update_query(counts: torch.Tensor, total: torch.Tensor,
+                     ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                     decay_every: int = 0):
+    """The CMS monitor's step in one launch: add every id (where ``mask``)
+    to the sketch IN PLACE, count them into a new total, halve the counters
+    where the total crossed a multiple of ``decay_every`` (0 = never), then
+    estimate every id (masked ones too). Returns ``(counts, total_out,
+    est)``: ``counts`` is the tensor passed, ``total_out`` a new int64
+    scalar, ``est`` int32[n]. ``n = 0`` launches nothing."""
+    _check(counts, ids, mask)
+    if total.dtype != torch.int64 or total.dim() != 0:
+        raise TypeError(f"total must be an int64 scalar, got {total.dtype} "
+                        f"{tuple(total.shape)}")
+    if total.device != counts.device:
+        raise ValueError("all cms operands must share a device")
+    decay_every = int(decay_every)
+    if decay_every < 0:
+        raise ValueError(f"decay_every must be >= 0, got {decay_every}")
+    if counts.device.type == "cpu":
+        return cms_update_query_ref(counts, total, ids, mask, decay_every,
+                                    inplace=True)
+    n = ids.shape[0]
+    est = torch.empty((n,), dtype=torch.int32, device=counts.device)
+    if n == 0:
+        return counts, total.clone(), est
+    if n > 0x7FFFFFFF:
+        raise ValueError(f"cms_update_query takes at most 2^31 - 1 ids, "
+                         f"got {n}")
+    total_out = torch.empty((), dtype=torch.int64, device=counts.device)
+    ids = ids.contiguous()
+    with build.on_device(counts.device):
+        err = build.load_library().cms_update_query_launch(
+            counts.data_ptr(), total.data_ptr(), total_out.data_ptr(),
+            ids.data_ptr(), ids.element_size(),
+            0 if mask is None else mask.contiguous().data_ptr(),
+            est.data_ptr(), n, counts.shape[0], _log2_width(counts),
+            decay_every, *fused_grid(n), _stream(counts))
+    if err != 0:
+        raise RuntimeError(f"cms_update_query launch failed: CUDA error "
+                           f"{err}")
+    cms_update_query.launches += 1
+    return counts, total_out, est
+
+
 cms_update.launches = 0
 cms_query.launches = 0
+cms_update_query.launches = 0

@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .cms import cms_query, cms_query_ref, cms_update, cms_update_ref
+from .cms import (cms_query, cms_query_ref, cms_update, cms_update_query,
+                  cms_update_query_ref, cms_update_ref)
 from .flash_attention import flash_attention, flash_attention_ref
 from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_decode_paged_ref, flash_decode_ref)
@@ -23,6 +24,7 @@ _WRAPPERS = {
     "flash_decode": (flash_decode,),
     "cms_update": (cms_update,),
     "cms_query": (cms_query,),
+    "cms_update_query": (cms_update_query,),
 }
 
 
@@ -38,8 +40,8 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "cms_query", "cms_query_ref", "cms_update", "cms_update_ref",
-    "flash_attention", "flash_attention_ref", "flash_decode",
+    "cms_query", "cms_query_ref", "cms_update", "cms_update_query",
+    "cms_update_query_ref", "cms_update_ref", "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "staged_scatter",
     "staged_scatter_layers", "staged_scatter_ref", "launch_counts",

@@ -1,10 +1,12 @@
-"""K5 ``cms_update`` and K6 ``cms_query`` of the port on the CPU, where their
-wrappers run the plain PyTorch versions, held bit for bit against the JAX
-package's oracle (``kernels/ref.py``) and its Pallas kernels in interpret
-mode on the same numpy inputs; and the port's ``CMSMonitor`` against the JAX
-one (masked, decaying, several batches). All integer work: exact. The CUDA
-kernels are held against the same plain versions on the card by
-``chip_smoke.py``."""
+"""K5 ``cms_update``, K6 ``cms_query`` and the fused monitor step
+``cms_update_query`` of the port on the CPU, where their wrappers run the
+plain PyTorch versions, held bit for bit against the JAX package's oracle
+(``kernels/ref.py``), its ``CMSMonitor.update`` then ``.query``, and its
+Pallas kernels in interpret mode on the same numpy inputs; the port's
+``CMSMonitor`` against the JAX one (masked, decaying, several batches); and
+the decision module's fused and unfused monitor steps. All integer work:
+exact. The CUDA kernels are held against the same plain versions on the
+card by ``chip_smoke.py``."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,12 +15,16 @@ import torch
 from conftest import seeds
 from repro.core import decision as jdec
 from repro.core import monitor as jmon
+from repro.core import policy as jpol
+from repro.core import types as jtypes
 from repro.kernels import ref as jref
 from repro.kernels.cms import cms_query as pallas_query
 from repro.kernels.cms import cms_update as pallas_update
 from repro_torch import kernels as K
 from repro_torch.core import decision as tdec
 from repro_torch.core import monitor as tmon
+from repro_torch.core import policy as tpol
+from repro_torch.core import types as ttypes
 from repro_torch.kernels.cms import cms_hash
 
 torch.set_num_threads(1)
@@ -203,3 +209,232 @@ def test_calibrate_threshold_matches_jax_on_a_sketch(k):
     assert int(tmon.calibrate_threshold(T(counts), k)) == want
     want = int(jdec.page_threshold(jnp.asarray(counts), k))
     assert int(tdec.page_threshold(T(counts), k)) == want
+
+
+# ---------------------------------------------------------------------------
+# the fused monitor step, cms_update_query
+# ---------------------------------------------------------------------------
+
+# (depth, k, n per batch, decay_every): decay off, firing inside most
+# batches (7 < n), and configured but never firing over the run (1000)
+FUSED_CASES = [(1, 0, 9, 0), (2, 3, 9, 7), (3, 5, 9, 1000), (4, 6, 9, 7),
+               (4, 2, 33, 7), (2, 6, 33, 0), (3, 1, 1, 7), (4, 4, 33, 1000)]
+
+
+def _fused_batches(seed, n, n_batches=6, wide=False):
+    """Per batch: int32 ids over the whole int32 range (negatives too) and
+    a mask; with ``wide`` the port gets int64 ids past 2^32 whose low 32
+    bits are the int32 ids JAX gets."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n_batches):
+        ids = rng.randint(-2 ** 31, 2 ** 31 - 1, n, dtype=np.int64)
+        ids[: n // 2] %= 97          # repeats, so buckets stack
+        j_ids = ids.astype(np.int32)
+        t_ids = (ids + (3 << 32)) if wide else j_ids
+        out.append((j_ids, T(t_ids), rng.rand(n) > 0.35))
+    return out
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("depth,k,n,decay", FUSED_CASES)
+def test_fused_step_matches_jax_monitor(depth, k, n, decay, masked, wide):
+    """The wrapper (CPU: the plain version) and the plain version, batch
+    after batch, against JAX's ``CMSMonitor.update`` then ``.query`` of the
+    same ids: counts, total and every id's estimate (masked ids too)."""
+    jm = jmon.CMSMonitor(depth=depth, log2_width=k, decay_every=decay)
+    js = jm.init()
+    counts = torch.zeros((depth, 1 << k), dtype=torch.int32)
+    total = torch.zeros((), dtype=torch.int64)
+    ref_counts, ref_total = counts.clone(), total.clone()
+    fired = 0
+    for j_ids, t_ids, mask in _fused_batches(depth * 31 + k, n, wide=wide):
+        m = mask if masked else None
+        before = int(js.total)
+        js = jm.update(js, jnp.asarray(j_ids),
+                       None if m is None else jnp.asarray(m))
+        want = jm.query(js, jnp.asarray(j_ids))
+        if decay and int(js.total) % decay < before % decay:
+            fired += 1
+        tm = None if m is None else T(m)
+        got_c, total, est = K.cms_update_query(counts, total, t_ids, tm,
+                                               decay)
+        assert got_c.data_ptr() == counts.data_ptr(), "updated in place"
+        ref_counts, ref_total, ref_est = K.cms_update_query_ref(
+            ref_counts, ref_total, t_ids, tm, decay)
+        for c, t, e in ((counts, total, est),
+                        (ref_counts, ref_total, ref_est)):
+            eq(c, js.counts)
+            assert t.dtype == torch.int64 and t.dim() == 0
+            assert int(t) == int(js.total)
+            assert e.dtype == torch.int32
+            eq(e, want)
+    if decay == 7 and n > 1:
+        assert fired > 0, "the decay never fired"
+    if decay == 1000:
+        assert fired == 0
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("depth,k,decay", [(4, 6, 7), (2, 4, 0), (3, 5, 50)])
+def test_fused_step_matches_pallas(depth, k, decay, masked):
+    """The same inputs through the Pallas ``cms_update`` (unmasked ids
+    only: it takes no mask) and ``cms_query`` in interpret mode, with the
+    total and the decay applied in jnp between them."""
+    counts = np.zeros((depth, 1 << k), np.int32)
+    j_counts, j_total = jnp.asarray(counts), 0
+    t_counts, t_total = T(counts), torch.zeros((), dtype=torch.int64)
+    for j_ids, t_ids, mask in _fused_batches(depth + k, 40, n_batches=3):
+        keep = mask if masked else np.ones_like(mask)
+        j_counts = pallas_update(j_counts, jnp.asarray(j_ids[keep]),
+                                 interpret=True)
+        before, j_total = j_total, j_total + int(keep.sum())
+        if decay:
+            j_counts = jnp.where(j_total % decay < before % decay,
+                                 j_counts // 2, j_counts)
+        want = pallas_query(j_counts, jnp.asarray(j_ids), interpret=True)
+        _, t_total, est = K.cms_update_query(
+            t_counts, t_total, t_ids, T(mask) if masked else None, decay)
+        eq(t_counts, j_counts)
+        assert int(t_total) == j_total
+        eq(est, want)
+
+
+def test_fused_step_empty_batch():
+    """n = 0 keeps the counts and the total (a fresh tensor) as they are,
+    halves nothing and estimates nothing."""
+    counts = torch.arange(32, dtype=torch.int32).reshape(2, 16)
+    total = torch.tensor(6, dtype=torch.int64)
+    c, t, e = K.cms_update_query(counts.clone(), total,
+                                 torch.zeros(0, dtype=torch.int64), None, 7)
+    assert torch.equal(c, counts) and int(t) == 6 and e.shape == (0,)
+    assert t.data_ptr() != total.data_ptr()
+
+
+def test_fused_wrapper_refuses_what_the_kernel_does_not_take():
+    c = torch.zeros((4, 16), dtype=torch.int32)
+    tot = torch.zeros((), dtype=torch.int64)
+    ids = torch.arange(5)
+    with pytest.raises(TypeError, match="int32"):
+        K.cms_update_query(c.long(), tot, ids)
+    with pytest.raises(ValueError, match="power of two"):
+        K.cms_update_query(torch.zeros((2, 12), dtype=torch.int32), tot, ids)
+    with pytest.raises(ValueError, match="depth"):
+        K.cms_update_query(torch.zeros((5, 16), dtype=torch.int32), tot, ids)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.cms_update_query(torch.zeros((16, 4), dtype=torch.int32).t(), tot,
+                           ids)
+    with pytest.raises(TypeError, match="ids"):
+        K.cms_update_query(c, tot, ids.float())
+    with pytest.raises(TypeError, match="ids"):
+        K.cms_update_query(c, tot, ids.reshape(5, 1))
+    with pytest.raises(TypeError, match="mask"):
+        K.cms_update_query(c, tot, ids, torch.ones(4, dtype=torch.bool))
+    with pytest.raises(TypeError, match="mask"):
+        K.cms_update_query(c, tot, ids, torch.ones(5, dtype=torch.int32))
+    with pytest.raises(TypeError, match="total"):
+        K.cms_update_query(c, tot.int(), ids)
+    with pytest.raises(TypeError, match="total"):
+        K.cms_update_query(c, tot.reshape(1), ids)
+    with pytest.raises(ValueError, match="decay_every"):
+        K.cms_update_query(c, tot, ids, None, -1)
+    with pytest.raises(ValueError, match="device"):
+        K.cms_update_query(c, tot, ids.to("meta"))
+    with pytest.raises(ValueError, match="device"):
+        K.cms_update_query(c, tot.to("meta"), ids)
+
+
+@pytest.mark.parametrize("decay", [0, 7])
+def test_monitor_observe_matches_update_then_query(decay):
+    """Both monitors' ``observe`` equals their ``update`` then ``query`` of
+    the same ids and JAX's, masked ids queried too."""
+    rng = np.random.RandomState(decay)
+    mons = [(tmon.CMSMonitor(depth=3, log2_width=5, decay_every=decay),
+             jmon.CMSMonitor(depth=3, log2_width=5, decay_every=decay)),
+            (tmon.ExactMonitor(64, decay_every=decay),
+             jmon.ExactMonitor(64, decay_every=decay))]
+    for tm, jm in mons:
+        ts, js = tm.init(device="cpu"), jm.init()
+        for _ in range(5):
+            ids = rng.randint(0, 64, 11).astype(np.int32)
+            mask = rng.rand(11) > 0.3
+            plain = tm.update(tmon.MonitorState(ts.counts.clone(), ts.total),
+                              T(ids), T(mask))
+            ts, est = tm.observe(ts, T(ids), T(mask))
+            js = jm.update(js, jnp.asarray(ids), jnp.asarray(mask))
+            assert torch.equal(ts.counts, plain.counts)
+            assert int(ts.total) == int(plain.total) == int(js.total)
+            eq(ts.counts, js.counts)
+            eq(est, jm.query(js, jnp.asarray(ids)))
+            assert torch.equal(est, tm.query(ts, T(ids)))
+
+
+def _spy(monkeypatch, cls):
+    """Count ``cls``'s ``observe`` and ``update`` calls."""
+    calls = {"observe": 0, "update": 0}
+    for name in calls:
+        orig = getattr(cls, name)
+
+        def wrapped(self, *a, _orig=orig, _name=name, **kw):
+            calls[_name] += 1
+            return _orig(self, *a, **kw)
+        monkeypatch.setattr(cls, name, wrapped)
+    return calls
+
+
+@pytest.mark.parametrize("same", [True, False])
+@pytest.mark.parametrize("active", [False, True])
+def test_decision_module_fuses_only_its_own_monitor(monkeypatch, same,
+                                                    active):
+    """``DecisionModule`` with a frequency policy over a sketch: where the
+    policy's monitor is the module's, one ``observe`` a batch (the fused
+    step); where it is another (here: another decay), the module's
+    ``update`` then the policy's own query. Both match JAX batch by
+    batch: unload mask, stats, counts and total."""
+    mod_mon = dict(depth=3, log2_width=5, decay_every=11)
+    pol_mon = mod_mon if same else dict(mod_mon, decay_every=0)
+
+    def make(mon_mod, pol_mod, dec_mod):
+        return dec_mod.DecisionModule(
+            policy=pol_mod.FrequencyPolicy(
+                monitor=mon_mod.CMSMonitor(**pol_mon), threshold=3),
+            monitor=mon_mod.CMSMonitor(**mod_mon))
+
+    td, jd = make(tmon, tpol, tdec), make(jmon, jpol, jdec)
+    calls = _spy(monkeypatch, tmon.CMSMonitor)
+    ts, js = td.init_state(device="cpu"), jd.init_state()
+    rng = np.random.RandomState(int(same) + 2 * int(active))
+    steps = 8
+    for _ in range(steps):
+        region = rng.randint(0, 40, 7).astype(np.int32)
+        size = rng.choice([16, 9000], 7).astype(np.int32)
+        act = rng.rand(7) > 0.3 if active else None
+        tu, ts, tst = td(ts, ttypes.make_write_batch(T(region), size=T(size)),
+                         active=None if act is None else T(act))
+        ju, js, jst = jd(js, jtypes.make_write_batch(
+            jnp.asarray(region), size=jnp.asarray(size)),
+            active=None if act is None else jnp.asarray(act))
+        eq(tu, ju)
+        assert [int(x) for x in tst] == [int(x) for x in jst]
+        eq(ts.counts, js.counts)
+        assert int(ts.total) == int(js.total)
+    if same:
+        assert calls == {"observe": steps, "update": 0}, calls
+    else:
+        assert calls == {"observe": 0, "update": steps}, calls
+
+
+@pytest.mark.parametrize("n", [1, 63, 64, 255, 1000, 4096, 5000, 16384,
+                               1 << 20])
+def test_fused_grid_is_one_cluster_with_a_thread_an_id(n):
+    """The fused launch's grid: one cluster of at most 16 blocks, a whole
+    number of warps a block, one id a thread until 16 x 1024 ids; an engine
+    batch of 4096 ids takes 16 blocks of 256."""
+    from repro_torch.kernels.cms import fused_grid
+    blocks, threads = fused_grid(n)
+    assert 1 <= blocks <= 16 and 64 <= threads <= 1024 and threads % 32 == 0
+    assert blocks * threads >= min(n, 16 * 1024)
+    assert (blocks - 1) * threads < n
+    if n == 4096:
+        assert (blocks, threads) == (16, 256)

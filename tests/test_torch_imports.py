@@ -1,6 +1,7 @@
-"""The port stands alone: no module under ``src/repro_torch/`` and not
-``chip_smoke.py`` imports ``jax`` or anything of the JAX package, and the
-GPU entry points refuse to carry on on the CPU."""
+"""The port stands alone: no module under ``src/repro_torch/``, not
+``chip_smoke.py`` and no script under ``tools/`` imports ``jax`` or
+anything of the JAX package, and the GPU entry points refuse to carry on
+on the CPU."""
 import ast
 import os
 import subprocess
@@ -15,7 +16,8 @@ BANNED = ("jax", "jaxlib", "repro", "flax", "optax")
 
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py")]
-    for dirpath, _, names in os.walk(PKG):
+    for dirpath, _, names in [*os.walk(PKG),
+                              *os.walk(os.path.join(ROOT, "tools"))]:
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
     return sorted(files)
 

@@ -252,6 +252,9 @@ def test_launch_counters_count_kernel_launches_only():
     counts = K.cms_update(torch.zeros(2, 8, dtype=torch.int32),
                           torch.arange(3))
     K.cms_query(counts, torch.arange(3))
+    K.cms_update_query(counts, torch.zeros((), dtype=torch.int64),
+                       torch.arange(3))
     assert K.launch_counts() == {"staged_scatter": 0, "flash_decode_paged": 0,
                                  "flash_attention": 0, "flash_decode": 0,
-                                 "cms_update": 0, "cms_query": 0}
+                                 "cms_update": 0, "cms_query": 0,
+                                 "cms_update_query": 0}
