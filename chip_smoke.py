@@ -11,20 +11,36 @@ Phases, each failing the run on any exception or mismatch:
            their times at the shapes the engine phases give them; the CMS
            monitor's step at the write engine's sketch and batch, its
            unfused chain of launches against the fused one (line
-           ``cms_monitor_step``)
+           ``cms_monitor_step``); flash_decode_paged at the chunked engine's
+           mixed step (C = 16) and flash_attention at the lanes layout's
+           chunk prefill (S = 512) under ``chunk_shape``
   engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
            a seed) serves 16 requests through ``Engine.from_config`` on the
            paged layout; the launch counts of staged_scatter,
            flash_decode_paged and flash_attention must be non-zero
+  engine_chunked  the same with ``chunked=True, chunk_size=16``: prompts
+           prefilled inside mixed-phase segments; staged_scatter and
+           flash_decode_paged launched, flash_attention never; every prompt
+           row counted as a prefill write; a mixed segment profiled
   lanes    h2o-danube-3-4b at full width (24 layers, bf16, sliding window
            4096) serves 12 requests with prompts up to 4608 tokens on the
            lanes layout; flash_attention's and flash_decode's launch counts
            must be non-zero
+  lanes_chunked  the same model with ``chunked=True, chunk_size=512``:
+           prompts of 2048 and 4608 tokens prefilled chunk by chunk at
+           admission (one flash_attention launch a chunk and layer); the
+           last-position logits held to the whole-prompt prefill's against
+           the fp32 prefill (``held_bf16``)
   parity   stablelm-1.6b at 4 layers, fp32: direct / staged / adaptive,
            fused / reference and paged / lanes give identical greedy token
            streams; h2o-danube-3-4b at 2 layers (window cut to 128), fp32:
            the engine on the card and the same weights on the CPU (the
            plain versions) give identical greedy token streams
+  parity_chunked  stablelm-1.6b at 2 layers, fp32, chunk sizes 1 and 3, each
+           path: chunked on the card = chunked on the CPU (streams, stats,
+           path counts) = blocking on the card (streams, per-request write
+           counts); h2o-danube-3-4b at 2 layers (window 128): chunked =
+           blocking with prompts past the window
   write_engine  the flat RemoteWriteEngine at the paper's section 4 size:
            4 GiB of registered fp32 memory (2^20 regions of 4 KB, four uMTT
            registrations), 64 batches of 4096 writes of 16-256 B to
@@ -105,6 +121,8 @@ SLICE = dict(arch="stablelm-1.6b", reduced=False, max_seq=2048, n_slots=8,
              page_size=16, segment_len=16, ring_size=8, path="adaptive")
 N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, [128, 256, 384, 512], 64
 ENGINE_RUNS = 3  # the timed serve is repeated so its spread is seen
+# chunked prefill on the paged slice: prompt tokens per mixed-phase step
+CHUNK = 16
 # the lanes slice: the sliding-window model; max_seq 6144 makes the cache
 # 4096 = the window, and 4608-token prompts exceed it, so prefill masks with
 # the window, the cache keeps a rolled ring and decode wraps it
@@ -112,6 +130,8 @@ LANES = dict(arch="h2o-danube-3-4b", reduced=False, max_seq=6144, n_slots=8,
              segment_len=16, path="direct")
 LANES_REQUESTS, LANES_PROMPTS, LANES_NEW = 12, [512, 2048, 4608], 64
 LANES_GROUP = 2  # 4608-token prompts per prefill call (the first admission's)
+# chunked prefill on the lanes slice: one prompt inside the window, one past
+LANES_CHUNK, LANES_CHUNKED_PROMPTS, LANES_CHUNKED_NEW = 512, [2048, 4608], 16
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
 WRITE = dict(log2_regions=20, region_elems=1024, batches=64, batch=4096,
@@ -643,8 +663,68 @@ def time_k2(gen):
     engine_args = _k2_engine_inputs(gen)
     t = _k2_timed("flash_decode_paged", slice_args)
     t["engine_shape"] = _k2_timed("flash_decode_paged engine", engine_args)
+    split_plan = time_k2_splits(gen)
+    # drawn last, so the inputs timed before stay as they were
+    chunk_args = _k2_chunk_inputs(gen)
+    t["chunk_shape"] = _k2_timed("flash_decode_paged chunk", chunk_args)
     return t, dict(slice=_k2_facts(slice_args), engine=_k2_facts(engine_args),
-                   split_plan=time_k2_splits(gen))
+                   chunk=_k2_facts(chunk_args), split_plan=split_plan)
+
+
+def _k2_chunk_inputs(gen, dtype=torch.bfloat16, empty_slot=False):
+    """K2 at the chunked paged engine's mixed-phase step (the slice with
+    ``chunk_size`` 16): ``q[8, 16, 32, 64]``, 128 pages of 16 a slot. Slots
+    0-3 prefill a chunk of 16 at a cursor inside a prompt of 128 / 256 /
+    384 / 512 tokens; slots 4-7 decode (column 0 live, columns 1-15 dead
+    but reading what the engine's view mask gives them, the rows up to
+    ``pos + j`` on allocated pages), each with its ring full: the last 8
+    tokens staged, their view rows shadowed out. Pages are allocated for
+    the rows the segment can reach, the rest of the page table clamped to
+    block 0. ``empty_slot``: slot 7 is empty (no page, ``n_valid`` 0, every
+    key of every column masked: the uniform mean)."""
+    b, c, hq, hkv, d, ps, p, r = 8, CHUNK, 32, 32, 64, 16, 128, 8
+    nb = b * p
+    pk = torch.randn((nb + 1, ps, hkv, d), generator=gen, device=DEV).to(dtype)
+    pv = torch.randn((nb + 1, ps, hkv, d), generator=gen, device=DEV).to(dtype)
+    q = torch.randn((b, c, hq, d), generator=gen, device=DEV).to(dtype)
+    plen = torch.tensor(PROMPT_LENS * 2, device=DEV)
+    cursor = torch.tensor([0, 112, 240, 496], device=DEV)
+    pos = plen[4:] + torch.randint(r, NEW_TOKENS - 1, (4,), generator=gen,
+                                   device=DEV)
+    start = torch.cat([cursor, pos])
+    seg = SLICE["segment_len"]
+    reach = torch.cat([torch.minimum(cursor + seg * c, plen[:4] + NEW_TOKENS),
+                       torch.minimum(pos + seg, plen[4:] + NEW_TOKENS)])
+    pages = (reach + ps - 1) // ps
+    ids = torch.randperm(nb, generator=gen, device=DEV).view(b, p)
+    live_page = torch.arange(p, device=DEV)[None] < pages[:, None]
+    if empty_slot:
+        live_page[-1] = False
+    blocks = torch.where(live_page, ids, 0).to(torch.int32)
+    rows = torch.arange(p * ps, device=DEV)
+    positions = start[:, None] + torch.arange(c, device=DEV)[None]
+    allocated = live_page.repeat_interleave(ps, dim=1)
+    view_ok = (rows[None, None] <= positions[..., None]) & allocated[:, None]
+    decode = torch.arange(b, device=DEV) >= 4
+    # the ring: the decode slots' last r rows staged (this step's included)
+    staged = decode[:, None] & (rows[None] > start[:, None] - r) \
+        & (rows[None] <= start[:, None])
+    view_ok &= ~staged[:, None]
+    rok = decode[:, None].expand(b, r).clone()
+    if empty_slot:
+        rok[-1] = False
+    rk = torch.randn((b, r, hkv, d), generator=gen, device=DEV).to(dtype)
+    rv = torch.randn((b, r, hkv, d), generator=gen, device=DEV).to(dtype)
+    return q, pk, pv, blocks, view_ok.contiguous(), rk, rv, rok.contiguous()
+
+
+def check_k2_chunk(gen):
+    """K2 at the mixed-phase step's shape, with and without an empty slot:
+    fp32 within TOL_F32 of the plain version, bf16 by ``held_bf16`` row by
+    row against the plain version run in fp32."""
+    return [dict(empty_slot=e, **_check_k2_at(
+        f"chunk shape, C={CHUNK}, empty slot {e}",
+        _k2_chunk_inputs(gen, empty_slot=e))) for e in (False, True)]
 
 
 # ---------------------------------------------------------------------------
@@ -827,6 +907,77 @@ def time_k3(gen):
                  # rule but an explicit mask, which would time its masked path)
                  lambda: F.scaled_dot_product_attention(
                      q, k, v, is_causal=True, enable_gqa=True))
+    pairs = live_pairs(s, t, True, window)
+    flops = 4 * d * hq * b * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / HBM_BYTES_PER_S
+    return dict(**t_, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                live_pairs_per_head=pairs,
+                shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{t},{d}] "
+                      f"bf16 (strided views of [B,S,H,D]), causal, window "
+                      f"{window}")
+
+
+def _k3_chunk_inputs(gen, t, dtype=torch.bfloat16):
+    """K3 at the lanes layout's chunked prefill: the 512 queries of one
+    chunk against the ``t`` keys of the cache unrolled before it plus the
+    chunk (``layers.chunk_attention``): h2o-danube-3-4b's 32 / 8 heads of
+    120, ``[B, S, H, D]`` tensors seen transposed."""
+    c = get_config(LANES["arch"])
+    return _k3_inputs(gen, dtype, 1, c.n_heads, c.n_kv_heads, LANES_CHUNK, t,
+                      c.resolved_head_dim)
+
+
+# key streams of a chunk: the last chunk of the 2048-token prompt (1536
+# cached keys + 512) and a chunk past the window (4096 + 512)
+K3_CHUNK_T = (2048, 4608)
+
+
+def check_k3_chunk(gen):
+    """K3 with S = 512 queries at the end of T keys: fp32 within TOL_F32 of
+    the plain version; bf16 by ``held_bf16``, block by block of 64 query
+    rows, against the plain version run in fp32."""
+    window = get_config(LANES["arch"]).sliding_window
+    out = []
+    for t in K3_CHUNK_T:
+        args = _k3_chunk_inputs(gen, t)
+        args32 = tuple(x.float() for x in args)
+        ref32 = flash_attention_ref(*args32, True, window)
+        got32 = flash_attention(*args32, True, window)
+        torch.testing.assert_close(
+            got32, ref32, **TOL_F32,
+            msg=lambda m: f"flash_attention fp32, chunk S=512 T={t}: {m}")
+        got = flash_attention(*args, True, window)
+        plain = flash_attention_ref(*args, True, window)
+        torch.cuda.synchronize()
+        h = held_bf16("flash_attention", f"chunk S=512 T={t}", got, plain,
+                      ref32, K3_TILE)
+        out.append(dict(t=t, err_f32=float((got32 - ref32).abs().max()),
+                        err_bf16_vs_f32_ref=h["err"],
+                        plain_err_bf16_vs_f32_ref=h["err_plain"],
+                        worst_block_share=h["worst_block_share"]))
+    return out
+
+
+def time_k3_chunk(gen):
+    """K3 on a chunk past the window (S = 512, T = 4608): the kernels line's
+    ``chunk_shape`` of K3."""
+    window = get_config(LANES["arch"]).sliding_window
+    q, k, v = _k3_chunk_inputs(gen, K3_CHUNK_T[-1])
+    b, hq, s, d = q.shape
+    t = k.shape[2]
+    qa = torch.arange(s, device=DEV)[:, None] + (t - s)
+    kpos = torch.arange(t, device=DEV)[None]
+    mask = (kpos <= qa) & (kpos > qa - window)
+    t_ = timings("flash_attention chunk",
+                 lambda: flash_attention(q, k, v, True, window),
+                 lambda: flash_attention_ref(q, k, v, True, window),
+                 # yardstick only: SDPA's own causal rule aligns the queries
+                 # to the start of the keys, so the same function takes the
+                 # explicit mask
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, attn_mask=mask, enable_gqa=True))
     pairs = live_pairs(s, t, True, window)
     flops = 4 * d * hq * b * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -1299,12 +1450,15 @@ def phase_kernels():
     k4_slice = [check_k4_slice(gen, live) for live in (True, False)]
     cms_cases = check_cms(gen)
     fused_cases, fused_fired = check_cms_fused(gen)
+    # the shapes chunked prefill gives K2 and K3 (drawn after the rest)
+    k2_chunk, k3_chunk = check_k2_chunk(gen), check_k3_chunk(gen)
     # each timing draws from a generator of its own, so a check added above
     # never moves the inputs that are timed
     k1_t, (k2_t, k2_facts) = time_k1(timed_gen(101)), time_k2(timed_gen(102))
     k3_t, k4_t = time_k3(timed_gen(103)), time_k4(timed_gen(104))
     cms_t = time_cms(timed_gen(105))
     fused_t, step_t = time_cms_fused(timed_gen(106))
+    k3_t["chunk_shape"] = time_k3_chunk(timed_gen(107))
     say("cms_monitor_step", **step_t)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
@@ -1334,6 +1488,8 @@ def phase_kernels():
         flash_decode_paged_timed=k2_facts,
         flash_decode_paged_slice=k2_slice,
         flash_decode_paged_engine_shape=k2_engine,
+        flash_decode_paged_chunk_shape=k2_chunk,
+        flash_attention_chunk_shape=k3_chunk,
         flash_attention_shape=k3_t.pop("shape"),
         flash_attention_live_pairs_per_head=k3_t.pop("live_pairs_per_head"),
         flash_attention_slice=k3_slice,
@@ -1383,55 +1539,55 @@ def phase_kernels():
 # ---------------------------------------------------------------------------
 
 
-def phase_engine(kernels):
-    cfg = get_config(SLICE["arch"])
-    t0 = time.perf_counter()
-    eng = Engine.from_config(EngineConfig(**SLICE))
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    # warm-up, not counted: one short request per prompt length, so the
-    # timed run below does not pay cuBLAS's first-call set-up
+def _serve_timed(eng, cfg, new_tokens, runs):
+    """Warm-up (one short request per prompt length, uncounted), then
+    ``runs`` timed serves of the slice's requests; launch counts set to 0
+    just before the first and read just after it. Greedy streams must
+    repeat exactly. Returns what the engine phases report."""
     t0 = time.perf_counter()
     eng.serve(synthetic_requests(len(PROMPT_LENS), PROMPT_LENS, cfg.vocab, 2,
                                  params=SamplingParams(max_tokens=2)))
     eng.reset()
     torch.cuda.synchronize()
     t_warm = time.perf_counter() - t0
-    sp = SamplingParams(max_tokens=NEW_TOKENS)
+    sp = SamplingParams(max_tokens=new_tokens)
 
     def timed_serve():
         queue = synthetic_requests(N_REQUESTS, PROMPT_LENS, cfg.vocab,
-                                   NEW_TOKENS, params=sp)
+                                   new_tokens, params=sp)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = eng.serve(queue)
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
+        return out, time.perf_counter() - t0, eng.completions()
 
     reset_launch_counts()           # counts = 0 just before the main path
     torch.cuda.reset_peak_memory_stats()
-    outputs, dt = timed_serve()
+    outputs, dt, comps = timed_serve()
     counts = launch_counts()        # read just after
-    n_toks = sum(len(t) for t in outputs.values())
     stats = dict(eng.stats)
-    comps = eng.completions()
     peak = torch.cuda.max_memory_allocated()
-    # the same run again, for the spread of the host clock; greedy streams
-    # must repeat exactly
-    seconds = [dt]
-    for _ in range(ENGINE_RUNS - 1):
+    n_toks = sum(len(t) for t in outputs.values())
+    seconds, ttfts = [dt], [sorted(c.ttft_s for c in comps.values())]
+    for _ in range(runs - 1):
         eng.reset()
-        again, dt_i = timed_serve()
+        again, dt_i, comps_i = timed_serve()
         seconds.append(dt_i)
+        ttfts.append(sorted(c.ttft_s for c in comps_i.values()))
         for rid, toks in outputs.items():
             assert (again[rid] == toks).all(), f"request {rid} did not repeat"
-    say("engine", config=SLICE, n_layers=cfg.n_layers, dtype=cfg.dtype,
-        requests=len(outputs), tokens=n_toks, seconds=seconds,
-        tok_per_s=[n_toks / x for x in seconds], model_build_seconds=t_build,
-        warm_up_seconds=t_warm,
-        attention=eng.attention, stats=stats, launches=counts,
-        peak_mem_gb=peak / 1e9)
-    assert eng.attention == "fused", eng.attention
+    return dict(outputs=outputs, comps=comps, counts=counts, stats=stats,
+                report=dict(requests=len(outputs), tokens=n_toks,
+                            seconds=seconds,
+                            tok_per_s=[n_toks / x for x in seconds],
+                            ttft_median_s=[x[len(x) // 2] for x in ttfts],
+                            ttft_min_max_s=[[x[0], x[-1]] for x in ttfts],
+                            warm_up_seconds=t_warm, attention=eng.attention,
+                            stats=stats, launches=counts,
+                            peak_mem_gb=peak / 1e9))
+
+
+def _check_slice_streams(outputs, comps, stats, cfg):
     assert len(outputs) == N_REQUESTS
     for rid, toks in outputs.items():
         assert toks.shape == (NEW_TOKENS,), (rid, toks.shape)
@@ -1440,11 +1596,68 @@ def phase_engine(kernels):
         assert pc["direct"] + pc["staged"] == NEW_TOKENS - 1, pc
     assert stats["admitted"] == stats["retired"] == N_REQUESTS, stats
     assert stats["staged_writes"] > 0 and stats["drains"] > 0, stats
+
+
+def phase_engine(kernels):
+    cfg = get_config(SLICE["arch"])
+    t0 = time.perf_counter()
+    eng = Engine.from_config(EngineConfig(**SLICE))
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    run = _serve_timed(eng, cfg, NEW_TOKENS, ENGINE_RUNS)
+    say("engine", config=SLICE, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        model_build_seconds=t_build, **run["report"])
+    assert eng.attention == "fused", eng.attention
+    _check_slice_streams(run["outputs"], run["comps"], run["stats"], cfg)
+    counts = run["counts"]
     take_launches(kernels, counts, ("staged_scatter", "flash_decode_paged"))
     if counts["flash_attention"] <= 0:   # prefill runs K3 on this path too
         raise AssertionError(f"flash_attention was never launched by the "
                              f"paged engine: {counts}")
-    engine_profile(eng, cfg, SLICE, PROMPT_LENS)
+    profile = engine_profile(eng, cfg, SLICE, PROMPT_LENS)
+    del eng
+    torch.cuda.empty_cache()
+    return dict(outputs=run["outputs"], report=run["report"], profile=profile)
+
+
+def phase_engine_chunked(kernels, blocking):
+    """The slice with ``chunked=True, chunk_size=16``: requests are admitted
+    at once and prefilled 16 tokens a step inside mixed-phase segments (K2
+    at C = 16), so no whole-prompt prefill runs and K3 is never launched.
+    Three timed serves; each request's stream is compared with the blocking
+    engine's (reported, not held: in bf16 K2 over chunks and K3 over the
+    prompt round differently)."""
+    cfg = get_config(SLICE["arch"])
+    shape = dict(SLICE, chunked=True, chunk_size=CHUNK)
+    eng = Engine.from_config(EngineConfig(**shape))
+    run = _serve_timed(eng, cfg, NEW_TOKENS, ENGINE_RUNS)
+    outputs, comps, counts, stats = (run["outputs"], run["comps"],
+                                     run["counts"], run["stats"])
+    _check_slice_streams(outputs, comps, stats, cfg)
+    n_prompt = sum(PROMPT_LENS[i % len(PROMPT_LENS)]
+                   for i in range(N_REQUESTS))
+    assert stats["prefill_writes"] == n_prompt, stats
+    for rid, c in comps.items():
+        assert c.path_counts["prefill"] == PROMPT_LENS[rid % len(PROMPT_LENS)]
+    for name in ("staged_scatter", "flash_decode_paged"):
+        if counts[name] <= 0:
+            raise AssertionError(f"{name} was never launched by the chunked "
+                                 f"engine: {counts}")
+    if counts["flash_attention"] != 0:
+        raise AssertionError(f"the chunked engine ran a whole-prompt "
+                             f"prefill (flash_attention launched): {counts}")
+    same = [bool((outputs[r] == blocking["outputs"][r]).all())
+            for r in outputs]
+    for k in kernels:
+        if k["name"] in ("staged_scatter", "flash_decode_paged"):
+            k["launches_chunked"] = counts[k["name"]]
+    profile = engine_profile(eng, cfg, shape, [128, 1792], mixed=True)
+    say("engine_chunked", config=shape, n_layers=cfg.n_layers,
+        dtype=cfg.dtype, **run["report"],
+        streams_equal_blocking_share=sum(same) / len(same),
+        blocking=dict((k, blocking["report"][k]) for k in
+                      ("tok_per_s", "ttft_median_s", "ttft_min_max_s")),
+        blocking_profile=blocking["profile"])
     del eng
     torch.cuda.empty_cache()
 
@@ -1532,39 +1745,146 @@ def phase_lanes(kernels):
     torch.cuda.empty_cache()
 
 
-def engine_profile(eng, cfg, shape, prompt_lens):
-    """Where one decode segment's time goes: 8 live slots, three segments
-    timed on the host clock (the median is used), the next one under the
-    profiler (device time by kernel name, and the device's busy share of the
-    timed segment). The requests are long enough to stay live throughout."""
+class _fp32_compute:
+    """The model's forward in float32 on its own fp32 master weights (the
+    compute dtype is read from ``model.cfg``): no copy of the weights."""
+
+    def __init__(self, model):
+        self.model, self.cfg = model, model.cfg
+
+    def __enter__(self):
+        self.model.cfg = dataclasses.replace(self.cfg, dtype="float32")
+
+    def __exit__(self, *exc):
+        self.model.cfg = self.cfg
+
+
+def phase_lanes_chunked(kernels):
+    """h2o-danube-3-4b at full width on the lanes layout with ``chunked=True,
+    chunk_size=512``: prompts of 2048 and 4608 tokens (the second past the
+    4096 window) are prefilled chunk by chunk at admission, each chunk one
+    flash_attention call a layer with S = 512 queries at the end of up to
+    4608 keys. The last-position logits of the chunked prefill are held to
+    those of the whole-prompt prefill by ``held_bf16`` against the fp32
+    prefill on the same weights; K3 launches per prompt and the chunked
+    prefill's device time are reported, and the engine serves both
+    requests (16 new tokens)."""
+    cfg = get_config(LANES["arch"])
+    shape = dict(LANES, chunked=True, chunk_size=LANES_CHUNK)
+    eng = Engine.from_config(EngineConfig(**shape))
+    sch, model = eng.scheduler, eng.scheduler.model
+    assert eng.layout == "lanes"
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    per_prompt = []
+    for plen in LANES_CHUNKED_PROMPTS:
+        prompt = torch.randint(0, cfg.vocab, (1, plen), generator=gen,
+                               device=DEV)
+        reset_launch_counts()
+        got, _ = sch._chunk_prefill_host(prompt, LANES["max_seq"])
+        k3 = launch_counts()["flash_attention"]
+        plain, _ = model.prefill(prompt, LANES["max_seq"])
+        with _fp32_compute(model):
+            ref32, _ = model.prefill(prompt, LANES["max_seq"])
+        torch.cuda.synchronize()
+        n_chunks = -(-plen // LANES_CHUNK)
+        if k3 != n_chunks * cfg.n_layers:
+            raise AssertionError(f"{plen}-token prompt: {k3} flash_attention "
+                                 f"launches, want {n_chunks} chunks x "
+                                 f"{cfg.n_layers} layers")
+        h = held_bf16("chunk_prefill logits", f"prompt {plen}",
+                      got[:, None], plain[:, None], ref32[:, None], 1)
+        per_prompt.append(dict(
+            prompt=plen, chunks=n_chunks, flash_attention_launches=k3,
+            err_bf16_vs_f32_ref=h["err"],
+            blocking_err_bf16_vs_f32_ref=h["err_plain"],
+            err_vs_blocking=h["err_vs_plain"],
+            argmax_equal_blocking=bool(got.argmax(-1) == plain.argmax(-1))))
+        del got, plain, ref32
+    # device time of the longest prompt's prefill, chunked and whole
+    per_prompt[-1].update(
+        chunked_prefill_device_ms=device_ms(
+            lambda: sch._chunk_prefill_host(prompt, LANES["max_seq"]),
+            "lanes chunked prefill", reps=2),
+        blocking_prefill_device_ms=device_ms(
+            lambda: model.prefill(prompt, LANES["max_seq"]),
+            "lanes prefill", reps=2))
+    torch.cuda.empty_cache()
+    sp = SamplingParams(max_tokens=LANES_CHUNKED_NEW)
+    reset_launch_counts()           # counts = 0 just before the path
+    t0 = time.perf_counter()
+    outputs = eng.serve(synthetic_requests(
+        len(LANES_CHUNKED_PROMPTS), LANES_CHUNKED_PROMPTS, cfg.vocab,
+        LANES_CHUNKED_NEW, params=sp))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()        # read just after
+    comps = eng.completions()
+    for rid, toks in outputs.items():
+        assert toks.shape == (LANES_CHUNKED_NEW,), (rid, toks.shape)
+        pc = comps[rid].path_counts
+        assert pc["direct"] == LANES_CHUNKED_NEW - 1 and pc["staged"] == 0
+    want_k3 = cfg.n_layers * sum(-(-p // LANES_CHUNK)
+                                 for p in LANES_CHUNKED_PROMPTS)
+    if counts["flash_attention"] != want_k3 or counts["flash_decode"] <= 0:
+        raise AssertionError(f"lanes chunked serve: {counts}, want "
+                             f"{want_k3} flash_attention launches")
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["launches_lanes_chunked"] = counts["flash_attention"]
+    say("lanes_chunked", config=shape, n_layers=cfg.n_layers,
+        dtype=cfg.dtype, prompts=per_prompt, serve_seconds=dt,
+        ttft_s=sorted(c.ttft_s for c in comps.values()),
+        stats=dict(eng.stats), launches=counts)
+    del eng, sch, model
+    torch.cuda.empty_cache()
+
+
+def engine_profile(eng, cfg, shape, prompt_lens, mixed=False):
+    """Where one segment's time goes: 8 live slots, three segments timed on
+    the host clock (the median is used), the next one under the profiler
+    (device time by kernel name, and the device's busy share of the timed
+    segment). The requests are long enough to stay live throughout.
+    ``mixed`` (chunked engines): prompts of ``prompt_lens`` alternate over
+    the slots, the short ones flip to decode in the warm segment and the
+    long ones still prefill in every measured one, so each is a
+    mixed-phase segment."""
     eng.reset()
     sch = eng.scheduler
     n_new = 8 * shape["segment_len"]    # at most 7 segments run below
     sch.admit(synthetic_requests(
         shape["n_slots"], prompt_lens, cfg.vocab, n_new,
         params=SamplingParams(max_tokens=n_new)))
-    sch.run_segment()               # warm
+
+    def segment():
+        if mixed and not sch._mixed_phase_pending():
+            raise AssertionError("the profiled segment is not mixed-phase")
+        sch.run_topped_up_segment(~sch.done_flags())
+
+    segment()                       # warm
     torch.cuda.synchronize()
     seg = []
     for _ in range(3):
         t0 = time.perf_counter()
-        sch.run_segment()
+        segment()
         torch.cuda.synchronize()
         seg.append((time.perf_counter() - t0) * 1e3)
     seg_ms = sorted(seg)[1]
     # a retried trace runs one more segment: the requests stay live for it
-    rows = trace_rows(sch.run_segment, f"{shape['arch']} segment")
+    rows = trace_rows(segment, f"{shape['arch']} segment")
     steps = shape["segment_len"]
     dev_ms = sum(r[0] for r in rows) / 1e3
-    say("engine_profile", arch=shape["arch"], layout=eng.layout,
-        slots=shape["n_slots"], steps=steps,
-        segment_ms=seg, step_ms=seg_ms / steps,
-        device_ms_per_step=dev_ms / steps,
-        device_busy_share=dev_ms / seg_ms if dev_ms else None,
-        launches_per_step=sum(r[1] for r in rows) / steps,
-        device_ops_per_step=device_ops(rows) / steps,
-        top=[dict(kernel=k[:64], ms_per_step=us / 1e3 / steps,
-                  calls_per_step=n / steps) for us, n, k in rows[:8]])
+    out = dict(arch=shape["arch"], layout=eng.layout,
+               mixed=mixed, slots=shape["n_slots"], steps=steps,
+               segment_ms=seg, step_ms=seg_ms / steps,
+               device_ms_per_step=dev_ms / steps,
+               device_busy_share=dev_ms / seg_ms if dev_ms else None,
+               launches_per_step=sum(r[1] for r in rows) / steps,
+               device_ops_per_step=device_ops(rows) / steps,
+               top=[dict(kernel=k[:64], ms_per_step=us / 1e3 / steps,
+                         calls_per_step=n / steps)
+                    for us, n, k in rows[:8]])
+    say("engine_profile", **out)
+    return out
 
 
 def phase_parity():
@@ -1639,6 +1959,86 @@ def phase_parity_swa():
                 requests=len(outs["cpu"]),
                 tokens=sum(len(t) for t in outs["cpu"].values()),
                 identical_streams=True)
+
+
+def phase_parity_chunked():
+    """Chunked prefill at smaller depth, full width, fp32. stablelm-1.6b at
+    2 layers, for each path and chunk sizes 1 and 3: the chunked engine on
+    the card (fused read, K2 at C = chunk size) and on the CPU (plain
+    versions) give the same greedy streams, engine stats and per-request
+    path counts, and the blocking engine on the card the same streams and
+    per-request [direct + staged, prefill] write counts (its stats differ
+    by design: fewer segments, and the monitor sees the prompt rows at
+    admission, not in the segments). h2o-danube-3-4b at 2 layers, window
+    128: a chunked lanes engine with prompts past the window gives the
+    blocking engine's streams on the card."""
+    cfg = dataclasses.replace(get_config(SLICE["arch"]), n_layers=2,
+                              dtype="float32")
+    gpu_model = build_model(cfg, device=DEV).init(1)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    shape = dict(max_seq=128, n_slots=4, page_size=16, segment_len=8,
+                 ring_size=4)
+    plens, new, n_req = [9, 17, 26], 8, 5
+
+    def run(model, dev, path, chunked, cs=CHUNK):
+        eng = Engine.from_config(EngineConfig(
+            path=path, device=dev, chunked=chunked, chunk_size=cs, **shape),
+            model)
+        out = eng.serve(synthetic_requests(n_req, plens, cfg.vocab, new))
+        pcs = {r: c.path_counts for r, c in eng.completions().items()}
+        return out, dict(eng.stats), pcs
+
+    def same_streams(a, b, what):
+        for rid in a:
+            if not (a[rid] == b[rid]).all():
+                raise AssertionError(f"token streams differ, {what}, request "
+                                     f"{rid}: {a[rid]} vs {b[rid]}")
+
+    report = {}
+    for path in ("direct", "staged", "adaptive"):
+        block = run(gpu_model, "cuda", path, False)
+        for cs in (1, 3):
+            card = run(gpu_model, "cuda", path, True, cs)
+            cpu = run(cpu_model, "cpu", path, True, cs)
+            same_streams(card[0], cpu[0], f"{path} C={cs} card vs CPU")
+            same_streams(card[0], block[0], f"{path} C={cs} vs blocking")
+            if card[1] != cpu[1] or card[2] != cpu[2]:
+                raise AssertionError(f"{path} C={cs}: telemetry differs, "
+                                     f"card {card[1:]} vs CPU {cpu[1:]}")
+            for rid, pc in card[2].items():
+                b = block[2][rid]
+                if (pc["direct"] + pc["staged"], pc["prefill"]) != (
+                        b["direct"] + b["staged"], b["prefill"]):
+                    raise AssertionError(f"{path} C={cs} request {rid}: "
+                                         f"{pc} vs blocking {b}")
+            report[f"{path}/C={cs}"] = {
+                k: card[1][k] for k in ("direct_writes", "staged_writes",
+                                        "drains", "prefill_writes",
+                                        "segments")}
+    del gpu_model, cpu_model
+    torch.cuda.empty_cache()
+    lcfg = dataclasses.replace(get_config(LANES["arch"]), n_layers=2,
+                               dtype="float32", sliding_window=128)
+    model = build_model(lcfg, device=DEV).init(2)
+    lshape = dict(max_seq=512, n_slots=4, segment_len=8, path="direct")
+    outs = {}
+    for chunked in (False, True):
+        eng = Engine.from_config(EngineConfig(chunked=chunked, chunk_size=64,
+                                              **lshape), model)
+        assert eng.layout == "lanes"
+        outs[chunked] = eng.serve(synthetic_requests(
+            6, [100, 200, 300], lcfg.vocab, 24))
+        del eng
+    same_streams(outs[True], outs[False], "lanes chunked vs blocking")
+    del model
+    torch.cuda.empty_cache()
+    say("parity_chunked", n_layers=cfg.n_layers, dtype=cfg.dtype,
+        chunk_sizes=[1, 3], requests=n_req, identical_streams=True,
+        identical_telemetry_card_cpu=True, runs=report,
+        lanes=dict(arch=lcfg.name, n_layers=lcfg.n_layers,
+                   window=lcfg.sliding_window, chunk_size=64,
+                   prompts=[100, 200, 300], identical_streams=True))
 
 
 # ---------------------------------------------------------------------------
@@ -1892,17 +2292,32 @@ def phase_write_parity():
     say("write_parity", shape=shape, engines=report, identical=True)
 
 
+PHASE_SECONDS = {}
+
+
+def timed(name, fn, *args):
+    """Run one phase and keep its host-clock seconds for the ``done`` line."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+    return out
+
+
 def main():
     t0 = time.perf_counter()
-    card = phase_env()
-    phase_build()
-    kernels = phase_kernels()
-    phase_engine(kernels)
-    phase_lanes(kernels)
-    phase_parity()
-    phase_write_engine(kernels)
-    phase_write_parity()
+    card = timed("env", phase_env)
+    timed("build", phase_build)
+    kernels = timed("kernels", phase_kernels)
+    blocking = timed("engine", phase_engine, kernels)
+    timed("engine_chunked", phase_engine_chunked, kernels, blocking)
+    timed("lanes", phase_lanes, kernels)
+    timed("lanes_chunked", phase_lanes_chunked, kernels)
+    timed("parity", phase_parity)
+    timed("parity_chunked", phase_parity_chunked)
+    timed("write_engine", phase_write_engine, kernels)
+    timed("write_parity", phase_write_parity)
     say("done", seconds=round(time.perf_counter() - t0, 1),
+        phase_seconds=PHASE_SECONDS,
         traces_without_device_time=TRACE_MISSES)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

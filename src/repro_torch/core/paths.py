@@ -10,8 +10,8 @@ registry. :func:`validate` is the one config -> plan entry point.
 Features of the JAX package's ``validate`` that are not ported yet raise
 ``NotImplementedError("not ported yet: ...")`` at config time: the
 ``parallel`` mesh, ``spec`` (speculative decoding), ``memory.prefix_cache``
-and ``memory.host_tier``, ``chunked=True`` (on either layout), a ``sched``
-other than ``"fifo"``, sampled decoding, and
+and ``memory.host_tier``, a ``sched`` other than ``"fifo"``, sampled
+decoding, and
 ``AttentionConfig.drain_kernel`` (in this package the device decides: a
 CUDA tensor drains through the kernel, a CPU tensor through its plain
 version).
@@ -287,8 +287,9 @@ def validate(cfg, *, paged_capable: bool = True,
         raise ValueError(
             f"paged KV serves the linear-addressed dense family; "
             f"{arch_name or 'this model'} needs kv_layout='lanes'")
-    if bool(getattr(cfg, "chunked", False)):
-        raise _not_ported("chunked=True (in-scan chunked prefill)")
+    chunked = bool(getattr(cfg, "chunked", False))
+    if chunked and getattr(cfg, "chunk_size", 1) < 1:
+        raise ValueError("chunk_size must be >= 1")
     parallel = getattr(cfg, "parallel", None)
     if parallel is not None and getattr(parallel, "enabled", True):
         raise _not_ported("parallel (mesh-sharded serving)")
@@ -331,7 +332,8 @@ def validate(cfg, *, paged_capable: bool = True,
                  or getattr(cfg, "write_mode", None) or "direct")
     path, decision = build_decision(
         path_name, getattr(cfg, "policy", None), n_regions=n_regions,
-        hot_threshold=getattr(cfg, "hot_threshold", 4), layout=layout)
+        hot_threshold=getattr(cfg, "hot_threshold", 4), layout=layout,
+        chunked=chunked)
     return ResolvedPlan(
         layout=layout, attention=attention, path=path, decision=decision,
         sched=sched, memory=memory, device=device, n_blocks=n_blocks,

@@ -28,9 +28,10 @@ functions return the cache they mutated. No function here reads a device
 value on the host, so a decode segment runs without a synchronisation.
 
 Content hashes / refcount sharing / copy-on-write of ``BlockPool``, the host
-tier (``unload_blocks``/``load_blocks``/``copy_block``), the chunk variants
-(``logical_to_physical_many``, ``scatter_chunk``, ``overlay_chunk_parts``)
-and the speculative snapshots are not ported yet.
+tier (``unload_blocks``/``load_blocks``/``copy_block``) and the speculative
+snapshots are not ported yet. The chunk variants of the mixed-phase step
+(``logical_to_physical_many``, ``scatter_chunk``, ``view_chunk_mask_from``,
+``overlay_chunk_parts``) sit beside their one-token originals.
 """
 from __future__ import annotations
 
@@ -185,6 +186,21 @@ def logical_to_physical(cache: PagedKV, rows: torch.Tensor) -> torch.Tensor:
     return torch.where(ok, phys, pool_rows(cache))
 
 
+def logical_to_physical_many(cache: PagedKV,
+                             rows: torch.Tensor) -> torch.Tensor:
+    """Per-slot logical rows -> physical pool rows, ``rows`` int [n_slots,
+    C]: column ``j`` of slot ``b`` resolves through slot ``b``'s page table.
+    Invalid rows (negative sentinel, out of view, unallocated page) map to
+    ``pool_rows``, the sink, as in :func:`logical_to_physical`."""
+    ps = cache["pages_k"].shape[2]
+    rows = rows.long()
+    safe = rows.clamp(0, view_len(cache) - 1)
+    block = cache["page_table"].gather(1, safe // ps)
+    phys = block * ps + safe % ps
+    ok = (rows >= 0) & (rows < view_len(cache)) & (block >= 0)
+    return torch.where(ok, phys, pool_rows(cache))
+
+
 def view_rows(cache: PagedKV) -> torch.Tensor:
     """int [n_slots, V]: physical pool row backing every logical row
     (clamped to block 0 where unallocated; mask with the view mask)."""
@@ -232,6 +248,18 @@ def view_mask(cache: PagedKV, pos: torch.Tensor) -> torch.Tensor:
     return view_mask_from(step_plan(cache).allocated, pos)
 
 
+def view_chunk_mask_from(allocated: torch.Tensor,
+                         positions: torch.Tensor) -> torch.Tensor:
+    """bool [n_slots, C, V]: per-query view validity of a mixed-phase chunk
+    step, query ``j`` of slot ``b`` at logical row ``positions[b, j]``. A
+    view row is visible when its logical id is <= the query's position and
+    its page is allocated; the chunk's own rows land in the pool before the
+    read, so causality inside the chunk falls out of the same rule."""
+    rows = torch.arange(allocated.shape[1], device=allocated.device)
+    return (rows[None, None, :] <= positions[:, :, None]) \
+        & allocated[:, None, :]
+
+
 def gather_view(pages_l: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     """One layer's per-slot contiguous KV view. pages_l [n_blocks(+1), ps,
     H, Dh], rows int [n_slots, V] -> [n_slots, V, H, Dh]."""
@@ -246,6 +274,20 @@ def scatter_token(pages_l: torch.Tensor, dest: torch.Tensor,
     in the sink block. ``tile`` [n_slots, H, Dh]."""
     flat = pages_l.view((-1,) + pages_l.shape[2:])
     flat.index_copy_(0, dest.long(), tile.to(flat.dtype))
+    return pages_l
+
+
+def scatter_chunk(pages_l: torch.Tensor, dest: torch.Tensor,
+                  tiles: torch.Tensor) -> torch.Tensor:
+    """Direct (offload-path) bulk write of one mixed-phase step's tiles, IN
+    PLACE: the chunk analogue of :func:`scatter_token`. ``dest`` int
+    [n_slots, C] physical rows, the sentinel ``pool_rows`` landing in the
+    sink block; ``tiles`` [n_slots, C, H, Dh]. Live destinations are unique
+    across slots (block ownership) and within a chunk (consecutive rows);
+    only sink rows repeat, and nothing reads the sink."""
+    flat = pages_l.view((-1,) + pages_l.shape[2:])
+    flat.index_copy_(0, dest.reshape(-1).long(),
+                     tiles.reshape((-1,) + tiles.shape[2:]).to(flat.dtype))
     return pages_l
 
 
@@ -312,6 +354,34 @@ def overlay_step_parts(
         live, cache["ring_pos"], v,
         extra_rows=torch.where(unload_mask, pos.long(), v))
     return vmask & ~shadowed, ring_valid, cur
+
+
+def overlay_chunk_parts(
+    cache: PagedKV,
+    positions: torch.Tensor,     # int [n_slots, C] per-query logical rows
+    unload_mask: torch.Tensor,   # bool [n_slots] True = column-0 write stages
+    allocated: Optional[torch.Tensor] = None,  # hoisted StepPlan.allocated
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Chunked analogue of :func:`overlay_step_parts`. Returns (view_ok
+    [n_slots, C, V] with staged rows shadowed out, ring_ok [n_slots, R] per
+    lane, not broadcast over C: a slot's pending entries always hold rows
+    below its current position (conflict-forced drains), so ring validity
+    needs no per-query causal term; and cur, the ring column this step
+    appends to). Only the column-0 decode write may stage."""
+    r = cache["ring_pos"].shape[1]
+    cur = cache["ring_fill"]
+    live = ring_validity(cache)
+    ring_valid = live | (
+        (torch.arange(r, device=positions.device)[None, :] == cur)
+        & unload_mask[:, None])
+    v = view_len(cache)
+    shadowed = R.shadow_mask(
+        live, cache["ring_pos"], v,
+        extra_rows=torch.where(unload_mask, positions[:, 0].long(), v))
+    if allocated is None:
+        allocated = step_plan(cache).allocated
+    vmask = view_chunk_mask_from(allocated, positions)
+    return vmask & ~shadowed[:, None, :], ring_valid, cur
 
 
 def _drain(cache: PagedKV, gate: Optional[torch.Tensor]) -> PagedKV:

@@ -7,7 +7,9 @@ One front door (``repro_torch.serve.Engine``), two workload shapes:
   prompt) and report throughput.
 * ``--batched``: continuous batching, a stream of ``--requests`` synthetic
   requests admitted FIFO into ``--slots`` serving slots, decoded in segments
-  with stop/max-len retirement between them.
+  with stop/max-len retirement between them. ``--chunked`` admits at once
+  and prefills in ``--chunk-size``-token chunks inside the segments (paged;
+  chunk by chunk at admission on the lanes layout).
 
 Runs on the GPU unless ``--device cpu`` is given (no GPU: it raises).
 ``--full-width`` serves the architecture at its published widths instead of
@@ -58,6 +60,11 @@ def main(argv=None) -> None:
     ap.add_argument("--segment-len", type=int, default=16,
                     help="(--batched) decode steps per segment")
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--chunked", action="store_true",
+                    help="(--batched) admit immediately, prefill prompts "
+                         "in chunks inside the segments")
+    ap.add_argument("--chunk-size", type=int, default=16,
+                    help="(--chunked) prompt tokens per prefill chunk")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights")
     args = ap.parse_args(argv)
@@ -83,7 +90,8 @@ def main(argv=None) -> None:
         queue = synthetic_requests(args.requests, args.prompt_len, cfg.vocab,
                                    args.gen_len, params=sp)
         eng = Engine.from_config(EngineConfig(
-            n_slots=args.slots, segment_len=args.segment_len, **common),
+            n_slots=args.slots, segment_len=args.segment_len,
+            chunked=args.chunked, chunk_size=args.chunk_size, **common),
             model)
         sync()
         t0 = time.perf_counter()
@@ -91,7 +99,8 @@ def main(argv=None) -> None:
         sync()
         dt = time.perf_counter() - t0
         n_toks = sum(len(t) for t in outputs.values())
-        print(f"[{eng.layout}, {eng.attention}, {args.device}] served "
+        mode = f"{eng.layout}, chunked" if args.chunked else eng.layout
+        print(f"[{mode}, {eng.attention}, {args.device}] served "
               f"{len(outputs)} requests / {n_toks} tokens in {dt:.2f}s "
               f"({n_toks / dt:.1f} tok/s)")
         if eng.ttft:

@@ -21,14 +21,15 @@ Conventions
 
 The attention cores run through the hand-written kernels: prefill through
 ``flash_attention`` (causal, sliding window, GQA by index), decode through
-``flash_decode`` (dense KV set) or ``flash_decode_paged`` (the paged pool);
-on a CPU tensor each runs its plain version, which keeps the JAX package's
-``_sdpa_once`` op order (fp32 logits, -1e30 mask, fp32 softmax, cast to
-``q.dtype``, then P.V).
+``flash_decode`` (dense KV set, one launch per query column of a chunk) or
+``flash_decode_paged`` (the paged pool); the lanes layout's chunked prefill
+reads through ``flash_attention`` too (``chunk_attention``). On a CPU tensor
+each runs its plain version, which keeps the JAX package's ``_sdpa_once`` op
+order (fp32 logits, -1e30 mask, fp32 softmax, cast to ``q.dtype``, then
+P.V).
 
-TP head padding, ``shard_batch``, ``chunk_attention``/``write_chunk``
-(dense-lane chunked prefill) and ``cross_entropy_loss`` (training) are not
-ported yet.
+TP head padding, ``shard_batch`` and ``cross_entropy_loss`` (training) are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -269,6 +270,24 @@ def decode_attention(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
     return torch.einsum("bhk,hkd->bd", out, p["wo"].to(x.dtype))[:, None]
 
 
+def masked_chunk_attention(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
+                           positions: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, mask: torch.Tensor,
+                           use_rope: bool = True) -> torch.Tensor:
+    """Chunk queries against a gathered KV set with an EXPLICIT mask: the
+    mixed-phase step's reference read. x: [B, C, D]; positions: [B, C];
+    k_cache/v_cache: [B, T, Hkv, Dh]; mask: bool [B, C, T]. Each query
+    column is one ``flash_decode`` call over the same KV set (its plain
+    version on a CPU tensor), so with C = 1 this is :func:`decode_attention`."""
+    from ..kernels import flash_decode
+
+    q = project_q(cfg, p, x, positions, use_rope)   # [B, C, Hq, Dh]
+    out = torch.stack([
+        flash_decode(q[:, j].contiguous(), k_cache, v_cache, mask[:, j])
+        for j in range(q.shape[1])], dim=1)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
 def fused_paged_attention(
     cfg: ModelConfig, p: Tensors,
     x: torch.Tensor,          # [B, C, D] normed activations (C=1 for step)
@@ -292,6 +311,66 @@ def fused_paged_attention(
     out = flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
                              ring_k, ring_v, ring_ok)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def slot_positions(clen: int, last_pos: int,
+                   device="cpu") -> torch.Tensor:
+    """int [clen]: the absolute position held in each slot of a (ring)
+    cache after writing ``last_pos``; negative = not written yet. Linear
+    caches (slot = position) and sliding-window rings (slot = position %
+    clen) alike."""
+    s = torch.arange(clen, device=device)
+    return last_pos - ((last_pos % clen - s) % clen)
+
+
+def chunk_attention(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
+                    positions: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, k_new: torch.Tensor,
+                    v_new: torch.Tensor, start_pos: int,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Chunked-prefill attention: the C queries of a chunk at absolute
+    positions ``start_pos ..`` against the cache as it stands BEFORE the
+    chunk's write, plus the chunk's own keys. x: [B, C, D]; k_cache/v_cache:
+    [B, clen, Hkv, Dh] (a ring under a sliding window); k_new/v_new: [B, C,
+    Hkv, Dh]. The cache's written slots are unrolled to position order (a
+    roll by the ring's phase), the chunk appended, and ``flash_attention``
+    reads them causally with the model's window, the queries at the end of
+    the key stream. So every key the window allows is read even where the
+    chunk's own write will overwrite it in the ring: this is what
+    ``prefill`` computes over the whole prompt."""
+    clen = k_cache.shape[1]
+    n_prev = min(start_pos, clen)
+    shift = -(start_pos % clen) if start_pos > clen else 0
+
+    def stream(cache, new):
+        prev = cache[:, :n_prev] if not shift else torch.roll(cache, shift, 1)
+        return torch.cat([prev, new.to(cache.dtype)], dim=1)
+
+    q = project_q(cfg, p, x, positions, use_rope)
+    out = attention_core(cfg, q, stream(k_cache, k_new),
+                         stream(v_cache, v_new))
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def write_chunk(cache: torch.Tensor, chunk: torch.Tensor,
+                start_pos: int) -> torch.Tensor:
+    """Write a [B, C, H, Dh] chunk into the slots of a [B, clen, H, Dh]
+    (ring) cache at positions ``start_pos ..``, IN PLACE: a dense slice
+    update, the offload/direct path. Three cases, as in the JAX package: the
+    chunk fits before the ring's end, wraps past it, or covers the whole
+    ring (then its last clen positions are kept, rolled to their slots)."""
+    c, clen = chunk.shape[1], cache.shape[1]
+    chunk = chunk.to(cache.dtype)
+    s0 = start_pos % clen
+    if c >= clen:
+        cache.copy_(torch.roll(chunk[:, -clen:], (start_pos + c) % clen, 1))
+    elif s0 + c <= clen:
+        cache[:, s0:s0 + c] = chunk
+    else:
+        first = clen - s0
+        cache[:, s0:] = chunk[:, :first]
+        cache[:, :c - first] = chunk[:, first:]
+    return cache
 
 
 def project_kv(cfg: ModelConfig, p: Tensors, x: torch.Tensor,

@@ -13,9 +13,14 @@ the page table and folds the ring lanes into the same softmax). The layer
 stack is a Python loop over ``nn.ModuleList`` blocks where the JAX package
 scans stacked parameters.
 
-``decode_chunk_paged``, ``chunk_prefill``, the staging-ring overlay on the
-lanes cache (``kvcache/staged.py``) and the VLM cross-attention blocks are
-not ported yet.
+``decode_chunk_paged`` is the mixed-phase step of the chunked paged engine
+(each slot a prefill chunk, one decode token or nothing; the fused read is
+``flash_decode_paged`` at ``C = chunk_size``), and ``chunk_prefill`` the
+lanes layout's chunked prefill (each chunk read by ``flash_attention`` over
+the cache unrolled to position order plus the chunk, so it computes what
+``prefill`` computes, also past the sliding window). The staging-ring
+overlay on the lanes cache (``kvcache/staged.py``) and the VLM
+cross-attention blocks are not ported yet.
 """
 from __future__ import annotations
 
@@ -193,6 +198,40 @@ class DecoderLM(nn.Module):
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
         return logits, cache
 
+    # -- chunked prefill (dense lanes) -------------------------------------
+    @torch.no_grad()
+    def chunk_prefill(self, cache: Cache, tokens: torch.Tensor,
+                      start_pos: int) -> Tuple[torch.Tensor, Cache]:
+        """Process one prompt chunk against the running lane cache, updated
+        IN PLACE: tokens [B, C] at absolute positions ``start_pos ..``,
+        returns the last chunk token's logits (fp32 [B, V]) and the cache.
+        Per layer the chunk's queries read the cache as it stands BEFORE
+        the chunk's write plus the chunk's own keys (``chunk_attention``),
+        then the chunk is written (``write_chunk``), so chunk after chunk
+        this computes what ``prefill`` computes over the whole prompt, also
+        once the prompt passes a sliding window. Chunk writes are dense
+        slices: the offload/direct path."""
+        cfg = self.cfg
+        dtype = compute_dtype(cfg)
+        b, c = tokens.shape
+        x = L.embed_tokens(cfg, self.embed.tensors(), tokens, dtype)
+        positions = (start_pos
+                     + torch.arange(c, device=tokens.device)).expand(b, c)
+        for i, blk in enumerate(self.blocks):
+            pa = blk.attn.tensors(dtype)
+            kc, vc = cache["k"][i], cache["v"][i]
+            hn = L.apply_norm(cfg, blk.ln1.tensors(), x)
+            k_new, v_new = L.project_kv(cfg, pa, hn, positions)
+            x = x + L.chunk_attention(cfg, pa, hn, positions, kc, vc, k_new,
+                                      v_new, start_pos)
+            L.write_chunk(kc, k_new, start_pos)
+            L.write_chunk(vc, v_new, start_pos)
+            x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
+                                L.apply_norm(cfg, blk.ln2.tensors(), x))
+        x = L.apply_norm(cfg, self.ln_f.tensors(), x[:, -1:])
+        logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
+        return logits, cache
+
     # -- decode (dense lanes) ----------------------------------------------
     @torch.no_grad()
     def decode_step(self, cache: Cache, tokens: torch.Tensor,
@@ -311,6 +350,109 @@ class DecoderLM(nn.Module):
 
         if ring:
             PG.ring_commit(cache, pos, unload_mask)
+        x = L.apply_norm(cfg, self.ln_f.tensors(), x)
+        logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
+        return logits, cache
+
+    # -- mixed-phase chunk step (paged pool) --------------------------------
+    @torch.no_grad()
+    def decode_chunk_paged(
+        self,
+        cache: PG.PagedKV,
+        tokens: torch.Tensor,       # int [B, C] token slab
+        start: torch.Tensor,        # int [B] logical row/position of column 0
+        n_valid: torch.Tensor,      # int [B] live columns (chunk len | 1 | 0)
+        write_mask: torch.Tensor,   # bool [B] gates every KV write
+        unload_mask: Optional[torch.Tensor] = None,
+        attention: str = "reference",
+        plan: Optional[PG.StepPlan] = None,
+        all_logits: bool = False,
+    ) -> Tuple[torch.Tensor, PG.PagedKV]:
+        """One MIXED-PHASE step against the paged pool, updated IN PLACE:
+        each slot processes a [C]-token slab, a prefill chunk (``n_valid``
+        prompt tokens from its chunk cursor), one decode token (``n_valid
+        == 1``, column 0) or nothing (``n_valid == 0``). Column ``j`` of
+        slot ``b`` sits at logical row ``start[b] + j``.
+
+        The chunk's rows land in the pool (the bulk/offload path) before
+        the read; ``unload_mask`` may stage only the column-0 decode write.
+        ``attention`` picks the read as in :meth:`decode_step_paged`:
+        ``"fused"`` is ``flash_decode_paged`` with ``q[B, C, Hq, Dh]``,
+        ``"reference"`` the gathered view plus the ring read column by
+        column (``masked_chunk_attention``). Returns logits [B, V] (fp32)
+        at each slot's LAST valid column, the sampling position of both
+        phases, or with ``all_logits`` logits [B, C, V] at every column
+        (column ``j`` predicts position ``start + j + 1``, what a
+        speculative verify reads). No value is read on the host."""
+        cfg = self.cfg
+        fused = attention == "fused"
+        dtype = compute_dtype(cfg)
+        b, c = tokens.shape
+        dev = tokens.device
+        x = L.embed_tokens(cfg, self.embed.tensors(), tokens, dtype)
+        offs = torch.arange(c, device=dev)
+        positions = start.long()[:, None] + offs[None, :]
+        wvalid = (offs[None, :] < n_valid[:, None]) & write_mask[:, None]
+        ring = PG.has_ring(cache)
+        if plan is None:
+            plan = PG.step_plan(cache)
+        if ring:
+            if unload_mask is None:
+                unload_mask = torch.zeros((b,), dtype=torch.bool, device=dev)
+            unload_mask = unload_mask & wvalid[:, 0]
+            view_ok, ring_ok, cur = PG.overlay_chunk_parts(
+                cache, positions, unload_mask, allocated=plan.allocated)
+            direct = wvalid & ~unload_mask[:, None]
+        else:
+            view_ok = PG.view_chunk_mask_from(plan.allocated, positions)
+            ring_ok = None
+            direct = wvalid
+        dest = PG.logical_to_physical_many(
+            cache, torch.where(direct, positions, -1))
+        if fused:
+            view_ok = view_ok.contiguous()
+        else:
+            full_mask = view_ok if not ring else torch.cat(
+                [view_ok, ring_ok[:, None, :].expand(b, c, ring_ok.shape[1])],
+                dim=2)
+
+        for i, blk in enumerate(self.blocks):
+            pa = blk.attn.tensors(dtype)
+            pk, pv = cache["pages_k"][i], cache["pages_v"][i]
+            hn = L.apply_norm(cfg, blk.ln1.tensors(), x)
+            k_new, v_new = L.project_kv(cfg, pa, hn, positions)
+            PG.scatter_chunk(pk, dest, k_new)
+            PG.scatter_chunk(pv, dest, v_new)
+            rk = rv = None
+            if ring:
+                rk, rv = cache["ring_k"][i], cache["ring_v"][i]
+                PG.stage_tile(rk, k_new[:, 0], cur)
+                PG.stage_tile(rv, v_new[:, 0], cur)
+            if fused:
+                a = L.fused_paged_attention(
+                    cfg, pa, hn, positions, pk, pv, plan.blocks, view_ok,
+                    rk, rv, ring_ok)
+            else:
+                ak = PG.gather_view(pk, plan.view_ids)
+                av = PG.gather_view(pv, plan.view_ids)
+                if ring:
+                    ak = torch.cat([ak, rk], dim=1)
+                    av = torch.cat([av, rv], dim=1)
+                a = L.masked_chunk_attention(cfg, pa, hn, positions, ak, av,
+                                             full_mask)
+            x = x + a
+            x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
+                                L.apply_norm(cfg, blk.ln2.tensors(), x))
+
+        if ring:
+            PG.ring_commit(cache, start, unload_mask)
+        if all_logits:
+            x = L.apply_norm(cfg, self.ln_f.tensors(), x)
+            return L.lm_logits(cfg, self.embed.tensors(), x), cache
+        # logits at each slot's last valid column: the final prompt token
+        # (prefill, the phase flip's sampling) or the decode token (column 0)
+        sel = (n_valid.long() - 1).clamp(min=0)
+        x = x[torch.arange(b, device=dev), sel][:, None]
         x = L.apply_norm(cfg, self.ln_f.tensors(), x)
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
         return logits, cache

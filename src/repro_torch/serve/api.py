@@ -65,7 +65,9 @@ class EngineConfig:
     engine runs: ``"cuda"`` (the default) raises when CUDA is unavailable,
     ``"cpu"`` is for tests. ``kv_layout="auto"`` picks ``paged`` for the
     linear-addressed dense decoders and ``lanes`` for a sliding-window one
-    (direct writes only). ``chunked``, a ``sched`` other than fifo,
+    (direct writes only). ``chunked`` prefills in ``chunk_size``-token
+    pieces (inside the segments on paged, at admission on lanes). A
+    ``sched`` other than fifo,
     ``memory.prefix_cache``/``host_tier``, ``parallel`` and ``spec`` raise
     ``NotImplementedError`` when the engine is built."""
 
@@ -297,7 +299,7 @@ class Engine:
                     "(request larger than pool capacity?)")
             live = ~eng.done_flags() & np.asarray(eng._occupied)
             if live.any():
-                eng.run_segment()
+                eng.run_topped_up_segment(live)
             yield from drain_events(eng.done_flags())
         raise RuntimeError(f"stream() exceeded {max_segments} segments")
 

@@ -1,5 +1,5 @@
-"""Port of repro/serve/scheduler.py (blocking admission; paged and lanes
-layouts).
+"""Port of repro/serve/scheduler.py (blocking and chunked admission; paged
+and lanes layouts).
 
 Continuous-batching serve scheduler: a fixed array of serving SLOTS decodes
 in lock-step, each slot at its own position in its own request, so the
@@ -13,33 +13,46 @@ layouts, as in the JAX package:
   direct writes only, read by the ``flash_decode`` kernel. The monitor's
   region is ``slot * max_pages + pos // page_size``.
 
-* **SlotState**: per-slot token / position / done-flag / remaining-budget /
-  request-id / stop table, fixed-shape tensors on the engine's device.
-  Retirement is in-segment: a slot whose emitted token hits a stop token or
-  whose budget is spent flips ``done`` and from the next step neither writes
-  KV (its destination resolves to the sink) nor updates the monitor.
+* **SlotState**: per-slot phase / token / position / done-flag /
+  remaining-budget / request-id / stop table, fixed-shape tensors on the
+  engine's device. Retirement is in-segment: a slot whose emitted token hits
+  a stop token or whose budget is spent flips ``done`` and from the next
+  step neither writes KV (its destination resolves to the sink) nor updates
+  the monitor.
 * **Segments**: where the JAX package jits a ``lax.scan``, a segment here is
   a Python loop of ``segment_len`` eager steps over preallocated device
   tensors with NO host read inside the loop and one readback at its end.
   The conditional drain never asks the host whether it is due (see
   ``kvcache.paged.maybe_drain``). The segment boundary forces a drain, so the
   host never frees a block with staged bytes in flight.
+* **Mixed-phase segments** (``chunked=True``, paged layout): a request is
+  admitted at once in PREFILL phase with its prompt in a device buffer and
+  only the pages the next segment can touch. Each step every live slot
+  processes a [chunk_size]-token slab through ``decode_chunk_paged``: a
+  prefilling slot its next prompt chunk, a decoding slot its one token in
+  column 0; a slot whose cursor crosses its prompt length flips to DECODE
+  inside the segment and emits its first token, the prefill argmax. The
+  step's writes go to the decision plane as ONE flattened batch of
+  ``n_slots x chunk_size`` writes, prefill rows tagged ``PHASE_BULK`` (pinned
+  to the offload path). Between segments ``_topup_blocks`` extends each
+  live slot's pages; a slot it cannot cover stalls for one segment.
 * **Admission**: between segments, on the host. The FIFO ``RequestQueue`` is
   scanned in submission order and a request that does not fit is skipped in
-  favour of later ones that do (bounded by ``skip_ahead_limit``). Prompts
-  are prefilled at admission, same-length prompts in one batched call; the
-  rows land in the pool by a host-computed physical row list (paged), or
-  the group's lane cache overwrites the slots' lanes wholesale (lanes).
+  favour of later ones that do (bounded by ``skip_ahead_limit``). Without
+  ``chunked`` prompts are prefilled at admission, same-length prompts in one
+  batched call; the rows land in the pool by a host-computed physical row
+  list (paged), or the group's lane cache overwrites the slots' lanes
+  wholesale (lanes; with ``chunked`` its prompts are prefilled chunk by
+  chunk through ``model.chunk_prefill``).
 * **KV writes** (paged): every decode-time write resolves through the page
   table to a physical pool row; direct writes scatter straight in, staged
   writes ride the per-slot ring overlay and drain in bulk through
   ``core.ring.scatter_rows_layers``. The monitor's region is the BLOCK id.
   (lanes): a retired slot's write goes to the drop row ``cache_len``.
 
-Chunked prefill (in-segment on paged, host-side on lanes), the prefix
-cache, the host tier, preemption, speculative decoding, mesh sharding and
-the virtual-time cost model are not ported yet (``core.paths.validate``
-raises on each).
+The prefix cache, the host tier, preemption, speculative decoding, mesh
+sharding and the virtual-time cost model are not ported yet
+(``core.paths.validate`` raises on each).
 """
 from __future__ import annotations
 
@@ -51,7 +64,8 @@ import numpy as np
 import torch
 
 from ..core.paths import MemoryConfig, normalize_groups, validate
-from ..core.types import WriteBatch, make_write_batch, resolve_device
+from ..core.types import (PHASE_BULK, PHASE_SCATTERED, WriteBatch,
+                          make_write_batch, resolve_device)
 from ..data.pipeline import RequestQueue
 from ..kvcache import paged as PG
 from ..models import sampling as SMP
@@ -73,9 +87,11 @@ def paged_capable(model) -> bool:
 class SlotState(NamedTuple):
     """Fixed slot array: the whole scheduler state a segment carries.
 
-    phase:     int[S]  PHASE_DECODE (blocking admission prefills up front)
+    phase:     int[S]  PHASE_PREFILL (consuming prompt chunks) or
+                       PHASE_DECODE; meaningful only while not done
     token:     int[S]  last emitted token (next decode step's input)
-    pos:       int[S]  next logical row to write
+    pos:       int[S]  next logical row to write: the chunk cursor while
+                       prefilling, the decode position afterwards
     done:      bool[S] retired (or never admitted)
     remaining: int[S]  tokens the slot may still emit
     key:       int[S, 2] per-slot PRNG key data (unused by greedy decoding)
@@ -128,8 +144,10 @@ class BatchConfig:
     prompt_len + max_new per request; ``n_blocks = 0`` sizes the pool for
     zero contention. ``path``/``policy`` name a registered WritePath and
     RoutingPolicy; ``attention`` picks the paged read implementation
-    (``auto`` | ``fused`` | ``reference``); ``device`` is where the engine
-    runs (``"cuda"`` raises on a machine without it). The remaining fields
+    (``auto`` | ``fused`` | ``reference``); ``chunked`` prefills in
+    ``chunk_size``-token pieces (inside the segments on the paged layout,
+    at admission on lanes); ``device`` is where the engine runs
+    (``"cuda"`` raises on a machine without it). The remaining fields
     mirror the JAX package's and raise "not ported yet" when switched on."""
 
     max_seq: int
@@ -191,6 +209,9 @@ class BatchedServeEngine:
         self.path, self.decision = plan.path, plan.decision
         self.uses_ring = self.path.uses_ring
         self.attention = plan.attention
+        # in-segment chunked prefill needs the paged pool's row addressing;
+        # lanes prefills chunk by chunk at admission instead
+        self._in_scan_prefill = cfg.chunked and self.layout == "paged"
         self.clock: Callable[[], float] = time.perf_counter
         self.stats = {
             "direct_writes": 0, "staged_writes": 0, "drains": 0,
@@ -217,16 +238,26 @@ class BatchedServeEngine:
         self.cache = None  # release the old cache before allocating anew
         self.cache = self._make_cache()
         self.slots = make_slots(cfg.n_slots, self.device)
+        # the device prompt buffer of in-segment chunked prefill
+        self.prompts = (torch.zeros((cfg.n_slots, cfg.max_seq),
+                                    dtype=torch.int64, device=self.device)
+                        if self._in_scan_prefill else None)
         self.mon_state = self.decision.init_state(self.device)
-        # constant tail of every step's WriteBatch (offset/size/hint/phase)
+        # constant tail of every step's WriteBatch (offset/size/hint/phase);
+        # the mixed step's n_slots x chunk_size writes take offset/size/hint
         self._batch_tail = tuple(make_write_batch(
             torch.zeros((cfg.n_slots,), device=self.device))[1:])
+        self._chunk_tail = tuple(make_write_batch(torch.zeros(
+            (cfg.n_slots * cfg.chunk_size,), device=self.device))[1:4])
         # host-side shadows (device round-trips happen once per segment)
         self._occupied = [False] * cfg.n_slots
         self._slot_req: List[int] = [-1] * cfg.n_slots
         self._slot_plen: List[int] = [0] * cfg.n_slots
         self._slot_max_new: List[int] = [0] * cfg.n_slots
         self._slot_pages: List[int] = [0] * cfg.n_slots
+        # admission seniority: top-up visits slots oldest first
+        self._slot_seq: List[int] = [-1] * cfg.n_slots
+        self._adm_seq = 0
         self._skip_rid = -1
         self._skip_count = 0
         self.outputs: Dict[int, List[int]] = {}
@@ -313,6 +344,99 @@ class BatchedServeEngine:
         self.cache, self.slots, self.mon_state = cache, st, mon
         return stats, swrites, emits, acts
 
+    @torch.no_grad()
+    def _mixed_segment(self, enabled: torch.Tensor, mode: str):
+        """``segment_len`` mixed-phase steps (chunked, paged layout): every
+        live slot processes a [chunk_size]-token slab, the next prompt chunk
+        (PREFILL) or its one decode token (DECODE, column 0), and a slot
+        flips PREFILL -> DECODE inside the segment when its cursor crosses
+        its prompt length, emitting the prefill argmax. Nothing in here
+        reads a device value on the host."""
+        model, cfg, dev = self.model, self.cfg, self.device
+        ring = self.uses_ring
+        ps, nb, c = cfg.page_size, self.n_blocks, cfg.chunk_size
+        decision, attn = self.decision, self.attention
+        cache, st, mon, prompts = (self.cache, self.slots, self.mon_state,
+                                   self.prompts)
+        t_len, s = cfg.segment_len, cfg.n_slots
+        plan = PG.step_plan(cache)
+        stats = torch.zeros((4,), dtype=torch.int64, device=dev)
+        swrites = torch.zeros((s, 3), dtype=torch.int64, device=dev)
+        emits = torch.full((t_len, s), -1, dtype=torch.int64, device=dev)
+        ems = torch.zeros((t_len, s), dtype=torch.bool, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        offs = torch.arange(c, device=dev)[None, :]
+        for t in range(t_len):
+            active = ~st.done & enabled
+            is_pf = active & (st.phase == PHASE_PREFILL)
+            dec = active & ~is_pf
+            # the token slab: prefill slots read the prompt buffer at their
+            # chunk cursor, decode slots put their token in column 0
+            idx = (st.pos[:, None] + offs).clamp(0, prompts.shape[1] - 1)
+            tokens = torch.where(
+                is_pf[:, None], prompts.gather(1, idx),
+                torch.where(offs == 0, st.token[:, None], 0))
+            n_valid = torch.where(is_pf, (st.plen - st.pos).clamp(max=c),
+                                  active.to(torch.int64))
+            qvalid = offs < n_valid[:, None]
+            # ONE flattened phase-tagged batch per step: bulk prefill rows
+            # are pinned offload, decode rows keep the path's routing
+            dest_all = PG.logical_to_physical_many(
+                cache, torch.where(qvalid, st.pos[:, None] + offs, -1))
+            region = torch.clamp(dest_all // ps, max=nb - 1)
+            phase_tag = torch.where(is_pf[:, None] & qvalid, PHASE_BULK,
+                                    PHASE_SCATTERED)
+            unload_flat, mon, _ = decision(
+                mon, WriteBatch(region.reshape(-1), *self._chunk_tail,
+                                phase_tag.reshape(-1)),
+                active=qvalid.reshape(-1))
+            unload = unload_flat.view(s, c)[:, 0] & dec
+            n_u = unload.sum()
+            drained = zero
+            if ring:
+                cache, due = PG.maybe_drain(
+                    cache, incoming_pos=torch.where(dec, st.pos, -1))
+                drained = due.to(torch.int64)
+                logits, cache = model.decode_chunk_paged(
+                    cache, tokens, st.pos, n_valid, active,
+                    unload_mask=unload, attention=attn, plan=plan)
+            else:
+                logits, cache = model.decode_chunk_paged(
+                    cache, tokens, st.pos, n_valid, active, attention=attn,
+                    plan=plan)
+            finishing = is_pf & (st.pos + n_valid >= st.plen)
+            emitting = dec | finishing
+            # the first token after the prompt is the prefill ARGMAX, as the
+            # blocking engine's admission-time t0; prefill steps consume no
+            # sampler key
+            t0 = torch.argmax(logits, dim=-1)
+            sampled, new_key = SMP.sample_tokens(logits, st.key, st.sampling,
+                                                 mode=mode)
+            nxt = torch.where(emitting, torch.where(dec, sampled, t0),
+                              st.token)
+            key = torch.where(dec[:, None], new_key, st.key)
+            emit_i = emitting.to(torch.int64)
+            remaining = st.remaining - emit_i
+            ended = (remaining <= 0) | SMP.hits_stop(nxt, st.stop)
+            st = st._replace(
+                phase=torch.where(finishing, PHASE_DECODE, st.phase),
+                token=nxt, pos=st.pos + n_valid,
+                done=st.done | (emitting & ended),
+                remaining=remaining, key=key)
+            n_pf = (qvalid & is_pf[:, None]).sum()
+            stats += torch.stack([dec.sum() - n_u, n_u, drained, n_pf])
+            swrites += torch.stack(
+                [(dec & ~unload).to(torch.int64), unload.to(torch.int64),
+                 torch.where(is_pf, n_valid, 0)], dim=1)
+            emits[t] = torch.where(emitting, nxt, -1)
+            ems[t] = emitting
+        if ring:
+            # segment boundary: drain before the host frees or tops up
+            # blocks (see ``_decode_segment``)
+            cache = PG.drain_ring(cache)
+        self.cache, self.slots, self.mon_state = cache, st, mon
+        return stats, swrites, emits, ems
+
     # ------------------------------------------------------------------
     # admission / retirement / allocation (host, between segments)
     # ------------------------------------------------------------------
@@ -320,6 +444,19 @@ class BatchedServeEngine:
         # decode writes rows plen .. plen+max_new-2 (the final emitted
         # token is never consumed, so its KV is never written)
         return max(1, -(-(plen + max_new - 1) // self.cfg.page_size))
+
+    def _segment_cover_pages(self, pos: int, prefilling: bool, plen: int,
+                             max_new: int) -> int:
+        """Pages covering the worst-case rows the NEXT segment can write
+        for a slot at ``pos``, shared by admission and the between-segment
+        top-up: a prefilling slot advances at most ``segment_len *
+        chunk_size`` rows, a decoding one ``segment_len``, both capped by
+        the footprint ``plen + max_new - 1``."""
+        cfg = self.cfg
+        cap = plen + max_new - 1
+        adv = cfg.segment_len * (cfg.chunk_size if prefilling else 1)
+        rows = min(pos + adv, max(cap, plen))
+        return max(1, -(-rows // cfg.page_size))
 
     def _resolve_params(self, req) -> SamplingParams:
         p = SMP.resolve(req.params, self.cfg.default_params, self.cfg.greedy)
@@ -341,17 +478,132 @@ class BatchedServeEngine:
             self.first_token_t.setdefault(rid, now)
 
     def _admission_plan(self, slot: int, req) -> Optional[dict]:
-        """Reserve ``req``'s whole footprint for ``slot``: the one place
-        admission touches the pool. None when the pool can't cover it (the
-        request keeps its queue position). The lanes layout has no pool: a
-        free slot is the whole footprint."""
+        """Reserve ``req``'s blocks for ``slot``: the one place admission
+        touches the pool. Blocking: the whole footprint; chunked: the pages
+        of the first segment's rows (``_topup_blocks`` adds the rest). None
+        when the pool can't cover it (the request keeps its queue
+        position). The lanes layout has no pool: a free slot is the whole
+        footprint."""
         if self.pool is None:
             return {"blocks": None}
-        blocks = self.pool.alloc(
-            slot, self._pages_needed(req.prompt_len, req.max_new))
+        n = (self._segment_cover_pages(0, True, req.prompt_len, req.max_new)
+             if self._in_scan_prefill
+             else self._pages_needed(req.prompt_len, req.max_new))
+        blocks = self.pool.alloc(slot, n)
         if blocks is None:
             return None
         return {"blocks": blocks}
+
+    def _chunk_prefill_host(self, prompts: torch.Tensor, max_seq: int):
+        """Whole-prompt prefill in ``chunk_size``-token pieces through
+        ``model.chunk_prefill`` (the lanes layout under ``chunked``)."""
+        g, plen = prompts.shape
+        cache = self.model.init_cache(g, max_seq)
+        logits = None
+        for s0 in range(0, plen, self.cfg.chunk_size):
+            logits, cache = self.model.chunk_prefill(
+                cache, prompts[:, s0:s0 + self.cfg.chunk_size], s0)
+        return logits, cache
+
+    def _set_slots(self, slots: List[int], reqs: List[Any], plist, *,
+                   phase: int, token, pos, done, remaining) -> None:
+        """One slot-state update and the host shadows of an admitted group
+        (``token`` / ``pos`` / ``done`` / ``remaining`` per request)."""
+        cfg, dev = self.cfg, self.device
+        g = len(reqs)
+        slot_arr = torch.as_tensor(slots, device=dev).long()
+
+        def put(old, values, dtype=None):
+            new = old.clone()
+            new[slot_arr] = torch.as_tensor(
+                values, device=dev).to(dtype or old.dtype)
+            return new
+
+        st = self.slots
+        self.slots = st._replace(
+            phase=put(st.phase, np.full((g,), phase)),
+            token=put(st.token, token),
+            pos=put(st.pos, pos),
+            done=put(st.done, done),
+            remaining=put(st.remaining, remaining),
+            req_id=put(st.req_id, np.asarray([r.req_id for r in reqs])),
+            plen=put(st.plen, np.asarray([r.prompt_len for r in reqs])),
+            key=put(st.key, np.zeros((g, 2), np.int64)),
+            temperature=put(st.temperature,
+                            np.asarray([p.temperature for p in plist],
+                                       np.float32)),
+            top_k=put(st.top_k, np.asarray([p.top_k for p in plist])),
+            top_p=put(st.top_p,
+                      np.asarray([p.top_p for p in plist], np.float32)),
+            stop=put(st.stop, np.asarray(
+                [SMP.stop_table(p, cfg.eos_id) for p in plist], np.int64)),
+        )
+        for slot, req, p in zip(slots, reqs, plist):
+            self._occupied[slot] = True
+            self._slot_req[slot] = req.req_id
+            self._slot_plen[slot] = req.prompt_len
+            self._slot_max_new[slot] = p.max_tokens
+            self._slot_seq[slot] = self._adm_seq
+            self._adm_seq += 1
+            self.req_arrival[req.req_id] = req.arrival_s
+            self.req_params[req.req_id] = p
+        self.stats["admitted"] += g
+
+    @torch.no_grad()
+    def _admit_chunked(self, slots: List[int], reqs: List[Any],
+                       plans: List[dict]) -> None:
+        """Chunked (paged) admission: NO prefill. The prompts go to the
+        device buffer, the page table to the first segment's blocks, and
+        the slots to the segments in PREFILL phase with the cursor at 0."""
+        cfg, dev = self.cfg, self.device
+        g = len(reqs)
+        slot_arr = torch.as_tensor(slots, device=dev).long()
+        padded = np.zeros((g, cfg.max_seq), np.int64)
+        table = np.full((g, self.max_pages), -1, np.int64)
+        for i, (r, plan) in enumerate(zip(reqs, plans)):
+            padded[i, : r.prompt_len] = r.prompt
+            table[i, : len(plan["blocks"])] = plan["blocks"]
+        self.prompts[slot_arr] = torch.as_tensor(padded, device=dev)
+        self.cache["page_table"][slot_arr] = torch.as_tensor(table,
+                                                             device=dev)
+        plist = [self._resolve_params(r) for r in reqs]
+        self._set_slots(
+            slots, reqs, plist, phase=PHASE_PREFILL, token=np.zeros((g,)),
+            pos=np.zeros((g,)), done=np.zeros((g,), bool),
+            remaining=np.asarray([p.max_tokens for p in plist]))
+        for slot, req, plan in zip(slots, reqs, plans):
+            self._slot_pages[slot] = len(plan["blocks"])
+            self.outputs[req.req_id] = []
+            self.req_writes[req.req_id] = np.zeros((3,), np.int64)
+
+    def _topup_blocks(self) -> np.ndarray:
+        """The between-segment memory manager of chunked serving: extend
+        every live slot's page table to cover the rows the NEXT segment can
+        write, oldest slot first. Returns the enabled mask: a slot whose
+        blocks can't be covered stalls for one segment."""
+        cfg = self.cfg
+        enabled = np.ones((cfg.n_slots,), bool)
+        if not self._in_scan_prefill:
+            return enabled
+        pos = self.slots.pos.cpu().numpy()
+        phase = self.slots.phase.cpu().numpy()
+        done = self.done_flags()
+        live = [s for s in range(cfg.n_slots)
+                if self._occupied[s] and not bool(done[s])]
+        for s in sorted(live, key=lambda s: self._slot_seq[s]):
+            want = self._segment_cover_pages(
+                int(pos[s]), phase[s] == PHASE_PREFILL, self._slot_plen[s],
+                self._slot_max_new[s])
+            have = self._slot_pages[s]
+            if want > have:
+                got = self.pool.alloc(s, want - have)
+                if got is None:
+                    enabled[s] = False
+                    continue
+                self.cache["page_table"][s, have:want] = torch.as_tensor(
+                    got, device=self.device).long()
+                self._slot_pages[s] = want
+        return enabled
 
     @torch.no_grad()
     def _admit_group(self, slots: List[int], reqs: List[Any],
@@ -359,8 +611,6 @@ class BatchedServeEngine:
         """Admit a group of same-prompt-length requests with ONE batched
         prefill + ONE insert + ONE slot-state update."""
         cfg, dev = self.cfg, self.device
-        if any(r.media is not None for r in reqs):
-            raise NotImplementedError("not ported yet: requests with media")
         blocks = [p["blocks"] for p in plans]
         g, plen = len(reqs), reqs[0].prompt_len
         ps = cfg.page_size
@@ -391,7 +641,10 @@ class BatchedServeEngine:
         else:
             # the group's lane cache overwrites the slots' lanes wholesale,
             # and is freed right after the copy
-            logits, pc = self.model.prefill(prompts, cfg.max_seq)
+            if cfg.chunked:
+                logits, pc = self._chunk_prefill_host(prompts, cfg.max_seq)
+            else:
+                logits, pc = self.model.prefill(prompts, cfg.max_seq)
             for name in ("k", "v"):
                 self.cache[name][:, slot_arr] = pc[name]
             del pc
@@ -407,45 +660,15 @@ class BatchedServeEngine:
         stop_rows = np.asarray(
             [SMP.stop_table(p, cfg.eos_id) for p in plist], np.int64)
         done0 = (rem <= 0) | np.any(stop_rows == t0s[:, None], axis=1)
-
-        def put(old, values, dtype=None):
-            new = old.clone()
-            new[slot_arr] = torch.as_tensor(
-                values, device=dev).to(dtype or old.dtype)
-            return new
-
-        st = self.slots
-        self.slots = st._replace(
-            phase=put(st.phase, np.full((g,), PHASE_DECODE)),
-            token=put(st.token, t0s),
-            pos=put(st.pos, np.full((g,), plen)),
-            done=put(st.done, done0),
-            remaining=put(st.remaining, rem),
-            req_id=put(st.req_id, np.asarray([r.req_id for r in reqs])),
-            plen=put(st.plen, np.full((g,), plen)),
-            key=put(st.key, np.zeros((g, 2), np.int64)),
-            temperature=put(st.temperature,
-                            np.asarray([p.temperature for p in plist],
-                                       np.float32)),
-            top_k=put(st.top_k, np.asarray([p.top_k for p in plist])),
-            top_p=put(st.top_p,
-                      np.asarray([p.top_p for p in plist], np.float32)),
-            stop=put(st.stop, stop_rows),
-        )
-        for slot, req, p, t0, b in zip(slots, reqs, plist, t0s, blocks):
-            self._occupied[slot] = True
-            self._slot_req[slot] = req.req_id
-            self._slot_plen[slot] = req.prompt_len
-            self._slot_max_new[slot] = p.max_tokens
+        self._set_slots(slots, reqs, plist, phase=PHASE_DECODE, token=t0s,
+                        pos=np.full((g,), plen), done=done0, remaining=rem)
+        for slot, req, t0, b in zip(slots, reqs, t0s, blocks):
             self._slot_pages[slot] = 0 if b is None else len(b)
-            self.req_arrival[req.req_id] = req.arrival_s
             self.outputs[req.req_id] = [int(t0)]
-            self.req_params[req.req_id] = p
             # admission-time prefill rows are bulk/offload writes
             self.req_writes[req.req_id] = np.asarray(
                 [0, 0, req.prompt_len], np.int64)
         self._record_first_tokens([r.req_id for r in reqs])
-        self.stats["admitted"] += g
 
     def _retire(self, slots: List[int]) -> None:
         for slot in slots:
@@ -456,6 +679,7 @@ class BatchedServeEngine:
             self._slot_plen[slot] = 0
             self._slot_max_new[slot] = 0
             self._slot_pages[slot] = 0
+            self._slot_seq[slot] = -1
         if self.pool is not None and slots:
             self.cache["page_table"][
                 torch.as_tensor(slots, device=self.device).long()] = -1
@@ -469,7 +693,8 @@ class BatchedServeEngine:
         request has been passed over ``skip_ahead_limit`` admission rounds
         in a row, scanning stops at it so freed blocks accumulate for it.
         Same-prompt-length requests admitted together share one batched
-        prefill. Returns #admitted."""
+        prefill; chunked (paged) admission prefills nothing. Returns
+        #admitted."""
         picks: List[tuple] = []  # (slot, req, plan)
         free = [s for s in range(self.cfg.n_slots) if not self._occupied[s]]
         order = self._sched.order(queue)
@@ -486,6 +711,9 @@ class BatchedServeEngine:
                     f"request {req.req_id}: prompt_len+max_new "
                     f"{req.prompt_len + req.max_new} > max_seq "
                     f"{self.cfg.max_seq}")
+            if req.media is not None:
+                raise NotImplementedError(
+                    "not ported yet: requests with media")
             if self.pool is not None:
                 total = self._pages_needed(req.prompt_len, req.max_new)
                 if total > self.pool.n_blocks:
@@ -505,6 +733,12 @@ class BatchedServeEngine:
                 self._skip_rid, self._skip_count = -1, 0
             picks.append((free.pop(0), queue.pop_at(qi), plan))
             popped.append(oi)
+        if self._in_scan_prefill:
+            if picks:
+                self._admit_chunked([p[0] for p in picks],
+                                    [p[1] for p in picks],
+                                    [p[2] for p in picks])
+            return len(picks)
         # group same-length prompts into one prefill dispatch each
         groups: Dict[int, List[tuple]] = {}
         for p in picks:
@@ -518,16 +752,30 @@ class BatchedServeEngine:
     # ------------------------------------------------------------------
     # the serve loop
     # ------------------------------------------------------------------
+    def _mixed_phase_pending(self) -> bool:
+        """Does the NEXT segment need the mixed-phase step? Only while a
+        live slot is still prefilling: phases flip PREFILL -> DECODE only
+        inside a segment, so a pure-decode start stays pure."""
+        if not self._in_scan_prefill:
+            return False
+        phase = self.slots.phase.cpu().numpy()
+        return bool(np.any(~self.done_flags() & (phase == PHASE_PREFILL)
+                           & np.asarray(self._occupied)))
+
     def run_segment(self, enabled: Optional[np.ndarray] = None) -> np.ndarray:
-        """One decode segment + ONE host readback at its end. Returns the
-        bool [segment_len, n_slots] emission matrix."""
+        """One segment (mixed-phase while a slot prefills, else pure decode)
+        + ONE host readback at its end. Returns the bool [segment_len,
+        n_slots] emission matrix. ``enabled`` False stalls a slot whose
+        block top-up failed."""
         if enabled is None:
             enabled = np.ones((self.cfg.n_slots,), bool)
         enabled_t = torch.as_tensor(enabled, device=self.device)
         mode = SMP.required_mode(
             [self.req_params[self._slot_req[s]]
              for s in range(self.cfg.n_slots) if self._occupied[s]])
-        stats, swrites, emits, acts = self._decode_segment(enabled_t, mode)
+        segment = (self._mixed_segment if self._mixed_phase_pending()
+                   else self._decode_segment)
+        stats, swrites, emits, acts = segment(enabled_t, mode)
         # the readback: everything the host needs from this segment
         emits, acts = emits.cpu().numpy(), acts.cpu().numpy()
         swrites = swrites.cpu().numpy()
@@ -563,6 +811,16 @@ class BatchedServeEngine:
         self._retire(retiring)
         return len(retiring)
 
+    def run_topped_up_segment(self, live: np.ndarray) -> np.ndarray:
+        """Top up the live slots' blocks, then run one segment; raises when
+        every live slot stalls (the pool cannot hold the working set)."""
+        enabled = self._topup_blocks()
+        if not (live & enabled).any():
+            raise RuntimeError(
+                "every live slot stalled on block top-up: the pool is too "
+                "small for the admitted working set")
+        return self.run_segment(enabled)
+
     def serve(self, queue: RequestQueue,
               max_segments: int = 100_000) -> Dict[int, np.ndarray]:
         """Drain the queue to completion: admit / run a segment / collect /
@@ -581,7 +839,7 @@ class BatchedServeEngine:
             live = ~self.done_flags() & np.asarray(self._occupied)
             if not live.any():
                 continue
-            self.run_segment()
+            self.run_topped_up_segment(live)
         else:
             raise RuntimeError(f"serve() exceeded {max_segments} segments")
         return {rid: np.asarray(t, np.int32)

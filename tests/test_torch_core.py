@@ -263,7 +263,7 @@ def test_validate_resolves_a_plan():
 
 NOT_PORTED = {
     "chunked": dict(chunked=True),
-    # the lanes layout is ported; its host-side chunked prefill is not
+    # the lanes layout's host-side chunked prefill
     "lanes": dict(kv_layout="lanes", chunked=True),
     "sched-priority": dict(sched="sched/priority"),
     "sched-deadline": dict(sched="sched/deadline"),
@@ -277,7 +277,7 @@ NOT_PORTED = {
     "policy-hysteresis": dict(path="adaptive", policy="hysteresis"),
 }
 # once raised, now ported: validate resolves them as the JAX package does
-NOW_PORTED = {"policy-hysteresis"}
+NOW_PORTED = {"policy-hysteresis", "chunked", "lanes"}
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
@@ -289,13 +289,24 @@ def test_validate_raises_on_unported_feature(name):
                                                **NOT_PORTED[name]))
         t, j = plan.decision.policy, jplan.decision.policy
         assert type(t).__name__ == type(j).__name__
-        assert (t.lo, t.hi, t.n_regions) == (j.lo, j.hi, j.n_regions)
-        assert plan.decision.monitor is None and jplan.decision.monitor is None
-        assert (plan.path.name, plan.n_regions) == (jplan.path.name,
-                                                    jplan.n_regions)
+        assert (plan.layout, plan.path.name, plan.n_regions) == (
+            jplan.layout, jplan.path.name, jplan.n_regions)
+        if name == "policy-hysteresis":
+            assert (t.lo, t.hi, t.n_regions) == (j.lo, j.hi, j.n_regions)
+            assert plan.decision.monitor is None
+            assert jplan.decision.monitor is None
         return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         tpaths.validate(cfg.batch_config())
+
+
+@pytest.mark.parametrize("layout", ["paged", "lanes"])
+def test_validate_checks_chunk_size(layout):
+    kw = dict(max_seq=32, kv_layout=layout, chunked=True, chunk_size=0)
+    with pytest.raises(ValueError, match="chunk_size must be >= 1"):
+        tpaths.validate(BatchConfig(device="cpu", **kw))
+    with pytest.raises(ValueError, match="chunk_size must be >= 1"):
+        jpaths.validate(JaxBatchConfig(**kw))
 
 
 def test_validate_rejects_unknown_layout_and_unpaged_model():

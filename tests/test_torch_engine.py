@@ -1,8 +1,9 @@
 """The slice as a whole: the same prompts through the JAX engine and its
 PyTorch port give identical greedy token streams, identical write-path
 statistics and identical per-request path counts, for the direct, staged and
-adaptive write paths. Reduced stablelm-1.6b in fp32 on the CPU; weights are
-initialised by the JAX package and carried across as numpy. More requests
+adaptive write paths. Reduced stablelm-1.6b in fp32 on the CPU, and the
+reduced qwen2-7b (4 query heads to 1 KV head, qkv bias); weights are initialised by the
+JAX package and carried across as numpy. More requests
 than slots, so admission, retirement and block reuse are crossed, and
 ``ring_size < segment_len`` forces drains inside a segment."""
 import jax
@@ -38,8 +39,12 @@ def _prompts():
 
 @pytest.fixture(scope="module")
 def jax_side():
+    return _jax_runs(ARCH)
+
+
+def _jax_runs(arch):
     """(numpy params, {path: (completions, stats)}) from the JAX engine."""
-    _, model, params = jax_build(ARCH, MAX_SEQ, seed=3)
+    _, model, params = jax_build(arch, MAX_SEQ, seed=3)
     runs = {}
     for path in PATHS:
         eng = JaxEngine.from_config(JaxConfig(path=path, **SHAPE), model,
@@ -48,6 +53,11 @@ def jax_side():
                              [JaxParams(max_tokens=m) for m in MAX_NEW])
         runs[path] = (comps, dict(eng.stats))
     return jax.tree.map(np.asarray, params), runs
+
+
+@pytest.fixture(scope="module")
+def jax_qwen():
+    return _jax_runs("qwen2-7b")
 
 
 @pytest.fixture(scope="module")
@@ -64,10 +74,8 @@ def _torch_run(model, path, attention="auto"):
     return comps, dict(eng.stats)
 
 
-@pytest.mark.parametrize("path", PATHS)
-def test_engine_matches_jax(jax_side, torch_model, path):
-    jcomps, jstats = jax_side[1][path]
-    tcomps, tstats = _torch_run(torch_model, path)
+def _assert_matches(jax_run, torch_run):
+    (jcomps, jstats), (tcomps, tstats) = jax_run, torch_run
     assert len(tcomps) == len(jcomps) == len(PLENS)
     for jc, tc in zip(jcomps, tcomps):
         assert tc.req_id == jc.req_id
@@ -76,6 +84,20 @@ def test_engine_matches_jax(jax_side, torch_model, path):
         assert tc.finish_reason == jc.finish_reason
     for k in STATS:
         assert tstats[k] == jstats[k], (k, tstats, jstats)
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_engine_matches_jax(jax_side, torch_model, path):
+    _assert_matches(jax_side[1][path], _torch_run(torch_model, path))
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_gqa_engine_matches_jax(jax_qwen, path):
+    """qwen2-7b's engine (GQA, qkv bias) on the paged layout, blocking."""
+    model = params_from_numpy(jax_qwen[0], build_model(
+        get_config("qwen2-7b").reduced(), device="cpu"))
+    assert (model.cfg.n_heads, model.cfg.n_kv_heads) == (4, 1)
+    _assert_matches(jax_qwen[1][path], _torch_run(model, path))
 
 
 def test_drains_happen_inside_segments(jax_side):
