@@ -13,7 +13,11 @@ Phases, each failing the run on any exception or mismatch:
            unfused chain of launches against the fused one (line
            ``cms_monitor_step``); flash_decode_paged at the chunked engine's
            mixed step (C = 16) and flash_attention at the lanes layout's
-           chunk prefill (S = 512) under ``chunk_shape``
+           chunk prefill (S = 512) under ``chunk_shape``; flash_decode_paged
+           at the prefix cache's mixed step (every slot's 64 leading pages
+           the same blocks, a cursor past the cached rows, a 1-row chunk at
+           ``plen - 1``) under ``prefix_shape``, and such aliased page
+           tables among its checked cases
   engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
            a seed) serves 16 requests through ``Engine.from_config`` on the
            paged layout; the launch counts of staged_scatter,
@@ -22,6 +26,23 @@ Phases, each failing the run on any exception or mismatch:
            prefilled inside mixed-phase segments; staged_scatter and
            flash_decode_paged launched, flash_attention never; every prompt
            row counted as a prefill write; a mixed segment profiled
+  engine_prefix  the chunked slice with the prefix cache: 16 requests
+           opening with the same 1024 tokens, cold on a fresh engine, warm
+           (new suffixes: each takes its 1024 rows from the cache) and
+           repeated (every full prompt page cached, a copy-on-write of each
+           whole-page prompt's last block) after ``reset(keep_cache=True)``;
+           on the adaptive and the staged path. Hit rows, copies, prefill
+           writes, the pool's audit and K1 / K2 launches held in every pass;
+           on the staged path the cold and warm streams held equal to the
+           engine's without the cache (exact by construction: see the
+           phase); TTFT cold / warm / repeat and mixed-step device time
+  engine_host_tier  the slice on the staged path over a 320-block pool
+           with the host tier (16 requests of 512-1792 tokens): blocking,
+           chunked, and chunked with the prefix cache too, each against an
+           ample pool; every restore read back bit-equal to its park, no
+           slot left parked, the blocking streams held equal to the ample
+           pool's; each park's and restore's bytes, ms and GB/s, and one
+           116-block park and restore against a plain pinned copy
   lanes    h2o-danube-3-4b at full width (24 layers, bf16, sliding window
            4096) serves 12 requests with prompts up to 4608 tokens on the
            lanes layout; flash_attention's and flash_decode's launch counts
@@ -105,8 +126,9 @@ from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  reset_launch_counts, staged_scatter,
                                  staged_scatter_layers, staged_scatter_ref)
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.kvcache import paged as PG  # noqa: E402
 from repro_torch.serve import (Engine, EngineConfig,  # noqa: E402
-                               SamplingParams)
+                               MemoryConfig, SamplingParams)
 
 # the module of K2 / K4 (the package exports the wrappers under its name)
 FD = importlib.import_module("repro_torch.kernels.flash_decode")
@@ -123,6 +145,20 @@ N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, [128, 256, 384, 512], 64
 ENGINE_RUNS = 3  # the timed serve is repeated so its spread is seen
 # chunked prefill on the paged slice: prompt tokens per mixed-phase step
 CHUNK = 16
+# the memory tier on the paged slice. The prefix cache: 16 requests opening
+# with the same 1024-token system prompt, suffixes of 64-192 tokens (three
+# prompts a whole number of pages, so a repeated one copies its last
+# block), chunked at 16 on the adaptive path
+PREFIX_SHARED, PREFIX_LENS = 1024, [1088, 1152, 1216, 1100]
+# the host tier: 16 requests of 512-1792 tokens, a working set of 8 live
+# slots of about 640 pages, over a pool of 320 blocks (at least the largest
+# request's 116 pages)
+HOST_LENS, HOST_BLOCKS = [512, 1024, 1536, 1792], 320
+# with the prefix cache as well: every prompt opens with the same 512 tokens
+# (the 512-token prompts are nothing else, so they are fully cached)
+HOST_SHARED = 512
+# PCIe Gen5 x16, one direction: the host link's bound
+PCIE_BYTES_PER_S = 64e9
 # the lanes slice: the sliding-window model; max_seq 6144 makes the cache
 # 4096 = the window, and 4608-token prompts exceed it, so prefill masks with
 # the window, the cache keeps a rolled ring and decode wraps it
@@ -368,7 +404,11 @@ def _k2_inputs(gen, dtype, b, c, hq, hkv, d, nb, ps, p, r, ring_kind="partial",
     of the keys), "first" / "last" (only in the first / last page of each
     slot), "ring" (none in the view: only the ring's lanes), "holes" (live
     pages with dead pages between them), "shared" (random, and every slot's
-    page table the same block ids, as a prefix cache makes it)."""
+    page table the same block ids), "prefix" (as a prefix-cache hit makes
+    it: every slot's leading half of the pages the same blocks; slot 0's
+    chunk starts at ``cached_rows``, a page multiple; slot 1 runs the 1-row
+    chunk of a fully cached prompt at ``plen - 1``; each column sees the
+    rows up to its own position, as the engine's view mask gives them)."""
     def rn(*shape):
         return torch.randn(shape, generator=gen, device=DEV).to(dtype)
 
@@ -387,6 +427,15 @@ def _k2_inputs(gen, dtype, b, c, hq, hkv, d, nb, ps, p, r, ring_kind="partial",
         view_ok &= page % 3 == 1
     elif live == "shared":
         blocks[:] = blocks[0]
+    elif live == "prefix":
+        n_sh = p // 2
+        blocks[:, :n_sh] = blocks[0, :n_sh]
+        start = torch.randint(0, p * ps - c + 1, (b,), generator=gen,
+                              device=DEV)
+        start[0], start[1] = n_sh * ps, (n_sh + 1) * ps - 1
+        view_ok = (torch.arange(p * ps, device=DEV)[None, None]
+                   <= (start[:, None] + torch.arange(c, device=DEV)[None])
+                   [..., None]).contiguous()
     ring = (None, None, None)
     if r:
         ring_ok = {
@@ -413,7 +462,10 @@ def _k2_inputs(gen, dtype, b, c, hq, hkv, d, nb, ps, p, r, ring_kind="partial",
 # in the first page, the last page or the ring; dead pages between live
 # ones; one page table shared by every slot; C = 8 with GQA 28/4 and 48/8
 # at D = 128 (4 and 3 groups of 16 query rows, columns across the groups);
-# ragged pages (ps 3) past one 128-key group of the mask
+# ragged pages (ps 3) past one 128-key group of the mask; page tables whose
+# leading blocks every slot shares, cursors past the cached rows and a 1-row
+# chunk at plen - 1, as the prefix cache makes them (C = 4 with GQA 8/2,
+# and the slice's C = 16 with 32 heads)
 K2_LIVE_CASES = [(1, 1, 4, 1, 64, 80, 16, 64, 8, "first"),
                  (1, 1, 4, 1, 64, 80, 16, 64, 8, "last"),
                  (1, 1, 4, 1, 64, 80, 16, 64, 8, "ring"),
@@ -423,7 +475,9 @@ K2_LIVE_CASES = [(1, 1, 4, 1, 64, 80, 16, 64, 8, "first"),
                  (2, 8, 28, 4, 128, 40, 16, 12, 8, "random"),
                  (2, 8, 48, 8, 128, 40, 16, 12, 8, "holes"),
                  (2, 8, 28, 4, 128, 40, 16, 12, 0, "last"),
-                 (2, 3, 4, 2, 32, 200, 3, 90, 5, "holes")]
+                 (2, 3, 4, 2, 32, 200, 3, 90, 5, "holes"),
+                 (4, 4, 8, 2, 64, 40, 16, 12, 8, "prefix"),
+                 (4, 16, 32, 32, 64, 60, 16, 20, 8, "prefix")]
 
 
 def check_k2(gen):
@@ -570,16 +624,22 @@ def _k2_bound(args):
     """The least time of the function on these operands, and what sets it.
     The work depends on the data: a masked key adds exactly 0 to a row with
     one live key, so the function needs the K and V rows that some query
-    column of their slot sees, and no other."""
+    column of their slot sees, and no other. A pool row that several slots
+    see (a shared prefix block) is one input: its bytes count once, its
+    products once per slot."""
     q, pk, _, blocks, view_ok, _, _, rok = args
     b, c, hq, d = q.shape
-    hkv, es = pk.shape[2], q.element_size()
+    ps, hkv, es = pk.shape[1], pk.shape[2], q.element_size()
     assert bool((view_ok.any(2) | rok.any(1)[:, None]).all()), \
         "a row has no live key"
-    live_keys = int(view_ok.any(1).sum()) + int(rok.sum())
+    live = view_ok.any(1)
+    live_keys = int(live.sum()) + int(rok.sum())
+    phys = (blocks.long()[:, :, None] * ps
+            + torch.arange(ps, device=q.device)[None, None]).reshape(b, -1)
+    read_keys = int(torch.unique(phys[live]).numel()) + int(rok.sum())
     small = (2 * q.numel() * es                       # q in, out
              + blocks.numel() * 4 + view_ok.numel() + rok.numel())
-    t_bytes = (live_keys * hkv * d * 2 * es + small) / HBM_BYTES_PER_S
+    t_bytes = (read_keys * hkv * d * 2 * es + small) / HBM_BYTES_PER_S
     t_ops = 4 * c * hq * live_keys * d / PEAK_FLOPS[q.dtype]
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
@@ -597,7 +657,11 @@ def _k2_facts(args):
     small = (2 * q.numel() * es + blocks.numel() * 4 + view_ok.numel()
              + rok.numel())
     n_split, n_blocks = _k2_plan(args)
+    phys = (blocks.long()[:, :, None] * ps
+            + torch.arange(ps, device=q.device)[None, None]).reshape(b, -1)
     return dict(live_keys=int(view_ok.any(1).sum()) + int(rok.sum()),
+                distinct_live_pool_rows=int(torch.unique(
+                    phys[view_ok.any(1)]).numel()),
                 all_keys=all_keys,
                 all_rows_ms=(all_keys * hkv * d * 2 * es + small)
                 / HBM_BYTES_PER_S * 1e3,
@@ -667,8 +731,11 @@ def time_k2(gen):
     # drawn last, so the inputs timed before stay as they were
     chunk_args = _k2_chunk_inputs(gen)
     t["chunk_shape"] = _k2_timed("flash_decode_paged chunk", chunk_args)
+    prefix_args = _k2_prefix_inputs(gen)
+    t["prefix_shape"] = _k2_timed("flash_decode_paged prefix", prefix_args)
     return t, dict(slice=_k2_facts(slice_args), engine=_k2_facts(engine_args),
-                   chunk=_k2_facts(chunk_args), split_plan=split_plan)
+                   chunk=_k2_facts(chunk_args),
+                   prefix=_k2_facts(prefix_args), split_plan=split_plan)
 
 
 def _k2_chunk_inputs(gen, dtype=torch.bfloat16, empty_slot=False):
@@ -718,13 +785,64 @@ def _k2_chunk_inputs(gen, dtype=torch.bfloat16, empty_slot=False):
     return q, pk, pv, blocks, view_ok.contiguous(), rk, rv, rok.contiguous()
 
 
+def _k2_prefix_inputs(gen, dtype=torch.bfloat16):
+    """K2 at the mixed-phase step of the prefix-cached engine
+    (``engine_prefix``: prompts of ``PREFIX_LENS`` opening with the same
+    1024 tokens, chunks of 16): every slot's 64 leading pages are the SAME
+    physical blocks. Slot 0 prefills its first chunk after a hit, at
+    ``cached_rows`` 1024; slot 1 runs the 1-row chunk of its fully cached
+    1152-token prompt at row 1151 (its last page a private copy); slot 2
+    prefills at 1184 of 1216; slot 3 the 12 rows past its 68 cached pages;
+    slots 4-7 decode with the ring full, as in ``_k2_chunk_inputs``. The
+    pages past the prefix are distinct blocks, allocated for the rows the
+    segment can reach, the rest of the page table clamped to block 0."""
+    b, c, hq, hkv, d, ps, p, r = 8, CHUNK, 32, 32, 64, 16, 128, 8
+    nb = b * p
+    pk = torch.randn((nb + 1, ps, hkv, d), generator=gen, device=DEV).to(dtype)
+    pv = torch.randn((nb + 1, ps, hkv, d), generator=gen, device=DEV).to(dtype)
+    q = torch.randn((b, c, hq, d), generator=gen, device=DEV).to(dtype)
+    plen = torch.tensor(PREFIX_LENS * 2, device=DEV)
+    cursor = torch.tensor([PREFIX_SHARED, 1151, 1184, 1088], device=DEV)
+    pos = plen[4:] + torch.randint(r, NEW_TOKENS - 1, (4,), generator=gen,
+                                   device=DEV)
+    start = torch.cat([cursor, pos])
+    seg = SLICE["segment_len"]
+    reach = torch.cat([torch.minimum(cursor + seg * c, plen[:4] + NEW_TOKENS),
+                       torch.minimum(pos + seg, plen[4:] + NEW_TOKENS)])
+    pages = (reach + ps - 1) // ps
+    ids = torch.randperm(nb, generator=gen, device=DEV).view(b, p)
+    n_sh = PREFIX_SHARED // ps
+    ids[:, :n_sh] = ids[0, :n_sh]
+    live_page = torch.arange(p, device=DEV)[None] < pages[:, None]
+    blocks = torch.where(live_page, ids, 0).to(torch.int32)
+    rows = torch.arange(p * ps, device=DEV)
+    positions = start[:, None] + torch.arange(c, device=DEV)[None]
+    allocated = live_page.repeat_interleave(ps, dim=1)
+    view_ok = (rows[None, None] <= positions[..., None]) & allocated[:, None]
+    decode = torch.arange(b, device=DEV) >= 4
+    staged = decode[:, None] & (rows[None] > start[:, None] - r) \
+        & (rows[None] <= start[:, None])
+    view_ok &= ~staged[:, None]
+    rok = decode[:, None].expand(b, r).contiguous()
+    rk = torch.randn((b, r, hkv, d), generator=gen, device=DEV).to(dtype)
+    rv = torch.randn((b, r, hkv, d), generator=gen, device=DEV).to(dtype)
+    return q, pk, pv, blocks, view_ok.contiguous(), rk, rv, rok
+
+
 def check_k2_chunk(gen):
-    """K2 at the mixed-phase step's shape, with and without an empty slot:
-    fp32 within TOL_F32 of the plain version, bf16 by ``held_bf16`` row by
-    row against the plain version run in fp32."""
-    return [dict(empty_slot=e, **_check_k2_at(
+    """K2 at the mixed-phase step's shape, with and without an empty slot,
+    and with the prefix cache's aliased page tables: fp32 within TOL_F32 of
+    the plain version, bf16 by ``held_bf16`` row by row against the plain
+    version run in fp32."""
+    out = [dict(empty_slot=e, **_check_k2_at(
         f"chunk shape, C={CHUNK}, empty slot {e}",
         _k2_chunk_inputs(gen, empty_slot=e))) for e in (False, True)]
+    args = _k2_prefix_inputs(gen)
+    assert bool((args[3][:, :PREFIX_SHARED // 16] == args[3][0, :PREFIX_SHARED
+                                                             // 16]).all())
+    out.append(dict(prefix_aliased=True, **_check_k2_at(
+        f"chunk shape, C={CHUNK}, prefix-cache aliased page tables", args)))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1672,6 +1790,459 @@ def take_launches(kernels, counts, names):
                                      f"the engine: {counts}")
 
 
+# ---------------------------------------------------------------------------
+# the memory tier on the paged slice: prefix cache and host tier
+# ---------------------------------------------------------------------------
+
+
+def _slice_model():
+    """The slice's model at full width and depth, bf16, weights from seed
+    0."""
+    cfg = get_config(SLICE["arch"])
+    return cfg, build_model(cfg, device=DEV).init(0)
+
+
+def _serve_once(eng, queue):
+    """One serve between two synchronisations: (streams, completions,
+    host-clock seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = eng.serve(queue)
+    torch.cuda.synchronize()
+    return out, eng.completions(), time.perf_counter() - t0
+
+
+def _ttft(comps):
+    """Mean and nearest-rank p95 of the requests' TTFT (arrival to first
+    token), seconds."""
+    t = sorted(c.ttft_s for c in comps.values())
+    return dict(mean_s=sum(t) / len(t), p95_s=t[-(-95 * len(t) // 100) - 1])
+
+
+def _stream_diff(got, want):
+    """{request: index of its first differing token} (-1: other length)."""
+    out = {}
+    for rid in sorted(set(got) | set(want)):
+        a, b = got.get(rid), want.get(rid)
+        if a is None or b is None or len(a) != len(b):
+            out[rid] = -1
+        elif (a != b).any():
+            out[rid] = int((a != b).argmax())
+    return out
+
+
+def _segment_profile(sch, what):
+    """Device ms per step of the next topped-up segment, from the
+    profiler's trace, and whether it is mixed-phase."""
+    mixed = sch._mixed_phase_pending()
+    rows = trace_rows(lambda: sch.run_topped_up_segment(~sch.done_flags()),
+                      what)
+    steps = sch.cfg.segment_len
+    return dict(mixed=mixed,
+                device_ms_per_step=sum(r[0] for r in rows) / 1e3 / steps,
+                device_ops_per_step=device_ops(rows) / steps)
+
+
+def _prefix_queue(vocab, fresh):
+    """The prefix traffic: 16 requests opening with the same 1024 tokens,
+    suffixes of ``PREFIX_LENS`` - 1024 tokens. ``fresh``: requests 16-31 of
+    the same generator, so the same system prompt with suffixes no request
+    of the first 16 has."""
+    sp = SamplingParams(max_tokens=NEW_TOKENS)
+    n = 2 * N_REQUESTS if fresh else N_REQUESTS
+    q = synthetic_requests(n, PREFIX_LENS, vocab, NEW_TOKENS, params=sp,
+                           shared_prefix=PREFIX_SHARED)
+    while len(q) > N_REQUESTS:
+        q.pop_at(0)
+    return q
+
+
+def _expected_hits(rids, full):
+    """Rows a pass over requests ``rids`` takes from the cache when every
+    request's full prompt pages are registered (``full``; a whole-page
+    prompt re-runs its last row) or only the shared system prompt's."""
+    ps = SLICE["page_size"]
+    out = []
+    for rid in rids:
+        p = PREFIX_LENS[rid % len(PREFIX_LENS)]
+        out.append((p - 1 if p % ps == 0 else p // ps * ps) if full
+                   else PREFIX_SHARED)
+    return out
+
+
+def _prefix_run(model, path, profile):
+    """The prefix phase's passes on ``path``: cold, warm and repeat on one
+    engine with the cache, cold and warm on one without. Returns the passes,
+    the reference streams and seconds, and (``profile``) the device time of
+    a mixed step warm and cold."""
+    cfg = model.cfg
+    shape = dict(SLICE, chunked=True, chunk_size=CHUNK, path=path)
+    eng = Engine.from_config(EngineConfig(
+        **shape, memory=MemoryConfig(prefix_cache=True)), model)
+    sch = eng.scheduler
+    # warm-up on prompts that share nothing with the measured ones, then a
+    # fresh pool
+    eng.serve(synthetic_requests(len(PREFIX_LENS), 64, cfg.vocab, 2, seed=1,
+                                 params=SamplingParams(max_tokens=2)))
+    eng.reset()
+    passes = {}
+    for name, fresh in (("cold", False), ("warm", True), ("repeat", False)):
+        if name != "cold":
+            eng.reset(keep_cache=True)
+        reset_launch_counts()       # counts = 0 just before each pass
+        out, comps, secs = _serve_once(eng, _prefix_queue(cfg.vocab, fresh))
+        passes[name] = dict(out=out, comps=comps, seconds=secs,
+                            counts=launch_counts(), stats=dict(eng.stats))
+        sch.pool.audit()
+    ref_eng = Engine.from_config(EngineConfig(**shape), model)
+    ref = {}
+    for name, fresh in (("cold", False), ("warm", True)):
+        ref[name], _, ref[name + "_seconds"] = _serve_once(
+            ref_eng, _prefix_queue(cfg.vocab, fresh))
+        ref_eng.reset()
+    del ref_eng
+    prof = {}
+    if profile:
+        # device time a mixed step: with the system prompt cached (the warm
+        # pass's requests, every slot's first segment) and cold (a fresh
+        # pool, every slot prefilling)
+        eng.reset(keep_cache=True)
+        sch.admit(_prefix_queue(cfg.vocab, True))
+        prof["warm"] = _segment_profile(sch, f"prefix warm segment {path}")
+        eng.reset()
+        sch.admit(_prefix_queue(cfg.vocab, False))
+        sch.run_topped_up_segment(~sch.done_flags())
+        prof["cold"] = _segment_profile(sch, f"prefix cold segment {path}")
+    del eng
+    torch.cuda.empty_cache()
+    return passes, ref, prof
+
+
+def _prefix_problems(path, passes, want):
+    """What ``engine_prefix`` holds of one path's passes besides streams."""
+    out = []
+    for name, run in passes.items():
+        st = run["stats"]
+        if st["prefix_hit_rows"] != sum(want[name]):
+            out.append(f"{path} {name}: prefix_hit_rows "
+                       f"{st['prefix_hit_rows']} != {sum(want[name])}")
+        n_cow = (sum(PREFIX_LENS[r % len(PREFIX_LENS)] % SLICE["page_size"]
+                     == 0 for r in range(N_REQUESTS))
+                 if name == "repeat" else 0)
+        if st["cow_copies"] != n_cow:
+            out.append(f"{path} {name}: cow_copies {st['cow_copies']} != "
+                       f"{n_cow}")
+        base = N_REQUESTS if name == "warm" else 0
+        for rid, c in run["comps"].items():
+            pc, plen = c.path_counts, PREFIX_LENS[rid % len(PREFIX_LENS)]
+            if (pc["prefill"] != plen - want[name][rid - base]
+                    or pc["direct"] + pc["staged"] != NEW_TOKENS - 1):
+                out.append(f"{path} {name}: request {rid} path counts {pc}")
+        for k in ("staged_scatter", "flash_decode_paged"):
+            if run["counts"][k] <= 0:
+                out.append(f"{path} {name}: {k} not launched: "
+                           f"{run['counts']}")
+    return out
+
+
+def phase_engine_prefix(kernels):
+    """The slice chunked at 16 with ``MemoryConfig(prefix_cache=True)``,
+    bf16 at full width and depth: requests opening with the same 1024
+    tokens (a system prompt), suffixes of 64-192 tokens, 64 new tokens
+    each. Three passes on one engine: COLD (16 requests, a fresh engine: the
+    first 8 find nothing cached, the next 8 the system prompt), WARM after
+    ``reset(keep_cache=True)`` (16 requests with the same system prompt and
+    suffixes never seen: each takes its 1024 rows from the cache), and
+    REPEAT after another such reset (the cold pass's requests again: every
+    full prompt page cached; a whole-page prompt re-runs its last row, its
+    last block copied first). The same engine without the cache serves the
+    cold and the warm requests. Run on the adaptive path (the main path:
+    timed, profiled, its launch counts in the kernels line) and on the
+    staged path.
+
+    Held on both paths: ``prefix_hit_rows`` is 8 x 1024 cold, 16 x 1024
+    warm and every full prompt page on the repeat, with a copy per
+    whole-page prompt (``cow_copies``); each request's prefill writes are
+    its uncached rows; the pool's audit; K1 and K2 launched in every pass.
+    Held exactly on the staged path: the cold and the warm streams equal
+    those without the cache. That is exact by construction: a hit of the
+    1024 shared rows (64 chunks, 4 segments) shifts a request's schedule by
+    whole segments, so every row runs in the same kind of step at the same
+    ring phase, and the staged path stages every decode write whatever its
+    block. Reported, not held: the same comparisons on the adaptive path,
+    which routes a write by its block's heat (the warm pass's blocks have
+    other histories than the engine's without the cache), and the repeat
+    pass against the cold one (a fully cached prompt flips in its first
+    step, so its decode rows run in mixed-phase steps, the MLP's GEMM at M =
+    128, where the cold pass ran them in decode steps at M = 8); cuBLAS and
+    K2 round those differently (``tools/prefix_divergence.py`` finds the
+    first such row)."""
+    cfg, model = _slice_model()
+    first_wave = N_REQUESTS // 2
+    want = dict(cold=[0] * first_wave
+                + _expected_hits(range(first_wave, N_REQUESTS), False),
+                warm=_expected_hits(range(N_REQUESTS, 2 * N_REQUESTS), False),
+                repeat=_expected_hits(range(N_REQUESTS), True))
+    n_tok = N_REQUESTS * NEW_TOKENS
+    problems, report = [], {}
+    for path in ("adaptive", "staged"):
+        passes, ref, prof = _prefix_run(model, path, path == "adaptive")
+        problems += _prefix_problems(path, passes, want)
+        diffs = dict(
+            cold_vs_no_cache=_stream_diff(passes["cold"]["out"], ref["cold"]),
+            warm_vs_no_cache=_stream_diff(passes["warm"]["out"], ref["warm"]),
+            repeat_vs_cold=_stream_diff(passes["repeat"]["out"],
+                                        passes["cold"]["out"]))
+        held = ["cold_vs_no_cache", "warm_vs_no_cache"] \
+            if path == "staged" else []
+        for what in held:
+            if diffs[what]:
+                problems.append(f"{path} {what}: streams differ (request: "
+                                f"first token) {diffs[what]}")
+        if path == "adaptive":
+            for k in kernels:
+                if k["name"] in ("staged_scatter", "flash_decode_paged"):
+                    for name, run in passes.items():
+                        k[f"launches_prefix_{name}"] = run["counts"][k["name"]]
+        report[path] = dict(
+            ttft={name: _ttft(run["comps"]) for name, run in passes.items()},
+            tok_per_s=dict({name: n_tok / run["seconds"]
+                            for name, run in passes.items()},
+                           no_cache_cold=n_tok / ref["cold_seconds"],
+                           no_cache_warm=n_tok / ref["warm_seconds"]),
+            stats={name: run["stats"] for name, run in passes.items()},
+            launches={name: run["counts"] for name, run in passes.items()},
+            mixed_step=prof, streams_held=held, streams_differ=diffs)
+    del model
+    torch.cuda.empty_cache()
+    say("engine_prefix", config=dict(SLICE, chunked=True, chunk_size=CHUNK),
+        shared_prefix=PREFIX_SHARED, prompt_lens=PREFIX_LENS,
+        new_tokens=NEW_TOKENS, requests=N_REQUESTS,
+        hit_rows_expected={k: sum(v) for k, v in want.items()}, **report)
+    if problems:
+        raise AssertionError("engine_prefix: " + "; ".join(problems))
+
+
+def _time_block_moves(log, bad):
+    """Wrap the host tier's two bulk moves (``PG.unload_blocks`` /
+    ``PG.load_blocks``, as the scheduler calls them): each call between two
+    synchronisations, its blocks and host-clock ms appended to ``log``.
+    After each restore (outside the timed span) the restored blocks are
+    read back and compared with the host copy they came from, bit for bit;
+    a mismatch is appended to ``bad``. Returns the function that unwraps
+    them."""
+    unload, load = PG.unload_blocks, PG.load_blocks
+
+    def timed(kind, fn, cache, blocks, *rest):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(cache, blocks, *rest)
+        torch.cuda.synchronize()
+        log.append((kind, len(blocks), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    def restore(cache, blocks, host_k, host_v):
+        out = timed("restore", load, cache, blocks, host_k, host_v)
+        bl = torch.as_tensor(list(blocks), device=DEV).long()
+        for plane, host in (("pages_k", host_k), ("pages_v", host_v)):
+            if not torch.equal(cache[plane][:, bl].cpu(), host):
+                bad.append(f"{plane} of blocks {list(blocks)[:4]}...")
+        return out
+
+    PG.unload_blocks = lambda c, b: timed("park", unload, c, b)
+    PG.load_blocks = restore
+
+    def unwrap():
+        PG.unload_blocks, PG.load_blocks = unload, load
+    return unwrap
+
+
+def _block_bytes(cache):
+    """Bytes of one block, K and V planes, every layer."""
+    l, _, ps, h, d = cache["pages_k"].shape
+    return 2 * l * ps * h * d * cache["pages_k"].element_size()
+
+
+def _moves_summary(log, block_bytes):
+    out = {}
+    for kind in ("park", "restore"):
+        rows = [r for r in log if r[0] == kind]
+        if not rows:
+            continue
+        blocks = sum(r[1] for r in rows)
+        ms = sum(r[2] for r in rows)
+        out[kind] = dict(count=len(rows), blocks=blocks,
+                         blocks_max=max(r[1] for r in rows),
+                         bytes=blocks * block_bytes, host_ms=ms,
+                         host_ms_each=[r[2] for r in rows],
+                         host_gb_per_s=blocks * block_bytes / ms / 1e6)
+    return out
+
+
+def _copy_rates(cache, n_blocks):
+    """One park's and one restore's copies of ``n_blocks`` blocks on an idle
+    pool, and a plain pinned ``copy_`` of the same bytes each way: the time
+    between CUDA events around one call (median of 30, warm), the device
+    time by kernel from the profiler's trace, and the host-clock time of a
+    call between two synchronisations (median of 3); against the link's
+    bound (bytes / 64 GB/s)."""
+    blocks = list(range(n_blocks))
+    nbytes = n_blocks * _block_bytes(cache)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEV)
+    keep = {}
+
+    def unload():
+        keep["kv"] = PG.unload_blocks(cache, blocks)
+
+    def load():
+        PG.load_blocks(cache, blocks, *keep["kv"])
+
+    out = dict(blocks=n_blocks, bytes=nbytes,
+               link_bound_ms=nbytes / PCIE_BYTES_PER_S * 1e3)
+    for name, fn in (("park", unload), ("restore", load),
+                     ("pinned_d2h", lambda: host.copy_(dev,
+                                                       non_blocking=True)),
+                     ("pinned_h2d", lambda: dev.copy_(host,
+                                                      non_blocking=True))):
+        event_ms = time_ms(fn, warm=2, reps=30)
+        host_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        rows = trace_rows(fn, f"host tier {name}")
+        copy_us = sum(r[0] for r in rows if "Memcpy" in r[2])
+        out[name] = dict(event_ms=event_ms,
+                         event_gb_per_s=nbytes / event_ms / 1e6,
+                         host_ms=sorted(host_ms)[1],
+                         device_ms=sum(r[0] for r in rows) / 1e3 or None,
+                         copy_device_ms=copy_us / 1e3 or None,
+                         copy_gb_per_s=(nbytes / copy_us / 1e3
+                                        if copy_us else None),
+                         rows=[dict(kernel=r[2][:64], us=r[0], calls=r[1])
+                               for r in rows if r[0] > 0][:6])
+    return out
+
+
+def _host_tier_case(model, shape, extra, queue, tag):
+    """One configuration with ``MemoryConfig(host_tier=True, **extra)`` over
+    ``HOST_BLOCKS`` blocks against the same engine with an ample pool.
+    Returns (report, problems, streams of both, launch counts, the tight
+    engine)."""
+    ample = Engine.from_config(EngineConfig(**shape), model)
+    out_a, _, s_a = _serve_once(ample, queue())
+    del ample
+    torch.cuda.empty_cache()
+    tight = Engine.from_config(EngineConfig(
+        **shape, n_blocks=HOST_BLOCKS,
+        memory=MemoryConfig(host_tier=True, **extra)), model)
+    sch = tight.scheduler
+    log, bad = [], []
+    unwrap = _time_block_moves(log, bad)
+    try:
+        reset_launch_counts()       # counts = 0 just before the tight serve
+        out_t, comps_t, s_t = _serve_once(tight, queue())
+        counts = launch_counts()
+    finally:
+        unwrap()
+    st = dict(tight.stats)
+    n_tok = sum(len(t) for t in out_t.values())
+    report = dict(
+        config=dict(shape, n_blocks=HOST_BLOCKS,
+                    memory=dict(host_tier=True, **extra)),
+        tok_per_s=n_tok / s_t, ample_tok_per_s=n_tok / s_a,
+        seconds=s_t, ample_seconds=s_a, stats=st, launches=counts,
+        moves=_moves_summary(log, _block_bytes(sch.cache)),
+        restores_read_back_equal=not bad,
+        ttft=_ttft(comps_t), streams_differ=_stream_diff(out_t, out_a))
+    problems = [f"{tag}: a restore did not give back what was parked: "
+                f"{b}" for b in bad]
+    if not st["host_unloads"] > 0 or st["host_pageins"] <= 0:
+        problems.append(f"{tag}: nothing parked or restored: {st}")
+    if any(sch._parked) or sch._host_store:
+        problems.append(f"{tag}: a slot ended parked")
+    sch.pool.audit()
+    for k in ("staged_scatter", "flash_decode_paged"):
+        if counts[k] <= 0:
+            problems.append(f"{tag}: {k} not launched: {counts}")
+    if extra.get("prefix_cache") and not st["prefix_hit_rows"] > 0:
+        problems.append(f"{tag}: the prefix cache hit nothing: {st}")
+    return report, problems, counts, tight
+
+
+def phase_engine_host_tier(kernels):
+    """The slice with ``MemoryConfig(host_tier=True)`` over a pool of 320
+    blocks (about half the working set of 8 live slots, at least the largest
+    request's 116 pages), bf16 at full width and depth, on the staged path:
+    16 requests of 512 / 1024 / 1536 / 1792 tokens, 64 new tokens each,
+    blocking, chunked at 16, and chunked with the prefix cache and the host
+    tier together (the prefix cache needs chunked prefill; every prompt
+    opens with the same 512 tokens there); each against the same engine
+    with an ample pool.
+
+    Held in every run: ``host_unloads`` > 0 and restores; every restore
+    reads back bit-equal to what was parked; no slot ends parked; the
+    pool's audit; K1 and K2 launched; with the prefix cache, hits. Held
+    exactly: the blocking run's
+    streams equal the ample pool's. That comparison is exact by
+    construction: blocking runs only decode steps (M = 8), a park stalls a
+    slot for whole segments (so its rows meet the ring at the same phase),
+    and the staged path routes no write by its block. The chunked runs'
+    streams are reported: a park changes which steps are mixed-phase, and
+    with them the GEMMs' M (see ``phase_engine_prefix``). Reported: tok/s
+    against the ample pool; each park's and restore's blocks, bytes, host
+    ms and GB/s; one 116-block park and restore traced on the device
+    against a plain pinned copy of the same bytes and the link's bound."""
+    cfg, model = _slice_model()
+    sp = SamplingParams(max_tokens=NEW_TOKENS)
+
+    def queue(shared=0):
+        return synthetic_requests(N_REQUESTS, HOST_LENS, cfg.vocab,
+                                  NEW_TOKENS, params=sp, shared_prefix=shared)
+
+    staged = dict(SLICE, path="staged")
+    chunked = dict(staged, chunked=True, chunk_size=CHUNK)
+    ps = SLICE["page_size"]
+    biggest = -(-(max(HOST_LENS) + NEW_TOKENS - 1) // ps)
+    warm = Engine.from_config(EngineConfig(**staged), model)
+    warm.serve(synthetic_requests(2, HOST_LENS[:2], cfg.vocab, 2, seed=1,
+                                  params=SamplingParams(max_tokens=2)))
+    del warm
+    report, problems = {}, []
+    for name, shape, extra in (("blocking", staged, {}),
+                               ("chunked", chunked, {}),
+                               ("both", chunked, dict(prefix_cache=True))):
+        r, found, counts, tight = _host_tier_case(
+            model, shape, extra,
+            lambda: queue(HOST_SHARED if extra else 0), name)
+        problems += found
+        r["streams_held"] = name == "blocking"
+        if r["streams_held"] and r["streams_differ"]:
+            problems.append(f"{name}: streams differ from the ample pool's "
+                            f"(request: first token) {r['streams_differ']}")
+        for k in kernels:
+            if k["name"] in ("staged_scatter", "flash_decode_paged"):
+                k[f"launches_host_tier_{name}"] = counts[k["name"]]
+        if name == "chunked":
+            report["copies"] = _copy_rates(tight.scheduler.cache, biggest)
+        report[name] = r
+        del tight
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    say("engine_host_tier", requests=N_REQUESTS, prompt_lens=HOST_LENS,
+        new_tokens=NEW_TOKENS, n_blocks=HOST_BLOCKS,
+        shared_prefix_with_prefix_cache=HOST_SHARED,
+        working_set_pages=sum(-(-(p + NEW_TOKENS - 1) // ps)
+                              for p in HOST_LENS) * 2,
+        link_gb_per_s=PCIE_BYTES_PER_S / 1e9, **report)
+    if problems:
+        raise AssertionError("engine_host_tier: " + "; ".join(problems))
+
+
 def phase_lanes(kernels):
     """The sliding-window model on the lanes layout: 12 requests, prompts of
     512 / 2048 / 4608 tokens (the longest past the 4096 window), 64 new
@@ -2310,6 +2881,8 @@ def main():
     kernels = timed("kernels", phase_kernels)
     blocking = timed("engine", phase_engine, kernels)
     timed("engine_chunked", phase_engine_chunked, kernels, blocking)
+    timed("engine_prefix", phase_engine_prefix, kernels)
+    timed("engine_host_tier", phase_engine_host_tier, kernels)
     timed("lanes", phase_lanes, kernels)
     timed("lanes_chunked", phase_lanes_chunked, kernels)
     timed("parity", phase_parity)

@@ -9,12 +9,10 @@ registry. :func:`validate` is the one config -> plan entry point.
 
 Features of the JAX package's ``validate`` that are not ported yet raise
 ``NotImplementedError("not ported yet: ...")`` at config time: the
-``parallel`` mesh, ``spec`` (speculative decoding), ``memory.prefix_cache``
-and ``memory.host_tier``, a ``sched`` other than ``"fifo"``, sampled
-decoding, and
-``AttentionConfig.drain_kernel`` (in this package the device decides: a
-CUDA tensor drains through the kernel, a CPU tensor through its plain
-version).
+``parallel`` mesh, ``spec`` (speculative decoding), a ``sched`` other than
+``"fifo"``, sampled decoding, and ``AttentionConfig.drain_kernel`` (in
+this package the device decides: a CUDA tensor drains through the kernel, a
+CPU tensor through its plain version).
 """
 from __future__ import annotations
 
@@ -160,6 +158,35 @@ def negotiate(path: WritePath, policy, *, layout: Optional[str] = None,
             f"capability (capabilities: {sorted(path.capabilities)})")
 
 
+def negotiate_memory(*, layout: Optional[str] = None, chunked: bool = False,
+                     prefix_cache: bool = False,
+                     host_tier: bool = False) -> None:
+    """Validate the memory-capacity feature set against the KV layout.
+
+    ``prefix_cache`` (refcounted shared-prefix block reuse) needs the paged
+    layout (sharing is a page-table indirection; dense lanes have none) AND
+    chunked prefill: a cache hit is consumed by starting the in-segment
+    chunk cursor past the cached rows, and the blocking engine's
+    admission-time prefill has no partial-prompt entry point. ``host_tier``
+    (parking cold slots' blocks device -> host and paging them back) needs
+    the paged layout too: parking swaps page-table entries, not lanes."""
+    if prefix_cache and layout != "paged":
+        raise ValueError(
+            f"prefix_cache shares physical blocks through the page table, "
+            f"but kv_layout={layout!r} has none; use the paged layout "
+            f"(dense non-SWA DecoderLM family)")
+    if prefix_cache and not chunked:
+        raise ValueError(
+            "prefix_cache needs chunked=True: a cache hit starts the "
+            "in-scan prefill cursor past the cached rows, and only the "
+            "mixed-phase scheduler can enter a prompt mid-way")
+    if host_tier and layout != "paged":
+        raise ValueError(
+            f"host_tier parks and restores physical blocks through the "
+            f"page table, but kv_layout={layout!r} has none; use the "
+            f"paged layout")
+
+
 ATTN_FUSED = "fused"
 ATTN_REFERENCE = "reference"
 _KNOWN_ATTN = ("auto", ATTN_FUSED, ATTN_REFERENCE)
@@ -208,8 +235,10 @@ def resolve_attention(attention: str = "auto", *,
 
 @dataclasses.dataclass(frozen=True)
 class MemoryConfig:
-    """Memory-capacity feature group. ``prefix_cache`` and ``host_tier`` are
-    not ported yet (``validate`` raises when either is on)."""
+    """Memory-capacity feature group: ``prefix_cache`` (shared prompt
+    blocks, copy-on-write; paged + chunked), ``host_tier`` (park and restore
+    whole slots through host memory; paged) and the admission scan's
+    ``skip_ahead_limit``."""
 
     prefix_cache: bool = False
     host_tier: bool = False
@@ -266,6 +295,21 @@ def normalize_groups(cfg) -> None:
         impl=a or "auto")
 
 
+def _memory_of(cfg) -> MemoryConfig:
+    """``cfg.memory``, or a MemoryConfig from the flat ``prefix_cache`` /
+    ``host_tier`` / ``skip_ahead_limit`` attributes of a duck-typed
+    config."""
+    m = getattr(cfg, "memory", None)
+    if isinstance(m, MemoryConfig):
+        return m
+    sal = getattr(cfg, "skip_ahead_limit", None)
+    return MemoryConfig(
+        prefix_cache=bool(getattr(cfg, "prefix_cache", False) or False),
+        host_tier=bool(getattr(cfg, "host_tier", False) or False),
+        skip_ahead_limit=4 if sal is None else int(sal),
+    )
+
+
 def _not_ported(what: str):
     return NotImplementedError(f"not ported yet: {what}")
 
@@ -296,11 +340,10 @@ def validate(cfg, *, paged_capable: bool = True,
     spec = getattr(cfg, "spec", None)
     if spec is not None and getattr(spec, "enabled", True):
         raise _not_ported("spec (speculative decoding)")
-    memory = getattr(cfg, "memory", None) or MemoryConfig()
-    if memory.prefix_cache:
-        raise _not_ported("memory.prefix_cache")
-    if memory.host_tier:
-        raise _not_ported("memory.host_tier")
+    memory = _memory_of(cfg)
+    negotiate_memory(layout=layout, chunked=chunked,
+                     prefix_cache=memory.prefix_cache,
+                     host_tier=memory.host_tier)
     attn_cfg = getattr(cfg, "attention", None)
     if not isinstance(attn_cfg, AttentionConfig):
         attn_cfg = AttentionConfig(impl=attn_cfg or "auto")
@@ -370,7 +413,8 @@ __all__ = [
     "ATTN_FUSED", "ATTN_REFERENCE",
     "WritePath", "register_path", "get_path", "available_paths",
     "DIRECT", "STAGED", "ADAPTIVE",
-    "negotiate", "resolve_attention", "resolve_device", "build_decision",
+    "negotiate", "negotiate_memory", "resolve_attention", "resolve_device",
+    "build_decision",
     "MemoryConfig", "AttentionConfig", "ResolvedPlan", "validate",
     "normalize_groups",
 ]

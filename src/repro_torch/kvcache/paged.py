@@ -1,4 +1,4 @@
-"""Port of repro/kvcache/paged.py (the blocking serving path's share).
+"""Port of repro/kvcache/paged.py (the single-device serving path's share).
 
 Paged KV cache: a global pool of fixed-size blocks backing every decode-time
 KV write of the continuous-batching serve scheduler.
@@ -27,14 +27,17 @@ IN PLACE (a functional update would copy the whole pool every step); the
 functions return the cache they mutated. No function here reads a device
 value on the host, so a decode segment runs without a synchronisation.
 
-Content hashes / refcount sharing / copy-on-write of ``BlockPool``, the host
-tier (``unload_blocks``/``load_blocks``/``copy_block``) and the speculative
-snapshots are not ported yet. The chunk variants of the mixed-phase step
+:class:`BlockPool` carries the prefix cache's refcounts, content hashes and
+copy-on-write; ``unload_blocks`` / ``load_blocks`` / ``copy_block`` are the
+host tier's and the CoW's block moves (pinned, stream-ordered copies on the
+card). The chunk variants of the mixed-phase step
 (``logical_to_physical_many``, ``scatter_chunk``, ``view_chunk_mask_from``,
-``overlay_chunk_parts``) sit beside their one-token originals.
+``overlay_chunk_parts``) sit beside their one-token originals. The
+speculative snapshots and ``constrain`` (mesh sharding) are not ported yet.
 """
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -52,54 +55,105 @@ PagedKV = Dict[str, torch.Tensor]
 
 
 class BlockPool:
-    """Free-list allocator over the physical block pool (host side).
+    """Refcounted, content-hash-indexed allocator over the physical block
+    pool (host side).
 
-    LIFO reuse: blocks are popped from the END of the free list (the most
-    recently freed are handed out first), tracked per slot in ALLOCATION
-    order; ``free_slot`` releases in reverse allocation order, so the stack
-    is restored exactly. The order matters beyond locality: the decision
-    module's region is the block id, so the write-path telemetry equals the
-    JAX engine's only if both pools hand out the same blocks.
-    ``owner[b]`` is the slot holding block ``b`` (-1 = free). Every mutation
-    ends in a conservation audit."""
+    Exclusive blocks keep the free-list discipline: LIFO reuse (blocks are
+    popped from the END of the free list, the most recently freed first),
+    tracked per slot in ALLOCATION order; ``free_slot`` releases in reverse
+    allocation order, so the stack is restored exactly. The order matters
+    beyond locality: the decision module's region is the block id, so the
+    write-path telemetry equals the JAX engine's only if both pools hand out
+    the same blocks. ``owner[b]`` is the slot that first acquired block
+    ``b`` (-1 = free).
+
+    Three lifecycle extensions back the prefix cache and the host tier:
+
+    * **refcounts**: ``share`` adds a reference to an existing block instead
+      of allocating; ``release_block`` / ``free_slot`` decrement, and a
+      block leaves the live set only at refcount 0.
+    * **content hashes**: ``register(slot, block, h)`` publishes a block
+      under a chained page-content hash (first registrant wins); ``lookup``
+      finds it at admission. A registered block whose refcount drops to 0
+      goes to an LRU *evictable* list instead of the free list: it stays
+      addressable by hash until ``alloc`` reclaims it (eviction
+      de-registers).
+    * **copy-on-write**: ``cow(slot, block)`` swaps a shared or registered
+      block for a fresh private one at the same page index, so a slot about
+      to write never mutates a block other holders can see.
+
+    Every mutation ends in a conservation audit: free + live + evictable
+    must equal ``n_blocks`` and refcounts must sum to the held references.
+    """
 
     def __init__(self, n_blocks: int):
         self.n_blocks = n_blocks
         self._free: List[int] = list(range(n_blocks - 1, -1, -1))
         self.owner = np.full((n_blocks,), -1, np.int32)
         self.refcount = np.zeros((n_blocks,), np.int32)
+        # slot -> blocks in allocation order (= the slot's page order)
         self._held: Dict[int, List[int]] = {}
+        # content-hash index: hash -> block and its inverse
+        self._hash_block: Dict[int, int] = {}
+        self._block_hash: Dict[int, int] = {}
+        # refcount-0 blocks still holding registered content, LRU order
+        self._evictable: "collections.OrderedDict[int, None]" = \
+            collections.OrderedDict()
 
     @property
     def n_free(self) -> int:
         return len(self._free)
 
+    @property
+    def n_available(self) -> int:
+        """Blocks an ``alloc`` can produce right now (free + evictable)."""
+        return len(self._free) + len(self._evictable)
+
     def held(self, slot: int) -> Tuple[int, ...]:
         """``slot``'s blocks in allocation (= page) order."""
         return tuple(self._held.get(slot, ()))
 
+    def is_registered(self, block: int) -> bool:
+        return int(block) in self._block_hash
+
     def audit(self) -> None:
-        """Conservation check: every block is free or live, and refcounts
-        sum to the held references."""
+        """Conservation check: every block is exactly one of free / live
+        (refcount > 0) / evictable, and refcounts sum to the held
+        references."""
         live = int(np.count_nonzero(self.refcount > 0))
-        if len(self._free) + live != self.n_blocks:
+        if len(self._free) + live + len(self._evictable) != self.n_blocks:
             raise RuntimeError(
-                f"BlockPool conservation violated: {len(self._free)} free + "
-                f"{live} live != {self.n_blocks}")
+                f"BlockPool conservation violated: "
+                f"{len(self._free)} free + {live} live + "
+                f"{len(self._evictable)} evictable != {self.n_blocks}")
         refs = sum(len(v) for v in self._held.values())
         if refs != int(self.refcount.sum()):
             raise RuntimeError(
                 f"BlockPool refcount drift: {refs} held references vs "
                 f"refcount sum {int(self.refcount.sum())}")
 
+    def _take(self, n: int) -> Optional[List[int]]:
+        """Pop ``n`` blocks off the free list, evicting LRU cached blocks
+        (de-registering their hashes) when the free list runs short."""
+        if n > self.n_available:
+            return None
+        while len(self._free) < n:
+            b, _ = self._evictable.popitem(last=False)  # LRU first
+            h = self._block_hash.pop(b)
+            del self._hash_block[h]
+            self._free.append(b)
+        return [self._free.pop() for _ in range(n)]
+
     def alloc(self, slot: int, n: int) -> Optional[np.ndarray]:
-        """Pop ``n`` fresh blocks for ``slot``; None (no partial alloc) if
-        the free list can't cover the request."""
+        """Pop ``n`` fresh (refcount-1, private) blocks for ``slot``; None
+        (no partial alloc) if free + evictable can't cover the request.
+        ``alloc(slot, 0)`` returns an empty block list and changes
+        nothing."""
         if n == 0:
             return np.zeros((0,), np.int32)
-        if n > len(self._free):
+        taken = self._take(n)
+        if taken is None:
             return None
-        taken = [self._free.pop() for _ in range(n)]
         blocks = np.asarray(taken, np.int32)
         self.owner[blocks] = slot
         self.refcount[blocks] = 1
@@ -107,19 +161,124 @@ class BlockPool:
         self.audit()
         return blocks
 
+    def lookup(self, h: int) -> Optional[int]:
+        """Block registered under content hash ``h`` (live or evictable),
+        or None."""
+        return self._hash_block.get(h)
+
+    def share(self, slot: int, block: int) -> None:
+        """Add ``slot``'s reference to an existing block (prefix-cache
+        hit): refcount + 1, revived from the evictable list if parked
+        there."""
+        block = int(block)
+        if self.refcount[block] == 0:
+            if block not in self._evictable:
+                raise ValueError(
+                    f"block {block} is free — cannot share it")
+            del self._evictable[block]
+            self.owner[block] = slot
+        self.refcount[block] += 1
+        self._held.setdefault(slot, []).append(block)
+        self.audit()
+
+    def register(self, slot: int, block: int, h: int) -> bool:
+        """Publish ``block`` under content hash ``h``. First registrant
+        wins: returns False (no state change) when ``h`` is already
+        registered or the block already carries a hash."""
+        block = int(block)
+        if h in self._hash_block or block in self._block_hash:
+            return False
+        held = self._held.get(slot)
+        if not held or block not in held:
+            raise ValueError(
+                f"slot {slot} does not hold block {block} — refusing to "
+                f"register it")
+        self._hash_block[h] = block
+        self._block_hash[block] = h
+        return True
+
+    def _deref(self, block: int) -> None:
+        if self.refcount[block] <= 0:
+            raise ValueError(
+                f"block {block} is already free (double free)")
+        self.refcount[block] -= 1
+        if self.refcount[block] == 0:
+            self.owner[block] = -1
+            if block in self._block_hash:
+                # registered content survives at refcount 0: evictable
+                self._evictable[block] = None
+            else:
+                self._free.append(block)
+
+    def release_block(self, slot: int, block: int) -> None:
+        """Drop ``slot``'s reference to ``block``. Raises on freeing a block
+        the slot does not hold (unowned or already free)."""
+        block = int(block)
+        held = self._held.get(slot)
+        if not held or block not in held:
+            raise ValueError(
+                f"slot {slot} does not hold block {block} "
+                f"(double free or unowned block)")
+        held.remove(block)
+        if not held:
+            del self._held[slot]
+        self._deref(block)
+        self.audit()
+
+    def cow(self, slot: int, block: int) -> Optional[int]:
+        """Copy-on-write: swap ``block`` for a fresh private block at the
+        SAME page index in ``slot``'s held list, dropping the shared
+        reference. Returns the new block id (the caller copies the device
+        content, :func:`copy_block`), or None when the pool can't supply
+        one."""
+        block = int(block)
+        held = self._held.get(slot)
+        if not held or block not in held:
+            raise ValueError(
+                f"slot {slot} does not hold block {block} — cannot CoW")
+        taken = self._take(1)
+        if taken is None:
+            return None
+        new_b = taken[0]
+        held[held.index(block)] = new_b
+        self.owner[new_b] = slot
+        self.refcount[new_b] = 1
+        self._deref(block)
+        self.audit()
+        return new_b
+
     def free_slot(self, slot: int) -> np.ndarray:
-        """Drop all of ``slot``'s blocks, in REVERSE allocation order.
-        Returns the blocks released."""
+        """Drop all of ``slot``'s references, in REVERSE allocation order
+        (the free-list stack is restored as if the slot's allocs were
+        undone). Returns the blocks released."""
         blocks = list(self._held.get(slot, ()))
         for b in reversed(blocks):
-            if self.refcount[b] <= 0:
-                raise ValueError(f"block {b} is already free (double free)")
-            self.refcount[b] -= 1
-            self.owner[b] = -1
-            self._free.append(b)
+            self._deref(b)
         self._held.pop(slot, None)
         self.audit()
         return np.asarray(blocks[::-1], np.int32)
+
+
+def prefix_page_hashes(prompt, page_size: int) -> List[int]:
+    """Chained content hash per FULL page-aligned prompt chunk.
+
+    ``h_i = hash((h_{i-1}, page_size, tokens of page i))``: chaining makes a
+    page hash identify the whole prefix through it, so two prompts share
+    page ``i`` iff their first ``(i + 1) * page_size`` tokens agree. Only
+    full pages hash (decode rows land in the partial trailing page). The
+    tokens are hashed as Python ``int`` tuples, whatever ``prompt`` is (a
+    tensor, a numpy array, a list), so the values equal the JAX package's:
+    Python's hash of a tuple of ints is the same in every process."""
+    if isinstance(prompt, torch.Tensor):
+        prompt = prompt.detach().cpu().numpy()
+    p = np.asarray(prompt).reshape(-1)
+    out: List[int] = []
+    h = 0
+    for i in range(len(p) // page_size):
+        chunk = tuple(int(t) for t in p[i * page_size:(i + 1) * page_size])
+        h = hash((h, page_size, chunk))
+        out.append(h)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -289,6 +448,74 @@ def scatter_chunk(pages_l: torch.Tensor, dest: torch.Tensor,
     flat.index_copy_(0, dest.reshape(-1).long(),
                      tiles.reshape((-1,) + tiles.shape[2:]).to(flat.dtype))
     return pages_l
+
+
+# ---------------------------------------------------------------------------
+# Host tier: device <-> host bulk block transfers
+# ---------------------------------------------------------------------------
+
+
+def _block_index(cache: PagedKV, blocks) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(blocks, np.int64),
+                           device=cache["pages_k"].device)
+
+
+def unload_blocks(cache: PagedKV,
+                  blocks) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Bulk device -> host copy of whole blocks: the staging machinery's
+    bulk-transfer lane run in REVERSE (the paper's unload move applied to
+    capacity). Returns host ``(k, v)`` tensors ``[L, len(blocks), ps, H,
+    Dh]`` that never alias the pool, so the caller may free and rewrite the
+    blocks right after.
+
+    On a CUDA pool each plane is gathered on the device and copied into a
+    PINNED host buffer with ``non_blocking=True`` on the current stream;
+    pinning that fails raises (no silent path through pageable memory).
+    Stream order is enough to make the copy safe without a wait: the freed
+    blocks are rewritten only by later work on the same stream, which the
+    device -> host copy precedes, and the host buffers are read only by a
+    later host -> device copy (:func:`load_blocks`) on that stream. On a CPU
+    pool the gather itself is the copy (advanced indexing never returns a
+    view)."""
+    bl = _block_index(cache, blocks)
+    out = []
+    for name in ("pages_k", "pages_v"):
+        src = cache[name][:, bl]
+        if src.device.type != "cpu":
+            host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+            if not host.is_pinned():
+                raise RuntimeError("host tier: pinned host memory was not "
+                                   "granted")
+            host.copy_(src, non_blocking=True)
+            src = host
+        out.append(src)
+    return out[0], out[1]
+
+
+def load_blocks(cache: PagedKV, blocks, host_k, host_v) -> PagedKV:
+    """Bulk host -> device restore into freshly allocated blocks (the
+    page-in half of the host tier), IN PLACE: each plane is copied to the
+    device with ``non_blocking=True`` (stream-ordered after the unload that
+    filled the buffer, see :func:`unload_blocks`) and written with one
+    ``index_copy_``. ``host_k`` / ``host_v`` are tensors or numpy arrays
+    ``[L, len(blocks), ps, H, Dh]``."""
+    bl = _block_index(cache, blocks)
+    for name, host in (("pages_k", host_k), ("pages_v", host_v)):
+        plane = cache[name]
+        if not isinstance(host, torch.Tensor):
+            host = torch.tensor(np.asarray(host))
+        src = host.to(plane.device, plane.dtype, non_blocking=True)
+        plane.index_copy_(1, bl, src)
+    return cache
+
+
+def copy_block(cache: PagedKV, src: int, dst: int) -> PagedKV:
+    """Device-side whole-block copy, IN PLACE (the CoW data move: duplicate
+    a shared block's content into its private replacement)."""
+    for name in ("pages_k", "pages_v"):
+        plane = cache[name]
+        plane[:, int(dst)].copy_(plane[:, int(src)])
+    return cache
 
 
 # ---------------------------------------------------------------------------

@@ -66,10 +66,12 @@ class EngineConfig:
     ``"cpu"`` is for tests. ``kv_layout="auto"`` picks ``paged`` for the
     linear-addressed dense decoders and ``lanes`` for a sliding-window one
     (direct writes only). ``chunked`` prefills in ``chunk_size``-token
-    pieces (inside the segments on paged, at admission on lanes). A
-    ``sched`` other than fifo,
-    ``memory.prefix_cache``/``host_tier``, ``parallel`` and ``spec`` raise
-    ``NotImplementedError`` when the engine is built."""
+    pieces (inside the segments on paged, at admission on lanes).
+    ``memory=MemoryConfig(prefix_cache=True)`` (paged, chunked) shares
+    cached prompt pages; ``MemoryConfig(host_tier=True)`` (paged) parks
+    whole slots in host memory when the pool runs short. A ``sched`` other
+    than fifo, ``parallel`` and ``spec`` raise ``NotImplementedError`` when
+    the engine is built."""
 
     max_seq: int
     arch: Optional[str] = None        # None when a model is passed
@@ -203,9 +205,11 @@ class Engine:
     def ttft(self) -> Dict[int, float]:
         return self.scheduler.ttft
 
-    def reset(self) -> None:
-        """Fresh serving state (cache, slots, pool, monitor, outputs)."""
-        self.scheduler.reset()
+    def reset(self, keep_cache: bool = False) -> None:
+        """Fresh serving state (cache, slots, pool, monitor, outputs).
+        ``keep_cache=True`` keeps the block pool + device cache so
+        registered prefix blocks stay reusable (warm re-serve)."""
+        self.scheduler.reset(keep_cache=keep_cache)
 
     # ------------------------------------------------------------------
     def _make_queue(self, prompts: Sequence, params):

@@ -49,10 +49,24 @@ layouts, as in the JAX package:
   writes ride the per-slot ring overlay and drain in bulk through
   ``core.ring.scatter_rows_layers``. The monitor's region is the BLOCK id.
   (lanes): a retired slot's write goes to the drop row ``cache_len``.
+* **Prefix cache** (``MemoryConfig(prefix_cache=True)``, paged + chunked):
+  between segments (after the boundary drain, so pool content is final)
+  every fully written full prompt page is registered under its chained
+  content hash; admission shares every leading registered page of a new
+  prompt (refcount + 1, no prefill for those rows) and starts the chunk
+  cursor past them. A fully cached prompt re-runs its last row for the
+  first token's logits, so its last shared block is copied to a private
+  one first (copy-on-write): no write ever lands in a shared or
+  registered block.
+* **Host tier** (``MemoryConfig(host_tier=True)``, paged): when the pool
+  runs short, whole slots strictly younger than the requester (youngest
+  first) are PARKED: their blocks unload to pinned host memory in one bulk
+  copy per plane, their page-table rows clear and the slots stall; between
+  segments parked slots page back in oldest first. The oldest live slot is
+  never a victim, so it always makes progress.
 
-The prefix cache, the host tier, preemption, speculative decoding, mesh
-sharding and the virtual-time cost model are not ported yet
-(``core.paths.validate`` raises on each).
+Preemption, speculative decoding, mesh sharding and the virtual-time cost
+model are not ported yet (``core.paths.validate`` raises on each).
 """
 from __future__ import annotations
 
@@ -202,6 +216,8 @@ class BatchedServeEngine:
             # fp32 matrix products stay full fp32 (the default, stated)
             torch.backends.cuda.matmul.allow_tf32 = False
         self.layout = plan.layout
+        self._prefix_cache = plan.memory.prefix_cache
+        self._host_tier = plan.memory.host_tier
         self._skip_limit = plan.memory.skip_ahead_limit
         self._sched = plan.sched
         self.max_pages = plan.max_pages
@@ -216,6 +232,8 @@ class BatchedServeEngine:
         self.stats = {
             "direct_writes": 0, "staged_writes": 0, "drains": 0,
             "prefill_writes": 0, "segments": 0, "admitted": 0, "retired": 0,
+            "prefix_hit_rows": 0, "cow_copies": 0,
+            "host_unloads": 0, "host_pageins": 0,
         }
         self.reset()
 
@@ -230,13 +248,22 @@ class BatchedServeEngine:
             ring_size=cfg.ring_size if self.uses_ring else 0,
             device=self.device)
 
-    def reset(self) -> None:
-        """Fresh serving state (cache, slots, pool, monitor, outputs)."""
+    def reset(self, keep_cache: bool = False) -> None:
+        """Fresh serving state (cache, slots, pool, monitor, outputs).
+        ``keep_cache=True`` keeps the pool and the device cache instead
+        (every slot must already be retired): registered prefix blocks
+        survive on the evictable list, so the next pass serves WARM."""
         cfg = self.cfg
-        self.pool = (PG.BlockPool(self.n_blocks) if self.layout == "paged"
-                     else None)
-        self.cache = None  # release the old cache before allocating anew
-        self.cache = self._make_cache()
+        if keep_cache:
+            if any(self._occupied):
+                raise RuntimeError(
+                    "reset(keep_cache=True) needs a drained engine "
+                    "(live slots still hold pool blocks)")
+        else:
+            self.pool = (PG.BlockPool(self.n_blocks)
+                         if self.layout == "paged" else None)
+            self.cache = None  # release the old cache before allocating
+            self.cache = self._make_cache()
         self.slots = make_slots(cfg.n_slots, self.device)
         # the device prompt buffer of in-segment chunked prefill
         self.prompts = (torch.zeros((cfg.n_slots, cfg.max_seq),
@@ -258,6 +285,13 @@ class BatchedServeEngine:
         # admission seniority: top-up visits slots oldest first
         self._slot_seq: List[int] = [-1] * cfg.n_slots
         self._adm_seq = 0
+        # prefix-cache bookkeeping (per-slot page hashes + registration
+        # cursor) and the host tier's park state (parked slots' blocks live
+        # in host memory, keyed by slot)
+        self._slot_hashes: List[List[int]] = [[] for _ in range(cfg.n_slots)]
+        self._slot_reg: List[int] = [0] * cfg.n_slots
+        self._parked: List[bool] = [False] * cfg.n_slots
+        self._host_store: Dict[int, tuple] = {}
         self._skip_rid = -1
         self._skip_count = 0
         self.outputs: Dict[int, List[int]] = {}
@@ -478,21 +512,73 @@ class BatchedServeEngine:
             self.first_token_t.setdefault(rid, now)
 
     def _admission_plan(self, slot: int, req) -> Optional[dict]:
-        """Reserve ``req``'s blocks for ``slot``: the one place admission
-        touches the pool. Blocking: the whole footprint; chunked: the pages
-        of the first segment's rows (``_topup_blocks`` adds the rest). None
-        when the pool can't cover it (the request keeps its queue
-        position). The lanes layout has no pool: a free slot is the whole
-        footprint."""
+        """Reserve ``req``'s first blocks for ``slot``: the one place
+        admission touches the pool. The lanes layout has no pool: a free
+        slot is the whole footprint.
+
+        Blocking: the whole footprint, fresh. Chunked: the pages of the
+        first segment's rows (``_topup_blocks`` adds the rest); with the
+        prefix cache, first walk the prompt's chained page hashes and SHARE
+        every leading registered block (no prefill for those rows). A fully
+        cached prompt still re-runs its LAST row (its logits give the first
+        token), which would write into the last shared block: that block is
+        copied to a private one here, before any write can reach it. On a
+        shortfall every reservation is rolled back and None returned (the
+        request keeps its queue position)."""
+        cfg = self.cfg
         if self.pool is None:
-            return {"blocks": None}
-        n = (self._segment_cover_pages(0, True, req.prompt_len, req.max_new)
-             if self._in_scan_prefill
-             else self._pages_needed(req.prompt_len, req.max_new))
-        blocks = self.pool.alloc(slot, n)
-        if blocks is None:
+            return {"blocks": None, "cached_rows": 0, "hashes": [],
+                    "n_shared": 0}
+        if not self._in_scan_prefill:
+            blocks = self._alloc_reclaiming(
+                slot, self._pages_needed(req.prompt_len, req.max_new), -1)
+            if blocks is None:
+                return None
+            return {"blocks": blocks, "cached_rows": 0, "hashes": [],
+                    "n_shared": 0}
+        plen = req.prompt_len
+        shared: List[int] = []
+        hashes: List[int] = []
+        if self._prefix_cache:
+            hashes = PG.prefix_page_hashes(req.prompt, cfg.page_size)
+            for h in hashes:
+                b = self.pool.lookup(h)
+                if b is None:
+                    break
+                shared.append(b)
+        cached_rows = len(shared) * cfg.page_size
+        cow_src = None
+        if shared and cached_rows >= plen:
+            cached_rows = plen - 1
+            cow_src = shared[-1]
+        first = self._segment_cover_pages(cached_rows, True, plen,
+                                          req.max_new)
+        blocks = list(shared)
+        for b in shared:
+            self.pool.share(slot, b)
+
+        def rollback():
+            for b in reversed(blocks):
+                self.pool.release_block(slot, b)
             return None
-        return {"blocks": blocks}
+
+        if cow_src is not None:
+            new_b = self.pool.cow(slot, cow_src)
+            if new_b is None:
+                return rollback()
+            PG.copy_block(self.cache, cow_src, new_b)
+            blocks[-1] = new_b
+            self.stats["cow_copies"] += 1
+        fresh_n = first - len(shared)
+        if fresh_n > 0:
+            got = self._alloc_reclaiming(slot, fresh_n, -1)
+            if got is None:
+                return rollback()
+            blocks.extend(int(x) for x in got)
+        self.stats["prefix_hit_rows"] += cached_rows
+        return {"blocks": np.asarray(blocks, np.int32),
+                "cached_rows": cached_rows, "hashes": hashes,
+                "n_shared": len(shared)}
 
     def _chunk_prefill_host(self, prompts: torch.Tensor, max_seq: int):
         """Whole-prompt prefill in ``chunk_size``-token pieces through
@@ -553,8 +639,9 @@ class BatchedServeEngine:
     def _admit_chunked(self, slots: List[int], reqs: List[Any],
                        plans: List[dict]) -> None:
         """Chunked (paged) admission: NO prefill. The prompts go to the
-        device buffer, the page table to the first segment's blocks, and
-        the slots to the segments in PREFILL phase with the cursor at 0."""
+        device buffer, the page table to the first segment's blocks (shared
+        prefix blocks first, in page order), and the slots to the segments
+        in PREFILL phase with the cursor past the cached rows."""
         cfg, dev = self.cfg, self.device
         g = len(reqs)
         slot_arr = torch.as_tensor(slots, device=dev).long()
@@ -569,40 +656,153 @@ class BatchedServeEngine:
         plist = [self._resolve_params(r) for r in reqs]
         self._set_slots(
             slots, reqs, plist, phase=PHASE_PREFILL, token=np.zeros((g,)),
-            pos=np.zeros((g,)), done=np.zeros((g,), bool),
+            pos=np.asarray([p["cached_rows"] for p in plans]),
+            done=np.zeros((g,), bool),
             remaining=np.asarray([p.max_tokens for p in plist]))
         for slot, req, plan in zip(slots, reqs, plans):
             self._slot_pages[slot] = len(plan["blocks"])
+            self._slot_hashes[slot] = plan["hashes"]
+            self._slot_reg[slot] = plan["n_shared"]
             self.outputs[req.req_id] = []
             self.req_writes[req.req_id] = np.zeros((3,), np.int64)
 
+    # -- host tier: park (device -> host unload) / unpark (page back in) --
+
+    def _park(self, victim: int) -> None:
+        """Unload ALL of ``victim``'s blocks to the host store and stall the
+        slot: one bulk device -> host copy per plane, page-table row
+        cleared, pool references dropped. Shared and registered blocks are
+        copied, not stolen: other holders keep them, and the restore builds
+        private replacements from the host copy. Runs between segments,
+        after the boundary drain: no staged row may be in flight."""
+        cache = self.cache
+        if PG.has_ring(cache) and bool((cache["ring_pos"] >= 0).any()):
+            raise RuntimeError(
+                f"host tier: slot {victim} parked with staged rows still in "
+                f"the ring (the boundary drain must run first)")
+        blocks = list(self.pool.held(victim))
+        n = self._slot_pages[victim]
+        host_k, host_v = PG.unload_blocks(cache, blocks)
+        self._host_store[victim] = (n, host_k, host_v)
+        # a cleared row reads block 0 through ``kernel_blocks``: the slot is
+        # also disabled until it pages back in (``_topup_blocks``)
+        cache["page_table"][victim] = -1
+        self.pool.free_slot(victim)
+        self._slot_pages[victim] = 0
+        self._parked[victim] = True
+        self.stats["host_unloads"] += len(blocks)
+
+    def _unpark(self, s: int) -> bool:
+        """Page a parked slot back in: fresh blocks, one bulk host -> device
+        copy per plane, page table repointed. False when the pool (even
+        after parking strictly younger slots) can't cover it."""
+        n, host_k, host_v = self._host_store[s]
+        got = self._alloc_reclaiming(s, n, self._slot_seq[s])
+        if got is None:
+            return False
+        PG.load_blocks(self.cache, got, host_k, host_v)
+        self.cache["page_table"][s, :n] = torch.as_tensor(
+            got, device=self.device).long()
+        self._slot_pages[s] = n
+        del self._host_store[s]
+        self._parked[s] = False
+        self.stats["host_pageins"] += n
+        return True
+
+    def _reclaim(self, need: int, requester_seq: int) -> bool:
+        """Make >= ``need`` blocks available by parking live slots STRICTLY
+        YOUNGER than ``requester_seq``, youngest first. The seniority order
+        prevents livelock: the oldest live slot is never a victim, so it
+        always makes progress, finishes, and frees its blocks for everyone
+        behind it. ``requester_seq=-1`` (admission) may park any live
+        slot."""
+        if not self._host_tier:
+            return False
+        done = self.done_flags()
+        victims = [s for s in range(self.cfg.n_slots)
+                   if self._occupied[s] and not bool(done[s])
+                   and not self._parked[s]
+                   and self._slot_seq[s] > requester_seq]
+        victims.sort(key=lambda s: -self._slot_seq[s])  # youngest first
+        for v in victims:
+            if self.pool.n_available >= need:
+                break
+            self._park(v)
+        return self.pool.n_available >= need
+
+    def _alloc_reclaiming(self, slot: int, n: int,
+                          requester_seq: int) -> Optional[np.ndarray]:
+        """``pool.alloc`` with the host-tier fallback: on failure, park
+        younger slots until the request fits (or no victim is left)."""
+        got = self.pool.alloc(slot, n)
+        if got is not None or not self._host_tier:
+            return got
+        if self._reclaim(n, requester_seq):
+            return self.pool.alloc(slot, n)
+        return None
+
+    def _register_pages(self, s: int, pos_s: int) -> None:
+        """Publish ``s``'s fully written full-prompt pages under their
+        content hashes (between segments: the ring is drained, so pool
+        content is final). First registrant wins; the cursor is monotone,
+        so each page registers at most once."""
+        ps = self.cfg.page_size
+        limit = min(len(self._slot_hashes[s]), self._slot_plen[s] // ps)
+        reach = min(min(pos_s, self._slot_plen[s]) // ps, limit)
+        if reach <= self._slot_reg[s]:
+            return
+        held = self.pool.held(s)
+        for p in range(self._slot_reg[s], reach):
+            self.pool.register(s, held[p], self._slot_hashes[s][p])
+        self._slot_reg[s] = reach
+
     def _topup_blocks(self) -> np.ndarray:
-        """The between-segment memory manager of chunked serving: extend
-        every live slot's page table to cover the rows the NEXT segment can
-        write, oldest slot first. Returns the enabled mask: a slot whose
-        blocks can't be covered stalls for one segment."""
+        """The between-segment memory manager: page parked slots back in,
+        extend live chunked slots' page tables to cover the rows the NEXT
+        segment can write, and register finished prefix pages. Slots are
+        visited oldest first, so host-tier reclaim composes with top-up
+        without livelock. Returns the enabled mask: a slot whose blocks
+        can't be covered (parked or top-up-starved) stalls for one
+        segment."""
         cfg = self.cfg
         enabled = np.ones((cfg.n_slots,), bool)
-        if not self._in_scan_prefill:
+        if not self._in_scan_prefill and not self._host_tier:
             return enabled
         pos = self.slots.pos.cpu().numpy()
         phase = self.slots.phase.cpu().numpy()
         done = self.done_flags()
         live = [s for s in range(cfg.n_slots)
                 if self._occupied[s] and not bool(done[s])]
-        for s in sorted(live, key=lambda s: self._slot_seq[s]):
+        live.sort(key=lambda s: self._slot_seq[s])  # oldest first
+        for s in live:
+            if self._parked[s]:
+                if not self._unpark(s):
+                    enabled[s] = False
+                    continue
+                # fall through: a restored chunked slot still needs its
+                # page table extended for the rows the NEXT segment writes
+            if not self._in_scan_prefill:
+                continue
+            if self._prefix_cache:
+                self._register_pages(s, int(pos[s]))
             want = self._segment_cover_pages(
                 int(pos[s]), phase[s] == PHASE_PREFILL, self._slot_plen[s],
                 self._slot_max_new[s])
             have = self._slot_pages[s]
             if want > have:
-                got = self.pool.alloc(s, want - have)
+                got = self._alloc_reclaiming(s, want - have,
+                                             self._slot_seq[s])
                 if got is None:
                     enabled[s] = False
                     continue
                 self.cache["page_table"][s, have:want] = torch.as_tensor(
                     got, device=self.device).long()
                 self._slot_pages[s] = want
+        for s in live:
+            # an older slot's reclaim may have parked a slot this loop
+            # already enabled: parked slots never run
+            if self._parked[s]:
+                enabled[s] = False
         return enabled
 
     @torch.no_grad()
@@ -672,7 +872,7 @@ class BatchedServeEngine:
 
     def _retire(self, slots: List[int]) -> None:
         for slot in slots:
-            if self.pool is not None:
+            if self.pool is not None and not self._parked[slot]:
                 self.pool.free_slot(slot)
             self._occupied[slot] = False
             self._slot_req[slot] = -1
@@ -680,6 +880,10 @@ class BatchedServeEngine:
             self._slot_max_new[slot] = 0
             self._slot_pages[slot] = 0
             self._slot_seq[slot] = -1
+            self._slot_hashes[slot] = []
+            self._slot_reg[slot] = 0
+            self._parked[slot] = False
+            self._host_store.pop(slot, None)
         if self.pool is not None and slots:
             self.cache["page_table"][
                 torch.as_tensor(slots, device=self.device).long()] = -1

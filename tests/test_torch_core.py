@@ -268,7 +268,9 @@ NOT_PORTED = {
     "sched-priority": dict(sched="sched/priority"),
     "sched-deadline": dict(sched="sched/deadline"),
     "sched-preempt": dict(sched="sched/preempt"),
-    "prefix-cache": dict(memory=tpaths.MemoryConfig(prefix_cache=True)),
+    # the prefix cache needs chunked prefill (``negotiate_memory``)
+    "prefix-cache": dict(chunked=True,
+                         memory=tpaths.MemoryConfig(prefix_cache=True)),
     "host-tier": dict(memory=tpaths.MemoryConfig(host_tier=True)),
     "parallel": dict(parallel=object()),
     "spec": dict(spec=object()),
@@ -277,7 +279,8 @@ NOT_PORTED = {
     "policy-hysteresis": dict(path="adaptive", policy="hysteresis"),
 }
 # once raised, now ported: validate resolves them as the JAX package does
-NOW_PORTED = {"policy-hysteresis", "chunked", "lanes"}
+NOW_PORTED = {"policy-hysteresis", "chunked", "lanes", "prefix-cache",
+              "host-tier"}
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
@@ -285,12 +288,18 @@ def test_validate_raises_on_unported_feature(name):
     cfg = EngineConfig(max_seq=32, device="cpu", **NOT_PORTED[name])
     if name in NOW_PORTED:
         plan = tpaths.validate(cfg.batch_config())
-        jplan = jpaths.validate(JaxBatchConfig(max_seq=32,
-                                               **NOT_PORTED[name]))
+        jkw = dict(NOT_PORTED[name])
+        if "memory" in jkw:     # the JAX package's own MemoryConfig
+            jkw["memory"] = jpaths.MemoryConfig(
+                prefix_cache=jkw["memory"].prefix_cache,
+                host_tier=jkw["memory"].host_tier)
+        jplan = jpaths.validate(JaxBatchConfig(max_seq=32, **jkw))
         t, j = plan.decision.policy, jplan.decision.policy
         assert type(t).__name__ == type(j).__name__
         assert (plan.layout, plan.path.name, plan.n_regions) == (
             jplan.layout, jplan.path.name, jplan.n_regions)
+        assert (plan.memory.prefix_cache, plan.memory.host_tier) == (
+            jplan.memory.prefix_cache, jplan.memory.host_tier)
         if name == "policy-hysteresis":
             assert (t.lo, t.hi, t.n_regions) == (j.lo, j.hi, j.n_regions)
             assert plan.decision.monitor is None
