@@ -43,6 +43,28 @@ Phases, each failing the run on any exception or mismatch:
            slot left parked, the blocking streams held equal to the ample
            pool's; each park's and restore's bytes, ms and GB/s, and one
            116-block park and restore against a plain pinned copy
+  sampler  the threefry key chain on the card: Random123's known answers and
+           jax 0.9.0's ``split`` / ``fold_in`` goldens (constants), 8
+           slots' chains over 64 steps bit-equal to the CPU's;
+           ``sample_tokens`` on the same full-vocabulary logits on the card
+           and the CPU (differing tokens counted, greedy held equal);
+           ``filtered`` twice on the card identical; each mode's device
+           time per call
+  engine_sampled  the slice serving 16 requests with mixed sampling
+           parameters (greedy, T = 0.8, top-k 40, top-p 0.9, explicit
+           seeds), blocking and chunked at 16: a repeat run identical, an
+           all-(T = 1, top_k = 1) run equal to an all-greedy run; a decode
+           step with the mix against a greedy one (device ms, device
+           operations, tok/s)
+  loadtest ``benchmarks/loadtest.py``'s three arms on the slice's model in
+           virtual time (SLO counts, goodputs, their ratio; the streams'
+           equality across arms reported), then the adaptive arm on the
+           wall clock (TTFT / ITL p95, goodput)
+  preempt  ``sched/preempt`` on the slice with the host tier: a burst of 4
+           high-priority requests while 8 sampled low-priority ones fill
+           every slot; each resume's position, key and last token equal
+           what was saved and its blocks read back bit-equal; streams
+           against a FIFO run reported
   lanes    h2o-danube-3-4b at full width (24 layers, bf16, sliding window
            4096) serves 12 requests with prompts up to 4608 tokens on the
            lanes layout; flash_attention's and flash_decode's launch counts
@@ -127,8 +149,13 @@ from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  staged_scatter_layers, staged_scatter_ref)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.kvcache import paged as PG  # noqa: E402
+from repro_torch.models import prng  # noqa: E402
+from repro_torch.models import sampling as SMP  # noqa: E402
 from repro_torch.serve import (Engine, EngineConfig,  # noqa: E402
                                MemoryConfig, SamplingParams)
+from repro_torch.serve.traffic import (MarkovModulatedArrivals,  # noqa: E402
+                                       RequestClass, generate_workload,
+                                       run_loadtest)
 
 # the module of K2 / K4 (the package exports the wrappers under its name)
 FD = importlib.import_module("repro_torch.kernels.flash_decode")
@@ -2243,6 +2270,435 @@ def phase_engine_host_tier(kernels):
         raise AssertionError("engine_host_tier: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# sampled decoding: the threefry key chain and the sampler on the card
+# ---------------------------------------------------------------------------
+
+# jax 0.9.0's answers, kept as constants (this script imports no JAX):
+# Random123's known answers for Threefry-2x32 with 20 rounds, and the key
+# data of ``split(key(0))`` and ``fold_in(key(0), 3)``
+THREEFRY_KAT = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                 (0xC4923A9C, 0x483DF7A0))]
+SPLIT_KEY0 = [[1797259609, 2579123966], [928981903, 3453687069]]
+FOLD_IN_KEY0_3 = [2467461003, 3840466878]
+# the sampler's test: 8 slots, the slice's full vocabulary, the key chain
+# over 64 steps, the tokens over 32 (the CPU's sampler takes most of the
+# phase), the engine_sampled phase's parameter mix
+SAMPLER_SLOTS, SAMPLER_STEPS, SAMPLER_DRAWS = 8, 64, 32
+SAMPLER_TEMP = [0.0, 0.8, 0.8, 1.0, 0.8, 1.0, 0.0, 0.8]
+SAMPLER_TOP_K = [0, 0, 40, 0, 0, 40, 0, 40]
+SAMPLER_TOP_P = [1.0, 1.0, 1.0, 0.9, 0.9, 1.0, 1.0, 0.9]
+
+
+def _sampler_params(device):
+    s = SAMPLER_SLOTS
+    return SMP.SlotParams(
+        temperature=torch.tensor(SAMPLER_TEMP, device=device),
+        top_k=torch.tensor(SAMPLER_TOP_K, device=device),
+        top_p=torch.tensor(SAMPLER_TOP_P, device=device),
+        stop=torch.full((s, SMP.MAX_STOP_TOKENS), -1, device=device))
+
+
+def phase_sampler():
+    """The key chain on the card: Random123's known answers and jax 0.9.0's
+    ``split`` / ``fold_in`` goldens, bit for bit; 8 slots' chains split
+    once per step for 64 steps on the card and on the CPU, bit for bit.
+    ``sample_tokens`` on the same full-vocabulary logits and keys on the
+    card and on the CPU, 32 steps in each mode: the differing tokens are
+    counted (the float ``log`` and the top-p ``cumsum`` may round otherwise
+    on the card). ``filtered`` run twice on the card on the same inputs:
+    the tokens, the masked logits and the keys must be identical. Each
+    mode's device time and device operations per call at [8, V]."""
+    problems = []
+    for key, count, want in THREEFRY_KAT:
+        a, b = prng.threefry2x32(
+            *(torch.tensor(v, device=DEV) for v in (*key, *count)))
+        if (int(a), int(b)) != want:
+            problems.append(f"threefry{key}{count} = {int(a):#x}, "
+                            f"{int(b):#x}")
+    k0 = prng.key(0, DEV)
+    if prng.split(k0).tolist() != SPLIT_KEY0:
+        problems.append(f"split(key(0)) = {prng.split(k0).tolist()}")
+    if prng.fold_in(k0, 3).tolist() != FOLD_IN_KEY0_3:
+        problems.append(f"fold_in(key(0), 3) = {prng.fold_in(k0, 3)}")
+    s, steps = SAMPLER_SLOTS, SAMPLER_STEPS
+    vocab = get_config(SLICE["arch"]).vocab
+    base = prng.key(7)
+    keys = prng.fold_in(base[None, :], torch.arange(s))
+    kc, kd = keys.clone(), keys.to(DEV)
+    for _ in range(steps):
+        kc, kd = prng.split(kc)[:, 1], prng.split(kd)[:, 1]
+    if not torch.equal(kc, kd.cpu()):
+        problems.append("the key chain parts from the CPU's")
+    draws = SAMPLER_DRAWS
+    gen = torch.Generator().manual_seed(11)
+    logits = torch.randn((draws, s, vocab), generator=gen) * 4
+    differ = {m: 0 for m in SMP.SAMPLE_MODES}
+    repeat_ok = True
+    cpu_p, dev_p = _sampler_params("cpu"), _sampler_params(DEV)
+    kc, kd = keys.clone(), keys.to(DEV)
+    for t in range(draws):
+        lg_d = logits[t].to(DEV)
+        for mode in SMP.SAMPLE_MODES:
+            tc, nc = SMP.sample_tokens(logits[t], kc, cpu_p, mode)
+            td, nd = SMP.sample_tokens(lg_d, kd, dev_p, mode)
+            differ[mode] += int((tc != td.cpu()).sum())
+            if not torch.equal(nc, nd.cpu()):
+                problems.append(f"{mode}: next keys part from the CPU's")
+        t2, n2 = SMP.sample_tokens(lg_d, kd, dev_p, "filtered")
+        scaled = lg_d / torch.where(dev_p.temperature > 0,
+                                    dev_p.temperature, 1.0)[:, None]
+        f1 = SMP.filter_logits(scaled, dev_p.top_k, dev_p.top_p)
+        f2 = SMP.filter_logits(scaled, dev_p.top_k, dev_p.top_p)
+        repeat_ok &= (torch.equal(td, t2) and torch.equal(nd, n2)
+                      and torch.equal(f1, f2))
+        kc, kd = nc, nd
+    if not repeat_ok:
+        problems.append("filtered gave other results on a repeat")
+    if differ["greedy"]:
+        problems.append(f"greedy tokens differ from the CPU's: {differ}")
+    cost = {}
+    lg_d = logits[0].to(DEV)
+    for mode in SMP.SAMPLE_MODES:
+        rows = trace_rows(lambda: SMP.sample_tokens(lg_d, kd, dev_p, mode),
+                          f"sampler {mode}")
+        cost[mode] = dict(
+            device_ms=device_ms(
+                lambda: SMP.sample_tokens(lg_d, kd, dev_p, mode),
+                f"sampler {mode} x20"),
+            event_ms=time_ms(
+                lambda: SMP.sample_tokens(lg_d, kd, dev_p, mode)),
+            device_ops=device_ops(rows))
+    say("sampler", slots=s, vocab=vocab, chain_steps=steps,
+        params=dict(temperature=SAMPLER_TEMP, top_k=SAMPLER_TOP_K,
+                    top_p=SAMPLER_TOP_P),
+        known_answers_held=not problems, tokens_differing_from_cpu=differ,
+        tokens_compared_per_mode=draws * s,
+        filtered_repeat_identical=repeat_ok,
+        cost_per_call=cost)
+    if problems:
+        raise AssertionError("sampler: " + "; ".join(problems))
+
+
+def _sampled_params(i, new_tokens):
+    """The engine_sampled mix, by request index: greedy, T = 0.8, top-k 40,
+    top-p 0.9, and each of the last three with an explicit seed on every
+    other request."""
+    kind = i % 4
+    seed = 1000 + i if (i // 4) % 2 else None
+    if kind == 0:
+        return SamplingParams(max_tokens=new_tokens, temperature=0.0)
+    if kind == 1:
+        return SamplingParams(max_tokens=new_tokens, temperature=0.8,
+                              seed=seed)
+    if kind == 2:
+        return SamplingParams(max_tokens=new_tokens, temperature=0.8,
+                              top_k=40, seed=seed)
+    return SamplingParams(max_tokens=new_tokens, temperature=0.8, top_p=0.9,
+                          seed=seed)
+
+
+def _sampled_queue(vocab, params, n=None, new_tokens=None, lens=None):
+    """The slice's requests (``N_REQUESTS`` of ``PROMPT_LENS``,
+    ``NEW_TOKENS`` new unless given), request ``i`` with ``params(i,
+    new_tokens)``."""
+    n, new_tokens = n or N_REQUESTS, new_tokens or NEW_TOKENS
+    return synthetic_requests(n, lens or PROMPT_LENS, vocab, new_tokens,
+                              params=[params(i, new_tokens)
+                                      for i in range(n)])
+
+
+def phase_engine_sampled(kernels):
+    """The slice (stablelm-1.6b at full width and depth, bf16, paged,
+    adaptive) serving 16 requests with mixed sampling parameters (greedy,
+    T = 0.8, top-k 40, top-p 0.9, explicit seeds on half of the sampled
+    ones), blocking and chunked at 16. Held in each: a repeat run gives
+    identical streams (the key chain and the sampler are deterministic);
+    an all-(T = 1, top_k = 1) run gives the streams of an all-greedy run of
+    the same requests (the filter keeps the argmax alone, exact by
+    construction); K1 and K2 launched. Reported: tok/s; a decode segment's
+    device ms, device operations and host ms per step with the mix (the
+    ``filtered`` sampler) against an all-greedy one."""
+    cfg, model = _slice_model()
+    mixed = _sampled_params
+    topk1 = lambda i, n: SamplingParams(  # noqa: E731
+        max_tokens=n, temperature=1.0, top_k=1, seed=i)
+    greedy = lambda i, n: SamplingParams(max_tokens=n)  # noqa: E731
+    report, problems = {}, []
+    for name, shape in (("blocking", SLICE),
+                        ("chunked", dict(SLICE, chunked=True,
+                                         chunk_size=CHUNK))):
+        eng = Engine.from_config(EngineConfig(**shape), model)
+        eng.serve(synthetic_requests(len(PROMPT_LENS), PROMPT_LENS,
+                                     cfg.vocab, 2, params=SamplingParams(
+                                         max_tokens=2, temperature=0.8)))
+        eng.reset()
+        reset_launch_counts()       # counts = 0 just before the main path
+        out, comps, secs = _serve_once(eng, _sampled_queue(cfg.vocab, mixed))
+        counts = launch_counts()    # read just after
+        runs = {"mixed": (out, secs)}
+        for what, params in (("repeat", mixed), ("top_k_1", topk1),
+                             ("greedy", greedy)):
+            eng.reset()
+            o, _, sec = _serve_once(eng, _sampled_queue(cfg.vocab, params))
+            runs[what] = (o, sec)
+        diffs = dict(repeat=_stream_diff(runs["repeat"][0], out),
+                     top_k_1_vs_greedy=_stream_diff(runs["top_k_1"][0],
+                                                    runs["greedy"][0]),
+                     mixed_vs_greedy=_stream_diff(out, runs["greedy"][0]))
+        for what in ("repeat", "top_k_1_vs_greedy"):
+            if diffs[what]:
+                problems.append(f"{name} {what}: streams differ (request: "
+                                f"first token) {diffs[what]}")
+        for k in ("staged_scatter", "flash_decode_paged"):
+            if counts[k] <= 0:
+                problems.append(f"{name}: {k} not launched: {counts}")
+        for k in kernels:
+            if k["name"] in ("staged_scatter", "flash_decode_paged"):
+                k[f"launches_sampled_{name}"] = counts[k["name"]]
+        n_tok = sum(len(t) for t in out.values())
+        report[name] = dict(
+            tok_per_s={w: sum(len(t) for t in o.values()) / sec
+                       for w, (o, sec) in runs.items()},
+            ttft=_ttft(comps), stats=dict(eng.stats), launches=counts,
+            tokens=n_tok, streams_differ=diffs)
+        if name == "blocking":
+            report["steps"] = {
+                mode: engine_profile(eng, cfg, shape, PROMPT_LENS,
+                                     params=params)
+                for mode, params in (("greedy", greedy), ("mixed", mixed))}
+            for mode, prof in report["steps"].items():
+                prof["tok_per_s"] = shape["n_slots"] / prof["step_ms"] * 1e3
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    say("engine_sampled", config=SLICE, requests=N_REQUESTS,
+        new_tokens=NEW_TOKENS, params_mix="greedy / T 0.8 / T 0.8 top-k 40 "
+        "/ T 0.8 top-p 0.9, explicit seeds on requests 4-7, 12-15",
+        **report)
+    if problems:
+        raise AssertionError("engine_sampled: " + "; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
+# the open-loop loadtest (benchmarks/loadtest.py's three arms) on the card
+# ---------------------------------------------------------------------------
+
+LOADTEST_ARMS = (("direct_fifo", "direct", "fifo"),
+                 ("staged_fifo", "staged", "fifo"),
+                 ("adaptive", "adaptive", "sched/deadline"))
+LOADTEST_SHAPE = dict(max_seq=96, n_slots=8, segment_len=8, chunked=True,
+                      chunk_size=16, page_size=8)
+LOADTEST_REQUESTS, LOADTEST_SEED = 48, 7
+
+
+def loadtest_workload(vocab):
+    """``benchmarks/loadtest.py``'s bursty two-tenant mix (its
+    ``build_workload``): rates in VIRTUAL requests per second."""
+    classes = [
+        RequestClass("interactive", ttft_slo_s=1.0e-3, itl_slo_s=1.0e-3,
+                     priority=1, prompt_len=(4, 12), max_tokens=6,
+                     weight=3.0),
+        RequestClass("batch", ttft_slo_s=20.0e-3, itl_slo_s=5.0e-3,
+                     priority=0, prompt_len=(24, 48), max_tokens=12,
+                     weight=1.0),
+    ]
+    process = MarkovModulatedArrivals(calm_rps=400.0, burst_rps=60000.0,
+                                      mean_calm_s=2.0e-3,
+                                      mean_burst_s=8.0e-3)
+    return generate_workload(classes, process, LOADTEST_REQUESTS,
+                             vocab=vocab, seed=LOADTEST_SEED)
+
+
+def _loadtest_row(res):
+    out = {}
+    for label, r in res.items():
+        cls = {n: dict(n=c.n, slo_met=c.n_slo_met, ttft_p95_ms=c.ttft_p95_s
+                       * 1e3, itl_p95_ms=c.itl_p95_s * 1e3)
+               for n, c in r.per_class.items()}
+        out[label] = dict(slo_met=r.n_slo_met, goodput_rps=r.goodput_rps,
+                          throughput_rps=r.throughput_rps,
+                          makespan_s=r.makespan_s, per_class=cls,
+                          stats={k: r.stats[k] for k in (
+                              "direct_writes", "staged_writes", "drains",
+                              "prefill_writes", "segments")})
+    return out
+
+
+def phase_loadtest(kernels):
+    """``benchmarks/loadtest.py``'s three arms (direct + FIFO, staged +
+    FIFO, adaptive + earliest deadline) on the slice's model at full width
+    and depth (bf16), chunked at 16, max_seq 96: 48 requests of the bursty
+    two-tenant mix. In VIRTUAL time (the segment cost model's clock, model
+    time, not the card's): each arm's SLO count and goodput, and the
+    goodput ratio. Reported, not held: ``bit_identical`` across the arms
+    (K2 reads rows from the ring on one arm and from the pool on another,
+    and rounds them differently in bf16). Then the adaptive arm once on the
+    wall clock: TTFT / ITL p95 and goodput as the card serves them; its
+    launch counts go to the kernels line."""
+    cfg, model = _slice_model()
+    wl = loadtest_workload(cfg.vocab)
+    Engine.from_config(EngineConfig(**LOADTEST_SHAPE), model).serve(
+        synthetic_requests(2, [8, 40], cfg.vocab, 2,
+                           params=SamplingParams(max_tokens=2)))
+    res = {}
+    for label, path, sched in LOADTEST_ARMS:
+        eng = Engine.from_config(EngineConfig(
+            **LOADTEST_SHAPE, path=path, sched=sched), model)
+        res[label] = run_loadtest(eng, wl, virtual=True)
+        del eng
+    ref = res["direct_fifo"].outputs
+    bit_identical = all(
+        sorted(r.outputs) == sorted(ref)
+        and all((r.outputs[k] == ref[k]).all() for k in ref)
+        for r in res.values())
+    best = max(res["direct_fifo"].goodput_rps, res["staged_fifo"].goodput_rps)
+    eng = Engine.from_config(EngineConfig(
+        **LOADTEST_SHAPE, path="adaptive", sched="sched/deadline"), model)
+    reset_launch_counts()           # counts = 0 just before the main path
+    torch.cuda.synchronize()
+    wall = run_loadtest(eng, wl, virtual=False)
+    torch.cuda.synchronize()
+    counts = launch_counts()        # read just after
+    for k in kernels:
+        if k["name"] in ("staged_scatter", "flash_decode_paged"):
+            k["launches_loadtest_wall"] = counts[k["name"]]
+    del eng, model
+    torch.cuda.empty_cache()
+    say("loadtest", config=LOADTEST_SHAPE, requests=LOADTEST_REQUESTS,
+        seed=LOADTEST_SEED, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        virtual=dict(_loadtest_row(res), goodput_ratio=(
+            res["adaptive"].goodput_rps / best if best else 0.0),
+            bit_identical=bit_identical,
+            clock="virtual (the segment cost model; not device time)"),
+        wall_adaptive=dict(_loadtest_row({"adaptive": wall})["adaptive"],
+                           clock="wall (host clock, this card)",
+                           launches=counts))
+    if counts["flash_decode_paged"] <= 0:
+        raise AssertionError(f"loadtest: K2 not launched: {counts}")
+
+
+# ---------------------------------------------------------------------------
+# preemption through the host tier
+# ---------------------------------------------------------------------------
+
+PREEMPT_LOW, PREEMPT_HIGH = 8, 4     # requests: low priority, the burst
+PREEMPT_LENS, PREEMPT_BURST_LEN, PREEMPT_BURST_NEW = [512, 1024], 256, 32
+
+
+def _preempt_queue(vocab, sch=None):
+    """8 low-priority requests (T = 0.8, prompts of 512 / 1024 tokens, 64
+    new) and, once they run, a burst of 4 priority-5 greedy requests of 256
+    tokens: ``sch`` admits the first wave and runs one segment first."""
+    low = synthetic_requests(PREEMPT_LOW, PREEMPT_LENS, vocab, NEW_TOKENS,
+                             params=SamplingParams(max_tokens=NEW_TOKENS,
+                                                   temperature=0.8))
+    burst = synthetic_requests(PREEMPT_HIGH, [PREEMPT_BURST_LEN], vocab,
+                               PREEMPT_BURST_NEW, seed=5)
+    if sch is not None:
+        sch.admit(low)
+        sch.run_topped_up_segment(~sch.done_flags())
+    for i in range(PREEMPT_HIGH):
+        r = burst.at(i)
+        low.submit(r.prompt,
+                   params=SamplingParams(max_tokens=PREEMPT_BURST_NEW),
+                   priority=5)
+    return low
+
+
+def phase_preempt(kernels):
+    """``sched/preempt`` on the slice (full width and depth, bf16, paged,
+    direct path, blocking, host tier on an ample pool) under a burst of 4
+    high-priority requests arriving while 8 low-priority sampled requests
+    fill every slot. Held: preemptions happen and each resumes; on every
+    resume the slot's restored position, key data and last token equal
+    what was saved, and the restored blocks read back bit-equal to the
+    host copy; no slot ends parked; the pool's audit; K2 launched.
+    Reported: each request's stream against a FIFO run of the same
+    requests (a resumed request re-enters another slot and the burst's
+    prefills group otherwise, so rounding may part them), and the burst's
+    TTFT under both."""
+    cfg, model = _slice_model()
+    shape = dict(SLICE, path="direct")
+    runs, problems = {}, []
+    for sched in ("fifo", "sched/preempt"):
+        eng = Engine.from_config(EngineConfig(
+            **shape, sched=sched, memory=MemoryConfig(host_tier=True)),
+            model)
+        sch = eng.scheduler
+        checks = []
+        resume = sch._try_resume
+
+        def checked(slot, req, resume=resume, sch=sch, checks=checks):
+            snap = dict(sch._preempted[req.req_id])
+            ok = resume(slot, req)
+            if ok:
+                st = sch.slots
+                checks.append(dict(
+                    req=req.req_id, pos=int(st.pos[slot]) == snap["pos"],
+                    token=int(st.token[slot]) == snap["token"],
+                    key=torch.equal(st.key[slot], snap["key"])))
+            return ok
+
+        sch._try_resume = checked
+        log, bad = [], []
+        unwrap = _time_block_moves(log, bad)
+        try:
+            reset_launch_counts()   # counts = 0 just before the main path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            queue = _preempt_queue(cfg.vocab, sch)
+            out = sch.serve(queue)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            unwrap()
+        comps = eng.completions()
+        burst = [r for r in out if r >= PREEMPT_LOW]
+        runs[sched] = dict(out=out, stats=dict(sch.stats), checks=checks,
+                           counts=counts, seconds=secs,
+                           burst_ttft_s=[comps[r].ttft_s for r in burst],
+                           moves=_moves_summary(log, _block_bytes(sch.cache)))
+        if sched == "sched/preempt":
+            st = sch.stats
+            if not st["preemptions"] or \
+                    st["preempt_resumes"] != st["preemptions"]:
+                problems.append(f"preemptions / resumes: {st}")
+            bad_checks = [c for c in checks if not all(
+                c[k] for k in ("pos", "token", "key"))]
+            if bad_checks:
+                problems.append(f"restored state differs: {bad_checks}")
+            if bad:
+                problems.append(f"restored blocks differ: {bad}")
+            if any(sch._parked) or sch._host_store or sch._preempted:
+                problems.append("a slot or request ended parked")
+            sch.pool.audit()
+            for k in kernels:
+                if k["name"] in ("staged_scatter", "flash_decode_paged"):
+                    k["launches_preempt"] = counts[k["name"]]
+        if counts["flash_decode_paged"] <= 0:
+            problems.append(f"{sched}: K2 not launched: {counts}")
+        del eng, sch
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    p, f = runs["sched/preempt"], runs["fifo"]
+    say("preempt", config=dict(shape, memory=dict(host_tier=True)),
+        low_requests=PREEMPT_LOW, burst_requests=PREEMPT_HIGH,
+        stats=p["stats"], resumes_checked=len(p["checks"]),
+        restored_state_equal=not problems, moves=p["moves"],
+        burst_ttft_s=dict(preempt=p["burst_ttft_s"],
+                          fifo=f["burst_ttft_s"]),
+        seconds=dict(preempt=p["seconds"], fifo=f["seconds"]),
+        streams_differ_from_fifo=_stream_diff(p["out"], f["out"]),
+        launches=p["counts"])
+    if problems:
+        raise AssertionError("preempt: " + "; ".join(problems))
+
+
 def phase_lanes(kernels):
     """The sliding-window model on the lanes layout: 12 requests, prompts of
     512 / 2048 / 4608 tokens (the longest past the 4096 window), 64 new
@@ -2410,7 +2866,7 @@ def phase_lanes_chunked(kernels):
     torch.cuda.empty_cache()
 
 
-def engine_profile(eng, cfg, shape, prompt_lens, mixed=False):
+def engine_profile(eng, cfg, shape, prompt_lens, mixed=False, params=None):
     """Where one segment's time goes: 8 live slots, three segments timed on
     the host clock (the median is used), the next one under the profiler
     (device time by kernel name, and the device's busy share of the timed
@@ -2418,13 +2874,14 @@ def engine_profile(eng, cfg, shape, prompt_lens, mixed=False):
     ``mixed`` (chunked engines): prompts of ``prompt_lens`` alternate over
     the slots, the short ones flip to decode in the warm segment and the
     long ones still prefill in every measured one, so each is a
-    mixed-phase segment."""
+    mixed-phase segment. ``params(i, max_tokens)`` gives request ``i``'s
+    SamplingParams (default: greedy)."""
     eng.reset()
     sch = eng.scheduler
     n_new = 8 * shape["segment_len"]    # at most 7 segments run below
-    sch.admit(synthetic_requests(
-        shape["n_slots"], prompt_lens, cfg.vocab, n_new,
-        params=SamplingParams(max_tokens=n_new)))
+    params = params or (lambda i, n: SamplingParams(max_tokens=n))
+    sch.admit(_sampled_queue(cfg.vocab, params, shape["n_slots"], n_new,
+                             prompt_lens))
 
     def segment():
         if mixed and not sch._mixed_phase_pending():
@@ -2883,6 +3340,10 @@ def main():
     timed("engine_chunked", phase_engine_chunked, kernels, blocking)
     timed("engine_prefix", phase_engine_prefix, kernels)
     timed("engine_host_tier", phase_engine_host_tier, kernels)
+    timed("sampler", phase_sampler)
+    timed("engine_sampled", phase_engine_sampled, kernels)
+    timed("loadtest", phase_loadtest, kernels)
+    timed("preempt", phase_preempt, kernels)
     timed("lanes", phase_lanes, kernels)
     timed("lanes_chunked", phase_lanes_chunked, kernels)
     timed("parity", phase_parity)

@@ -30,8 +30,8 @@ from .ring import RingState
 from .simulator import zipf_regions
 from .staged_write import EngineState, RemoteWriteEngine
 from .types import (OFFLOAD, PHASE_BULK, PHASE_SCATTERED, UNLOAD,
-                    DecisionStats, WriteBatch, make_write_batch,
-                    resolve_device)
+                    DecisionStats, LatencyModel, WriteBatch,
+                    make_write_batch, resolve_device)
 from .umtt import (PERM_READ, PERM_WRITE, UMTT, deregister, make_umtt,
                    register, validate)
 from .unload import StagingRing, append, drain, make_ring, need_drain
@@ -47,7 +47,8 @@ __all__ = [
     "FrequencyPolicy", "HintPolicy", "HysteresisPolicy", "available_policies",
     "get_policy_factory", "register_policy", "top_k_hot_table", "RingState",
     "zipf_regions", "EngineState", "RemoteWriteEngine", "OFFLOAD",
-    "PHASE_BULK", "PHASE_SCATTERED", "UNLOAD", "DecisionStats", "WriteBatch",
+    "PHASE_BULK", "PHASE_SCATTERED", "UNLOAD", "DecisionStats",
+    "LatencyModel", "WriteBatch",
     "make_write_batch", "resolve_device", "PERM_READ", "PERM_WRITE", "UMTT",
     "deregister", "make_umtt", "register", "validate", "StagingRing",
     "append", "drain", "make_ring", "need_drain",

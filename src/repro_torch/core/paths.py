@@ -9,10 +9,11 @@ registry. :func:`validate` is the one config -> plan entry point.
 
 Features of the JAX package's ``validate`` that are not ported yet raise
 ``NotImplementedError("not ported yet: ...")`` at config time: the
-``parallel`` mesh, ``spec`` (speculative decoding), a ``sched`` other than
-``"fifo"``, sampled decoding, and ``AttentionConfig.drain_kernel`` (in
-this package the device decides: a CUDA tensor drains through the kernel, a
-CPU tensor through its plain version).
+``parallel`` mesh, ``spec`` (speculative decoding) and
+``AttentionConfig.drain_kernel`` (in this package the device decides: a CUDA
+tensor drains through the kernel, a CPU tensor through its plain version).
+As in the JAX package, ``sched="sched/preempt"`` without
+``memory.host_tier`` raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -351,11 +352,6 @@ def validate(cfg, *, paged_capable: bool = True,
         raise _not_ported(
             "AttentionConfig.drain_kernel (the drain runs the kernel on a "
             "CUDA tensor and its plain version on a CPU tensor)")
-    dp = getattr(cfg, "default_params", None)
-    if dp is not None and dp.temperature is not None and dp.temperature > 0:
-        raise _not_ported("sampled decoding (temperature > 0); greedy only")
-    if getattr(cfg, "greedy", True) is False:
-        raise _not_ported("sampled decoding (greedy=False); greedy only")
     attention = resolve_attention(attn_cfg.impl, layout=layout,
                                   arch_paged_capable=paged_capable,
                                   device=device)
@@ -364,6 +360,14 @@ def validate(cfg, *, paged_capable: bool = True,
     from ..serve.traffic.sched import build_sched
 
     sched = build_sched(getattr(cfg, "sched", None) or "fifo")
+    # preemption parks the victim's KV in the host tier (which itself
+    # implies the paged layout): without it the combination is refused here
+    if sched.preempts and not memory.host_tier:
+        raise ValueError(
+            f"sched={sched.name!r} preempts running slots by parking "
+            f"their KV in the host tier, but memory.host_tier is off; "
+            f"use memory=MemoryConfig(host_tier=True) (paged layout) or "
+            f"a non-preempting sched")
 
     ps = getattr(cfg, "page_size", 8)
     n_slots = getattr(cfg, "n_slots", 8)

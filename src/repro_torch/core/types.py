@@ -3,8 +3,10 @@
 Core datatypes of the bidirectional-offload engine: ``WriteBatch``
 (structure-of-arrays batch of write requests), the write-phase tags and
 ``DecisionStats``. Everything is a NamedTuple of tensors on one explicit
-device. ``LatencyModel``, ``MTTConfig``, ``CPUTLBConfig`` and ``SpecStats``
-belong to the simulator and the speculative path and are not ported yet.
+device. ``LatencyModel`` holds the paper's per-path write latencies, the
+constants of the virtual-time cost model (``serve.traffic``). ``MTTConfig``,
+``CPUTLBConfig`` and ``SpecStats`` belong to the simulator and the
+speculative path and are not ported yet.
 
 Conventions: region ids and the other integer fields are int64 tensors
 (PyTorch's index type); the JAX package uses int32 for the same values.
@@ -13,6 +15,7 @@ core module can default its state to the card without an import cycle.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import torch
@@ -107,3 +110,30 @@ class DecisionStats(NamedTuple):
         if valid is None:
             return DecisionStats(unload_mask.shape[0] - u, u, nb)
         return DecisionStats(valid.sum() - u, u, nb)
+
+
+@dataclasses.dataclass(frozen=True)
+class LatencyModel:
+    """The paper's cost model of the two write paths, in microseconds. These
+    are model constants taken from the paper's text, not measurements of
+    any device.
+
+    Offload path (one-sided RDMA write, target-side view):
+      * MTT hit:  ``t_offload_hit`` (paper: ~2.6 us RTT with 1 region)
+      * MTT miss: ``t_offload_miss`` (translation fetched over PCIe; set so
+        the Zipf(0.5), 2^20-region mix averages ~5.1 us as in Fig. 3)
+    Unload path (RDMA writeImm into the staging ring + CPU copy):
+      * base: ``t_unload_base`` (paper: ~3.4 us flat)
+      * CPU dTLB walk on a cold destination page: ``t_cpu_tlb_walk``
+      * copy: size / ``copy_gbps`` for payloads beyond the inlined 16 B.
+    """
+
+    t_offload_hit: float = 2.60
+    t_offload_miss: float = 5.13
+    t_unload_base: float = 3.38
+    t_cpu_tlb_walk: float = 0.12
+    copy_gbps: float = 12.0  # memcpy GB/s for the staged->final copy
+
+    def unload_copy_us(self, size_bytes: torch.Tensor) -> torch.Tensor:
+        extra = torch.clamp(size_bytes.to(torch.float32) - 16.0, min=0.0)
+        return extra / (self.copy_gbps * 1e3)  # bytes / (GB/s) -> us

@@ -11,7 +11,10 @@ One front door (``repro_torch.serve.Engine``), two workload shapes:
   and prefills in ``--chunk-size``-token chunks inside the segments (paged;
   chunk by chunk at admission on the lanes layout).
 
-Runs on the GPU unless ``--device cpu`` is given (no GPU: it raises).
+Sampling is per-request ``SamplingParams``: ``--temperature`` (default
+greedy), ``--top-k``, ``--top-p`` and ``--seed`` (a per-request seed; the
+weights' seed is ``--init-seed``). Runs on the GPU unless ``--device cpu``
+is given (no GPU: it raises).
 ``--full-width`` serves the architecture at its published widths instead of
 the reduced test variant. An architecture the paged pool cannot serve (the
 sliding-window h2o-danube-3-4b) runs on the lanes layout, which is
@@ -49,6 +52,12 @@ def main(argv=None) -> None:
                          "path's default policy)")
     ap.add_argument("--attention", default="auto",
                     help="auto | fused | reference")
+    ap.add_argument("--temperature", type=float, default=None,
+                    help="sampling temperature (default: greedy)")
+    ap.add_argument("--top-k", type=int, default=0)
+    ap.add_argument("--top-p", type=float, default=1.0)
+    ap.add_argument("--seed", type=int, default=None,
+                    help="per-request sampling seed")
     ap.add_argument("--ring-size", type=int, default=8)
     ap.add_argument("--batched", action="store_true",
                     help="continuous batching over the paged KV pool (the "
@@ -65,19 +74,21 @@ def main(argv=None) -> None:
                          "in chunks inside the segments")
     ap.add_argument("--chunk-size", type=int, default=16,
                     help="(--chunked) prompt tokens per prefill chunk")
-    ap.add_argument("--seed", type=int, default=0,
+    ap.add_argument("--init-seed", type=int, default=0,
                     help="seed of the random weights")
     args = ap.parse_args(argv)
 
     cfg, model = build_model_and_params(
-        args.arch, args.max_seq, seed=args.seed,
+        args.arch, args.max_seq, seed=args.init_seed,
         reduced=not args.full_width, device=args.device)
     path = args.path
     if path != "direct" and not paged_capable(model):
         print(f"[serve] {cfg.name}: lanes layout is direct-only; "
               f"downgrading --write-mode {path} -> direct")
         path = "direct"
-    sp = SamplingParams(max_tokens=args.gen_len)
+    sp = SamplingParams(temperature=args.temperature, top_k=args.top_k,
+                        top_p=args.top_p, seed=args.seed,
+                        max_tokens=args.gen_len)
     common = dict(max_seq=args.max_seq, path=path, policy=args.policy,
                   page_size=args.page_size, ring_size=args.ring_size,
                   attention=args.attention, device=args.device)

@@ -1,13 +1,25 @@
-"""Port of repro/models/sampling.py (greedy decoding only).
+"""Port of repro/models/sampling.py (all but ``spec_verify``).
 
 Per-request ``SamplingParams`` and the in-segment slot sampler. The
 scheduler loads each request's fields into fixed-shape per-slot tensors and
-every decode step samples each slot under its own parameters. Only the
-``greedy`` mode is ported: the ``sampled`` and ``filtered`` modes draw from a
-threefry key chain that must be reproduced bit for bit before their streams
-can be compared with the JAX package's, so they raise
-``NotImplementedError`` here, as do ``spec_verify`` and ``derive_key``'s
-callers.
+every decode step samples each slot under its own parameters, temperature /
+top-k / top-p / stop set, with a per-slot key chain.
+
+The chain is JAX's threefry chain reproduced bit for bit
+(``repro_torch.models.prng``), so a sampled stream is the JAX package's
+wherever the float ``log`` of the Gumbel noise leaves the argmax alone. No
+library sampler (``torch.multinomial``, ``torch.Generator``) is used: none
+draws JAX's bits. Equivalence contract, as in the JAX package:
+
+* ``temperature == 0`` -> greedy argmax (argmax never reads the key, so the
+  always-split key chain is invisible).
+* ``temperature == 1, top_k == 0, top_p == 1`` -> ``categorical`` on the
+  unmodified logits (``x / 1.0`` is exact and the disabled filters are
+  no-ops).
+* filters compose in the standard order: temperature scale -> top-k mask ->
+  top-p (nucleus) mask -> categorical.
+
+``spec_verify`` (speculative decoding) is not ported yet.
 """
 from __future__ import annotations
 
@@ -17,6 +29,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..core.types import resolve_device
+from . import prng
 
 # Fixed width of the per-slot stop-token table (padded with -1, which no
 # vocabulary token equals). cfg.eos_id takes one entry.
@@ -27,13 +40,19 @@ MAX_STOP_TOKENS = 4
 class SamplingParams:
     """Per-request sampling parameters (the public request knobs).
 
-    temperature   0 = greedy argmax; > 0 = categorical over logits/T (not
-                  ported yet). ``None`` defers to the engine default.
-    top_k / top_p filters for sampled decoding (not ported yet).
+    temperature   0 = greedy argmax; > 0 = categorical over logits/T.
+                  ``None`` defers to the engine default (0.0 when greedy,
+                  1.0 when sampled).
+    top_k         keep only the k highest logits (0 = disabled).
+    top_p         nucleus sampling: keep the smallest prefix of the sorted
+                  distribution with cumulative mass >= top_p (1.0 =
+                  disabled).
     max_tokens    generation budget, counting the prefill-emitted token.
     stop_token_ids  emitting any of these retires the request (the engine's
                   ``eos_id`` is always added on top).
-    seed          per-request PRNG seed (unused by greedy decoding).
+    seed          per-request PRNG seed. ``None`` derives the slot key from
+                  (engine sample_seed, request id); an explicit seed makes
+                  the stream independent of the request id.
     """
 
     temperature: Optional[float] = None
@@ -92,20 +111,65 @@ def stop_table(params: SamplingParams, eos_id: Optional[int]) -> list:
     return ids + [-1] * (MAX_STOP_TOKENS - len(ids))
 
 
+# Sampler variants (the scheduler picks one per segment from the LIVE
+# slots' resolved params, so a pure-greedy workload pays the argmax alone):
+#   greedy    every live slot has temperature == 0: argmax, no splits
+#   sampled   temperatures only: split + categorical (no vocabulary sort)
+#   filtered  some slot uses top-k / top-p: the mask from one sort
 SAMPLE_MODES = ("greedy", "sampled", "filtered")
 
 
+def filter_logits(scaled: torch.Tensor, top_k: torch.Tensor,
+                  top_p: torch.Tensor) -> torch.Tensor:
+    """Each row's top-k / top-p mask over temperature-scaled logits
+    ``[S, V]`` (JAX ``_filter_logits``, one row per slot).
+
+    Both filters keep a PREFIX of the descending sort, so they reduce to
+    one logit threshold from ONE sort: rank < top_k, and the cumulative
+    (post-top-k) mass strictly before the token < top_p. A disabled filter
+    leaves the row untouched."""
+    v = scaled.shape[-1]
+    desc = torch.sort(scaled, dim=-1, descending=True).values
+    on_k = (top_k > 0) & (top_k < v)
+    k_eff = torch.where(on_k, top_k, v)
+    in_k = torch.arange(v, device=scaled.device)[None, :] < k_eff[:, None]
+    masked = torch.where(in_k, desc, float("-inf"))
+    e = torch.exp(masked - masked.max(dim=-1, keepdim=True).values)
+    p_desc = e / e.sum(dim=-1, keepdim=True)
+    csum = torch.cumsum(p_desc, dim=-1)
+    # ranks past k_eff carry p_desc == 0 and csum == 1, so the top-p prefix
+    # test also enforces top-k; the rank-0 token always survives
+    keep = in_k & ((csum - p_desc) < torch.clamp(top_p, max=1.0)[:, None])
+    n_keep = keep.sum(dim=-1)
+    thr = desc.gather(1, (n_keep - 1).clamp(0, v - 1)[:, None])
+    enabled = (top_p < 1.0) | on_k
+    return torch.where(enabled[:, None] & (scaled < thr), float("-inf"),
+                       scaled)
+
+
 def sample_tokens(logits: torch.Tensor, key_data: torch.Tensor,
-                  params: SlotParams, mode: str = "greedy",
+                  params: SlotParams, mode: str = "filtered",
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Sample every slot under its own parameters. logits f32[S, V] ->
-    (tokens int[S], key data unchanged). Greedy argmax reads no key."""
+    """Sample every slot under its own parameters.
+
+    logits f32[S, V], key data int64[S, 2] (uint32 values) -> (tokens
+    int64[S], new key data). ``mode`` (``SAMPLE_MODES``) must cover the live
+    slots' params (the scheduler sees to it) and never changes a result,
+    only how much work is done. In the sampling modes each slot's chain
+    splits exactly once per call, the same schedule whether the slot's own
+    temperature is zero or not, so batch composition never shifts a
+    request's stream (greedy slots never read their subkey)."""
     assert mode in SAMPLE_MODES, mode
-    if mode != "greedy":
-        raise NotImplementedError(
-            f"not ported yet: sample mode {mode!r} (needs the threefry key "
-            f"chain); greedy only")
-    return torch.argmax(logits, dim=-1), key_data
+    greedy = torch.argmax(logits, dim=-1)
+    if mode == "greedy":
+        return greedy, key_data
+    pairs = prng.split(key_data)                      # [S, 2, 2]
+    temp = params.temperature
+    scaled = logits / torch.where(temp > 0, temp, 1.0)[:, None]
+    if mode == "filtered":
+        scaled = filter_logits(scaled, params.top_k, params.top_p)
+    sampled = prng.categorical(pairs[:, 0], scaled)
+    return torch.where(temp > 0, sampled, greedy), pairs[:, 1]
 
 
 def required_mode(params_list) -> str:
@@ -140,3 +204,13 @@ def resolve(params: Optional[SamplingParams],
             fallback = 0.0 if greedy_default else 1.0
         p = dataclasses.replace(p, temperature=float(fallback))
     return p
+
+
+def derive_key(base_key: torch.Tensor, req_id: int,
+               seed: Optional[int]) -> torch.Tensor:
+    """The slot key data for one request: an explicit per-request seed
+    stands alone (the stream does not depend on the request id); otherwise
+    the request id is folded into the engine's base key."""
+    if seed is not None:
+        return prng.key(seed, base_key.device)
+    return prng.fold_in(base_key, int(req_id))

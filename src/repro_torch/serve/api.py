@@ -69,9 +69,13 @@ class EngineConfig:
     pieces (inside the segments on paged, at admission on lanes).
     ``memory=MemoryConfig(prefix_cache=True)`` (paged, chunked) shares
     cached prompt pages; ``MemoryConfig(host_tier=True)`` (paged) parks
-    whole slots in host memory when the pool runs short. A ``sched`` other
-    than fifo, ``parallel`` and ``spec`` raise ``NotImplementedError`` when
-    the engine is built."""
+    whole slots in host memory when the pool runs short. ``sched`` names an
+    admission policy (``fifo``, ``sched/priority``, ``sched/deadline``,
+    ``sched/preempt``, the last with the host tier). ``default_params``
+    applies to requests without their own, and its temperature backfills a
+    request's unset one; ``sample_seed`` seeds the per-request key chains.
+    ``parallel`` and ``spec`` raise ``NotImplementedError`` when the engine
+    is built."""
 
     max_seq: int
     arch: Optional[str] = None        # None when a model is passed

@@ -1,5 +1,6 @@
 """Port of repro/serve/scheduler.py (blocking and chunked admission; paged
-and lanes layouts).
+and lanes layouts; sampled decoding; admission policies and preemption;
+the virtual-time hook).
 
 Continuous-batching serve scheduler: a fixed array of serving SLOTS decodes
 in lock-step, each slot at its own position in its own request, so the
@@ -14,11 +15,15 @@ layouts, as in the JAX package:
   region is ``slot * max_pages + pos // page_size``.
 
 * **SlotState**: per-slot phase / token / position / done-flag /
-  remaining-budget / request-id / stop table, fixed-shape tensors on the
-  engine's device. Retirement is in-segment: a slot whose emitted token hits
-  a stop token or whose budget is spent flips ``done`` and from the next
-  step neither writes KV (its destination resolves to the sink) nor updates
-  the monitor.
+  remaining-budget / key chain / request-id / sampling parameters / stop
+  table, fixed-shape tensors on the engine's device. Every decode step
+  samples each slot under its own request's parameters
+  (``models.sampling``); a request's key is ``fold_in(key(sample_seed),
+  req_id)`` or ``key(seed)`` for an explicit seed, so its stream does not
+  depend on its slot or on the admission order. Retirement is in-segment:
+  a slot whose emitted token hits a stop token or whose budget is spent
+  flips ``done`` and from the next step neither writes KV (its destination
+  resolves to the sink) nor updates the monitor.
 * **Segments**: where the JAX package jits a ``lax.scan``, a segment here is
   a Python loop of ``segment_len`` eager steps over preallocated device
   tensors with NO host read inside the loop and one readback at its end.
@@ -65,8 +70,19 @@ layouts, as in the JAX package:
   segments parked slots page back in oldest first. The oldest live slot is
   never a victim, so it always makes progress.
 
-Preemption, speculative decoding, mesh sharding and the virtual-time cost
-model are not ported yet (``core.paths.validate`` raises on each).
+* **Admission order** (``sched``): the policy permutes the scan order only
+  (FIFO, priority, earliest deadline); skip-ahead counts the policy's head.
+  ``sched/preempt`` also evicts the lowest-priority running slot for a
+  strictly higher-priority waiting request: its blocks unload to the host
+  store, its slot scalars and key are saved, its request goes back to the
+  queue head, and it resumes verbatim into whichever slot is free.
+* **Clock**: timestamps come off ``self.clock`` (wall ``perf_counter``).
+  The loadtest harness installs a ``VirtualClock`` and a ``time_model``
+  (segment telemetry -> seconds), and ``run_segment`` advances the clock
+  by it before first tokens are stamped.
+
+Speculative decoding and mesh sharding are not ported yet
+(``core.paths.validate`` raises on each).
 """
 from __future__ import annotations
 
@@ -82,6 +98,7 @@ from ..core.types import (PHASE_BULK, PHASE_SCATTERED, WriteBatch,
                           make_write_batch, resolve_device)
 from ..data.pipeline import RequestQueue
 from ..kvcache import paged as PG
+from ..models import prng
 from ..models import sampling as SMP
 from ..models.sampling import SamplingParams, SlotParams
 from ..models.transformer import DecoderLM, compute_dtype
@@ -108,7 +125,9 @@ class SlotState(NamedTuple):
                        prefilling, the decode position afterwards
     done:      bool[S] retired (or never admitted)
     remaining: int[S]  tokens the slot may still emit
-    key:       int[S, 2] per-slot PRNG key data (unused by greedy decoding)
+    key:       int[S, 2] per-slot threefry key data (uint32 values in
+                       int64): split once per decode step in the sampling
+                       modes, greedy slots included; prefill consumes none
     req_id:    int[S]  owning request id (-1 = empty)
     plen:      int[S]  prompt length
     temperature f32[S]; top_k int[S]; top_p f32[S];
@@ -161,8 +180,11 @@ class BatchConfig:
     (``auto`` | ``fused`` | ``reference``); ``chunked`` prefills in
     ``chunk_size``-token pieces (inside the segments on the paged layout,
     at admission on lanes); ``device`` is where the engine runs
-    (``"cuda"`` raises on a machine without it). The remaining fields
-    mirror the JAX package's and raise "not ported yet" when switched on."""
+    (``"cuda"`` raises on a machine without it). ``greedy``,
+    ``default_params`` and ``sample_seed`` set the sampling defaults and the
+    key chains; ``sched`` names an admission policy. ``parallel`` and
+    ``spec`` mirror the JAX package's and raise "not ported yet" when
+    switched on."""
 
     max_seq: int
     n_slots: int = 8
@@ -228,12 +250,18 @@ class BatchedServeEngine:
         # in-segment chunked prefill needs the paged pool's row addressing;
         # lanes prefills chunk by chunk at admission instead
         self._in_scan_prefill = cfg.chunked and self.layout == "paged"
+        # the engine clock: every scheduler timestamp comes off it. The
+        # loadtest harness swaps in a VirtualClock and sets ``time_model``
+        # (segment telemetry -> seconds), so run_segment advances virtual
+        # time instead of letting wall time pass
         self.clock: Callable[[], float] = time.perf_counter
+        self.time_model: Optional[Callable[[dict], float]] = None
         self.stats = {
             "direct_writes": 0, "staged_writes": 0, "drains": 0,
             "prefill_writes": 0, "segments": 0, "admitted": 0, "retired": 0,
             "prefix_hit_rows": 0, "cow_copies": 0,
             "host_unloads": 0, "host_pageins": 0,
+            "preemptions": 0, "preempt_resumes": 0,
         }
         self.reset()
 
@@ -294,6 +322,13 @@ class BatchedServeEngine:
         self._host_store: Dict[int, tuple] = {}
         self._skip_rid = -1
         self._skip_count = 0
+        self._base_key = prng.key(cfg.sample_seed, self.device)
+        # preempt-and-requeue: the live requests (requeued verbatim on
+        # preemption), each slot's priority, and each preempted request's
+        # saved state (host KV, slot scalars, key) until it resumes
+        self._requests: Dict[int, Any] = {}
+        self._preempted: Dict[int, dict] = {}
+        self._slot_priority: List[int] = [0] * cfg.n_slots
         self.outputs: Dict[int, List[int]] = {}
         self.ttft: Dict[int, float] = {}
         # per-request telemetry: resolved SamplingParams and write-path
@@ -493,12 +528,21 @@ class BatchedServeEngine:
         return max(1, -(-rows // cfg.page_size))
 
     def _resolve_params(self, req) -> SamplingParams:
-        p = SMP.resolve(req.params, self.cfg.default_params, self.cfg.greedy)
-        if p.temperature > 0:
-            raise NotImplementedError(
-                f"not ported yet: sampled decoding (request {req.req_id} "
-                f"has temperature {p.temperature}); greedy only")
-        return p
+        """The request's effective SamplingParams: request > engine default
+        > the ``greedy`` flag (for an unset temperature)."""
+        return SMP.resolve(req.params, self.cfg.default_params,
+                           self.cfg.greedy)
+
+    def _admit_keys(self, reqs: List[Any], plist) -> torch.Tensor:
+        """Each request's key data ``[g, 2]``: ``fold_in(base, req_id)``, or
+        ``derive_key`` for an explicit seed. One vectorised fold for the
+        group; seeded requests (the rare case) one by one."""
+        keys = prng.fold_in(self._base_key[None, :], torch.as_tensor(
+            [r.req_id for r in reqs], device=self.device))
+        for i, p in enumerate(plist):
+            if p.seed is not None:
+                keys[i] = SMP.derive_key(self._base_key, 0, p.seed)
+        return keys
 
     def _now(self) -> float:
         return self.clock()
@@ -614,7 +658,7 @@ class BatchedServeEngine:
             remaining=put(st.remaining, remaining),
             req_id=put(st.req_id, np.asarray([r.req_id for r in reqs])),
             plen=put(st.plen, np.asarray([r.prompt_len for r in reqs])),
-            key=put(st.key, np.zeros((g, 2), np.int64)),
+            key=put(st.key, self._admit_keys(reqs, plist)),
             temperature=put(st.temperature,
                             np.asarray([p.temperature for p in plist],
                                        np.float32)),
@@ -631,6 +675,8 @@ class BatchedServeEngine:
             self._slot_max_new[slot] = p.max_tokens
             self._slot_seq[slot] = self._adm_seq
             self._adm_seq += 1
+            self._slot_priority[slot] = req.priority
+            self._requests[req.req_id] = req
             self.req_arrival[req.req_id] = req.arrival_s
             self.req_params[req.req_id] = p
         self.stats["admitted"] += g
@@ -668,6 +714,15 @@ class BatchedServeEngine:
 
     # -- host tier: park (device -> host unload) / unpark (page back in) --
 
+    def _check_drained(self, victim: int, what: str) -> None:
+        """A slot's blocks move to the host only after the boundary drain:
+        no staged row may still be in the ring."""
+        cache = self.cache
+        if PG.has_ring(cache) and bool((cache["ring_pos"] >= 0).any()):
+            raise RuntimeError(
+                f"host tier: slot {victim} {what} with staged rows still in "
+                f"the ring (the boundary drain must run first)")
+
     def _park(self, victim: int) -> None:
         """Unload ALL of ``victim``'s blocks to the host store and stall the
         slot: one bulk device -> host copy per plane, page-table row
@@ -676,10 +731,7 @@ class BatchedServeEngine:
         private replacements from the host copy. Runs between segments,
         after the boundary drain: no staged row may be in flight."""
         cache = self.cache
-        if PG.has_ring(cache) and bool((cache["ring_pos"] >= 0).any()):
-            raise RuntimeError(
-                f"host tier: slot {victim} parked with staged rows still in "
-                f"the ring (the boundary drain must run first)")
+        self._check_drained(victim, "parked")
         blocks = list(self.pool.held(victim))
         n = self._slot_pages[victim]
         host_k, host_v = PG.unload_blocks(cache, blocks)
@@ -874,6 +926,7 @@ class BatchedServeEngine:
         for slot in slots:
             if self.pool is not None and not self._parked[slot]:
                 self.pool.free_slot(slot)
+            self._requests.pop(self._slot_req[slot], None)
             self._occupied[slot] = False
             self._slot_req[slot] = -1
             self._slot_plen[slot] = 0
@@ -882,6 +935,7 @@ class BatchedServeEngine:
             self._slot_seq[slot] = -1
             self._slot_hashes[slot] = []
             self._slot_reg[slot] = 0
+            self._slot_priority[slot] = 0
             self._parked[slot] = False
             self._host_store.pop(slot, None)
         if self.pool is not None and slots:
@@ -889,20 +943,150 @@ class BatchedServeEngine:
                 torch.as_tensor(slots, device=self.device).long()] = -1
         self.stats["retired"] += len(slots)
 
+    # -- preempt-and-requeue (sched/preempt, through the host tier) --
+
+    def preempt_slot(self, victim: int, queue: RequestQueue) -> None:
+        """Evict a RUNNING slot and put its request back at the queue head:
+        its blocks unload to the host (the bulk copy ``_park`` makes), its
+        scalars (phase / last token / position / remaining budget / key
+        data) are saved on the host, and the slot retires on the device. On
+        resume (``_try_resume``) everything is restored verbatim into
+        whichever slot is free, so the continued stream is the unpreempted
+        one: the saved key is loaded back, never derived again, and prefill
+        steps never consumed a split. Unlike ``_park`` (which stalls a slot
+        in place) preemption FREES the slot; the request re-enters through
+        admission with its ORIGINAL seniority."""
+        if not self._host_tier:
+            raise RuntimeError(
+                "preempt_slot needs memory.host_tier (the victim's KV "
+                "parks in the host store)")
+        done = self.done_flags()
+        if (not self._occupied[victim] or self._parked[victim]
+                or bool(done[victim])):
+            raise ValueError(
+                f"slot {victim} is not a preemptible running slot")
+        self._check_drained(victim, "preempted")
+        rid = self._slot_req[victim]
+        st = self.slots
+        blocks = list(self.pool.held(victim))
+        host_k, host_v = PG.unload_blocks(self.cache, blocks)
+        self._preempted[rid] = dict(
+            n_pages=self._slot_pages[victim], host_k=host_k, host_v=host_v,
+            phase=int(st.phase[victim]), token=int(st.token[victim]),
+            pos=int(st.pos[victim]), remaining=int(st.remaining[victim]),
+            key=st.key[victim].clone(),
+            seq=self._slot_seq[victim], plen=self._slot_plen[victim],
+            max_new=self._slot_max_new[victim],
+            hashes=self._slot_hashes[victim], reg=self._slot_reg[victim],
+        )
+        self.cache["page_table"][victim] = -1
+        self.pool.free_slot(victim)
+        done_t, rid_t = st.done.clone(), st.req_id.clone()
+        done_t[victim], rid_t[victim] = True, -1
+        self.slots = st._replace(done=done_t, req_id=rid_t)
+        self._occupied[victim] = False
+        self._slot_req[victim] = -1
+        self._slot_plen[victim] = 0
+        self._slot_max_new[victim] = 0
+        self._slot_pages[victim] = 0
+        self._slot_seq[victim] = -1
+        self._slot_hashes[victim] = []
+        self._slot_reg[victim] = 0
+        self._slot_priority[victim] = 0
+        queue.requeue(self._requests[rid])
+        self.stats["preemptions"] += 1
+        self.stats["host_unloads"] += len(blocks)
+
+    def _try_resume(self, slot: int, req) -> bool:
+        """Restore a preempted request into ``slot``: fresh blocks, one bulk
+        host -> device copy per plane, the saved scalars and key written
+        back verbatim. The sampling parameters come again from the
+        request's RESOLVED params (deterministic, so exact). False when the
+        pool cannot cover the saved pages (the request keeps its queue
+        position)."""
+        rid = req.req_id
+        snap = self._preempted[rid]
+        n = snap["n_pages"]
+        got = self._alloc_reclaiming(slot, n, -1)
+        if got is None:
+            return False
+        dev = self.device
+        PG.load_blocks(self.cache, got, snap["host_k"], snap["host_v"])
+        self.cache["page_table"][slot, :n] = torch.as_tensor(
+            got, device=dev).long()
+        if self._in_scan_prefill:
+            padded = np.zeros((self.cfg.max_seq,), np.int64)
+            padded[: req.prompt_len] = req.prompt
+            self.prompts[slot] = torch.as_tensor(padded, device=dev)
+        p = self.req_params[rid]
+        st = self.slots
+        values = dict(
+            phase=snap["phase"], token=snap["token"], pos=snap["pos"],
+            done=False, remaining=snap["remaining"], key=snap["key"],
+            req_id=rid, plen=snap["plen"], temperature=p.temperature,
+            top_k=p.top_k, top_p=p.top_p,
+            stop=torch.as_tensor(SMP.stop_table(p, self.cfg.eos_id)))
+        fields = {}
+        for name, v in values.items():
+            t = getattr(st, name).clone()
+            t[slot] = torch.as_tensor(v, device=dev).to(t.dtype)
+            fields[name] = t
+        self.slots = st._replace(**fields)
+        self._occupied[slot] = True
+        self._slot_req[slot] = rid
+        self._slot_plen[slot] = snap["plen"]
+        self._slot_max_new[slot] = snap["max_new"]
+        self._slot_pages[slot] = n
+        self._slot_seq[slot] = snap["seq"]  # original seniority
+        self._slot_hashes[slot] = snap["hashes"]
+        self._slot_reg[slot] = snap["reg"]
+        self._slot_priority[slot] = req.priority
+        del self._preempted[rid]
+        self.stats["preempt_resumes"] += 1
+        self.stats["host_pageins"] += n
+        return True
+
+    def _maybe_preempt(self, queue: RequestQueue) -> None:
+        """The sched/preempt trigger, run before each admission scan: when
+        every slot is busy and some WAITING request outranks the
+        lowest-priority running slot STRICTLY (equal priorities never
+        displace each other), evict that slot (the youngest among the
+        lowest). One eviction frees one slot, so at most one victim per
+        admission pass."""
+        if not getattr(self._sched, "preempts", False) or len(queue) == 0:
+            return
+        if any(not o for o in self._occupied):
+            return
+        done = self.done_flags()
+        running = [s for s in range(self.cfg.n_slots)
+                   if self._occupied[s] and not self._parked[s]
+                   and not bool(done[s])]
+        if not running:
+            return
+        victim = min(running, key=lambda s: (self._slot_priority[s],
+                                             -self._slot_seq[s]))
+        wait_pri = max(queue.at(i).priority for i in range(len(queue)))
+        if wait_pri > self._slot_priority[victim]:
+            self.preempt_slot(victim, queue)
+
     def admit(self, queue: RequestQueue) -> int:
         """Admit waiting requests into free slots, scanning the queue in the
-        admission policy's order (FIFO). A request whose blocks can't be
-        covered RIGHT NOW is skipped in favour of later ones that fit; it
-        keeps its queue position. Skip-ahead is BOUNDED: after the head
-        request has been passed over ``skip_ahead_limit`` admission rounds
-        in a row, scanning stops at it so freed blocks accumulate for it.
-        Same-prompt-length requests admitted together share one batched
-        prefill; chunked (paged) admission prefills nothing. Returns
-        #admitted."""
+        admission policy's order (``cfg.sched``; FIFO = submission order).
+        A request whose blocks can't be covered RIGHT NOW is skipped in
+        favour of later ones that fit; it keeps its queue position.
+        Skip-ahead is BOUNDED: after the scan-order head has been passed
+        over ``skip_ahead_limit`` admission rounds in a row, scanning stops
+        at it so freed blocks accumulate for it. A preempted request
+        re-entering the queue resumes its saved state. Same-prompt-length
+        requests admitted together share one batched prefill; chunked
+        (paged) admission prefills nothing. Returns #admitted (resumes
+        included)."""
+        self._maybe_preempt(queue)
         picks: List[tuple] = []  # (slot, req, plan)
         free = [s for s in range(self.cfg.n_slots) if not self._occupied[s]]
         order = self._sched.order(queue)
         popped: List[int] = []  # original scan indices already admitted
+        n_resumed = 0
         for k, oi in enumerate(order):
             if not free:
                 break
@@ -924,7 +1108,18 @@ class BatchedServeEngine:
                     raise ValueError(
                         f"request {req.req_id} needs {total} blocks; "
                         f"pool holds {self.pool.n_blocks}")
-            plan = self._admission_plan(free[0], req)
+            if req.req_id in self._preempted:
+                if self._try_resume(free[0], req):
+                    free.pop(0)
+                    queue.pop_at(qi)
+                    popped.append(oi)
+                    n_resumed += 1
+                    if k == 0:
+                        self._skip_rid, self._skip_count = -1, 0
+                    continue
+                plan = None
+            else:
+                plan = self._admission_plan(free[0], req)
             if plan is None:
                 if k == 0:
                     if self._skip_rid != req.req_id:
@@ -942,7 +1137,7 @@ class BatchedServeEngine:
                 self._admit_chunked([p[0] for p in picks],
                                     [p[1] for p in picks],
                                     [p[2] for p in picks])
-            return len(picks)
+            return len(picks) + n_resumed
         # group same-length prompts into one prefill dispatch each
         groups: Dict[int, List[tuple]] = {}
         for p in picks:
@@ -951,7 +1146,7 @@ class BatchedServeEngine:
             self._admit_group([m[0] for m in members],
                               [m[1] for m in members],
                               [m[2] for m in members])
-        return len(picks)
+        return len(picks) + n_resumed
 
     # ------------------------------------------------------------------
     # the serve loop
@@ -989,6 +1184,13 @@ class BatchedServeEngine:
         self.stats["drains"] += dr
         self.stats["prefill_writes"] += pf
         self.stats["segments"] += 1
+        if self.time_model is not None:
+            # virtual time: the segment "took" what the cost model says its
+            # write mix costs; advance BEFORE stamping first tokens, so TTFT
+            # includes the segment that produced them
+            self.clock.advance(self.time_model(
+                {"direct": d, "staged": s, "drains": dr, "prefill": pf,
+                 "committed": int(acts.sum())}))
         first = []
         for slot in range(self.cfg.n_slots):
             if self._occupied[slot]:

@@ -10,7 +10,7 @@ greedy streams, engine stats and per-request write counts (direct / staged
 / prefill), and the port's blocking engine's streams; a pool small enough
 that ``_topup_blocks`` stalls a slot for a segment does too. On the lanes
 layout ``chunked=True`` prefills chunk by chunk at admission. Sampled
-decoding under ``chunked=True`` still raises "not ported yet"."""
+decoding under ``chunked=True`` gives the JAX chunked engine's streams."""
 import jax
 import numpy as np
 import pytest
@@ -130,11 +130,16 @@ def test_chunk_size_is_invisible(setup, chunk_size):
 
 
 def test_sampled_decoding_under_chunked_is_not_ported(setup):
-    """The JAX twin compares sampled streams; the port has greedy decoding
-    only, and ``chunked=True`` does not change that."""
-    _, _, _, tmodel = setup
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _engine(tmodel, True, greedy=False)
+    """Once refused, now ported: ``greedy=False`` (temperature 1 for every
+    request) under ``chunked=True`` gives the JAX chunked engine's sampled
+    streams and stats, and the port's blocking engine's streams (prefill
+    steps consume no key)."""
+    _, jmodel, jparams, tmodel = setup
+    out = _engine(tmodel, True, greedy=False).serve(_queue())
+    jeng = _jax_engine(jmodel, jparams, True, greedy=False)
+    _assert_same(out, jeng.serve(jax_requests(N_REQ, PLENS, 256, MAX_NEW,
+                                              seed=3)))
+    _assert_same(out, _engine(tmodel, False, greedy=False).serve(_queue()))
 
 
 def test_eos_and_budget_retirement_through_chunked(setup):

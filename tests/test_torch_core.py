@@ -13,6 +13,7 @@ from repro.core import paths as jpaths
 from repro.core import policy as jpolicy
 from repro.core import ring as jring
 from repro.core import types as jtypes
+from repro.models.sampling import SamplingParams as JaxSamplingParams
 from repro.serve.scheduler import BatchConfig as JaxBatchConfig
 from repro_torch.core import monitor as tmon
 from repro_torch.core import paths as tpaths
@@ -280,20 +281,34 @@ NOT_PORTED = {
 }
 # once raised, now ported: validate resolves them as the JAX package does
 NOW_PORTED = {"policy-hysteresis", "chunked", "lanes", "prefix-cache",
-              "host-tier"}
+              "host-tier", "sched-priority", "sched-deadline",
+              "sched-preempt", "sampled"}
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
 def test_validate_raises_on_unported_feature(name):
-    cfg = EngineConfig(max_seq=32, device="cpu", **NOT_PORTED[name])
+    kw = dict(NOT_PORTED[name])
+    if name == "sched-preempt":
+        # preemption parks through the host tier: both refuse it without
+        with pytest.raises(ValueError, match="host_tier"):
+            tpaths.validate(EngineConfig(max_seq=32, device="cpu",
+                                         **kw).batch_config())
+        with pytest.raises(ValueError, match="host_tier"):
+            jpaths.validate(JaxBatchConfig(max_seq=32, **kw))
+        kw["memory"] = tpaths.MemoryConfig(host_tier=True)
+    cfg = EngineConfig(max_seq=32, device="cpu", **kw)
     if name in NOW_PORTED:
         plan = tpaths.validate(cfg.batch_config())
-        jkw = dict(NOT_PORTED[name])
+        jkw = dict(kw)
         if "memory" in jkw:     # the JAX package's own MemoryConfig
             jkw["memory"] = jpaths.MemoryConfig(
                 prefix_cache=jkw["memory"].prefix_cache,
                 host_tier=jkw["memory"].host_tier)
+        if "default_params" in jkw:  # and its own SamplingParams
+            jkw["default_params"] = JaxSamplingParams(
+                temperature=jkw["default_params"].temperature)
         jplan = jpaths.validate(JaxBatchConfig(max_seq=32, **jkw))
+        assert plan.sched.name == jplan.sched.name
         t, j = plan.decision.policy, jplan.decision.policy
         assert type(t).__name__ == type(j).__name__
         assert (plan.layout, plan.path.name, plan.n_regions) == (

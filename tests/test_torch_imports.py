@@ -53,7 +53,9 @@ def test_package_has_every_ported_module():
             "core/ring.py", "core/monitor.py", "core/policy.py",
             "core/decision.py", "core/paths.py", "models/layers.py",
             "models/transformer.py", "models/model.py", "models/sampling.py",
-            "kvcache/paged.py", "data/pipeline.py", "serve/traffic/sched.py",
+            "models/prng.py", "kvcache/paged.py", "data/pipeline.py",
+            "serve/traffic/sched.py", "serve/traffic/workload.py",
+            "serve/traffic/harness.py",
             "serve/scheduler.py", "serve/api.py", "launch/serve.py",
             "checkpoint/checkpoint.py"]
     missing = [w for w in want if not os.path.isfile(os.path.join(PKG, w))]
@@ -174,6 +176,24 @@ def test_unported_archs_and_families_raise():
         build_model(moe)
 
 
+def test_media_requests_still_not_ported():
+    """A request with media (the VLM / audio families) is refused at
+    admission; no ported family takes media."""
+    res = _run(
+        "import numpy as np, pytest\n"
+        "from repro_torch.data import RequestQueue\n"
+        "from repro_torch.serve import Engine, EngineConfig\n"
+        "eng = Engine.from_config(EngineConfig(max_seq=32, n_slots=2, "
+        "arch='stablelm-1.6b', device='cpu'))\n"
+        "q = RequestQueue()\n"
+        "q.submit(np.arange(4), 4, media=np.zeros((2, 3), np.float32))\n"
+        "with pytest.raises(NotImplementedError, match='not ported yet'):\n"
+        "    eng.serve(q)\n"
+        "print('refused')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("refused")
+
+
 def test_launcher_downgrades_the_write_mode_on_lanes():
     """A sliding-window arch serves from the direct-only lanes layout: the
     CLI downgrades --write-mode as the JAX launcher does, and serves."""
@@ -186,3 +206,39 @@ def test_launcher_downgrades_the_write_mode_on_lanes():
     assert "downgrading --write-mode staged -> direct" in res.stdout
     assert "[lanes, reference, cpu] served 3 requests / 18 tokens" \
         in res.stdout
+
+
+def test_new_modules_import_no_jax_when_loaded():
+    """The key chain, the sampler and the traffic stack load without JAX or
+    the JAX package, and ``chip_smoke.py`` imports neither."""
+    res = _run(
+        "import sys\n"
+        "import repro_torch.models.prng, repro_torch.models.sampling\n"
+        "import repro_torch.serve.traffic as T\n"
+        "import repro_torch.serve.traffic.workload, "
+        "repro_torch.serve.traffic.harness\n"
+        "assert T.run_loadtest and T.PreemptAdmission\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{BANNED!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    for rel in ("models/prng.py", "serve/traffic/workload.py",
+                "serve/traffic/harness.py", "serve/traffic/sched.py"):
+        assert not _imported_roots(os.path.join(PKG, rel)) & set(BANNED)
+
+
+def test_launcher_samples_on_cpu_when_asked():
+    """``--temperature`` / ``--top-k`` / ``--top-p`` / ``--seed`` reach the
+    requests' SamplingParams: a sampled run serves, and the same seed gives
+    the same tokens."""
+    code = ("from repro_torch.launch.serve import main\n"
+            "main(['--arch', 'stablelm-1.6b', '--device', 'cpu', "
+            "'--batched', '--requests', '3', '--slots', '2', "
+            "'--prompt-len', '8', '--gen-len', '5', '--max-seq', '32', "
+            "'--segment-len', '4', '--page-size', '4', '--temperature', "
+            "'0.8', '--top-k', '20', '--top-p', '0.9', '--seed', '3'])\n")
+    res = _run(code)
+    assert res.returncode == 0, res.stderr
+    assert "served 3 requests / 15 tokens" in res.stdout

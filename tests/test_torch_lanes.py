@@ -237,17 +237,18 @@ def test_lanes_refuses_staged_paths(torch_h2o, path):
 
 
 def test_lanes_refuses_chunked_and_paged_on_swa(torch_h2o):
-    """``chunked=True`` serves on lanes (``tests/test_torch_chunked.py``);
-    chunked with sampled decoding is still refused, and the paged layout
-    always is for a sliding-window arch."""
+    """``chunked=True`` serves on lanes (``tests/test_torch_chunked.py``),
+    with sampled decoding too (once refused, now ported:
+    ``tests/test_torch_sampling.py`` holds its streams to JAX's); the paged
+    layout is always refused for a sliding-window arch."""
     eng = Engine.from_config(EngineConfig(path="direct", device="cpu",
                                           max_seq=64, chunked=True),
                              torch_h2o)
     assert eng.layout == "lanes" and eng.scheduler.prompts is None
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        Engine.from_config(EngineConfig(
-            path="direct", device="cpu", max_seq=64, chunked=True,
-            default_params=SamplingParams(temperature=0.7)), torch_h2o)
+    sampled = Engine.from_config(EngineConfig(
+        path="direct", device="cpu", max_seq=64, chunked=True,
+        default_params=SamplingParams(temperature=0.7)), torch_h2o)
+    assert sampled.layout == "lanes" and not sampled.scheduler.cfg.greedy
     with pytest.raises(ValueError, match="lanes"):
         Engine.from_config(EngineConfig(path="direct", device="cpu",
                                         max_seq=64, kv_layout="paged"),

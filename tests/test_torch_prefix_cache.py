@@ -331,10 +331,23 @@ def test_validate_accepts_what_jax_accepts(layout, chunked):
     ("parallel", dict(parallel=True)), ("spec", dict(spec=True)),
     ("sched", dict(sched="sched/preempt")), ("sampled", dict(greedy=False))])
 def test_other_features_still_not_ported_with_the_memory_tier(what, kw):
+    """``parallel`` and ``spec`` still raise beside the memory tier;
+    preemption and sampled decoding, once refused, now validate with it as
+    in the JAX package."""
     mem = MemoryConfig(prefix_cache=True, host_tier=True)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        validate(BatchConfig(max_seq=32, chunked=True, memory=mem,
-                             device="cpu", **kw))
+    cfg = BatchConfig(max_seq=32, chunked=True, memory=mem, device="cpu",
+                      **kw)
+    if what in ("parallel", "spec"):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            validate(cfg)
+        return
+    plan = validate(cfg)
+    jplan = jax_validate(JaxBatchConfig(
+        max_seq=32, chunked=True, **kw,
+        memory=JaxMemoryConfig(prefix_cache=True, host_tier=True)))
+    assert (plan.sched.name, plan.sched.preempts) == (
+        jplan.sched.name, jplan.sched.preempts)
+    assert (plan.memory.prefix_cache, plan.memory.host_tier) == (True, True)
 
 
 # ---------------------------------------------------------------------------
