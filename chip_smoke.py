@@ -17,11 +17,27 @@ Phases, each failing the run on any exception or mismatch:
            at the prefix cache's mixed step (every slot's 64 leading pages
            the same blocks, a cursor past the cached rows, a 1-row chunk at
            ``plen - 1``) under ``prefix_shape``, and such aliased page
-           tables among its checked cases
+           tables among its checked cases; flash_decode_paged_sharded (one
+           K2 launch per head shard) on virtual meshes of the card, equal
+           to unsharded K2 (``torch.equal``) for the head geometries of
+           stablelm-1.6b, qwen2-7b and nemotron-4-15b at tp 2-8, C = 1 and
+           16, with and without the ring, fp32 and bf16, and at the main
+           path's own shapes (the engine's decode step and the chunked
+           mixed step at tp 2 and 4), then checked and timed at the
+           engine's shape at tp 4
   engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
            a seed) serves 16 requests through ``Engine.from_config`` on the
            paged layout; the launch counts of staged_scatter,
            flash_decode_paged and flash_attention must be non-zero
+  engine_sharded  the engine's configuration with ``attention='fused'``
+           on a tp-4 virtual mesh of the card (``ParallelConfig.tensor(4)``,
+           ``REPRO_TORCH_VIRTUAL_DEVICES``): the pool and ring split on the
+           head axis ([24, n_blocks+1, 16, 8, 64] a shard); streams, stats
+           and path counts equal the engine phase's, K1 and K2 launches 4x
+           its; a decode segment profiled against the engine's. Then tp 2,
+           chunked at 16 with the prefix cache and the host tier on the
+           staged path over a pool tight enough to park: equal to the same
+           engine unsharded, every restore read back bit-equal
   engine_chunked  the same with ``chunked=True, chunk_size=16``: prompts
            prefilled inside mixed-phase segments; staged_scatter and
            flash_decode_paged launched, flash_attention never; every prompt
@@ -137,6 +153,9 @@ from repro_torch.core import (AlwaysOffload, AlwaysUnload,  # noqa: E402
                               register, zipf_regions)
 from repro_torch.kernels.cms import cms_hash  # noqa: E402
 from repro_torch.data import synthetic_requests  # noqa: E402
+from repro_torch.distributed import (VIRTUAL_DEVICES_ENV, Mesh,  # noqa: E402
+                                     NamedSharding, ParallelConfig,
+                                     ShardedTensor)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  cms_update, cms_update_query,
@@ -144,6 +163,8 @@ from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  flash_attention,
                                  flash_attention_ref, flash_decode,
                                  flash_decode_paged, flash_decode_paged_ref,
+                                 flash_decode_paged_sharded,
+                                 flash_decode_paged_sharded_ref,
                                  flash_decode_ref, launch_counts,
                                  reset_launch_counts, staged_scatter,
                                  staged_scatter_layers, staged_scatter_ref)
@@ -186,6 +207,14 @@ HOST_LENS, HOST_BLOCKS = [512, 1024, 1536, 1792], 320
 HOST_SHARED = 512
 # PCIe Gen5 x16, one direction: the host link's bound
 PCIE_BYTES_PER_S = 64e9
+# mesh-sharded serving on virtual meshes of the one card: the engine's
+# configuration at tp 4 (fused read); then tp 2, chunked at 16 with the
+# prefix cache and the host tier on the staged path, 12 requests of 512 /
+# 768 tokens (every prompt opening with the same 512) over 160 blocks, a
+# working set of 8 live slots of 33 / 49 pages
+SHARDED_TP = 4
+SHARDED_MEM = dict(tp=2, lens=[512, 768], requests=12, new_tokens=16,
+                   n_blocks=160, shared=512)
 # the lanes slice: the sliding-window model; max_seq 6144 makes the cache
 # 4096 = the window, and 4608-token prompts exceed it, so prefill masks with
 # the window, the cache keeps a rolled ring and decode wraps it
@@ -763,6 +792,220 @@ def time_k2(gen):
     return t, dict(slice=_k2_facts(slice_args), engine=_k2_facts(engine_args),
                    chunk=_k2_facts(chunk_args),
                    prefix=_k2_facts(prefix_args), split_plan=split_plan)
+
+
+# (arch, Hq, Hkv, D, tp values): the head geometries of the three paged
+# archs at full width, at every mesh size whose model axis divides both
+K2_SHARDED_GEOMS = [("stablelm-1.6b", 32, 32, 64, (2, 4, 8)),
+                    ("qwen2-7b", 28, 4, 128, (2, 4)),
+                    ("nemotron-4-15b", 48, 8, 128, (2, 4, 8))]
+
+
+def _virtual_mesh(tp):
+    """A 1-D ``model`` mesh of ``tp`` virtual devices, all the card."""
+    return Mesh([DEV] * tp, (tp,), ("model",))
+
+
+def _place_heads(args, mesh):
+    """K2's operands with the pool and ring planes split on their head axis
+    over ``mesh`` (as the sharded engine holds them)."""
+    q, pk, pv, blocks, view_ok, rk, rv, rok = args
+    sharding = NamedSharding(mesh, (None, None, "model", None))
+
+    def place(t):
+        return None if t is None else ShardedTensor.place(t, sharding)
+    return (q, place(pk), place(pv), blocks, view_ok, place(rk), place(rv),
+            rok)
+
+
+def _check_k2_sharded_at(what, args, mesh):
+    """The sharded read at a main-path shape (bf16 operands, as the engine
+    holds them), the pool and ring placed on ``mesh``: in bf16 and on the
+    fp32 upcast it equals unsharded K2 (``torch.equal``); in fp32 it is
+    within TOL_F32 of its plain version; in bf16 within TOL_BF16 of it and
+    held by ``held_bf16`` to the plain version run in fp32. Returns the
+    largest error against the plain version (fp32, bf16)."""
+    what = f"flash_decode_paged_sharded {what}"
+    out = []
+    for xs in (_as_f32(args), args):
+        placed = _place_heads(xs, mesh)
+        got = flash_decode_paged_sharded(mesh, *placed)
+        whole = flash_decode_paged(*xs)
+        plain = flash_decode_paged_sharded_ref(mesh, *placed)
+        torch.cuda.synchronize()
+        if not torch.equal(got, whole):
+            diff = (got.float() - whole.float()).abs().max()
+            raise AssertionError(f"{what} {got.dtype}: not equal to "
+                                 f"unsharded K2, max diff {float(diff)}")
+        tol = TOL_F32 if got.dtype == torch.float32 else TOL_BF16
+        torch.testing.assert_close(got.float(), plain.float(), **tol,
+                                   msg=lambda m: f"{what} {got.dtype}: {m}")
+        out.append((got, plain))
+    (_, ref32), (got, plain) = out
+    b, c, hq, d = got.shape
+    rows = [x.reshape(b, c * hq, d) for x in (got, plain, ref32)]
+    held_bf16("flash_decode_paged_sharded", what, *rows, K2_ROWS)
+    return (float((out[0][0] - ref32).abs().max()),
+            float((got.float() - plain.float()).abs().max()))
+
+
+def check_k2_sharded(gen):
+    """``flash_decode_paged_sharded`` on virtual meshes of the card: equal
+    to unsharded K2 on the same operands (``torch.equal``: each shard's
+    launch takes the whole shape's split count) and within TOL_F32 /
+    TOL_BF16 of its plain version (the loop over the plain K2), on small
+    shapes of every geometry and on the main path's own shapes
+    (``_check_k2_sharded_at``); a model axis that does not divide the heads
+    raises. Returns (cases, the largest error against the plain version by
+    dtype)."""
+    errs = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    cases = 0
+    for arch, hq, hkv, d, tps in K2_SHARDED_GEOMS:
+        for c in (1, CHUNK):
+            for r in (8, 0):
+                for dtype, tol in ((torch.float32, TOL_F32),
+                                   (torch.bfloat16, TOL_BF16)):
+                    args = _k2_inputs(gen, dtype, 3, c, hq, hkv, d, 40, 16,
+                                      12, r)
+                    whole = flash_decode_paged(*args)
+                    for tp in tps:
+                        mesh = _virtual_mesh(tp)
+                        placed = _place_heads(args, mesh)
+                        got = flash_decode_paged_sharded(mesh, *placed)
+                        plain = flash_decode_paged_sharded_ref(mesh, *placed)
+                        torch.cuda.synchronize()
+                        what = (f"flash_decode_paged_sharded {arch} tp {tp} "
+                                f"C={c} R={r} {dtype}")
+                        if not torch.equal(got, whole):
+                            diff = (got.float() - whole.float()).abs().max()
+                            raise AssertionError(
+                                f"{what}: not equal to unsharded K2, max "
+                                f"diff {float(diff)}")
+                        torch.testing.assert_close(
+                            got.float(), plain.float(), **tol,
+                            msg=lambda m: f"{what}: {m}")
+                        errs[dtype] = max(errs[dtype], float(
+                            (got.float() - plain.float()).abs().max()))
+                        cases += 1
+    # the shapes the main path gives it: the engine's decode step at the
+    # engine_sharded tp and the memory arm's, the mixed-phase chunk step at
+    # both
+    for what, make in (("engine shape", _k2_engine_inputs),
+                       ("chunk shape", _k2_chunk_inputs)):
+        for tp in sorted({SHARDED_TP, SHARDED_MEM["tp"]}):
+            err32, err = _check_k2_sharded_at(
+                f"{what}, tp {tp}", make(gen), _virtual_mesh(tp))
+            errs[torch.float32] = max(errs[torch.float32], err32)
+            errs[torch.bfloat16] = max(errs[torch.bfloat16], err)
+            cases += 2
+    args = _k2_inputs(gen, torch.bfloat16, 2, 1, 6, 2, 64, 12, 4, 5, 4)
+    try:
+        flash_decode_paged_sharded(_virtual_mesh(4), *args)
+    except ValueError as e:
+        if "divide" not in str(e):
+            raise
+    else:
+        raise AssertionError("flash_decode_paged_sharded took Hq=6, Hkv=2 "
+                             "on a model axis of 4")
+    return cases + 1, errs
+
+
+def kernel_ms(fn, what, kernel, reps=20):
+    """Mean device time a call of the kernels named ``kernel`` alone, from
+    the profiler's trace of ``reps`` calls; None when no trace holds a
+    device event. Raises when a trace holds device time but none of it is
+    ``kernel``'s."""
+    fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+    rows = trace_rows(run, what)
+    if not rows:
+        return None
+    ms = sum(r[0] for r in rows if kernel in r[2]) / reps / 1e3
+    if ms <= 0:
+        raise AssertionError(f"{what}: the trace holds no {kernel} time: "
+                             f"{[r[2] for r in rows[:8]]}")
+    return ms
+
+
+def time_k2_sharded(gen):
+    """At the engine's decode shape (``_k2_engine_inputs``) on a tp-4
+    virtual mesh, the pool and ring placed on their head axis: ``ms`` the
+    sum of the four K2 launches' device time a call, ``wrapper_ms`` the
+    wrapper's whole device time (with the q slices and the join),
+    ``unsharded_ms`` one K2 launch on the same operands; the plain version
+    (the loop over the plain K2) and the library yardstick (per shard a
+    gathered view and one SDPA call); the bound is K2's, the bytes of the
+    live keys, which sharding does not change."""
+    args = _k2_engine_inputs(gen)
+    mesh = _virtual_mesh(SHARDED_TP)
+    placed = _place_heads(args, mesh)
+    q, pk, pv, blocks, view_ok, rk, rv, rok = args
+    b, c, hq, d = q.shape
+    ps, r = pk.shape[1], rk.shape[1]
+    hs = hq // SHARDED_TP
+
+    def kernel():
+        return flash_decode_paged_sharded(mesh, *placed)
+
+    def plain():
+        return flash_decode_paged_sharded_ref(mesh, *placed)
+
+    def library():
+        # yardstick only: per shard a gathered view + one PyTorch attention
+        rows = (blocks.long()[:, :, None] * ps
+                + torch.arange(ps, device=DEV)[None, None]).reshape(b, -1)
+        mask = torch.cat([view_ok, rok[:, None, :].expand(b, c, r)], 2)
+        outs = []
+        for j in range(SHARDED_TP):
+            pkj, pvj = placed[1].shards[j], placed[2].shards[j]
+            rkj, rvj = placed[5].shards[j], placed[6].shards[j]
+            h = pkj.shape[2]
+            k = torch.cat([pkj.reshape(-1, h, d)[rows], rkj], 1)
+            v = torch.cat([pvj.reshape(-1, h, d)[rows], rvj], 1)
+            outs.append(F.scaled_dot_product_attention(
+                q[:, :, j * hs:(j + 1) * hs].transpose(1, 2),
+                k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask[:, None]))
+        return torch.cat(outs, 1)
+    got, whole = kernel(), flash_decode_paged(*args)
+    torch.cuda.synchronize()
+    if not torch.equal(got, whole):
+        raise AssertionError("flash_decode_paged_sharded at the timed engine "
+                             "shape: not equal to unsharded K2")
+    torch.testing.assert_close(
+        got.float(), plain().float(), **TOL_BF16,
+        msg=lambda m: f"flash_decode_paged_sharded timed shape: {m}")
+    t = timings("flash_decode_paged_sharded", kernel, plain, library)
+    t["wrapper_ms"] = t["ms"]
+    ms = kernel_ms(kernel, "flash_decode_paged_sharded K2 launches",
+                   "paged_decode_kernel")
+    if ms is not None:
+        t["ms"], t["ms_of"] = ms, (f"the {SHARDED_TP} K2 launches' own "
+                                   f"device time, profiler trace")
+    else:
+        # no trace: CUDA events around the bare launches on pre-cut slices
+        n_split = FD.paged_splits(
+            torch.cuda.get_device_properties(DEV).multi_processor_count, b,
+            c, hq, pk.shape[2], d, blocks.shape[1], ps, r, q.element_size())
+        shards = [(q[:, :, j * hs:(j + 1) * hs].contiguous(),
+                   *(placed[i].shards[j] for i in (1, 2)), blocks, view_ok,
+                   *(placed[i].shards[j] for i in (5, 6)), rok)
+                  for j in range(SHARDED_TP)]
+
+        def bare():
+            for xs in shards:
+                flash_decode_paged(*xs, n_split=n_split)
+        t["ms"] = time_ms(bare)
+        t["ms_of"] = (f"CUDA events around the {SHARDED_TP} bare K2 "
+                      f"launches, host gaps in (no profiler trace)")
+    t["unsharded_ms"] = device_ms(lambda: flash_decode_paged(*args),
+                                  "flash_decode_paged unsharded twin")
+    t["tp"] = SHARDED_TP
+    t["shape"] = _k2_facts(args)["shape"] + f", tp {SHARDED_TP}"
+    return dict(**t, **_k2_bound(args))
 
 
 def _k2_chunk_inputs(gen, dtype=torch.bfloat16, empty_slot=False):
@@ -1604,6 +1847,8 @@ def phase_kernels():
     cms_t = time_cms(timed_gen(105))
     fused_t, step_t = time_cms_fused(timed_gen(106))
     k3_t["chunk_shape"] = time_k3_chunk(timed_gen(107))
+    k2s_cases, k2s_errs = check_k2_sharded(timed_gen(108))
+    k2s_t = time_k2_sharded(timed_gen(109))
     say("cms_monitor_step", **step_t)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
@@ -1634,6 +1879,10 @@ def phase_kernels():
         flash_decode_paged_slice=k2_slice,
         flash_decode_paged_engine_shape=k2_engine,
         flash_decode_paged_chunk_shape=k2_chunk,
+        flash_decode_paged_sharded_cases=k2s_cases,
+        flash_decode_paged_sharded_equal_unsharded=True,
+        flash_decode_paged_sharded_max_abs_err_f32=k2s_errs[torch.float32],
+        flash_decode_paged_sharded_max_abs_err_bf16=k2s_errs[torch.bfloat16],
         flash_attention_chunk_shape=k3_chunk,
         flash_attention_shape=k3_t.pop("shape"),
         flash_attention_live_pairs_per_head=k3_t.pop("live_pairs_per_head"),
@@ -1670,6 +1919,11 @@ def phase_kernels():
              source="src/repro_torch/kernels/csrc/flash_decode_paged.cu",
              replaces="src/repro/kernels/flash_decode.py:135",
              launches=None, max_abs_err=max(k2_errs.values()), **k2_t),
+        dict(name="flash_decode_paged_sharded", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_decode_paged.cu",
+             wrapper="src/repro_torch/kernels/flash_decode.py",
+             replaces="src/repro/kernels/flash_decode.py:207",
+             launches=None, max_abs_err=max(k2s_errs.values()), **k2s_t),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:83",
@@ -1762,7 +2016,8 @@ def phase_engine(kernels):
     profile = engine_profile(eng, cfg, SLICE, PROMPT_LENS)
     del eng
     torch.cuda.empty_cache()
-    return dict(outputs=run["outputs"], report=run["report"], profile=profile)
+    return dict(outputs=run["outputs"], comps=run["comps"],
+                report=run["report"], profile=profile)
 
 
 def phase_engine_chunked(kernels, blocking):
@@ -1805,6 +2060,178 @@ def phase_engine_chunked(kernels, blocking):
         blocking_profile=blocking["profile"])
     del eng
     torch.cuda.empty_cache()
+
+
+class virtual_devices:
+    """``REPRO_TORCH_VIRTUAL_DEVICES=n`` around engine builds: meshes of
+    ``n`` virtual devices, all the card."""
+
+    def __init__(self, n):
+        self.n, self.old = n, None
+
+    def __enter__(self):
+        self.old = os.environ.get(VIRTUAL_DEVICES_ENV)
+        os.environ[VIRTUAL_DEVICES_ENV] = str(self.n)
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            os.environ.pop(VIRTUAL_DEVICES_ENV, None)
+        else:
+            os.environ[VIRTUAL_DEVICES_ENV] = self.old
+
+
+def _payload(outputs, comps, stats):
+    """What sharded serving must reproduce: streams, per-request path
+    counts, stats."""
+    return ({r: t.tolist() for r, t in outputs.items()},
+            {r: c.path_counts for r, c in comps.items()}, dict(stats))
+
+
+def _placement_problems(sch, tp, what):
+    """Each shard of the pool and ring ``[L, ., ., H / tp, Dh]`` on its own
+    mesh device; the decision plane whole on the lead."""
+    out = []
+    mesh, cache, mcfg = sch.mesh, sch.cache, sch.model.cfg
+    h, dh, l = mcfg.n_kv_heads, mcfg.resolved_head_dim, mcfg.n_layers
+    want = {"pages_k": (l, sch.n_blocks + 1, sch.cfg.page_size, h // tp, dh),
+            "ring_k": (l, sch.cfg.n_slots, sch.cfg.ring_size, h // tp, dh)}
+    want["pages_v"], want["ring_v"] = want["pages_k"], want["ring_k"]
+    for name, shape in want.items():
+        x = cache[name]
+        if not isinstance(x, ShardedTensor) or len(x.shards) != tp:
+            out.append(f"{what}: {name} is not split in {tp}: {x!r}")
+            continue
+        for i, piece in enumerate(x.shards):
+            if tuple(piece.shape) != shape or piece.device != mesh.devices[i]:
+                out.append(f"{what}: {name} shard {i} is {tuple(piece.shape)}"
+                           f" on {piece.device}, want {shape} on "
+                           f"{mesh.devices[i]}")
+    for name in ("page_table", "ring_pos"):
+        if not isinstance(cache[name], torch.Tensor):
+            out.append(f"{what}: {name} is not whole")
+    return out
+
+
+def _sharded_memory_arm(cfg, model):
+    """SHARDED_MEM: the same tight engine unsharded and at tp 2, each run's
+    parks and restores timed and every restore read back against what was
+    parked, shard by shard."""
+    m = SHARDED_MEM
+    sp = SamplingParams(max_tokens=m["new_tokens"])
+    shape = dict(SLICE, path="staged", chunked=True, chunk_size=CHUNK,
+                 n_blocks=m["n_blocks"],
+                 memory=MemoryConfig(prefix_cache=True, host_tier=True))
+    runs, problems = {}, []
+    for tp in (1, m["tp"]):
+        with virtual_devices(tp):
+            eng = Engine.from_config(EngineConfig(
+                **shape, parallel=ParallelConfig.tensor(tp)), model)
+        sch = eng.scheduler
+        log, bad = [], []
+        unwrap = _time_block_moves(log, bad)
+        try:
+            reset_launch_counts()
+            out, comps, secs = _serve_once(eng, synthetic_requests(
+                m["requests"], m["lens"], cfg.vocab, m["new_tokens"],
+                params=sp, shared_prefix=m["shared"]))
+            counts = launch_counts()
+        finally:
+            unwrap()
+        st = dict(eng.stats)
+        runs[tp] = dict(payload=_payload(out, comps, st), counts=counts)
+        if tp > 1:
+            problems += _placement_problems(sch, tp, f"memory arm tp {tp}")
+        if bad:
+            problems.append(f"memory arm tp {tp}: restores differ: {bad}")
+        if not (st["host_unloads"] > 0 and st["prefix_hit_rows"] > 0):
+            problems.append(f"memory arm tp {tp}: nothing parked or hit: "
+                            f"{st}")
+        if any(sch._parked) or sch._host_store:
+            problems.append(f"memory arm tp {tp}: a slot ended parked")
+        sch.pool.audit()
+        runs[tp]["report"] = dict(
+            seconds=secs, stats=st, launches=counts,
+            moves=_moves_summary(log, _block_bytes(sch.cache)),
+            restores_read_back_equal=not bad)
+        del eng, sch
+        torch.cuda.empty_cache()
+    one, two = runs[1], runs[m["tp"]]
+    same = one["payload"] == two["payload"]
+    if not same:
+        problems.append(f"memory arm: tp {m['tp']} differs from unsharded: "
+                        f"streams {one['payload'][0] == two['payload'][0]}, "
+                        f"path counts "
+                        f"{one['payload'][1] == two['payload'][1]}, stats "
+                        f"{one['payload'][2]} vs {two['payload'][2]}")
+    for k in ("staged_scatter", "flash_decode_paged"):
+        if two["counts"][k] != m["tp"] * one["counts"][k]:
+            problems.append(f"memory arm: {k} launches {two['counts'][k]} "
+                            f"!= {m['tp']} x {one['counts'][k]}")
+    return dict(config=dict(SHARDED_MEM, chunk_size=CHUNK, path="staged"),
+                equal_unsharded=same, unsharded=one["report"],
+                sharded=two["report"]), problems
+
+
+def phase_engine_sharded(kernels, blocking):
+    """The engine phase's configuration (stablelm-1.6b at full width and
+    depth, bf16, 16 requests, adaptive) with ``attention='fused'`` on a
+    tp-4 virtual mesh of the card: each shard's pool ``[24, n_blocks + 1,
+    16, 8, 64]`` on its device, the decision plane whole; streams, stats
+    and per-request path counts equal to the engine phase's first timed
+    run (the same configuration, weights, warm-up and requests); K1 and K2
+    launched 4x as often (each drain and each read once per shard), K3 as
+    often. One decode segment profiled against the engine phase's. Then
+    the memory arm (``_sharded_memory_arm``)."""
+    cfg = get_config(SLICE["arch"])
+    tp = SHARDED_TP
+    shape = dict(SLICE, attention="fused")
+    with virtual_devices(tp):
+        eng = Engine.from_config(EngineConfig(
+            **shape, parallel=ParallelConfig.tensor(tp)))
+    sch = eng.scheduler
+    run = _serve_timed(eng, cfg, NEW_TOKENS, 1)
+    problems = _placement_problems(sch, tp, f"tp {tp}")
+    got = _payload(run["outputs"], run["comps"], run["stats"])
+    want = _payload(blocking["outputs"], blocking["comps"],
+                    blocking["report"]["stats"])
+    for what, a, b in zip(("streams", "path counts", "stats"), got, want):
+        if a != b:
+            problems.append(f"tp {tp}: {what} differ from the unsharded "
+                            f"engine's")
+    counts, base = run["counts"], blocking["report"]["launches"]
+    for k, times in (("staged_scatter", tp), ("flash_decode_paged", tp),
+                     ("flash_attention", 1)):
+        if counts[k] != times * base[k]:
+            problems.append(f"tp {tp}: {k} launched {counts[k]} times, not "
+                            f"{times} x {base[k]}")
+    # row 7's launches: K2's count in this run, every one a shard's launch
+    # of the sharded read
+    sharded_row = next(k for k in kernels
+                       if k["name"] == "flash_decode_paged_sharded")
+    sharded_row["launches"] = counts["flash_decode_paged"]
+    if sharded_row["launches"] <= 0:
+        problems.append(f"tp {tp}: the sharded read never launched K2")
+    profile = engine_profile(eng, cfg, SLICE, PROMPT_LENS)
+    del eng, sch
+    torch.cuda.empty_cache()
+    _, model = _slice_model()
+    mem, found = _sharded_memory_arm(cfg, model)
+    problems += found
+    sharded_row["launches_memory_arm"] = mem["sharded"]["launches"][
+        "flash_decode_paged"]
+    del model
+    torch.cuda.empty_cache()
+    unsharded = blocking["profile"]
+    say("engine_sharded", tp=tp, config=dict(shape, parallel=f"tensor({tp})"),
+        virtual_devices=True, equal_unsharded=not problems, **run["report"],
+        unsharded_tok_per_s=blocking["report"]["tok_per_s"],
+        unsharded_launches=base, profile=profile,
+        unsharded_profile={k: unsharded[k] for k in (
+            "step_ms", "device_ms_per_step", "device_ops_per_step",
+            "device_busy_share")},
+        memory_arm=mem)
+    if problems:
+        raise AssertionError("engine_sharded: " + "; ".join(problems))
 
 
 def take_launches(kernels, counts, names):
@@ -2072,7 +2499,15 @@ def _time_block_moves(log, bad):
         out = timed("restore", load, cache, blocks, host_k, host_v)
         bl = torch.as_tensor(list(blocks), device=DEV).long()
         for plane, host in (("pages_k", host_k), ("pages_v", host_v)):
-            if not torch.equal(cache[plane][:, bl].cpu(), host):
+            x = cache[plane]
+            if isinstance(x, ShardedTensor):
+                # every shard holds its head slice of the parked blocks
+                got = [(p[:, bl].cpu(), host[..., sl, :])
+                       for p, (_, sl) in zip(x.shards,
+                                             x.slices(host.shape[3]))]
+            else:
+                got = [(x[:, bl].cpu(), host)]
+            if not all(torch.equal(a, h) for a, h in got):
                 bad.append(f"{plane} of blocks {list(blocks)[:4]}...")
         return out
 
@@ -3337,6 +3772,7 @@ def main():
     timed("build", phase_build)
     kernels = timed("kernels", phase_kernels)
     blocking = timed("engine", phase_engine, kernels)
+    timed("engine_sharded", phase_engine_sharded, kernels, blocking)
     timed("engine_chunked", phase_engine_chunked, kernels, blocking)
     timed("engine_prefix", phase_engine_prefix, kernels)
     timed("engine_host_tier", phase_engine_host_tier, kernels)

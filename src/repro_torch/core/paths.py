@@ -8,12 +8,13 @@ decisions it can absorb (``capabilities``); engines are configured from
 registry. :func:`validate` is the one config -> plan entry point.
 
 Features of the JAX package's ``validate`` that are not ported yet raise
-``NotImplementedError("not ported yet: ...")`` at config time: the
-``parallel`` mesh, ``spec`` (speculative decoding) and
-``AttentionConfig.drain_kernel`` (in this package the device decides: a CUDA
-tensor drains through the kernel, a CPU tensor through its plain version).
-As in the JAX package, ``sched="sched/preempt"`` without
-``memory.host_tier`` raises ``ValueError``.
+``NotImplementedError("not ported yet: ...")`` at config time: ``spec``
+(speculative decoding) and ``AttentionConfig.drain_kernel`` (in this package
+the device decides: a CUDA tensor drains through the kernel, a CPU tensor
+through its plain version). As in the JAX package, ``sched="sched/preempt"``
+without ``memory.host_tier`` raises ``ValueError``, and so do the mesh's
+conflicts (a mesh with the lanes layout, fused attention over heads the
+``model`` axis does not divide, a mesh with more devices than there are).
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
+from ..distributed.sharding import ParallelConfig
 from .decision import DecisionModule
 from .monitor import ExactMonitor
 from .policy import get_policy_factory
@@ -284,16 +286,22 @@ class ResolvedPlan:
     n_blocks: int
     max_pages: int
     n_regions: int
+    # the (normalized) ParallelConfig and its Mesh (None = single device)
+    parallel: ParallelConfig = dataclasses.field(
+        default_factory=ParallelConfig)
+    mesh: Optional[Any] = None
 
 
 def normalize_groups(cfg) -> None:
     """Shared ``EngineConfig``/``BatchConfig`` ``__post_init__`` normalizer:
-    default the grouped sub-configs and coerce an ``attention`` string to
+    default the grouped sub-configs (``memory`` / ``attention`` /
+    ``parallel``) and coerce an ``attention`` string to
     ``AttentionConfig(impl=...)``."""
     cfg.memory = getattr(cfg, "memory", None) or MemoryConfig()
     a = getattr(cfg, "attention", None)
     cfg.attention = a if isinstance(a, AttentionConfig) else AttentionConfig(
         impl=a or "auto")
+    cfg.parallel = getattr(cfg, "parallel", None) or ParallelConfig()
 
 
 def _memory_of(cfg) -> MemoryConfig:
@@ -316,11 +324,22 @@ def _not_ported(what: str):
 
 
 def validate(cfg, *, paged_capable: bool = True,
+             n_heads: Optional[int] = None,
+             n_kv_heads: Optional[int] = None,
              arch_name: Optional[str] = None) -> ResolvedPlan:
     """THE config -> plan entry point: one call, one loud error surface.
-    ``cfg`` is duck-typed over ``EngineConfig`` / ``BatchConfig``. Raises
-    ``ValueError`` on an incompatible combination and
-    ``NotImplementedError`` on a feature this package does not have yet."""
+    ``cfg`` is duck-typed over ``EngineConfig`` / ``BatchConfig``; the head
+    counts come from the engine that owns the model. Raises ``ValueError``
+    on an incompatible combination and ``NotImplementedError`` on a feature
+    this package does not have yet.
+
+    The mesh (``cfg.parallel``) as in the JAX package: with the lanes
+    layout it is refused (TP shards the PAGED pool's head axis); with
+    ``attention='fused'`` the ``model`` axis must divide Hq and Hkv (each
+    shard's K2 launch reads whole GQA groups); and the mesh must find its
+    devices (``ParallelConfig.build_mesh``). The host tier's check that
+    every mesh device belongs to this process always passes here: a mesh is
+    one process."""
     device = resolve_device(getattr(cfg, "device", "cuda"))
     layout = getattr(cfg, "kv_layout", "auto") or "auto"
     if layout not in ("auto", "paged", "lanes"):
@@ -335,13 +354,19 @@ def validate(cfg, *, paged_capable: bool = True,
     chunked = bool(getattr(cfg, "chunked", False))
     if chunked and getattr(cfg, "chunk_size", 1) < 1:
         raise ValueError("chunk_size must be >= 1")
-    parallel = getattr(cfg, "parallel", None)
-    if parallel is not None and getattr(parallel, "enabled", True):
-        raise _not_ported("parallel (mesh-sharded serving)")
     spec = getattr(cfg, "spec", None)
     if spec is not None and getattr(spec, "enabled", True):
         raise _not_ported("spec (speculative decoding)")
     memory = _memory_of(cfg)
+    parallel = getattr(cfg, "parallel", None) or ParallelConfig()
+    if parallel.enabled and layout != "paged":
+        raise ValueError(
+            f"mesh-sharded serving (ParallelConfig mesh "
+            f"{parallel.mesh_shape}x{parallel.axis_names}) shards the "
+            f"paged pool's head axis, but kv_layout={layout!r} serves the "
+            f"model's own cache lanes; use kv_layout='paged' (dense "
+            f"non-SWA DecoderLM family) or the default single-device "
+            f"ParallelConfig()")
     negotiate_memory(layout=layout, chunked=chunked,
                      prefix_cache=memory.prefix_cache,
                      host_tier=memory.host_tier)
@@ -355,6 +380,19 @@ def validate(cfg, *, paged_capable: bool = True,
     attention = resolve_attention(attn_cfg.impl, layout=layout,
                                   arch_paged_capable=paged_capable,
                                   device=device)
+    tp = parallel.tp
+    if attention == ATTN_FUSED and tp > 1 and (
+            n_heads is not None and n_kv_heads is not None) and (
+            n_heads % tp or n_kv_heads % tp):
+        raise ValueError(
+            f"attention='fused' under a model-axis of {tp} needs whole "
+            f"head groups per shard, but {arch_name or 'this model'} has "
+            f"Hq={n_heads}, Hkv={n_kv_heads} (both must divide by {tp}); "
+            f"use attention='reference', a divisible mesh, or a "
+            f"divisible-head arch")
+    # raises when the devices are missing; one process holds every device
+    # of the mesh, so the host tier's gather is always local
+    mesh = parallel.build_mesh(device=device)
 
     # function-level import: core must not import serve at module scope
     from ..serve.traffic.sched import build_sched
@@ -384,7 +422,8 @@ def validate(cfg, *, paged_capable: bool = True,
     return ResolvedPlan(
         layout=layout, attention=attention, path=path, decision=decision,
         sched=sched, memory=memory, device=device, n_blocks=n_blocks,
-        max_pages=max_pages, n_regions=n_regions)
+        max_pages=max_pages, n_regions=n_regions, parallel=parallel,
+        mesh=mesh)
 
 
 def build_decision(path: Union[str, WritePath] = "direct",
@@ -419,6 +458,6 @@ __all__ = [
     "DIRECT", "STAGED", "ADAPTIVE",
     "negotiate", "negotiate_memory", "resolve_attention", "resolve_device",
     "build_decision",
-    "MemoryConfig", "AttentionConfig", "ResolvedPlan", "validate",
-    "normalize_groups",
+    "ParallelConfig", "MemoryConfig", "AttentionConfig", "ResolvedPlan",
+    "validate", "normalize_groups",
 ]

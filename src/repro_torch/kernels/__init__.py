@@ -6,6 +6,8 @@ hot spots of the serving path, each with a plain PyTorch version beside it.
   flash_decode_paged  fused paged decode: page-table walk + staging-ring
                       overlay + SDPA in one kernel
                       (``csrc/flash_decode_paged.cu``)
+  flash_decode_paged_sharded
+                      the same under a mesh: one K2 launch per head shard
   flash_attention     causal / sliding-window prefill attention, GQA by
                       index (``csrc/flash_attention.cu``)
   flash_decode        one-query decode over a dense per-slot cache, the
@@ -33,6 +35,8 @@ from .ops import (
     flash_decode,
     flash_decode_paged,
     flash_decode_paged_ref,
+    flash_decode_paged_sharded,
+    flash_decode_paged_sharded_ref,
     flash_decode_ref,
     launch_counts,
     reset_launch_counts,
@@ -46,6 +50,7 @@ __all__ = [
     "cms_update_query_ref", "cms_update_ref",
     "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
+    "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
     "launch_counts",
     "reset_launch_counts", "staged_scatter", "staged_scatter_layers",
     "staged_scatter_ref",

@@ -147,9 +147,12 @@ def _check(q, pages_k, pages_v, blocks, view_ok, ring_k, ring_v, ring_ok):
 
 
 def flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
-                       ring_k=None, ring_v=None, ring_ok=None) -> torch.Tensor:
+                       ring_k=None, ring_v=None, ring_ok=None, *,
+                       n_split: Optional[int] = None) -> torch.Tensor:
     """Fused paged decode: page-table walk + staging-ring overlay + SDPA.
-    Returns ``[B, C, Hq, D]`` in ``q.dtype``."""
+    Returns ``[B, C, Hq, D]`` in ``q.dtype``. ``n_split`` replaces the
+    split plan's count (``flash_decode_paged_sharded`` passes the unsharded
+    shape's, so a head slice's result is the whole call's bit for bit)."""
     _check(q, pages_k, pages_v, blocks, view_ok, ring_k, ring_v, ring_ok)
     if q.device.type == "cpu":
         return flash_decode_paged_ref(q, pages_k, pages_v, blocks, view_ok,
@@ -162,8 +165,8 @@ def flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
     p = blocks.shape[1]
     r = 0 if ring_k is None else ring_k.shape[1]
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v,
-                                sms)
+    plan = paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v, sms)
+    n_split = plan if n_split is None else n_split
     blocks32 = blocks.to(torch.int32).contiguous()
     vok = view_ok.to(torch.bool).contiguous()
     rok = ring_ok.to(torch.bool).contiguous() if r else None
@@ -193,6 +196,109 @@ def flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
 
 
 flash_decode_paged.launches = 0
+
+
+def _head_pieces(x, axis: str, mesh, devices):
+    """``x`` (``[..., H, D]``) as one contiguous head slice per read device
+    of ``axis``, each on its device: a ``ShardedTensor`` split on ``axis``
+    gives its own pieces; a whole tensor, or the lead's copy of a replicated
+    one, is cut here."""
+    from ..distributed.sharding import ShardedTensor
+
+    if x is None:
+        return [None] * len(devices)
+    if isinstance(x, ShardedTensor):
+        if x.axis is not None and mesh.shape[x.mesh_axis] > 1:
+            if x.mesh_axis != axis or x.axis != x.dim() - 2:
+                raise ValueError(
+                    f"flash_decode_paged_sharded: a placed operand must be "
+                    f"split on its head axis over {axis!r}")
+            return [p for _, p in x.read_group()]
+        x = x.shards[0]
+    return [part.to(d).contiguous()
+            for part, d in zip(x.chunk(len(devices), dim=-2), devices)]
+
+
+def _per_shard(fn, mesh, axis, q, pages_k, pages_v, blocks, view_ok, ring_k,
+               ring_v, ring_ok):
+    """``fn`` once per shard of ``axis`` (once on the lead device where the
+    mesh has no such axis or it has size 1) on that shard's head slice of
+    q, pool and ring, on its device, the routing inputs copied there; the
+    outputs joined on the head axis on the lead device."""
+    from ..distributed.sharding import axis_size
+
+    devices = ([mesh.devices[i] for i in mesh.axis_group(axis)]
+               if axis_size(mesh, axis) > 1 else [mesh.lead])
+    qs, pks, pvs, rks, rvs = (_head_pieces(x, axis, mesh, devices) for x in (
+        q, pages_k, pages_v, ring_k, ring_v))
+    outs = []
+    for j, d in enumerate(devices):
+        outs.append(fn(qs[j], pks[j], pvs[j], blocks.to(d), view_ok.to(d),
+                       rks[j], rvs[j],
+                       None if ring_ok is None else ring_ok.to(d)))
+    if len(outs) == 1:
+        return outs[0]
+    return torch.cat([o.to(mesh.lead) for o in outs], dim=2)
+
+
+def flash_decode_paged_sharded_ref(mesh, q, pages_k, pages_v, blocks,
+                                   view_ok, ring_k=None, ring_v=None,
+                                   ring_ok=None, *, axis: str = "model"):
+    """Plain version of :func:`flash_decode_paged_sharded`: the same loop
+    over the shards, each running ``flash_decode_paged_ref``."""
+    return _per_shard(flash_decode_paged_ref, mesh, axis, q, pages_k,
+                      pages_v, blocks, view_ok, ring_k, ring_v, ring_ok)
+
+
+def flash_decode_paged_sharded(mesh, q, pages_k, pages_v, blocks, view_ok,
+                               ring_k=None, ring_v=None, ring_ok=None, *,
+                               axis: str = "model") -> torch.Tensor:
+    """Head-sharded :func:`flash_decode_paged`, the counterpart of the JAX
+    package's ``shard_map`` of K2 (``repro/kernels/flash_decode.py:207``):
+    one K2 launch per shard of ``axis``, each walking the SAME page table
+    over its own head slice of the pool and ring on its own device; the
+    routing inputs (``blocks``, ``view_ok``, ``ring_ok``) are copied to each
+    device, the outputs joined on the head axis on ``mesh.lead``. q is
+    whole; the pool and ring planes are whole tensors or ``ShardedTensor``
+    pieces split on their head axis over ``axis`` (or whole copies).
+
+    Both Hq and Hkv must divide the ``axis`` size (whole GQA groups per
+    shard; softmax is per q-head, so no cross-shard combine). Every launch
+    takes the split count of the UNSHARDED shape: K2 picks its splits from
+    the (slot, KV head) clusters, so a head slice would pick more and merge
+    them in another order; with the whole call's count each head's result
+    is the whole call's bit for bit. Where ``axis`` is missing from the mesh
+    or has size 1 this is ``flash_decode_paged`` itself, on the lead's copy.
+    Each launch counts in ``flash_decode_paged.launches``. On a CPU tensor
+    the plain version runs; on a CUDA tensor the kernel launches or
+    raises."""
+    from ..distributed.sharding import axis_size
+
+    tp = axis_size(mesh, axis)
+    hq, hkv = q.shape[2], pages_k.shape[-2]
+    if hq % tp or hkv % tp:
+        raise ValueError(
+            f"flash_decode_paged_sharded: axis {axis!r} of {tp} must "
+            f"divide both Hq={hq} and Hkv={hkv} (whole GQA groups per "
+            f"shard); use a divisible mesh or the unsharded kernel")
+    if q.device.type == "cpu":
+        return flash_decode_paged_sharded_ref(
+            mesh, q, pages_k, pages_v, blocks, view_ok, ring_k, ring_v,
+            ring_ok, axis=axis)
+    n_split = None
+    if tp > 1:
+        b, c, _, d = q.shape
+        ps, p = pages_k.shape[-3], blocks.shape[1]
+        r = 0 if ring_k is None else ring_k.shape[-3]
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        n_split = paged_splits(sms, b, c, hq, hkv, d, p, ps, r,
+                               q.element_size())
+
+    def launch(*xs):
+        return flash_decode_paged(*xs, n_split=n_split)
+
+    return _per_shard(launch, mesh, axis, q, pages_k, pages_v, blocks,
+                      view_ok, ring_k, ring_v, ring_ok)
 
 
 def flash_decode_ref(
@@ -332,8 +438,16 @@ def paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v,
     if smem > 227 * 1024:
         raise ValueError(f"a block would need {smem} bytes of shared memory "
                          f"(C={c}, P={p}, ps={ps}, R={r}); at most 227 KB")
+    return paged_splits(sms, b, c, hq, hkv, d, p, ps, r, es)
+
+
+def paged_splits(sms: int, b: int, c: int, hq: int, hkv: int, d: int,
+                 p: int, ps: int, r: int, elem_size: int) -> int:
+    """K2's ``n_split`` from the shapes alone: ``q[b, c, hq, d]`` over ``p``
+    pages of ``ps`` rows of ``hkv`` heads and a ring of ``r`` lanes."""
+    smem = paged_smem_bytes(elem_size, d, c, hq // hkv, p, ps, r)
     return _paged_splits(sms, b, hkv, c * hq // hkv, p + (r > 0), p * ps + r,
-                         smem, es)
+                         smem, elem_size)
 
 
 def kernel_plan(q, k, v, sms: int):

@@ -13,7 +13,8 @@ from .cms import (cms_query, cms_query_ref, cms_update, cms_update_query,
                   cms_update_query_ref, cms_update_ref)
 from .flash_attention import flash_attention, flash_attention_ref
 from .flash_decode import (flash_decode, flash_decode_paged,
-                           flash_decode_paged_ref, flash_decode_ref)
+                           flash_decode_paged_ref, flash_decode_paged_sharded,
+                           flash_decode_paged_sharded_ref, flash_decode_ref)
 from .staged_scatter import (staged_scatter, staged_scatter_layers,
                              staged_scatter_ref)
 
@@ -43,6 +44,7 @@ __all__ = [
     "cms_query", "cms_query_ref", "cms_update", "cms_update_query",
     "cms_update_query_ref", "cms_update_ref", "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
+    "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
     "staged_scatter",
     "staged_scatter_layers", "staged_scatter_ref", "launch_counts",
     "reset_launch_counts",

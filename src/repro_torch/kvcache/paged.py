@@ -33,7 +33,20 @@ host tier's and the CoW's block moves (pinned, stream-ordered copies on the
 card). The chunk variants of the mixed-phase step
 (``logical_to_physical_many``, ``scatter_chunk``, ``view_chunk_mask_from``,
 ``overlay_chunk_parts``) sit beside their one-token originals. The
-speculative snapshots and ``constrain`` (mesh sharding) are not ported yet.
+speculative snapshots are not ported yet.
+
+Under a mesh (``make_paged_kv(..., mesh=)``, DESIGN.md §9) the data planes
+``pages_k`` / ``pages_v`` / ``ring_k`` / ``ring_v`` are
+``distributed.ShardedTensor`` pieces ``[L, n_blocks + 1, ps, H / tp, Dh]``,
+one per mesh device, each with its own sink block (whole copies where the
+``model`` axis does not divide ``H``: ``serve_cache_shardings``); the page
+table and the ring metadata stay whole on the lead device. Every write
+(``scatter_token``, ``scatter_chunk``, ``stage_tile``, ``scatter_prefill``)
+lands each shard's head slice on its device, every drain is one
+``scatter_rows_layers`` per shard and plane from the lead's row list, and
+the host tier keeps the UNSHARDED layout: the shards' slabs joined on the
+head axis in one pinned buffer, a restore cutting it back. ``n_blocks`` /
+``pool_rows`` / ``view_len`` read the whole's shape.
 """
 from __future__ import annotations
 
@@ -45,6 +58,8 @@ import torch
 
 from ..core import ring as R
 from ..core.types import resolve_device
+from ..distributed.sharding import (ShardedTensor, pieces,
+                                   serve_cache_shardings)
 
 PagedKV = Dict[str, torch.Tensor]
 
@@ -288,23 +303,35 @@ def prefix_page_hashes(prompt, page_size: int) -> List[int]:
 
 def make_paged_kv(n_layers: int, n_blocks: int, page_size: int, n_slots: int,
                   max_pages: int, h: int, dh: int, dtype=torch.float32,
-                  ring_size: int = 0, device="cuda") -> PagedKV:
+                  ring_size: int = 0, device="cuda", mesh=None) -> PagedKV:
     """Paged cache dict; ``ring_size > 0`` attaches the staging overlay. The
     pool planes hold ``n_blocks + 1`` blocks: the last one is the drop
     sink (see the module docstring). On the card unless ``device`` says
-    otherwise (``device="cpu"`` runs on the CPU on purpose)."""
+    otherwise (``device="cpu"`` runs on the CPU on purpose). Under ``mesh``
+    the data planes are placed by ``serve_cache_shardings``, piece by piece
+    on the mesh's devices (the whole plane never exists at once), and the
+    decision plane stays on ``device``, the mesh's lead."""
     device = resolve_device(device)
     shape = (n_layers, n_blocks + 1, page_size, h, dh)
+    rshape = (n_layers, n_slots, ring_size, h, dh)
+    planes = {"pages_k": shape, "pages_v": shape}
+    if ring_size:
+        planes.update(ring_k=rshape, ring_v=rshape)
+    placed = ({} if mesh is None
+              else serve_cache_shardings(None, mesh, planes))
+
+    def zeros(name):
+        if mesh is None:
+            return torch.zeros(planes[name], dtype=dtype, device=device)
+        return ShardedTensor.zeros(planes[name], placed[name], dtype)
     cache = {
-        "pages_k": torch.zeros(shape, dtype=dtype, device=device),
-        "pages_v": torch.zeros(shape, dtype=dtype, device=device),
+        "pages_k": zeros("pages_k"),
+        "pages_v": zeros("pages_v"),
         "page_table": torch.full((n_slots, max_pages), -1, dtype=torch.int64,
                                  device=device),
     }
     if ring_size:
-        cache["ring_k"] = torch.zeros((n_layers, n_slots, ring_size, h, dh),
-                                      dtype=dtype, device=device)
-        cache["ring_v"] = torch.zeros_like(cache["ring_k"])
+        cache["ring_k"], cache["ring_v"] = zeros("ring_k"), zeros("ring_v")
         # staged entries record LOGICAL rows (-1 = empty); the page table
         # resolves them to physical pool rows at drain time
         cache["ring_pos"] = torch.full((n_slots, ring_size), -1,
@@ -419,35 +446,73 @@ def view_chunk_mask_from(allocated: torch.Tensor,
         & allocated[:, None, :]
 
 
-def gather_view(pages_l: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+def whole(x):
+    """A data plane (or one layer of it) as one tensor on the lead device:
+    a placed tensor's head slices joined, a plain one as it is."""
+    return x.gather() if isinstance(x, ShardedTensor) else x
+
+
+def _parts(plane, x: torch.Tensor, head_axis: int = -2):
+    """``(piece, x's head slice for it, on its device)`` for each piece of
+    ``plane``: the one pair ``(plane, x)`` for a plain tensor, every piece
+    of a placed one (a whole copy takes all of ``x``)."""
+    if not isinstance(plane, ShardedTensor):
+        return [(plane, x)]
+    n = x.shape[head_axis]
+    return [(piece, x.narrow(head_axis, sl.start, sl.stop - sl.start).to(d))
+            for piece, (d, sl) in zip(plane.shards, plane.slices(n))]
+
+
+def gather_view(pages_l, rows: torch.Tensor) -> torch.Tensor:
     """One layer's per-slot contiguous KV view. pages_l [n_blocks(+1), ps,
-    H, Dh], rows int [n_slots, V] -> [n_slots, V, H, Dh]."""
+    H, Dh], rows int [n_slots, V] -> [n_slots, V, H, Dh]. A placed layer
+    is gathered shard by shard and the heads joined on the lead device."""
+    if isinstance(pages_l, ShardedTensor):
+        lead = pages_l.mesh.lead
+        views = [gather_view(p, rows.to(p.device)).to(lead)
+                 for _, p in pages_l.read_group()]
+        return views[0] if len(views) == 1 else torch.cat(views, dim=2)
     flat = pages_l.reshape((-1,) + pages_l.shape[2:])
     return flat[rows]
 
 
-def scatter_token(pages_l: torch.Tensor, dest: torch.Tensor,
-                  tile: torch.Tensor) -> torch.Tensor:
+def scatter_token(pages_l, dest: torch.Tensor,
+                  tile: torch.Tensor):
     """Direct (offload-path) write of one decode step's tiles, IN PLACE.
     ``dest`` int [n_slots] physical rows; the sentinel ``pool_rows`` lands
-    in the sink block. ``tile`` [n_slots, H, Dh]."""
-    flat = pages_l.view((-1,) + pages_l.shape[2:])
-    flat.index_copy_(0, dest.long(), tile.to(flat.dtype))
+    in the sink block. ``tile`` [n_slots, H, Dh]; each shard of a placed
+    layer takes its head slice."""
+    for piece, part in _parts(pages_l, tile):
+        flat = piece.view((-1,) + piece.shape[2:])
+        flat.index_copy_(0, dest.to(piece.device).long(), part.to(flat.dtype))
     return pages_l
 
 
-def scatter_chunk(pages_l: torch.Tensor, dest: torch.Tensor,
-                  tiles: torch.Tensor) -> torch.Tensor:
+def scatter_chunk(pages_l, dest: torch.Tensor, tiles: torch.Tensor):
     """Direct (offload-path) bulk write of one mixed-phase step's tiles, IN
     PLACE: the chunk analogue of :func:`scatter_token`. ``dest`` int
     [n_slots, C] physical rows, the sentinel ``pool_rows`` landing in the
     sink block; ``tiles`` [n_slots, C, H, Dh]. Live destinations are unique
     across slots (block ownership) and within a chunk (consecutive rows);
-    only sink rows repeat, and nothing reads the sink."""
-    flat = pages_l.view((-1,) + pages_l.shape[2:])
-    flat.index_copy_(0, dest.reshape(-1).long(),
-                     tiles.reshape((-1,) + tiles.shape[2:]).to(flat.dtype))
+    only sink rows repeat, and nothing reads the sink. Per shard as in
+    :func:`scatter_token`."""
+    for piece, part in _parts(pages_l, tiles):
+        flat = piece.view((-1,) + piece.shape[2:])
+        flat.index_copy_(0, dest.to(piece.device).reshape(-1).long(),
+                         part.reshape((-1,) + part.shape[2:]).to(flat.dtype))
     return pages_l
+
+
+def scatter_prefill(plane, rows: torch.Tensor, tiles: torch.Tensor):
+    """Bulk write of whole prompts into every layer of one pool plane, IN
+    PLACE (the admission-time prefill: the offload/direct path). ``plane``
+    [L, n_blocks + 1, ps, H, Dh], ``rows`` int [N] physical rows,
+    ``tiles`` [L, N, H, Dh]; each shard takes its head slice."""
+    for piece, part in _parts(plane, tiles):
+        l = piece.shape[0]
+        flat = piece.view((l, -1) + piece.shape[3:])
+        flat.index_copy_(1, rows.to(piece.device).long(), part.to(flat.dtype))
+    return plane
 
 
 # ---------------------------------------------------------------------------
@@ -457,7 +522,7 @@ def scatter_chunk(pages_l: torch.Tensor, dest: torch.Tensor,
 
 def _block_index(cache: PagedKV, blocks) -> torch.Tensor:
     return torch.as_tensor(np.asarray(blocks, np.int64),
-                           device=cache["pages_k"].device)
+                           device=cache["page_table"].device)
 
 
 def unload_blocks(cache: PagedKV,
@@ -476,11 +541,20 @@ def unload_blocks(cache: PagedKV,
     device -> host copy precedes, and the host buffers are read only by a
     later host -> device copy (:func:`load_blocks`) on that stream. On a CPU
     pool the gather itself is the copy (advanced indexing never returns a
-    view)."""
+    view). A placed pool keeps the UNSHARDED layout here: each shard's slab
+    is gathered on its device and the slabs joined on the head axis on the
+    lead device, before the one pinned copy."""
     bl = _block_index(cache, blocks)
     out = []
     for name in ("pages_k", "pages_v"):
-        src = cache[name][:, bl]
+        plane = cache[name]
+        if isinstance(plane, ShardedTensor):
+            lead = plane.mesh.lead
+            slabs = [p[:, bl.to(p.device)].to(lead)
+                     for _, p in plane.read_group()]
+            src = slabs[0] if len(slabs) == 1 else torch.cat(slabs, dim=3)
+        else:
+            src = plane[:, bl]
         if src.device.type != "cpu":
             host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
             if not host.is_pinned():
@@ -498,23 +572,27 @@ def load_blocks(cache: PagedKV, blocks, host_k, host_v) -> PagedKV:
     device with ``non_blocking=True`` (stream-ordered after the unload that
     filled the buffer, see :func:`unload_blocks`) and written with one
     ``index_copy_``. ``host_k`` / ``host_v`` are tensors or numpy arrays
-    ``[L, len(blocks), ps, H, Dh]``."""
+    ``[L, len(blocks), ps, H, Dh]``, the UNSHARDED layout: under a mesh the
+    whole slab goes to the lead device and each shard takes its head slice
+    from there."""
     bl = _block_index(cache, blocks)
     for name, host in (("pages_k", host_k), ("pages_v", host_v)):
         plane = cache[name]
         if not isinstance(host, torch.Tensor):
             host = torch.tensor(np.asarray(host))
-        src = host.to(plane.device, plane.dtype, non_blocking=True)
-        plane.index_copy_(1, bl, src)
+        src = host.to(bl.device, plane.dtype, non_blocking=True)
+        for piece, part in _parts(plane, src, head_axis=3):
+            piece.index_copy_(1, bl.to(piece.device), part)
     return cache
 
 
 def copy_block(cache: PagedKV, src: int, dst: int) -> PagedKV:
     """Device-side whole-block copy, IN PLACE (the CoW data move: duplicate
-    a shared block's content into its private replacement)."""
+    a shared block's content into its private replacement), on every
+    shard."""
     for name in ("pages_k", "pages_v"):
-        plane = cache[name]
-        plane[:, int(dst)].copy_(plane[:, int(src)])
+        for plane in pieces(cache[name]):
+            plane[:, int(dst)].copy_(plane[:, int(src)])
     return cache
 
 
@@ -542,11 +620,13 @@ def ring_conflicts(cache: PagedKV, pos: torch.Tensor) -> torch.Tensor:
                        (pos[:, None],))
 
 
-def stage_tile(plane: torch.Tensor, tile: torch.Tensor,
-               cur: torch.Tensor) -> torch.Tensor:
+def stage_tile(plane, tile: torch.Tensor, cur: torch.Tensor):
     """Append one layer's tiles [n_slots, H, Dh] at ring column ``cur`` of
-    ``plane`` [n_slots, R, H, Dh], IN PLACE."""
-    return R.push_column(plane, cur, tile, axis=1)
+    ``plane`` [n_slots, R, H, Dh], IN PLACE; each shard of a placed plane
+    takes its head slice."""
+    for piece, part in _parts(plane, tile):
+        R.push_column(piece, cur.to(piece.device), part, axis=1)
+    return plane
 
 
 def ring_commit(cache: PagedKV, pos: torch.Tensor,
@@ -613,8 +693,9 @@ def overlay_chunk_parts(
 
 def _drain(cache: PagedKV, gate: Optional[torch.Tensor]) -> PagedKV:
     """Copy live staged entries into the pool (only where ``gate``, a device
-    bool scalar, holds; None = always) and empty the ring likewise."""
-    l, b, r, h, dh = cache["ring_k"].shape
+    bool scalar, holds; None = always) and empty the ring likewise. The row
+    list is the lead's; each shard drains its own head slice with it."""
+    l, b, r, _, dh = cache["ring_k"].shape
     n_phys = pool_rows(cache)
     ps = cache["pages_k"].shape[2]
     # resolve logical -> physical per ring entry, lanes flattened slot-major
@@ -628,9 +709,11 @@ def _drain(cache: PagedKV, gate: Optional[torch.Tensor]) -> PagedKV:
     if gate is not None:
         ok = ok & gate
     for pk, rk in (("pages_k", "ring_k"), ("pages_v", "ring_v")):
-        dest = cache[pk].view(l, -1, h * dh)[:, :n_phys]  # sink left out
-        R.scatter_rows_layers(dest, cache[rk].view(l, b * r, h * dh),
-                              rows, ok)
+        for pool, stage in zip(pieces(cache[pk]), pieces(cache[rk])):
+            w = pool.shape[3] * dh
+            dest = pool.view(l, -1, w)[:, :n_phys]  # sink left out
+            R.scatter_rows_layers(dest, stage.view(l, b * r, w),
+                                  rows.to(pool.device), ok.to(pool.device))
     if gate is None:
         cache["ring_pos"].fill_(-1)
         cache["ring_fill"] = torch.zeros_like(cache["ring_fill"])
@@ -646,9 +729,9 @@ def drain_ring(cache: PagedKV) -> PagedKV:
     ALL slots' entries flatten into ONE entry list (``core.ring.
     merge_lanes``) and each plane (K, V) lands with a single
     ``scatter_rows_layers`` call covering every layer: two kernel launches
-    per drain. Block ownership makes destinations unique across slots,
-    conflict-forced drains make them unique within a slot (the
-    ``staged_scatter`` precondition)."""
+    per drain (per shard under a mesh). Block ownership makes destinations
+    unique across slots, conflict-forced drains make them unique within a
+    slot (the ``staged_scatter`` precondition)."""
     return _drain(cache, None)
 
 

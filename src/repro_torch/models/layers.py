@@ -304,12 +304,21 @@ def fused_paged_attention(
     """Decode attention through the ``flash_decode_paged`` read kernel: it
     walks the page table and overlays the staging ring inside one softmax,
     so no gathered view is materialized. Projections and the output einsum
-    are shared with the plain cores."""
-    from ..kernels import flash_decode_paged
+    are shared with the plain cores. Under a mesh (the pool and ring planes
+    are ``ShardedTensor`` pieces split on their head axis) the read is
+    ``flash_decode_paged_sharded``: one K2 launch per shard, the heads
+    joined on the lead device."""
+    from ..distributed.sharding import ShardedTensor
+    from ..kernels import flash_decode_paged, flash_decode_paged_sharded
 
     q = project_q(cfg, p, x, positions, use_rope)   # [B, C, Hq, Dh]
-    out = flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
-                             ring_k, ring_v, ring_ok)
+    if isinstance(pages_k, ShardedTensor):
+        out = flash_decode_paged_sharded(
+            pages_k.mesh, q, pages_k, pages_v, blocks, view_ok, ring_k,
+            ring_v, ring_ok, axis=pages_k.mesh_axis or "model")
+    else:
+        out = flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
+                                 ring_k, ring_v, ring_ok)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
 
 

@@ -9,7 +9,12 @@ lanes layout: one cache lane per slot, read by the ``flash_decode`` kernel)
 and ``decode_step_paged`` with ``attention="reference"`` (gather the
 per-slot view from the pool, concatenate the ring, read it through
 ``flash_decode``) and ``"fused"`` (the ``flash_decode_paged`` kernel walks
-the page table and folds the ring lanes into the same softmax). The layer
+the page table and folds the ring lanes into the same softmax). Under a
+mesh the cache's data planes are split on the head axis: every write lands
+each shard's head slice (``kvcache.paged``), the reference read gathers the
+view shard by shard and joins the heads, and the fused read is one
+``flash_decode_paged`` launch per shard (``flash_decode_paged_sharded``);
+the projections run whole on the lead device. The layer
 stack is a Python loop over ``nn.ModuleList`` blocks where the JAX package
 scans stacked parameters.
 
@@ -341,8 +346,8 @@ class DecoderLM(nn.Module):
                 ak = PG.gather_view(pk, plan.view_ids)
                 av = PG.gather_view(pv, plan.view_ids)
                 if ring:
-                    ak = torch.cat([ak, rk], dim=1)
-                    av = torch.cat([av, rv], dim=1)
+                    ak = torch.cat([ak, PG.whole(rk)], dim=1)
+                    av = torch.cat([av, PG.whole(rv)], dim=1)
                 a = L.decode_attention(cfg, pa, hn, pos, ak, av, full_mask)
             x = x + a
             x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
@@ -436,8 +441,8 @@ class DecoderLM(nn.Module):
                 ak = PG.gather_view(pk, plan.view_ids)
                 av = PG.gather_view(pv, plan.view_ids)
                 if ring:
-                    ak = torch.cat([ak, rk], dim=1)
-                    av = torch.cat([av, rv], dim=1)
+                    ak = torch.cat([ak, PG.whole(rk)], dim=1)
+                    av = torch.cat([av, PG.whole(rv)], dim=1)
                 a = L.masked_chunk_attention(cfg, pa, hn, positions, ak, av,
                                              full_mask)
             x = x + a

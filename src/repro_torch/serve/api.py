@@ -27,14 +27,15 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 
-from ..core.paths import (AttentionConfig, MemoryConfig, normalize_groups,
-                          resolve_device)
+from ..core.paths import (AttentionConfig, MemoryConfig, ParallelConfig,
+                          normalize_groups, resolve_device)
 from ..models.sampling import SamplingParams
 from .scheduler import BatchConfig, BatchedServeEngine
 
 __all__ = [
     "AttentionConfig", "Completion", "Engine", "EngineConfig",
-    "MemoryConfig", "StreamEvent", "build_model_and_params",
+    "MemoryConfig", "ParallelConfig", "StreamEvent",
+    "build_model_and_params",
 ]
 
 
@@ -74,8 +75,11 @@ class EngineConfig:
     ``sched/preempt``, the last with the host tier). ``default_params``
     applies to requests without their own, and its temperature backfills a
     request's unset one; ``sample_seed`` seeds the per-request key chains.
-    ``parallel`` and ``spec`` raise ``NotImplementedError`` when the engine
-    is built."""
+    ``parallel=ParallelConfig.tensor(tp)`` (paged layout) splits the block
+    pool and the staging ring on the head axis across ``tp`` devices
+    (DESIGN.md §9; ``REPRO_TORCH_VIRTUAL_DEVICES`` gives virtual ones on
+    ``device``); the tokens and the telemetry are the unsharded engine's.
+    ``spec`` raises ``NotImplementedError`` when the engine is built."""
 
     max_seq: int
     arch: Optional[str] = None        # None when a model is passed

@@ -81,8 +81,16 @@ layouts, as in the JAX package:
   (segment telemetry -> seconds), and ``run_segment`` advances the clock
   by it before first tokens are stamped.
 
-Speculative decoding and mesh sharding are not ported yet
-(``core.paths.validate`` raises on each).
+* **Mesh** (``parallel=ParallelConfig.tensor(tp)``, paged layout,
+  DESIGN.md §9): the block pool and the staging ring split on the head axis
+  across ``tp`` shards (``_make_cache``); the decision plane (page
+  table, ring cursors, monitor, slot state, stats) stays whole on the lead
+  device, where the segment-end readback reads it. Each drain is one K1
+  launch per shard and plane, each fused read one K2 launch per shard; the
+  parameters stay whole on the lead device, which runs the projections. The
+  output is the unsharded engine's, bit for bit.
+
+Speculative decoding is not ported yet (``core.paths.validate`` raises).
 """
 from __future__ import annotations
 
@@ -227,9 +235,12 @@ class BatchedServeEngine:
         self.model = model
         self.cfg = cfg
         plan = validate(cfg, paged_capable=paged_capable(model),
+                        n_heads=model.cfg.n_heads,
+                        n_kv_heads=model.cfg.n_kv_heads,
                         arch_name=model.cfg.name)
         self.plan = plan
         self.device = plan.device
+        self.mesh = plan.mesh
         if model.device.type != self.device.type:
             raise ValueError(
                 f"model lives on {model.device} but the engine was asked "
@@ -266,6 +277,13 @@ class BatchedServeEngine:
         self.reset()
 
     def _make_cache(self):
+        """The layout's device cache. Under ``self.mesh`` (the JAX engine's
+        ``_shard_device_state``) the pool and ring are made split on the
+        HEAD axis by ``serve_cache_shardings``, piece by piece on the mesh's
+        devices; the page table and ring metadata stay whole on the lead
+        device, so the host's decision plane is the one every shard follows
+        and drains stay shard-local. The parameters stay whole on the lead
+        device (the train stack's ``param_shardings`` is not ported)."""
         cfg, mcfg = self.cfg, self.model.cfg
         if self.layout == "lanes":
             return self.model.init_cache(cfg.n_slots, cfg.max_seq)
@@ -274,7 +292,7 @@ class BatchedServeEngine:
             self.max_pages, mcfg.n_kv_heads, mcfg.resolved_head_dim,
             dtype=compute_dtype(mcfg),
             ring_size=cfg.ring_size if self.uses_ring else 0,
-            device=self.device)
+            device=self.device, mesh=self.mesh)
 
     def reset(self, keep_cache: bool = False) -> None:
         """Fresh serving state (cache, slots, pool, monitor, outputs).
@@ -875,15 +893,15 @@ class BatchedServeEngine:
             cache = self.cache
             l = cache["pages_k"].shape[0]
             # prefill rows land in the pool by a host-computed row list
+            # (each shard its head slice under a mesh)
             rows = np.arange(plen)
             phys = torch.as_tensor(np.concatenate(
                 [b[rows // ps].astype(np.int64) * ps + rows % ps
                  for b in blocks]), device=dev)
             for pk, src in (("pages_k", "k"), ("pages_v", "v")):
-                tail = cache[pk].shape[3:]
-                flat = cache[pk].view((l, -1) + tail)
-                flat.index_copy_(1, phys, pc[src][:, :, :plen].reshape(
-                    (l, g * plen) + tail))
+                kv = pc[src][:, :, :plen]
+                PG.scatter_prefill(cache[pk], phys, kv.reshape(
+                    (l, g * plen) + kv.shape[3:]))
             padded = np.full((g, self.max_pages), -1, np.int64)
             for i, b in enumerate(blocks):
                 padded[i, : len(b)] = b
@@ -1175,7 +1193,9 @@ class BatchedServeEngine:
         segment = (self._mixed_segment if self._mixed_phase_pending()
                    else self._decode_segment)
         stats, swrites, emits, acts = segment(enabled_t, mode)
-        # the readback: everything the host needs from this segment
+        # the readback: everything the host needs from this segment. Under a
+        # mesh the decision plane is whole on the lead device (the JAX
+        # engine's ``replicate_for_readback``), so it is read from there
         emits, acts = emits.cpu().numpy(), acts.cpu().numpy()
         swrites = swrites.cpu().numpy()
         d, s, dr, pf = (int(x) for x in stats.cpu().numpy())

@@ -13,6 +13,7 @@ from repro.core import paths as jpaths
 from repro.core import policy as jpolicy
 from repro.core import ring as jring
 from repro.core import types as jtypes
+from repro.distributed import ParallelConfig as JaxParallelConfig
 from repro.models.sampling import SamplingParams as JaxSamplingParams
 from repro.serve.scheduler import BatchConfig as JaxBatchConfig
 from repro_torch.core import monitor as tmon
@@ -20,6 +21,7 @@ from repro_torch.core import paths as tpaths
 from repro_torch.core import policy as tpolicy
 from repro_torch.core import ring as tring
 from repro_torch.core import types as ttypes
+from repro_torch.distributed import VIRTUAL_DEVICES_ENV, ParallelConfig
 from repro_torch.models.sampling import SamplingParams
 from repro_torch.serve import EngineConfig
 from repro_torch.serve.scheduler import BatchConfig
@@ -273,7 +275,7 @@ NOT_PORTED = {
     "prefix-cache": dict(chunked=True,
                          memory=tpaths.MemoryConfig(prefix_cache=True)),
     "host-tier": dict(memory=tpaths.MemoryConfig(host_tier=True)),
-    "parallel": dict(parallel=object()),
+    "parallel": dict(parallel=ParallelConfig.tensor(2)),
     "spec": dict(spec=object()),
     "drain-kernel": dict(attention=tpaths.AttentionConfig(drain_kernel=True)),
     "sampled": dict(default_params=SamplingParams(temperature=0.7)),
@@ -282,12 +284,31 @@ NOT_PORTED = {
 # once raised, now ported: validate resolves them as the JAX package does
 NOW_PORTED = {"policy-hysteresis", "chunked", "lanes", "prefix-cache",
               "host-tier", "sched-priority", "sched-deadline",
-              "sched-preempt", "sampled"}
+              "sched-preempt", "sampled", "parallel"}
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
-def test_validate_raises_on_unported_feature(name):
+def test_validate_raises_on_unported_feature(name, monkeypatch):
     kw = dict(NOT_PORTED[name])
+    if name == "parallel":
+        # a 2-device mesh on one device: both packages refuse it alike;
+        # over virtual devices the port resolves it, the rest of the plan
+        # as JAX resolves the same config without the mesh
+        monkeypatch.delenv(VIRTUAL_DEVICES_ENV, raising=False)
+        cfg = EngineConfig(max_seq=32, device="cpu", **kw).batch_config()
+        with pytest.raises(ValueError, match="needs 2 devices"):
+            tpaths.validate(cfg)
+        with pytest.raises(ValueError, match="needs 2 devices"):
+            jpaths.validate(JaxBatchConfig(
+                max_seq=32, parallel=JaxParallelConfig.tensor(2)))
+        monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "2")
+        plan = tpaths.validate(cfg)
+        jplan = jpaths.validate(JaxBatchConfig(max_seq=32))
+        assert plan.parallel == ParallelConfig.tensor(2)
+        assert plan.mesh.devices == (torch.device("cpu"),) * 2
+        assert (plan.layout, plan.path.name, plan.n_regions) == (
+            jplan.layout, jplan.path.name, jplan.n_regions)
+        return
     if name == "sched-preempt":
         # preemption parks through the host tier: both refuse it without
         with pytest.raises(ValueError, match="host_tier"):

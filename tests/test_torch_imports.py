@@ -57,7 +57,8 @@ def test_package_has_every_ported_module():
             "serve/traffic/sched.py", "serve/traffic/workload.py",
             "serve/traffic/harness.py",
             "serve/scheduler.py", "serve/api.py", "launch/serve.py",
-            "checkpoint/checkpoint.py"]
+            "checkpoint/checkpoint.py", "distributed/__init__.py",
+            "distributed/sharding.py"]
     missing = [w for w in want if not os.path.isfile(os.path.join(PKG, w))]
     assert not missing, missing
 
@@ -215,6 +216,8 @@ def test_new_modules_import_no_jax_when_loaded():
         "import sys\n"
         "import repro_torch.models.prng, repro_torch.models.sampling\n"
         "import repro_torch.serve.traffic as T\n"
+        "import repro_torch.distributed as D\n"
+        "assert D.ParallelConfig and D.ShardedTensor\n"
         "import repro_torch.serve.traffic.workload, "
         "repro_torch.serve.traffic.harness\n"
         "assert T.run_loadtest and T.PreemptAdmission\n"
@@ -225,7 +228,8 @@ def test_new_modules_import_no_jax_when_loaded():
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "clean"
     for rel in ("models/prng.py", "serve/traffic/workload.py",
-                "serve/traffic/harness.py", "serve/traffic/sched.py"):
+                "serve/traffic/harness.py", "serve/traffic/sched.py",
+                "distributed/__init__.py", "distributed/sharding.py"):
         assert not _imported_roots(os.path.join(PKG, rel)) & set(BANNED)
 
 

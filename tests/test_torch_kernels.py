@@ -254,6 +254,9 @@ def test_launch_counters_count_kernel_launches_only():
     K.cms_query(counts, torch.arange(3))
     K.cms_update_query(counts, torch.zeros((), dtype=torch.int64),
                        torch.arange(3))
+    from repro_torch.distributed import Mesh
+    K.flash_decode_paged_sharded(Mesh([torch.device("cpu")] * 2, (2,),
+                                      ("model",)), *args)
     assert K.launch_counts() == {"staged_scatter": 0, "flash_decode_paged": 0,
                                  "flash_attention": 0, "flash_decode": 0,
                                  "cms_update": 0, "cms_query": 0,

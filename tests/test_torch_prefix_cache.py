@@ -24,6 +24,7 @@ from conftest import seeds
 from repro.configs import get_config as jget
 from repro.core.paths import negotiate_memory as jax_negotiate_memory
 from repro.core.paths import validate as jax_validate
+from repro.distributed import ParallelConfig as JaxParallelConfig
 from repro.data import synthetic_requests as jax_requests
 from repro.kernels import ref as jref
 from repro.kvcache import BlockPool as JaxBlockPool
@@ -37,6 +38,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import ring as R
 from repro_torch.core.paths import MemoryConfig, negotiate_memory, validate
 from repro_torch.data import synthetic_requests
+from repro_torch.distributed import VIRTUAL_DEVICES_ENV, ParallelConfig
 from repro_torch.kernels import flash_decode_paged
 from repro_torch.kvcache import BlockPool, paged as PG
 from repro_torch.kvcache import prefix_page_hashes, unload_blocks
@@ -328,18 +330,36 @@ def test_validate_accepts_what_jax_accepts(layout, chunked):
 
 
 @pytest.mark.parametrize("what,kw", [
-    ("parallel", dict(parallel=True)), ("spec", dict(spec=True)),
+    ("parallel", dict(parallel=ParallelConfig.tensor(2))),
+    ("spec", dict(spec=True)),
     ("sched", dict(sched="sched/preempt")), ("sampled", dict(greedy=False))])
-def test_other_features_still_not_ported_with_the_memory_tier(what, kw):
-    """``parallel`` and ``spec`` still raise beside the memory tier;
-    preemption and sampled decoding, once refused, now validate with it as
-    in the JAX package."""
+def test_other_features_still_not_ported_with_the_memory_tier(what, kw,
+                                                              monkeypatch):
+    """``spec`` still raises beside the memory tier; preemption, sampled
+    decoding and the mesh, once refused, now validate with it as in the
+    JAX package (a 2-device mesh: on one device both packages refuse it
+    alike, over virtual devices the port resolves it, the prefix cache and
+    the host tier with it)."""
     mem = MemoryConfig(prefix_cache=True, host_tier=True)
     cfg = BatchConfig(max_seq=32, chunked=True, memory=mem, device="cpu",
                       **kw)
-    if what in ("parallel", "spec"):
+    if what == "spec":
         with pytest.raises(NotImplementedError, match="not ported yet"):
             validate(cfg)
+        return
+    if what == "parallel":
+        jmem = JaxMemoryConfig(prefix_cache=True, host_tier=True)
+        monkeypatch.delenv(VIRTUAL_DEVICES_ENV, raising=False)
+        got = _validate_outcome(lambda: validate(cfg))
+        want = _validate_outcome(lambda: jax_validate(JaxBatchConfig(
+            max_seq=32, chunked=True, memory=jmem,
+            parallel=JaxParallelConfig.tensor(2))))
+        assert "needs 2 devices" in got and "needs 2 devices" in want
+        monkeypatch.setenv(VIRTUAL_DEVICES_ENV, "2")
+        plan = validate(cfg)
+        assert plan.mesh is not None and plan.parallel.tp == 2
+        assert (plan.memory.prefix_cache, plan.memory.host_tier) == (
+            True, True)
         return
     plan = validate(cfg)
     jplan = jax_validate(JaxBatchConfig(
