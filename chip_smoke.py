@@ -24,7 +24,11 @@ Phases, each failing the run on any exception or mismatch:
            16, with and without the ring, fp32 and bf16, and at the main
            path's own shapes (the engine's decode step and the chunked
            mixed step at tp 2 and 4), then checked and timed at the
-           engine's shape at tp 4
+           engine's shape at tp 4; flash_decode_paged at the speculative
+           verify (C = k + 1 = 5, the ring empty and with 3 live lanes) and
+           flash_decode at the self-draft's dense lanes (stablelm-1.6b's MHA,
+           2048 rows), checked and timed (``verify_shape``,
+           ``draft_shape``)
   engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
            a seed) serves 16 requests through ``Engine.from_config`` on the
            paged layout; the launch counts of staged_scatter,
@@ -72,6 +76,16 @@ Phases, each failing the run on any exception or mismatch:
            all-(T = 1, top_k = 1) run equal to an all-greedy run; a decode
            step with the mix against a greedy one (device ms, device
            operations, tok/s)
+  engine_spec  the slice with ``SpecConfig(enabled=True, k=4)`` (self-draft)
+           serving the engine phase's requests: adaptive blocking greedy,
+           staged chunked (chunks of 16) greedy, adaptive blocking with
+           engine_sampled's mix; per arm ``spec_proposed == k *
+           spec_rounds``, ``0 <= spec_accepted <= spec_proposed``, on the
+           blocking arms ``spec_committed == emitted - requests``, the
+           pool's audit, and staged_scatter, flash_decode_paged,
+           flash_attention and flash_decode launched; tok/s, committed
+           tokens per round, the acceptance share, the greedy streams
+           against the engine phase's, a spec segment profiled
   loadtest ``benchmarks/loadtest.py``'s three arms on the slice's model in
            virtual time (SLO counts, goodputs, their ratio; the streams'
            equality across arms reported), then the adaptive arm on the
@@ -91,8 +105,9 @@ Phases, each failing the run on any exception or mismatch:
            last-position logits held to the whole-prompt prefill's against
            the fp32 prefill (``held_bf16``)
   parity   stablelm-1.6b at 4 layers, fp32: direct / staged / adaptive,
-           fused / reference and paged / lanes give identical greedy token
-           streams; h2o-danube-3-4b at 2 layers (window cut to 128), fp32:
+           fused / reference, paged / lanes and greedy speculative decoding
+           (self-draft, k = 3) give identical greedy token streams;
+           h2o-danube-3-4b at 2 layers (window cut to 128), fp32:
            the engine on the card and the same weights on the CPU (the
            plain versions) give identical greedy token streams
   parity_chunked  stablelm-1.6b at 2 layers, fp32, chunk sizes 1 and 3, each
@@ -173,7 +188,7 @@ from repro_torch.kvcache import paged as PG  # noqa: E402
 from repro_torch.models import prng  # noqa: E402
 from repro_torch.models import sampling as SMP  # noqa: E402
 from repro_torch.serve import (Engine, EngineConfig,  # noqa: E402
-                               MemoryConfig, SamplingParams)
+                               MemoryConfig, SamplingParams, SpecConfig)
 from repro_torch.serve.traffic import (MarkovModulatedArrivals,  # noqa: E402
                                        RequestClass, generate_workload,
                                        run_loadtest)
@@ -207,6 +222,8 @@ HOST_LENS, HOST_BLOCKS = [512, 1024, 1536, 1792], 320
 HOST_SHARED = 512
 # PCIe Gen5 x16, one direction: the host link's bound
 PCIE_BYTES_PER_S = 64e9
+# speculative decoding on the paged slice: k proposals a round, self-draft
+SPEC_K = 4
 # mesh-sharded serving on virtual meshes of the one card: the engine's
 # configuration at tp 4 (fused read); then tp 2, chunked at 16 with the
 # prefix cache and the host tier on the staged path, 12 requests of 512 /
@@ -789,9 +806,13 @@ def time_k2(gen):
     t["chunk_shape"] = _k2_timed("flash_decode_paged chunk", chunk_args)
     prefix_args = _k2_prefix_inputs(gen)
     t["prefix_shape"] = _k2_timed("flash_decode_paged prefix", prefix_args)
+    # the speculative verify, from a generator of its own
+    verify_args = _k2_verify_inputs(timed_gen(110))
+    t["verify_shape"] = _k2_timed("flash_decode_paged verify", verify_args)
     return t, dict(slice=_k2_facts(slice_args), engine=_k2_facts(engine_args),
                    chunk=_k2_facts(chunk_args),
-                   prefix=_k2_facts(prefix_args), split_plan=split_plan)
+                   prefix=_k2_facts(prefix_args),
+                   verify=_k2_facts(verify_args), split_plan=split_plan)
 
 
 # (arch, Hq, Hkv, D, tp values): the head geometries of the three paged
@@ -1113,6 +1134,52 @@ def check_k2_chunk(gen):
     out.append(dict(prefix_aliased=True, **_check_k2_at(
         f"chunk shape, C={CHUNK}, prefix-cache aliased page tables", args)))
     return out
+
+
+def _k2_verify_inputs(gen, dtype=torch.bfloat16, ring_live=0):
+    """K2 at the speculative verify (``engine_spec``: the slice with
+    ``SpecConfig(k=4)``): ``q[8, 5, 32, 64]``, 128 pages of 16. Slot i has
+    written a prompt of 128 / 256 / 384 / 512 tokens plus up to 59
+    generated ones and verifies the 5 rows from its position ``pos``:
+    column j reads the rows up to ``pos + j``. Pages cover the request's
+    whole footprint (blocking admission), the rest of the page table is
+    clamped to block 0. The ring planes are there (the adaptive path) with
+    no live lane, as a spec segment leaves them; ``ring_live`` lanes live
+    (the rows before ``pos``, shadowed out of the view) hold the kernel to
+    a ring it must not assume empty."""
+    b, c, hq, hkv, d, ps, p, r = 8, SPEC_K + 1, 32, 32, 64, 16, 128, 8
+    nb = b * p
+    pk = torch.randn((nb + 1, ps, hkv, d), generator=gen, device=DEV).to(dtype)
+    pv = torch.randn((nb + 1, ps, hkv, d), generator=gen, device=DEV).to(dtype)
+    q = torch.randn((b, c, hq, d), generator=gen, device=DEV).to(dtype)
+    plen = torch.tensor(PROMPT_LENS * 2, device=DEV)
+    pos = plen + torch.randint(0, NEW_TOKENS - c, (b,), generator=gen,
+                               device=DEV)
+    pages = (plen + NEW_TOKENS - 1 + ps - 1) // ps
+    ids = torch.randperm(nb, generator=gen, device=DEV).view(b, p)
+    live_page = torch.arange(p, device=DEV)[None] < pages[:, None]
+    blocks = torch.where(live_page, ids, 0).to(torch.int32)
+    rows = torch.arange(p * ps, device=DEV)
+    positions = pos[:, None] + torch.arange(c, device=DEV)[None]
+    allocated = live_page.repeat_interleave(ps, dim=1)
+    view_ok = (rows[None, None] <= positions[..., None]) & allocated[:, None]
+    staged = (rows[None] >= (pos - ring_live)[:, None]) & (rows[None]
+                                                           < pos[:, None])
+    view_ok &= ~staged[:, None]
+    rok = (torch.arange(r, device=DEV)[None] < ring_live).expand(b, r)
+    rk = torch.randn((b, r, hkv, d), generator=gen, device=DEV).to(dtype)
+    rv = torch.randn((b, r, hkv, d), generator=gen, device=DEV).to(dtype)
+    return q, pk, pv, blocks, view_ok.contiguous(), rk, rv, rok.contiguous()
+
+
+def check_k2_verify(gen):
+    """K2 at the verify's shape (C = k + 1 = 5: an odd row count), the
+    ring empty as the engine leaves it and with 3 live lanes: fp32 within
+    TOL_F32 of the plain version, bf16 by ``held_bf16`` row by row against
+    the plain version run in fp32."""
+    return [dict(ring_live=n, **_check_k2_at(
+        f"verify shape, C={SPEC_K + 1}, {n} live ring lanes",
+        _k2_verify_inputs(gen, ring_live=n))) for n in (0, 3)]
 
 
 # ---------------------------------------------------------------------------
@@ -1452,26 +1519,53 @@ def _k4_slice_inputs(gen, all_live):
     return q, k, v, mask
 
 
-def check_k4_slice(gen, all_live):
-    args = _k4_slice_inputs(gen, all_live)
+def _check_k4_at(what, args):
+    """K4 at a real shape: fp32 within TOL_F32 of the plain version, bf16 by
+    ``held_bf16`` against the plain version run in fp32."""
     args32 = _as_f32(args)
     ref32 = flash_decode_ref(*args32)
     got32 = flash_decode(*args32)
     torch.testing.assert_close(
         got32, ref32, **TOL_F32,
-        msg=lambda m: f"flash_decode fp32, slice shape: {m}")
+        msg=lambda m: f"flash_decode fp32, {what}: {m}")
     got, plain = flash_decode(*args), flash_decode_ref(*args)
     torch.cuda.synchronize()
-    h = held_bf16("flash_decode", "slice shape", got, plain, ref32, K4_ROWS)
-    return dict(all_live=all_live, err_f32=float((got32 - ref32).abs().max()),
+    h = held_bf16("flash_decode", what, got, plain, ref32, K4_ROWS)
+    return dict(err_f32=float((got32 - ref32).abs().max()),
                 err_bf16_vs_f32_ref=h["err"],
                 plain_err_bf16_vs_f32_ref=h["err_plain"],
                 worst_block_share=h["worst_block_share"],
                 out_rms=float(ref32.square().mean().sqrt()))
 
 
-def time_k4(gen):
-    q, k, v, mask = _k4_slice_inputs(gen, all_live=True)
+def check_k4_slice(gen, all_live):
+    return dict(all_live=all_live, **_check_k4_at(
+        "slice shape", _k4_slice_inputs(gen, all_live)))
+
+
+def _k4_draft_inputs(gen):
+    """K4 at the self-draft's decode step (``engine_spec``): ``q[8, 32,
+    64]`` over the draft's dense lanes ``k/v[8, 2048, 32, 64]`` bf16
+    (max_seq 2048; MHA, so a GQA group of 1 query row); slot i live up to
+    its position, a prompt of 128 / 256 / 384 / 512 tokens plus up to 63
+    generated and k drafted rows."""
+    cfg = get_config(SLICE["arch"])
+    b, t = SLICE["n_slots"], SLICE["max_seq"]
+    q, k, v, _ = _k4_inputs(gen, torch.bfloat16, b, cfg.n_heads,
+                            cfg.n_kv_heads, t, cfg.resolved_head_dim)
+    pos = torch.tensor(PROMPT_LENS * 2, device=DEV) + torch.randint(
+        0, NEW_TOKENS + SPEC_K, (b,), generator=gen, device=DEV)
+    return q, k, v, torch.arange(t, device=DEV)[None] <= pos[:, None]
+
+
+def check_k4_draft(gen):
+    return _check_k4_at("draft shape", _k4_draft_inputs(gen))
+
+
+def _k4_timed(name, args):
+    """Device times of K4, its plain version and SDPA with a ``[B,1,1,T]``
+    mask on these operands, its bound (the live keys' bytes) and shape."""
+    q, k, v, mask = args
     b, hq, d = q.shape
     t, hkv = k.shape[1], k.shape[2]
 
@@ -1480,7 +1574,7 @@ def time_k4(gen):
         return F.scaled_dot_product_attention(
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask[:, None, None, :], enable_gqa=True)
-    t_ = timings("flash_decode", lambda: flash_decode(q, k, v, mask),
+    t_ = timings(name, lambda: flash_decode(q, k, v, mask),
                  lambda: flash_decode_ref(q, k, v, mask), library)
     es = q.element_size()
     n_live = int(mask.sum())      # the work depends on the data: live keys
@@ -1492,6 +1586,14 @@ def time_k4(gen):
                 live_keys=n_live,
                 shape=f"q[{b},{hq},{d}] k/v[{b},{t},{hkv},{d}] bf16, "
                       f"{n_live} live keys")
+
+
+def time_k4(gen):
+    t = _k4_timed("flash_decode", _k4_slice_inputs(gen, all_live=True))
+    # the self-draft's step, from a generator of its own
+    t["draft_shape"] = _k4_timed("flash_decode draft",
+                                 _k4_draft_inputs(timed_gen(111)))
+    return t
 
 
 # ---------------------------------------------------------------------------
@@ -1849,6 +1951,10 @@ def phase_kernels():
     k3_t["chunk_shape"] = time_k3_chunk(timed_gen(107))
     k2s_cases, k2s_errs = check_k2_sharded(timed_gen(108))
     k2s_t = time_k2_sharded(timed_gen(109))
+    # the speculative path's shapes: the verify (K2 at C = k + 1) and the
+    # self-draft's step (K4 at the slice's MHA geometry)
+    k2_verify = check_k2_verify(timed_gen(112))
+    k4_draft = check_k4_draft(timed_gen(113))
     say("cms_monitor_step", **step_t)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
@@ -1879,6 +1985,8 @@ def phase_kernels():
         flash_decode_paged_slice=k2_slice,
         flash_decode_paged_engine_shape=k2_engine,
         flash_decode_paged_chunk_shape=k2_chunk,
+        flash_decode_paged_verify_shape=k2_verify,
+        flash_decode_draft_shape=k4_draft,
         flash_decode_paged_sharded_cases=k2s_cases,
         flash_decode_paged_sharded_equal_unsharded=True,
         flash_decode_paged_sharded_max_abs_err_f32=k2s_errs[torch.float32],
@@ -1889,6 +1997,9 @@ def phase_kernels():
         flash_attention_slice=k3_slice,
         flash_decode_shape=k4_t.pop("shape"),
         flash_decode_live_keys=k4_t.pop("live_keys"),
+        flash_decode_draft_timed=dict(
+            shape=k4_t["draft_shape"].pop("shape"),
+            live_keys=k4_t["draft_shape"].pop("live_keys")),
         flash_decode_slice=k4_slice,
         slice_err_factor=SLICE_ERR_FACTOR, cms_cases=cms_cases,
         cms_exact=True, cms_update_query_cases=fused_cases,
@@ -2918,6 +3029,111 @@ def phase_engine_sampled(kernels):
 
 
 # ---------------------------------------------------------------------------
+# speculative decoding on the paged slice
+# ---------------------------------------------------------------------------
+
+# name, engine shape over SLICE, the sampling mix
+SPEC_ARMS = (("adaptive_blocking_greedy", {}, "greedy"),
+             ("staged_chunked_greedy",
+              dict(path="staged", chunked=True, chunk_size=CHUNK), "greedy"),
+             ("adaptive_blocking_filtered", {}, "filtered"))
+SPEC_KERNELS = ("staged_scatter", "flash_decode_paged", "flash_attention",
+                "flash_decode")
+
+
+def _spec_arm(model, cfg, extra, mix):
+    """One arm of ``engine_spec``: warm-up, then the slice's requests served
+    once with the launch counts set to 0 just before and read just after.
+    Returns (streams, stats, counts, seconds, the engine)."""
+    shape = dict(SLICE, **extra)
+    eng = Engine.from_config(EngineConfig(
+        **shape, spec=SpecConfig(enabled=True, k=SPEC_K)), model)
+    eng.serve(synthetic_requests(len(PROMPT_LENS), PROMPT_LENS, cfg.vocab,
+                                 2, params=SamplingParams(max_tokens=2)))
+    eng.reset()
+    params = (_sampled_params if mix == "filtered"
+              else lambda i, n: SamplingParams(max_tokens=n))
+    reset_launch_counts()           # counts = 0 just before the main path
+    out, _, secs = _serve_once(eng, _sampled_queue(cfg.vocab, params))
+    counts = launch_counts()        # read just after
+    return out, dict(eng.stats), counts, secs, eng
+
+
+def phase_engine_spec(kernels, blocking):
+    """The slice (stablelm-1.6b at full width and depth, bf16, paged) with
+    ``SpecConfig(enabled=True, k=4)``, self-draft, serving the engine
+    phase's 16 requests x 64 tokens: adaptive blocking greedy, staged
+    chunked (chunks of 16) greedy, and adaptive blocking with
+    ``engine_sampled``'s mix (the ``filtered`` sampler). Held in each arm
+    (exact by construction): ``spec_proposed == k * spec_rounds``, ``0 <=
+    spec_accepted <= spec_proposed``, on the blocking arms every token but
+    the prefill one committed by a round (``spec_committed == emitted -
+    requests``), the pool's audit, and K1 (the boundary drains of the
+    ring-bearing paths), K2 (the verify), K3 (prefill and the draft's
+    re-prefill) and K4 (the draft's steps) launched. Reported: tok/s,
+    committed tokens per round, the acceptance share (self-draft reads its
+    keys through K4 on lanes and the target through K2 on pages, so in
+    bf16 a share below 1 is a finding), the greedy arm's streams against
+    the engine phase's non-spec ones (the verify's GEMM has M = 8 x 5
+    where a decode step's has M = 8: a known difference by construction),
+    and a spec segment profiled beside the engine phase's decode one."""
+    cfg, model = _slice_model()
+    report, problems = {}, []
+    for name, extra, mix in SPEC_ARMS:
+        out, st, counts, secs, eng = _spec_arm(model, cfg, extra, mix)
+        eng.scheduler.pool.audit()
+        n_tok = sum(len(t) for t in out.values())
+        chunked = bool(extra.get("chunked"))
+        if st["spec_proposed"] != SPEC_K * st["spec_rounds"]:
+            problems.append(f"{name}: spec_proposed != k * spec_rounds {st}")
+        if not 0 <= st["spec_accepted"] <= st["spec_proposed"]:
+            problems.append(f"{name}: spec_accepted out of range {st}")
+        if not chunked and st["spec_committed"] != n_tok - len(out):
+            problems.append(f"{name}: spec_committed {st['spec_committed']}"
+                            f" != emitted - requests {n_tok - len(out)}")
+        if len(out) != N_REQUESTS or any(len(t) != NEW_TOKENS
+                                         for t in out.values()):
+            problems.append(f"{name}: not every request got {NEW_TOKENS} "
+                            f"tokens")
+        for k in SPEC_KERNELS:
+            if counts[k] <= 0:
+                problems.append(f"{name}: {k} not launched: {counts}")
+        arm = dict(config=dict(extra, mix=mix), tokens=n_tok, seconds=secs,
+                   tok_per_s=n_tok / secs, stats=st, launches=counts,
+                   committed_per_round=st["spec_committed"]
+                   / max(st["spec_rounds"], 1),
+                   acceptance_share=st["spec_accepted"]
+                   / max(st["spec_proposed"], 1))
+        if name == "adaptive_blocking_greedy":
+            diff = _stream_diff(out, blocking["outputs"])
+            arm["streams_equal_engine_share"] = 1 - len(diff) / len(out)
+            arm["first_divergence"] = diff
+            arm["engine_tok_per_s"] = blocking["report"]["tok_per_s"]
+            arm["profile"] = engine_profile(eng, cfg, SLICE, PROMPT_LENS)
+            arm["decode_profile"] = {
+                k: blocking["profile"][k] for k in (
+                    "step_ms", "device_ms_per_step", "device_busy_share",
+                    "device_ops_per_step")}
+            for k in kernels:
+                if k["name"] == "flash_decode_paged":
+                    k["verify_shape"]["launches"] = counts[k["name"]]
+                if k["name"] == "flash_decode":
+                    k["draft_shape"]["launches"] = counts[k["name"]]
+        for k in kernels:
+            if k["name"] in SPEC_KERNELS:
+                k[f"launches_spec_{name}"] = counts[k["name"]]
+        report[name] = arm
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    say("engine_spec", config=SLICE, k=SPEC_K, requests=N_REQUESTS,
+        new_tokens=NEW_TOKENS, **report)
+    if problems:
+        raise AssertionError("engine_spec: " + "; ".join(problems))
+
+
+# ---------------------------------------------------------------------------
 # the open-loop loadtest (benchmarks/loadtest.py's three arms) on the card
 # ---------------------------------------------------------------------------
 
@@ -3310,10 +3526,14 @@ def engine_profile(eng, cfg, shape, prompt_lens, mixed=False, params=None):
     the slots, the short ones flip to decode in the warm segment and the
     long ones still prefill in every measured one, so each is a
     mixed-phase segment. ``params(i, max_tokens)`` gives request ``i``'s
-    SamplingParams (default: greedy)."""
+    SamplingParams (default: greedy). A speculative engine's step is a
+    round (up to k + 1 tokens a slot); its draft lanes are re-prefilled in
+    the warm segment only."""
     eng.reset()
     sch = eng.scheduler
-    n_new = 8 * shape["segment_len"]    # at most 7 segments run below
+    per_step = sch.spec.k + 1 if sch._spec_enabled else 1
+    # at most 7 segments run below
+    n_new = 8 * shape["segment_len"] * per_step
     params = params or (lambda i, n: SamplingParams(max_tokens=n))
     sch.admit(_sampled_queue(cfg.vocab, params, shape["n_slots"], n_new,
                              prompt_lens))
@@ -3337,7 +3557,8 @@ def engine_profile(eng, cfg, shape, prompt_lens, mixed=False, params=None):
     steps = shape["segment_len"]
     dev_ms = sum(r[0] for r in rows) / 1e3
     out = dict(arch=shape["arch"], layout=eng.layout,
-               mixed=mixed, slots=shape["n_slots"], steps=steps,
+               mixed=mixed, spec_k=sch.spec.k if per_step > 1 else None,
+               slots=shape["n_slots"], steps=steps,
                segment_ms=seg, step_ms=seg_ms / steps,
                device_ms_per_step=dev_ms / steps,
                device_busy_share=dev_ms / seg_ms if dev_ms else None,
@@ -3350,10 +3571,41 @@ def engine_profile(eng, cfg, shape, prompt_lens, mixed=False, params=None):
     return out
 
 
+def _top2_gap(model, prompt, tokens, max_seq):
+    """The gap between the two largest logits the model gives for the token
+    after ``prompt + tokens`` (a whole-prompt prefill on the card)."""
+    toks = torch.as_tensor(list(prompt) + list(tokens), device=DEV)[None]
+    logits, _ = model.prefill(toks.long(), max_seq)
+    top = torch.topk(logits[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _parity_spec(model, run, base, plens, new, max_seq):
+    """The spec arm of ``parity``: greedy self-draft spec (k = 3) against
+    the direct / fused base streams. At the first divergence (if any), the
+    top-2 logit gap of a whole-prompt prefill up to it."""
+    out, stats = run("direct", "fused", spec=SpecConfig(enabled=True, k=3))
+    diff = _stream_diff(out, base)
+    res = dict(identical_streams=not diff, first_divergence=diff,
+               stats={k: stats[k] for k in ("spec_proposed", "spec_accepted",
+                                            "spec_committed", "spec_rounds")})
+    if diff:
+        rid = min(diff)
+        i = max(diff[rid], 0)
+        prompt = synthetic_requests(6, plens, model.cfg.vocab, new).at(rid)
+        res["top2_gap_at_first_divergence"] = dict(
+            request=rid, token=i, gap=_top2_gap(model, prompt.prompt,
+                                                base[rid][:i], max_seq))
+    return res
+
+
 def phase_parity():
     """Smaller depth, full width, fp32: the write paths, the two paged read
     implementations and the two layouts must emit identical greedy token
-    streams; so must the sliding-window model on the card and on the CPU."""
+    streams; so must the sliding-window model on the card and on the CPU,
+    and greedy speculative decoding (self-draft, k = 3) on the direct path
+    with the fused read: the JAX package's contract that greedy spec is
+    greedy non-spec."""
     cfg = dataclasses.replace(get_config(SLICE["arch"]), n_layers=4,
                               dtype="float32")
     model = build_model(cfg, device=DEV).init(1)
@@ -3361,9 +3613,10 @@ def phase_parity():
                  ring_size=4)
     plens, new = [128, 200, 256], 24
 
-    def run(path, attention, layout="auto"):
+    def run(path, attention, layout="auto", spec=None):
         eng = Engine.from_config(EngineConfig(
-            path=path, attention=attention, kv_layout=layout, **shape), model)
+            path=path, attention=attention, kv_layout=layout, spec=spec,
+            **shape), model)
         out = eng.serve(synthetic_requests(6, plens, cfg.vocab, new))
         stats = dict(eng.stats)
         assert eng.layout == ("paged" if layout == "auto" else layout)
@@ -3385,6 +3638,11 @@ def phase_parity():
                     f"direct/fused, request {rid}: {out[rid]} vs {base[rid]}")
         report[f"{path}/{attention}/{layout}"] = {
             k: stats[k] for k in ("direct_writes", "staged_writes", "drains")}
+    spec = _parity_spec(model, run, base, plens, new, shape["max_seq"])
+    if not spec["identical_streams"]:
+        raise AssertionError(f"greedy spec streams differ from the direct / "
+                             f"fused base: {spec}")
+    report["spec_k3/direct/fused"] = spec
     del model
     torch.cuda.empty_cache()
     swa = phase_parity_swa()
@@ -3778,6 +4036,7 @@ def main():
     timed("engine_host_tier", phase_engine_host_tier, kernels)
     timed("sampler", phase_sampler)
     timed("engine_sampled", phase_engine_sampled, kernels)
+    timed("engine_spec", phase_engine_spec, kernels, blocking)
     timed("loadtest", phase_loadtest, kernels)
     timed("preempt", phase_preempt, kernels)
     timed("lanes", phase_lanes, kernels)

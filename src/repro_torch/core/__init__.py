@@ -1,7 +1,8 @@
 """Port of repro/core/__init__.py: the paper's contribution as composable
 PyTorch modules.
 
-  types         WriteBatch, phase tags, DecisionStats, resolve_device
+  types         WriteBatch, phase tags, DecisionStats, SpecStats,
+                resolve_device
   monitor       heavy-hitter counters: exact array + count-min sketch
   policy        AlwaysOffload / AlwaysUnload / Hint / Frequency / Hysteresis
   decision      DecisionModule: per-request offload/unload routing
@@ -21,8 +22,9 @@ from .decision import DecisionModule, page_threshold
 from .monitor import (CMSMonitor, ExactMonitor, MonitorState,
                       calibrate_threshold)
 from .paths import (ADAPTIVE, DIRECT, STAGED, AttentionConfig, MemoryConfig,
-                    ResolvedPlan, WritePath, available_paths, build_decision,
-                    get_path, negotiate, register_path, resolve_attention)
+                    ResolvedPlan, SpecConfig, WritePath, available_paths,
+                    build_decision, get_path, negotiate, register_path,
+                    resolve_attention, resolve_draft)
 from .policy import (AlwaysOffload, AlwaysUnload, FrequencyPolicy, HintPolicy,
                      HysteresisPolicy, available_policies, get_policy_factory,
                      register_policy, top_k_hot_table)
@@ -30,7 +32,7 @@ from .ring import RingState
 from .simulator import zipf_regions
 from .staged_write import EngineState, RemoteWriteEngine
 from .types import (OFFLOAD, PHASE_BULK, PHASE_SCATTERED, UNLOAD,
-                    DecisionStats, LatencyModel, WriteBatch,
+                    DecisionStats, LatencyModel, SpecStats, WriteBatch,
                     make_write_batch, resolve_device)
 from .umtt import (PERM_READ, PERM_WRITE, UMTT, deregister, make_umtt,
                    register, validate)
@@ -41,14 +43,15 @@ __all__ = [
     "staged_write", "types", "umtt", "unload",
     "DecisionModule", "page_threshold", "CMSMonitor", "ExactMonitor",
     "MonitorState", "calibrate_threshold", "ADAPTIVE", "DIRECT", "STAGED",
-    "AttentionConfig", "MemoryConfig", "ResolvedPlan", "WritePath",
+    "AttentionConfig", "MemoryConfig", "ResolvedPlan", "SpecConfig",
+    "resolve_draft", "WritePath",
     "available_paths", "build_decision", "get_path", "negotiate",
     "register_path", "resolve_attention", "AlwaysOffload", "AlwaysUnload",
     "FrequencyPolicy", "HintPolicy", "HysteresisPolicy", "available_policies",
     "get_policy_factory", "register_policy", "top_k_hot_table", "RingState",
     "zipf_regions", "EngineState", "RemoteWriteEngine", "OFFLOAD",
     "PHASE_BULK", "PHASE_SCATTERED", "UNLOAD", "DecisionStats",
-    "LatencyModel", "WriteBatch",
+    "LatencyModel", "SpecStats", "WriteBatch",
     "make_write_batch", "resolve_device", "PERM_READ", "PERM_WRITE", "UMTT",
     "deregister", "make_umtt", "register", "validate", "StagingRing",
     "append", "drain", "make_ring", "need_drain",

@@ -7,14 +7,17 @@ decisions it can absorb (``capabilities``); engines are configured from
 ``(path="adaptive", policy="frequency")`` strings resolved through the
 registry. :func:`validate` is the one config -> plan entry point.
 
-Features of the JAX package's ``validate`` that are not ported yet raise
-``NotImplementedError("not ported yet: ...")`` at config time: ``spec``
-(speculative decoding) and ``AttentionConfig.drain_kernel`` (in this package
-the device decides: a CUDA tensor drains through the kernel, a CPU tensor
-through its plain version). As in the JAX package, ``sched="sched/preempt"``
-without ``memory.host_tier`` raises ``ValueError``, and so do the mesh's
-conflicts (a mesh with the lanes layout, fused attention over heads the
-``model`` axis does not divide, a mesh with more devices than there are).
+``AttentionConfig.drain_kernel`` raises ``NotImplementedError`` at config
+time (in this package the device decides: a CUDA tensor drains through the
+kernel, a CPU tensor through its plain version). As in the JAX package,
+``sched="sched/preempt"`` without ``memory.host_tier`` raises ``ValueError``,
+and so do the mesh's conflicts (a mesh with the lanes layout, fused
+attention over heads the ``model`` axis does not divide, a mesh with more
+devices than there are) and speculative decoding's (``SpecConfig``: the
+lanes layout has no chunk verifier, ``k < 1``, a draft that shares no
+vocabulary with the target or cannot be rolled back). A draft arch this
+package does not have, and a recurrent (SSM) draft, raise
+``NotImplementedError("not ported yet: ...")``.
 """
 from __future__ import annotations
 
@@ -271,10 +274,85 @@ class AttentionConfig:
                 f"(known: {list(_KNOWN_ATTN)})")
 
 
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative-decoding group (the third execution path, DESIGN.md
+    §11): a small draft model proposes ``k`` tokens per live slot inside
+    the segment and the target verifies all of them in ONE
+    ``decode_chunk_paged`` call, committing the accepted prefix plus one
+    target-sampled token.
+
+    ``draft_arch`` names the proposer from the config registry
+    (``repro_torch.configs.ARCHS``); ``None`` means self-draft, the target
+    model drafting for itself. The draft must share the target's
+    vocabulary: :func:`resolve_draft` matches the target's actual vocab
+    against the draft's full and reduced configs and :func:`validate`
+    rejects when neither fits."""
+
+    draft_arch: Optional[str] = None
+    k: int = 4
+    enabled: bool = False
+
+
+# draft cache families the engine can roll back on rejection: dense
+# (positional KV rows: rewinding the write cursor IS the rollback) and
+# pure-SSM (no positions; a small recurrent state snapshotted per draft
+# step, not ported yet). Mixed families have neither property.
+_DRAFT_POSITIONAL = ("dense", "moe")
+_DRAFT_SNAPSHOT = ("ssm",)
+
+
+def resolve_draft(spec: SpecConfig, *, vocab: Optional[int] = None,
+                  arch_name: Optional[str] = None):
+    """Resolve ``spec.draft_arch`` to the concrete draft ``ModelConfig``
+    whose vocab matches the target's actual ``vocab`` (the full config
+    first, then its reduced variant: a reduced target pairs with a reduced
+    draft). Raises ``ValueError`` on a vocab mismatch or a draft family
+    that cannot be rolled back, with the JAX package's messages, and
+    ``NotImplementedError`` for a draft arch or family not ported yet."""
+    from ..configs import get_config
+
+    name = spec.draft_arch or arch_name
+    if name is None:
+        raise ValueError(
+            "SpecConfig.draft_arch is unset and the target arch is "
+            "unknown; name a draft model from repro.configs.ARCHS")
+    # self-draft against a reduced() target: the smoke variant is not a
+    # registry entry of its own, so resolve through its base arch (the
+    # vocab match below then picks the reduced candidate back out)
+    if name.endswith("-smoke"):
+        name = name[: -len("-smoke")]
+    full = get_config(name)   # an arch not ported yet raises here
+    cands = (full, full.reduced())
+    dcfg = next((c for c in cands if vocab is None or c.vocab == vocab),
+                None)
+    if dcfg is None:
+        raise ValueError(
+            f"speculative draft {name!r} shares no vocabulary with the "
+            f"target (target vocab {vocab}; draft full={full.vocab}, "
+            f"reduced={full.reduced().vocab}) — verify compares token ids "
+            f"directly, so draft and target need one tokenizer; pick a "
+            f"same-vocab draft_arch or SpecConfig(draft_arch=None) for "
+            f"self-draft")
+    if dcfg.family not in _DRAFT_POSITIONAL + _DRAFT_SNAPSHOT:
+        raise ValueError(
+            f"speculative draft {name!r} (family {dcfg.family!r}) mixes "
+            f"positional and recurrent cache state, which the engine "
+            f"cannot roll back on rejection; supported draft families: "
+            f"dense/moe (positional rewind) and ssm (state snapshot)")
+    if dcfg.family in _DRAFT_SNAPSHOT:
+        raise _not_ported(
+            f"speculative draft {name!r} of family {dcfg.family!r} (the "
+            f"recurrent drafts' snapshot rollback)")
+    return dcfg
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class ResolvedPlan:
     """Everything an engine needs, resolved and negotiated ONCE by
-    :func:`validate`; engines consume only this, never the raw config."""
+    :func:`validate`; engines consume only this, never the raw config.
+    ``spec`` / ``draft_cfg``: the (normalized) SpecConfig and, when it is
+    enabled, the vocab-matched draft ``ModelConfig`` (else ``None``)."""
 
     layout: str
     attention: str
@@ -290,18 +368,21 @@ class ResolvedPlan:
     parallel: ParallelConfig = dataclasses.field(
         default_factory=ParallelConfig)
     mesh: Optional[Any] = None
+    spec: SpecConfig = dataclasses.field(default_factory=SpecConfig)
+    draft_cfg: Optional[Any] = None
 
 
 def normalize_groups(cfg) -> None:
     """Shared ``EngineConfig``/``BatchConfig`` ``__post_init__`` normalizer:
     default the grouped sub-configs (``memory`` / ``attention`` /
-    ``parallel``) and coerce an ``attention`` string to
+    ``parallel`` / ``spec``) and coerce an ``attention`` string to
     ``AttentionConfig(impl=...)``."""
     cfg.memory = getattr(cfg, "memory", None) or MemoryConfig()
     a = getattr(cfg, "attention", None)
     cfg.attention = a if isinstance(a, AttentionConfig) else AttentionConfig(
         impl=a or "auto")
     cfg.parallel = getattr(cfg, "parallel", None) or ParallelConfig()
+    cfg.spec = getattr(cfg, "spec", None) or SpecConfig()
 
 
 def _memory_of(cfg) -> MemoryConfig:
@@ -326,7 +407,8 @@ def _not_ported(what: str):
 def validate(cfg, *, paged_capable: bool = True,
              n_heads: Optional[int] = None,
              n_kv_heads: Optional[int] = None,
-             arch_name: Optional[str] = None) -> ResolvedPlan:
+             arch_name: Optional[str] = None,
+             vocab: Optional[int] = None) -> ResolvedPlan:
     """THE config -> plan entry point: one call, one loud error surface.
     ``cfg`` is duck-typed over ``EngineConfig`` / ``BatchConfig``; the head
     counts come from the engine that owns the model. Raises ``ValueError``
@@ -339,7 +421,12 @@ def validate(cfg, *, paged_capable: bool = True,
     shard's K2 launch reads whole GQA groups); and the mesh must find its
     devices (``ParallelConfig.build_mesh``). The host tier's check that
     every mesh device belongs to this process always passes here: a mesh is
-    one process."""
+    one process.
+
+    Speculative decoding (``cfg.spec``) as in the JAX package: its verify
+    IS a chunked step through ``decode_chunk_paged``, so it needs the paged
+    layout, ``k >= 1`` and a draft resolved by :func:`resolve_draft`
+    against the target's ``vocab``."""
     device = resolve_device(getattr(cfg, "device", "cuda"))
     layout = getattr(cfg, "kv_layout", "auto") or "auto"
     if layout not in ("auto", "paged", "lanes"):
@@ -354,9 +441,6 @@ def validate(cfg, *, paged_capable: bool = True,
     chunked = bool(getattr(cfg, "chunked", False))
     if chunked and getattr(cfg, "chunk_size", 1) < 1:
         raise ValueError("chunk_size must be >= 1")
-    spec = getattr(cfg, "spec", None)
-    if spec is not None and getattr(spec, "enabled", True):
-        raise _not_ported("spec (speculative decoding)")
     memory = _memory_of(cfg)
     parallel = getattr(cfg, "parallel", None) or ParallelConfig()
     if parallel.enabled and layout != "paged":
@@ -407,6 +491,26 @@ def validate(cfg, *, paged_capable: bool = True,
             f"use memory=MemoryConfig(host_tier=True) (paged layout) or "
             f"a non-preempting sched")
 
+    # speculative decoding (the third execution path): the k-token verify
+    # IS a chunked step through decode_chunk_paged, so spec needs the paged
+    # layout (lanes has no chunk verifier), a proposal depth of at least
+    # one, and a draft whose vocabulary matches the target's
+    spec = getattr(cfg, "spec", None) or SpecConfig()
+    draft_cfg = None
+    if spec.enabled:
+        if layout != "paged":
+            raise ValueError(
+                f"speculative decoding verifies k tokens through "
+                f"decode_chunk_paged over the paged pool, but "
+                f"kv_layout={layout!r} has no chunk verifier; use the "
+                f"paged layout (dense non-SWA DecoderLM family) or "
+                f"SpecConfig(enabled=False)")
+        if spec.k < 1:
+            raise ValueError(
+                f"SpecConfig.k must be >= 1 (k tokens proposed per "
+                f"verify round), got {spec.k}")
+        draft_cfg = resolve_draft(spec, vocab=vocab, arch_name=arch_name)
+
     ps = getattr(cfg, "page_size", 8)
     n_slots = getattr(cfg, "n_slots", 8)
     max_pages = -(-int(getattr(cfg, "max_seq")) // int(ps))
@@ -423,7 +527,7 @@ def validate(cfg, *, paged_capable: bool = True,
         layout=layout, attention=attention, path=path, decision=decision,
         sched=sched, memory=memory, device=device, n_blocks=n_blocks,
         max_pages=max_pages, n_regions=n_regions, parallel=parallel,
-        mesh=mesh)
+        mesh=mesh, spec=spec, draft_cfg=draft_cfg)
 
 
 def build_decision(path: Union[str, WritePath] = "direct",
@@ -459,5 +563,5 @@ __all__ = [
     "negotiate", "negotiate_memory", "resolve_attention", "resolve_device",
     "build_decision",
     "ParallelConfig", "MemoryConfig", "AttentionConfig", "ResolvedPlan",
-    "validate", "normalize_groups",
+    "SpecConfig", "resolve_draft", "validate", "normalize_groups",
 ]

@@ -161,10 +161,13 @@ def push_column(buf: torch.Tensor, head: torch.Tensor, column: torch.Tensor,
     """Write one entry ``column`` at ring position ``head`` of ``buf``, IN
     PLACE (returns ``buf``). ``head`` is a device scalar: the write is an
     ``index_copy_`` along the ring axis, so the host never reads the
-    cursor. ``column`` is ``buf`` without that axis."""
+    cursor. ``column`` is ``buf`` without that axis. A head past the last
+    position writes the last one, as the JAX package's
+    ``lax.dynamic_update_slice`` clamps its start (a chunk step that stages
+    nothing, the speculative verify, advances the cursor without a drain)."""
     axis = axis % buf.dim()
-    return buf.index_copy_(axis, head.reshape(1).long(),
-                           column.unsqueeze(axis).to(buf.dtype))
+    at = head.reshape(1).long().clamp(max=buf.shape[axis] - 1)
+    return buf.index_copy_(axis, at, column.unsqueeze(axis).to(buf.dtype))
 
 
 def shadow_mask(

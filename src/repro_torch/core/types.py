@@ -4,9 +4,9 @@ Core datatypes of the bidirectional-offload engine: ``WriteBatch``
 (structure-of-arrays batch of write requests), the write-phase tags and
 ``DecisionStats``. Everything is a NamedTuple of tensors on one explicit
 device. ``LatencyModel`` holds the paper's per-path write latencies, the
-constants of the virtual-time cost model (``serve.traffic``). ``MTTConfig``,
-``CPUTLBConfig`` and ``SpecStats`` belong to the simulator and the
-speculative path and are not ported yet.
+constants of the virtual-time cost model (``serve.traffic``); ``SpecStats``
+the speculative path's tallies. ``MTTConfig`` and ``CPUTLBConfig`` belong to
+the simulator and are not ported yet.
 
 Conventions: region ids and the other integer fields are int64 tensors
 (PyTorch's index type); the JAX package uses int32 for the same values.
@@ -110,6 +110,25 @@ class DecisionStats(NamedTuple):
         if valid is None:
             return DecisionStats(unload_mask.shape[0] - u, u, nb)
         return DecisionStats(valid.sum() - u, u, nb)
+
+
+class SpecStats(NamedTuple):
+    """Per-segment speculative-decoding tallies, the third path's analogue
+    of :class:`DecisionStats`. ``n_committed`` counts the tokens emitted
+    (the accepted run plus the target's own token each round, cut at a stop
+    or the budget), so ``n_committed / n_rounds`` is the committed tokens
+    per target verify step. int64 scalars, summed across segments on the
+    host."""
+
+    n_proposed: torch.Tensor   # draft tokens offered to the verifier
+    n_accepted: torch.Tensor   # draft tokens the target accepted
+    n_committed: torch.Tensor  # tokens emitted (accepted + target samples)
+    n_rounds: torch.Tensor     # verify rounds = target forward passes
+
+    @staticmethod
+    def zero(device="cpu") -> "SpecStats":
+        return SpecStats(*(torch.zeros((), dtype=torch.int64, device=device)
+                           for _ in range(4)))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -33,7 +33,8 @@ host tier's and the CoW's block moves (pinned, stream-ordered copies on the
 card). The chunk variants of the mixed-phase step
 (``logical_to_physical_many``, ``scatter_chunk``, ``view_chunk_mask_from``,
 ``overlay_chunk_parts``) sit beside their one-token originals. The
-speculative snapshots are not ported yet.
+snapshot stacks of recurrent (SSM) speculative drafts come with the SSM
+family and are not ported yet.
 
 Under a mesh (``make_paged_kv(..., mesh=)``, DESIGN.md §9) the data planes
 ``pages_k`` / ``pages_v`` / ``ring_k`` / ``ring_v`` are

@@ -1,4 +1,4 @@
-"""Port of repro/models/sampling.py (all but ``spec_verify``).
+"""Port of repro/models/sampling.py.
 
 Per-request ``SamplingParams`` and the in-segment slot sampler. The
 scheduler loads each request's fields into fixed-shape per-slot tensors and
@@ -19,7 +19,9 @@ draws JAX's bits. Equivalence contract, as in the JAX package:
 * filters compose in the standard order: temperature scale -> top-k mask ->
   top-p (nucleus) mask -> categorical.
 
-``spec_verify`` (speculative decoding) is not ported yet.
+``spec_verify`` is the speculative path's accept / reject pass over every
+slot at once, on the same key chain (one split per slot per call in the
+sampling modes, none in greedy).
 """
 from __future__ import annotations
 
@@ -170,6 +172,89 @@ def sample_tokens(logits: torch.Tensor, key_data: torch.Tensor,
         scaled = filter_logits(scaled, params.top_k, params.top_p)
     sampled = prng.categorical(pairs[:, 0], scaled)
     return torch.where(temp > 0, sampled, greedy), pairs[:, 1]
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softmax`` over the last axis, written as JAX writes it."""
+    e = torch.exp(x - x.max(dim=-1, keepdim=True).values)
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def spec_verify(target_logits: torch.Tensor, draft_tokens: torch.Tensor,
+                draft_logits: torch.Tensor, key_data: torch.Tensor,
+                params: SlotParams, mode: str = "greedy",
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """Draft-then-verify accept / reject and the bonus sample, every slot
+    at once (JAX ``spec_verify`` over ``_verify_one``).
+
+    target_logits f32[S, K+1, V] (``decode_chunk_paged(all_logits=True)``
+    over the slab ``[t_cur, d_1..d_K]``; column j predicts position
+    ``pos + j + 1``), draft_tokens int[S, K], draft_logits f32[S, K, V], key
+    data int64[S, 2] -> (commit int64[S, K+1], n_commit int64[S],
+    n_accepted int64[S], new key data). Per slot ``commit[:n_commit]`` is
+    the committed run: the accepted draft prefix plus ONE target-chosen
+    token (the fallback at the first rejection, or the bonus token when all
+    K were accepted), so every round commits at least one token.
+
+    Greedy slots accept a draft token iff it IS the target's argmax and
+    fall back to the argmax: the stream is non-speculative greedy's by
+    construction. Sampling slots run speculative rejection sampling: accept
+    ``d_j`` with probability ``min(1, p(d_j) / q(d_j))`` (p / q the target /
+    draft distributions under the slot's own temperature, top-k and top-p)
+    and sample the first rejection from the residual ``max(p - q, 0)``
+    (``p`` itself where that sums to 0). Key use is JAX's: greedy reads no
+    key; the sampling modes split each slot's chain once per call and that
+    subkey again into ``k_acc`` (the K uniforms) and ``k_res`` (the
+    residual draw)."""
+    assert mode in SAMPLE_MODES, mode
+    s, k1, v = target_logits.shape
+    k = k1 - 1
+    dev = target_logits.device
+    rows = torch.arange(s, device=dev)
+    idx = torch.arange(k1, device=dev)[None, :]
+    d_tokens = draft_tokens.long()
+    g = torch.argmax(target_logits, dim=-1)                    # [S, K+1]
+    acc = d_tokens == g[:, :k]
+    if mode != "greedy":
+        pairs = prng.split(key_data)                           # [S, 2, 2]
+        sub = prng.split(pairs[:, 0])                          # k_acc, k_res
+        temp = params.temperature
+        t_eff = torch.where(temp > 0, temp, 1.0)[:, None, None]
+        scaled_t = target_logits / t_eff
+        scaled_d = draft_logits / t_eff
+        if mode == "filtered":
+            def filt(x):
+                n = x.shape[1]
+                return filter_logits(
+                    x.reshape(s * n, v), params.top_k.repeat_interleave(n),
+                    params.top_p.repeat_interleave(n)).view(s, n, v)
+            scaled_t, scaled_d = filt(scaled_t), filt(scaled_d)
+        p = _softmax(scaled_t)                                 # [S, K+1, V]
+        q = _softmax(scaled_d)                                 # [S, K, V]
+        u = prng.uniform(sub[:, 0], k)                         # [S, K]
+        p_d = p[:, :k].gather(2, d_tokens[..., None])[..., 0]
+        q_d = torch.clamp(q.gather(2, d_tokens[..., None])[..., 0],
+                          min=1e-20)
+        acc_samp = u < torch.clamp(p_d / q_d, max=1.0)
+        acc = torch.where(temp[:, None] > 0, acc_samp, acc)
+    a = torch.cumprod(acc.long(), dim=1).sum(dim=1)            # [S]
+    fallback = g[rows, a]
+    if mode != "greedy":
+        # the residual at the commit column: max(p - q, 0) at a rejection,
+        # p itself at the all-accepted bonus column (q's rows end at K)
+        q_a = torch.where((a < k)[:, None], q[rows, a.clamp(max=k - 1)],
+                          0.0)
+        p_a = p[rows, a]
+        resid = torch.clamp(p_a - q_a, min=0.0)
+        resid = torch.where(resid.sum(-1, keepdim=True) > 0, resid, p_a)
+        samp = prng.categorical(
+            sub[:, 1], torch.log(torch.clamp(resid, min=1e-38)))
+        fallback = torch.where(temp > 0, samp, fallback)
+    dpad = torch.cat([d_tokens, torch.zeros_like(d_tokens[:, :1])], dim=1)
+    commit = torch.where(idx < a[:, None], dpad, fallback[:, None])
+    new_key = key_data if mode == "greedy" else pairs[:, 1]
+    return commit, a + 1, a, new_key
 
 
 def required_mode(params_list) -> str:

@@ -28,13 +28,13 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Union
 import numpy as np
 
 from ..core.paths import (AttentionConfig, MemoryConfig, ParallelConfig,
-                          normalize_groups, resolve_device)
+                          SpecConfig, normalize_groups, resolve_device)
 from ..models.sampling import SamplingParams
 from .scheduler import BatchConfig, BatchedServeEngine
 
 __all__ = [
     "AttentionConfig", "Completion", "Engine", "EngineConfig",
-    "MemoryConfig", "ParallelConfig", "StreamEvent",
+    "MemoryConfig", "ParallelConfig", "SpecConfig", "StreamEvent",
     "build_model_and_params",
 ]
 
@@ -79,7 +79,11 @@ class EngineConfig:
     pool and the staging ring on the head axis across ``tp`` devices
     (DESIGN.md §9; ``REPRO_TORCH_VIRTUAL_DEVICES`` gives virtual ones on
     ``device``); the tokens and the telemetry are the unsharded engine's.
-    ``spec`` raises ``NotImplementedError`` when the engine is built."""
+    ``spec=SpecConfig(enabled=True, k=...)`` (paged layout) turns the
+    decode segments into draft-then-verify rounds (DESIGN.md §11): the
+    draft (``draft_arch``, or the target itself when ``None``) proposes
+    ``k`` tokens per slot and the target verifies them in one chunked
+    step; greedy streams are the non-speculative engine's."""
 
     max_seq: int
     arch: Optional[str] = None        # None when a model is passed
@@ -107,7 +111,7 @@ class EngineConfig:
     # grouped sub-configs
     memory: Optional[MemoryConfig] = None
     parallel: Any = None
-    spec: Any = None
+    spec: Optional[SpecConfig] = None
     # where the engine runs
     device: str = "cuda"
 

@@ -1,6 +1,6 @@
 """Port of repro/serve/scheduler.py (blocking and chunked admission; paged
-and lanes layouts; sampled decoding; admission policies and preemption;
-the virtual-time hook).
+and lanes layouts; sampled and speculative decoding; admission policies and
+preemption; the virtual-time hook).
 
 Continuous-batching serve scheduler: a fixed array of serving SLOTS decodes
 in lock-step, each slot at its own position in its own request, so the
@@ -90,7 +90,20 @@ layouts, as in the JAX package:
   parameters stay whole on the lead device, which runs the projections. The
   output is the unsharded engine's, bit for bit.
 
-Speculative decoding is not ported yet (``core.paths.validate`` raises).
+* **Speculative decoding** (``spec=SpecConfig(enabled=True, k=...)``, paged
+  layout, DESIGN.md §11): once no slot prefills, a segment is
+  ``segment_len`` draft-then-verify rounds. Each round the draft (the
+  target itself for self-draft, else its own ``DecoderLM``) runs ``k + 1``
+  decode steps on its own dense lanes cache, sampling ``k`` proposals off
+  the slot's separate ``dkey`` chain; the target verifies ``[token,
+  d_1..d_k]`` in ONE ``decode_chunk_paged(all_logits=True)`` step, whose
+  rows go to the decision plane tagged ``PHASE_BULK`` (pinned to the
+  offload path); ``spec_verify`` commits the accepted run plus one target
+  token, cut at the budget and the first stop. Rejected rows are rolled
+  back by cursor: the draft's and the pool's stale rows past ``pos`` are
+  rewritten before any read. The draft cache is derived data:
+  ``_sync_draft`` re-prefills a stale lane (after admission, a resume or
+  a mixed segment) from the prompt and the committed tokens.
 """
 from __future__ import annotations
 
@@ -102,8 +115,8 @@ import numpy as np
 import torch
 
 from ..core.paths import MemoryConfig, normalize_groups, validate
-from ..core.types import (PHASE_BULK, PHASE_SCATTERED, WriteBatch,
-                          make_write_batch, resolve_device)
+from ..core.types import (PHASE_BULK, PHASE_SCATTERED, SpecStats,
+                          WriteBatch, make_write_batch, resolve_device)
 from ..data.pipeline import RequestQueue
 from ..kvcache import paged as PG
 from ..models import prng
@@ -140,6 +153,10 @@ class SlotState(NamedTuple):
     plen:      int[S]  prompt length
     temperature f32[S]; top_k int[S]; top_p f32[S];
     stop       int[S, MAX_STOP_TOKENS] stop-token table (-1 padded)
+    dkey:      int[S, 2] the draft's proposal key chain (speculative
+                       decoding): separate from ``key``, so the target
+                       chain's splits never depend on how many proposals
+                       the draft made; zeros when spec is off
     """
 
     phase: torch.Tensor
@@ -154,6 +171,7 @@ class SlotState(NamedTuple):
     top_k: torch.Tensor
     top_p: torch.Tensor
     stop: torch.Tensor
+    dkey: torch.Tensor
 
     @property
     def sampling(self) -> SlotParams:
@@ -175,7 +193,7 @@ def make_slots(n_slots: int, device="cuda") -> SlotState:
         done=torch.ones((n_slots,), dtype=torch.bool, device=device),
         remaining=ints(0), key=ints(0, n_slots, 2), req_id=ints(-1),
         plen=ints(0), temperature=sp.temperature, top_k=sp.top_k,
-        top_p=sp.top_p, stop=sp.stop,
+        top_p=sp.top_p, stop=sp.stop, dkey=ints(0, n_slots, 2),
     )
 
 
@@ -190,9 +208,9 @@ class BatchConfig:
     at admission on lanes); ``device`` is where the engine runs
     (``"cuda"`` raises on a machine without it). ``greedy``,
     ``default_params`` and ``sample_seed`` set the sampling defaults and the
-    key chains; ``sched`` names an admission policy. ``parallel`` and
-    ``spec`` mirror the JAX package's and raise "not ported yet" when
-    switched on."""
+    key chains; ``sched`` names an admission policy. ``parallel`` (a
+    ``ParallelConfig``) and ``spec`` (a ``SpecConfig``) are the JAX
+    package's groups."""
 
     max_seq: int
     n_slots: int = 8
@@ -237,7 +255,7 @@ class BatchedServeEngine:
         plan = validate(cfg, paged_capable=paged_capable(model),
                         n_heads=model.cfg.n_heads,
                         n_kv_heads=model.cfg.n_kv_heads,
-                        arch_name=model.cfg.name)
+                        arch_name=model.cfg.name, vocab=model.cfg.vocab)
         self.plan = plan
         self.device = plan.device
         self.mesh = plan.mesh
@@ -273,8 +291,41 @@ class BatchedServeEngine:
             "prefix_hit_rows": 0, "cow_copies": 0,
             "host_unloads": 0, "host_pageins": 0,
             "preemptions": 0, "preempt_resumes": 0,
+            # speculative decoding (SpecStats): committed / rounds is the
+            # committed tokens per target verify step
+            "spec_proposed": 0, "spec_accepted": 0,
+            "spec_committed": 0, "spec_rounds": 0,
         }
+        # speculative decoding: the draft proposes k tokens per live slot
+        # inside the spec segment; the target verifies them in one step
+        self.spec = plan.spec
+        self._spec_enabled = plan.spec.enabled
+        self.draft_model: Optional[DecoderLM] = None
+        self.draft_cache = None
+        self._draft_pos: List[int] = [-1] * cfg.n_slots
+        if self._spec_enabled:
+            self._init_draft(plan.draft_cfg)
         self.reset()
+
+    def _init_draft(self, dcfg) -> None:
+        """The draft side of the speculative path. Self-draft
+        (``SpecConfig(draft_arch=None)``, or a draft config equal to the
+        target's) shares the target's modules and parameters, also for a
+        target config the registry does not hold (a cut depth or dtype),
+        where the JAX engine would build the registry's config with fresh
+        weights instead; another dense
+        arch gets its own ``DecoderLM`` on the engine's lead device, weights
+        from seed 17 (the JAX engine draws its draft's from
+        ``jax.random.key(17)``; to compare the two, load the same weights
+        with ``checkpoint.params_from_numpy``). Its cache is a dense lanes
+        cache (``init_cache``), made by ``reset``; under a mesh it stays
+        whole on the lead device, as the parameters do."""
+        model = self.model
+        if self.spec.draft_arch is None or dcfg == model.cfg:
+            self.draft_model = model
+        else:
+            from ..models.model import build_model
+            self.draft_model = build_model(dcfg, device=model.device).init(17)
 
     def _make_cache(self):
         """The layout's device cache. Under ``self.mesh`` (the JAX engine's
@@ -356,6 +407,18 @@ class BatchedServeEngine:
         self._t_serve0: Optional[float] = None
         self.req_arrival: Dict[int, float] = {}
         self.first_token_t: Dict[int, float] = {}
+        if self._spec_enabled:
+            # the draft's lanes: derived data, re-prefilled from the
+            # committed tokens by ``_sync_draft``
+            self.draft_cache = None
+            self.draft_cache = self.draft_model.init_cache(cfg.n_slots,
+                                                           cfg.max_seq)
+            self._draft_pos = [-1] * cfg.n_slots
+            # the verify rows' WriteBatch tail: every row PHASE_BULK
+            n = cfg.n_slots * (self.spec.k + 1)
+            self._verify_tail = tuple(make_write_batch(
+                torch.zeros((n,), device=self.device),
+                phase=torch.full((n,), PHASE_BULK, device=self.device))[1:])
         self.stats = {k: 0 for k in self.stats}
 
     # ------------------------------------------------------------------
@@ -524,6 +587,108 @@ class BatchedServeEngine:
         self.cache, self.slots, self.mon_state = cache, st, mon
         return stats, swrites, emits, ems
 
+    @torch.no_grad()
+    def _spec_segment(self, enabled: torch.Tensor, mode: str):
+        """``segment_len`` speculative rounds (every live slot in DECODE
+        phase, its draft lane in sync with ``pos``). A round: ``k + 1``
+        draft decode steps on the dense draft lanes (``k`` proposals off
+        ``dkey``, and one catch-up step so the draft's cache covers a fully
+        accepted round and its bonus token), then ONE target verify of
+        ``[token, d_1..d_k]`` through ``decode_chunk_paged(all_logits=
+        True)``, capped at the slot's remaining budget (its rows are the
+        allocated footprint, as in the other segments). The verify rows go
+        to the decision plane as one flattened ``PHASE_BULK`` batch (pinned
+        to the offload path, heating the monitor); rows past a slot's cap
+        resolve to the sink. ``spec_verify`` accepts the agreeing prefix
+        and commits it plus the target's own token; the commit is cut at
+        the budget and after the first stop token. Retired and stalled
+        slots write neither the draft lanes (their rows go to the drop row)
+        nor the pool. Rejected rows need no undo: the next round rewrites
+        them before any read. Nothing in here reads a device value on the
+        host. Returns the segment's stats, ``SpecStats``, per-slot writes,
+        and the emissions ``[T, S, k + 1]`` with their mask."""
+        model, cfg, dev = self.model, self.cfg, self.device
+        k, dmodel = self.spec.k, self.draft_model
+        ps, nb = cfg.page_size, self.n_blocks
+        decision, attn = self.decision, self.attention
+        cache, dcache, st, mon = (self.cache, self.draft_cache, self.slots,
+                                  self.mon_state)
+        t_len, s = cfg.segment_len, cfg.n_slots
+        plan = PG.step_plan(cache)
+        stats = torch.zeros((4,), dtype=torch.int64, device=dev)
+        sst = SpecStats.zero(dev)
+        swrites = torch.zeros((s, 3), dtype=torch.int64, device=dev)
+        emits = torch.full((t_len, s, k + 1), -1, dtype=torch.int64,
+                           device=dev)
+        ems = torch.zeros((t_len, s, k + 1), dtype=torch.bool, device=dev)
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        zeros_s = torch.zeros((s,), dtype=torch.int64, device=dev)
+        offs = torch.arange(k + 1, device=dev)[None, :]
+        for t in range(t_len):
+            active = ~st.done & enabled
+            # draft: k proposals, then the catch-up step
+            d_tok, dkey = st.token, st.dkey
+            d_toks, d_logits = [], []
+            for j in range(k + 1):
+                dl, dcache = dmodel.decode_step(dcache, d_tok, st.pos + j,
+                                                write_mask=active)
+                if j < k:
+                    d_tok, dkey = SMP.sample_tokens(dl, dkey, st.sampling,
+                                                    mode=mode)
+                    d_toks.append(d_tok)
+                    d_logits.append(dl)
+            d_tokens = torch.stack(d_toks, dim=1)          # [S, k]
+            d_log = torch.stack(d_logits, dim=1)           # [S, k, V]
+            # verify: ONE chunked target step over [t_cur, d_1..d_k]
+            chunk = torch.cat([st.token[:, None], d_tokens], dim=1)
+            n_valid = torch.where(active, st.remaining.clamp(max=k + 1), 0)
+            qvalid = offs < n_valid[:, None]
+            dest = PG.logical_to_physical_many(
+                cache, torch.where(qvalid, st.pos[:, None] + offs, -1))
+            region = torch.clamp(dest // ps, max=nb - 1)
+            _, mon, _ = decision(
+                mon, WriteBatch(region.reshape(-1), *self._verify_tail),
+                active=qvalid.reshape(-1))
+            t_logits, cache = model.decode_chunk_paged(
+                cache, chunk, st.pos, n_valid, active, attention=attn,
+                plan=plan, all_logits=True)
+            commit, n_commit, n_acc, key = SMP.spec_verify(
+                t_logits, d_tokens, d_log, st.key, st.sampling, mode=mode)
+            n_commit = torch.where(active, n_commit, 0)
+            # commit: cut at the budget and after the first stop token (the
+            # stop itself is emitted, as in the other segments)
+            is_stop = (commit[:, :, None] == st.stop[:, None, :]).any(-1)
+            stop_i = is_stop.to(torch.int64)
+            before = torch.cumsum(stop_i, dim=1) - stop_i
+            emit = ((offs < n_commit[:, None]) & (before == 0)
+                    & (offs < st.remaining[:, None]) & active[:, None])
+            n_emit = emit.sum(dim=1)
+            remaining = st.remaining - n_emit
+            ended = (remaining <= 0) | (emit & is_stop).any(dim=1)
+            last = commit.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+            st = st._replace(
+                token=torch.where(active & (n_emit > 0), last, st.token),
+                pos=st.pos + n_emit, done=st.done | (active & ended),
+                remaining=remaining, key=key, dkey=dkey)
+            n_active = active.sum()
+            stats += torch.stack([n_valid.sum(), zero, zero, zero])
+            sst = SpecStats(
+                sst.n_proposed + k * n_active,
+                sst.n_accepted + torch.minimum(
+                    torch.where(active, n_acc, 0), n_emit).sum(),
+                sst.n_committed + n_emit.sum(), sst.n_rounds + n_active)
+            swrites += torch.stack([n_valid, zeros_s, zeros_s], dim=1)
+            emits[t] = torch.where(emit, commit, -1)
+            ems[t] = emit
+        if self.uses_ring:
+            # segment boundary: the verify rows went direct, but the ring
+            # is drained before the host frees or tops up blocks all the
+            # same (see ``_decode_segment``)
+            cache = PG.drain_ring(cache)
+        self.cache, self.draft_cache = cache, dcache
+        self.slots, self.mon_state = st, mon
+        return stats, torch.stack(list(sst)), swrites, emits, ems
+
     # ------------------------------------------------------------------
     # admission / retirement / allocation (host, between segments)
     # ------------------------------------------------------------------
@@ -537,11 +702,13 @@ class BatchedServeEngine:
         """Pages covering the worst-case rows the NEXT segment can write
         for a slot at ``pos``, shared by admission and the between-segment
         top-up: a prefilling slot advances at most ``segment_len *
-        chunk_size`` rows, a decoding one ``segment_len``, both capped by
-        the footprint ``plen + max_new - 1``."""
+        chunk_size`` rows, a decoding one ``segment_len`` (times ``k + 1``
+        under speculative decoding: a round commits up to ``k + 1`` rows),
+        both capped by the footprint ``plen + max_new - 1``."""
         cfg = self.cfg
         cap = plen + max_new - 1
-        adv = cfg.segment_len * (cfg.chunk_size if prefilling else 1)
+        dec_rows = self.spec.k + 1 if self._spec_enabled else 1
+        adv = cfg.segment_len * (cfg.chunk_size if prefilling else dec_rows)
         rows = min(pos + adv, max(cap, plen))
         return max(1, -(-rows // cfg.page_size))
 
@@ -561,6 +728,17 @@ class BatchedServeEngine:
             if p.seed is not None:
                 keys[i] = SMP.derive_key(self._base_key, 0, p.seed)
         return keys
+
+    def _admit_dkeys(self, reqs: List[Any]) -> torch.Tensor:
+        """Each request's draft-proposal key data ``[g, 2]``: the base key
+        folded with a spec salt, then the request id, a chain of its own
+        (zeros when spec is off)."""
+        if not self._spec_enabled:
+            return torch.zeros((len(reqs), 2), dtype=torch.int64,
+                               device=self.device)
+        dbase = prng.fold_in(self._base_key, 0x5BEC)
+        return prng.fold_in(dbase[None, :], torch.as_tensor(
+            [r.req_id for r in reqs], device=self.device))
 
     def _now(self) -> float:
         return self.clock()
@@ -677,6 +855,7 @@ class BatchedServeEngine:
             req_id=put(st.req_id, np.asarray([r.req_id for r in reqs])),
             plen=put(st.plen, np.asarray([r.prompt_len for r in reqs])),
             key=put(st.key, self._admit_keys(reqs, plist)),
+            dkey=put(st.dkey, self._admit_dkeys(reqs)),
             temperature=put(st.temperature,
                             np.asarray([p.temperature for p in plist],
                                        np.float32)),
@@ -697,6 +876,7 @@ class BatchedServeEngine:
             self._requests[req.req_id] = req
             self.req_arrival[req.req_id] = req.arrival_s
             self.req_params[req.req_id] = p
+            self._draft_pos[slot] = -1   # the draft lane is stale
         self.stats["admitted"] += g
 
     @torch.no_grad()
@@ -956,6 +1136,7 @@ class BatchedServeEngine:
             self._slot_priority[slot] = 0
             self._parked[slot] = False
             self._host_store.pop(slot, None)
+            self._draft_pos[slot] = -1
         if self.pool is not None and slots:
             self.cache["page_table"][
                 torch.as_tensor(slots, device=self.device).long()] = -1
@@ -992,7 +1173,7 @@ class BatchedServeEngine:
             n_pages=self._slot_pages[victim], host_k=host_k, host_v=host_v,
             phase=int(st.phase[victim]), token=int(st.token[victim]),
             pos=int(st.pos[victim]), remaining=int(st.remaining[victim]),
-            key=st.key[victim].clone(),
+            key=st.key[victim].clone(), dkey=st.dkey[victim].clone(),
             seq=self._slot_seq[victim], plen=self._slot_plen[victim],
             max_new=self._slot_max_new[victim],
             hashes=self._slot_hashes[victim], reg=self._slot_reg[victim],
@@ -1043,13 +1224,17 @@ class BatchedServeEngine:
             done=False, remaining=snap["remaining"], key=snap["key"],
             req_id=rid, plen=snap["plen"], temperature=p.temperature,
             top_k=p.top_k, top_p=p.top_p,
-            stop=torch.as_tensor(SMP.stop_table(p, self.cfg.eos_id)))
+            stop=torch.as_tensor(SMP.stop_table(p, self.cfg.eos_id)),
+            dkey=snap["dkey"])
         fields = {}
         for name, v in values.items():
             t = getattr(st, name).clone()
             t[slot] = torch.as_tensor(v, device=dev).to(t.dtype)
             fields[name] = t
         self.slots = st._replace(**fields)
+        # the draft cache is derived data: resume marks the lane stale and
+        # ``_sync_draft`` re-prefills it from the committed tokens
+        self._draft_pos[slot] = -1
         self._occupied[slot] = True
         self._slot_req[slot] = rid
         self._slot_plen[slot] = snap["plen"]
@@ -1179,20 +1364,59 @@ class BatchedServeEngine:
         return bool(np.any(~self.done_flags() & (phase == PHASE_PREFILL)
                            & np.asarray(self._occupied)))
 
+    @torch.no_grad()
+    def _sync_draft(self) -> None:
+        """Bring every live slot's draft lane up to its committed position
+        (host, between segments). The draft cache is derived data:
+        admission, a resume and a mixed segment leave a lane stale, and
+        this re-prefills it from the prompt plus the emitted tokens whose
+        KV the target has written (``pos - plen`` of them: the last emitted
+        token's KV is not written yet), one exact-length prefill per stale
+        slot. Inside a spec segment the draft then stays in step with
+        ``pos`` by construction."""
+        cfg, dev = self.cfg, self.device
+        pos = self.slots.pos.cpu().numpy()
+        done = self.done_flags()
+        for s in range(cfg.n_slots):
+            if not self._occupied[s] or self._parked[s] or bool(done[s]):
+                continue
+            p = int(pos[s])
+            if self._draft_pos[s] == p:
+                continue
+            rid, plen = self._slot_req[s], self._slot_plen[s]
+            toks = np.concatenate([
+                np.asarray(self._requests[rid].prompt[:plen], np.int64),
+                np.asarray(self.outputs[rid][:p - plen], np.int64)])
+            _, lane = self.draft_model.prefill(
+                torch.as_tensor(toks, device=dev)[None], cfg.max_seq)
+            for name in ("k", "v"):
+                self.draft_cache[name][:, s] = lane[name][:, 0]
+            del lane
+            self._draft_pos[s] = p
+
     def run_segment(self, enabled: Optional[np.ndarray] = None) -> np.ndarray:
-        """One segment (mixed-phase while a slot prefills, else pure decode)
-        + ONE host readback at its end. Returns the bool [segment_len,
-        n_slots] emission matrix. ``enabled`` False stalls a slot whose
-        block top-up failed."""
+        """One segment (mixed-phase while a slot prefills, else speculative
+        rounds when spec is on, else pure decode) + ONE host readback at its
+        end. Returns the bool [segment_len, n_slots] emission matrix (a spec
+        segment's: whether the slot committed anything in the round).
+        ``enabled`` False stalls a slot whose block top-up failed."""
         if enabled is None:
             enabled = np.ones((self.cfg.n_slots,), bool)
         enabled_t = torch.as_tensor(enabled, device=self.device)
         mode = SMP.required_mode(
             [self.req_params[self._slot_req[s]]
              for s in range(self.cfg.n_slots) if self._occupied[s]])
-        segment = (self._mixed_segment if self._mixed_phase_pending()
-                   else self._decode_segment)
-        stats, swrites, emits, acts = segment(enabled_t, mode)
+        sstats = None
+        if self._mixed_phase_pending():
+            stats, swrites, emits, acts = self._mixed_segment(enabled_t, mode)
+        elif self._spec_enabled:
+            # every live slot decodes: sync the draft lanes, then rounds
+            self._sync_draft()
+            stats, sstats, swrites, emits, acts = self._spec_segment(
+                enabled_t, mode)
+        else:
+            stats, swrites, emits, acts = self._decode_segment(enabled_t,
+                                                               mode)
         # the readback: everything the host needs from this segment. Under a
         # mesh the decision plane is whole on the lead device (the JAX
         # engine's ``replicate_for_readback``), so it is read from there
@@ -1204,25 +1428,44 @@ class BatchedServeEngine:
         self.stats["drains"] += dr
         self.stats["prefill_writes"] += pf
         self.stats["segments"] += 1
+        if sstats is not None:
+            sp, sa, sc, sr = (int(x) for x in sstats.cpu().numpy())
+            self.stats["spec_proposed"] += sp
+            self.stats["spec_accepted"] += sa
+            self.stats["spec_committed"] += sc
+            self.stats["spec_rounds"] += sr
+            committed = sc
+        else:
+            # the other segments commit exactly one token per emission
+            committed = int(acts.sum())
         if self.time_model is not None:
             # virtual time: the segment "took" what the cost model says its
             # write mix costs; advance BEFORE stamping first tokens, so TTFT
             # includes the segment that produced them
             self.clock.advance(self.time_model(
                 {"direct": d, "staged": s, "drains": dr, "prefill": pf,
-                 "committed": int(acts.sum())}))
+                 "committed": committed}))
         first = []
         for slot in range(self.cfg.n_slots):
             if self._occupied[slot]:
                 rid = self._slot_req[slot]
                 self.req_writes[rid] += swrites[slot]
-                toks = emits[acts[:, slot], slot]
+                # a spec segment's [T, S, k + 1] emissions: step-major, then
+                # commit order within the round
+                toks = emits[:, slot][acts[:, slot]]
                 if len(toks):
                     if not self.outputs[rid]:
                         first.append(rid)
                     self.outputs[rid].extend(int(t) for t in toks)
         if first:
             self._record_first_tokens(first)
+        if sstats is not None:
+            # the draft stayed in step with pos inside the segment
+            pos = self.slots.pos.cpu().numpy()
+            for slot in range(self.cfg.n_slots):
+                if self._occupied[slot] and not self._parked[slot]:
+                    self._draft_pos[slot] = int(pos[slot])
+            return acts.any(axis=2)
         return acts
 
     def done_flags(self) -> np.ndarray:

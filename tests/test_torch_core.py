@@ -276,7 +276,7 @@ NOT_PORTED = {
                          memory=tpaths.MemoryConfig(prefix_cache=True)),
     "host-tier": dict(memory=tpaths.MemoryConfig(host_tier=True)),
     "parallel": dict(parallel=ParallelConfig.tensor(2)),
-    "spec": dict(spec=object()),
+    "spec": dict(spec=tpaths.SpecConfig(enabled=True)),
     "drain-kernel": dict(attention=tpaths.AttentionConfig(drain_kernel=True)),
     "sampled": dict(default_params=SamplingParams(temperature=0.7)),
     "policy-hysteresis": dict(path="adaptive", policy="hysteresis"),
@@ -284,7 +284,7 @@ NOT_PORTED = {
 # once raised, now ported: validate resolves them as the JAX package does
 NOW_PORTED = {"policy-hysteresis", "chunked", "lanes", "prefix-cache",
               "host-tier", "sched-priority", "sched-deadline",
-              "sched-preempt", "sampled", "parallel"}
+              "sched-preempt", "sampled", "parallel", "spec"}
 
 
 @pytest.mark.parametrize("name", sorted(NOT_PORTED))
@@ -306,6 +306,25 @@ def test_validate_raises_on_unported_feature(name, monkeypatch):
         jplan = jpaths.validate(JaxBatchConfig(max_seq=32))
         assert plan.parallel == ParallelConfig.tensor(2)
         assert plan.mesh.devices == (torch.device("cpu"),) * 2
+        assert (plan.layout, plan.path.name, plan.n_regions) == (
+            jplan.layout, jplan.path.name, jplan.n_regions)
+        return
+    if name == "spec":
+        # both refuse a self-draft whose target arch is unknown alike, and
+        # resolve it against the target's arch and vocabulary alike
+        cfg = EngineConfig(max_seq=32, device="cpu", **kw).batch_config()
+        jcfg = JaxBatchConfig(max_seq=32, spec=jpaths.SpecConfig(
+            enabled=True))
+        with pytest.raises(ValueError, match="draft_arch is unset"):
+            tpaths.validate(cfg)
+        with pytest.raises(ValueError, match="draft_arch is unset"):
+            jpaths.validate(jcfg)
+        plan = tpaths.validate(cfg, arch_name="stablelm-1.6b", vocab=256)
+        jplan = jpaths.validate(jcfg, arch_name="stablelm-1.6b", vocab=256)
+        assert (plan.spec.enabled, plan.spec.k) == (jplan.spec.enabled,
+                                                     jplan.spec.k)
+        assert (plan.draft_cfg.name, plan.draft_cfg.n_layers) == (
+            jplan.draft_cfg.name, jplan.draft_cfg.n_layers)
         assert (plan.layout, plan.path.name, plan.n_regions) == (
             jplan.layout, jplan.path.name, jplan.n_regions)
         return

@@ -22,6 +22,7 @@ import torch
 
 from conftest import seeds
 from repro.configs import get_config as jget
+from repro.core.paths import SpecConfig as JaxSpecConfig
 from repro.core.paths import negotiate_memory as jax_negotiate_memory
 from repro.core.paths import validate as jax_validate
 from repro.distributed import ParallelConfig as JaxParallelConfig
@@ -36,7 +37,8 @@ from repro.serve import MemoryConfig as JaxMemoryConfig
 from repro_torch.checkpoint import params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.core import ring as R
-from repro_torch.core.paths import MemoryConfig, negotiate_memory, validate
+from repro_torch.core.paths import (MemoryConfig, SpecConfig,
+                                    negotiate_memory, validate)
 from repro_torch.data import synthetic_requests
 from repro_torch.distributed import VIRTUAL_DEVICES_ENV, ParallelConfig
 from repro_torch.kernels import flash_decode_paged
@@ -331,21 +333,28 @@ def test_validate_accepts_what_jax_accepts(layout, chunked):
 
 @pytest.mark.parametrize("what,kw", [
     ("parallel", dict(parallel=ParallelConfig.tensor(2))),
-    ("spec", dict(spec=True)),
+    ("spec", dict(spec=SpecConfig(enabled=True))),
     ("sched", dict(sched="sched/preempt")), ("sampled", dict(greedy=False))])
 def test_other_features_still_not_ported_with_the_memory_tier(what, kw,
                                                               monkeypatch):
-    """``spec`` still raises beside the memory tier; preemption, sampled
-    decoding and the mesh, once refused, now validate with it as in the
-    JAX package (a 2-device mesh: on one device both packages refuse it
-    alike, over virtual devices the port resolves it, the prefix cache and
-    the host tier with it)."""
+    """Speculative decoding, preemption, sampled decoding and the mesh,
+    once refused, now validate with the memory tier as in the JAX package
+    (a 2-device mesh: on one device both packages refuse it alike, over
+    virtual devices the port resolves it, the prefix cache and the host
+    tier with it; spec resolves its self-draft from the target's arch)."""
     mem = MemoryConfig(prefix_cache=True, host_tier=True)
     cfg = BatchConfig(max_seq=32, chunked=True, memory=mem, device="cpu",
                       **kw)
     if what == "spec":
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            validate(cfg)
+        jcfg = JaxBatchConfig(max_seq=32, chunked=True, memory=JaxMemoryConfig(
+            prefix_cache=True, host_tier=True), spec=JaxSpecConfig(
+                enabled=True))
+        plan = validate(cfg, arch_name="stablelm-1.6b", vocab=256)
+        jplan = jax_validate(jcfg, arch_name="stablelm-1.6b", vocab=256)
+        assert plan.spec.enabled and jplan.spec.enabled
+        assert plan.draft_cfg.name == jplan.draft_cfg.name
+        assert (plan.memory.prefix_cache, plan.memory.host_tier) == (
+            jplan.memory.prefix_cache, jplan.memory.host_tier)
         return
     if what == "parallel":
         jmem = JaxMemoryConfig(prefix_cache=True, host_tier=True)
