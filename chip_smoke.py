@@ -28,7 +28,18 @@ Phases, each failing the run on any exception or mismatch:
            verify (C = k + 1 = 5, the ring empty and with 3 live lanes) and
            flash_decode at the self-draft's dense lanes (stablelm-1.6b's MHA,
            2048 rows), checked and timed (``verify_shape``,
-           ``draft_shape``)
+           ``draft_shape``); lru_scan (the simulator's scan) ``torch.equal``
+           to its plain version at the paper workload (200 000 writes) at
+           1, 2^12 and 2^20 regions under the offload, unload and hint
+           routings, and at 2^20 regions at the paper's 5 000 000 writes
+           (offload, unload), timed at 2^20 regions and at 1 (the longest
+           chain) beside a bound whose step, a hit and a miss, is timed
+           alone (``lru_step_probe``: one warp running only the chain);
+           staged_scatter, flash_attention and flash_decode at
+           granite-moe-3b-a800m's shapes (a decode step's expert drain and
+           a prefill group's, prefill and lanes chunk attention with GQA
+           group 3 and head_dim 64, the decode read), checked and timed
+           (``moe_shape``)
   engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
            a seed) serves 16 requests through ``Engine.from_config`` on the
            paged layout; the launch counts of staged_scatter,
@@ -46,7 +57,8 @@ Phases, each failing the run on any exception or mismatch:
            prefilled inside mixed-phase segments; staged_scatter and
            flash_decode_paged launched, flash_attention never; every prompt
            row counted as a prefill write; a mixed segment profiled
-  engine_prefix  the chunked slice with the prefix cache: 16 requests
+  engine_prefix  the chunked slice, cut to 12 of its 24 layers, with the
+           prefix cache: 16 requests
            opening with the same 1024 tokens, cold on a fresh engine, warm
            (new suffixes: each takes its 1024 rows from the cache) and
            repeated (every full prompt page cached, a copy-on-write of each
@@ -56,7 +68,8 @@ Phases, each failing the run on any exception or mismatch:
            on the staged path the cold and warm streams held equal to the
            engine's without the cache (exact by construction: see the
            phase); TTFT cold / warm / repeat and mixed-step device time
-  engine_host_tier  the slice on the staged path over a 320-block pool
+  engine_host_tier  the slice, cut to 12 of its 24 layers, on the staged
+           path over a 320-block pool
            with the host tier (16 requests of 512-1792 tokens): blocking,
            chunked, and chunked with the prefix cache too, each against an
            ample pool; every restore read back bit-equal to its park, no
@@ -130,15 +143,31 @@ Phases, each failing the run on any exception or mismatch:
   write_parity  the same four engines on the card and on the CPU (the
            plain versions) at 2^12 regions, with 1 write in 64 carrying a
            wrong stag: memory, telemetry and ring state identical
+  fig3     the paper's Fig. 3 on the card: ``sweep_point`` at the 11 region
+           counts 1..2^20 for offload, unload, hint (top-4096) and
+           frequency over an exact monitor, 200 000 writes (warm-up 20 000);
+           frequency over a count-min sketch at 2^20 (one K5 and one K6
+           launch); the 2^20 headline at the paper's 5 000 000 writes; one
+           lru_scan launch a point; the ``FIG3_CLAIMS`` bounds held (the
+           microseconds are the paper's model constants); the 2^20 offload
+           point equal to the CPU's; device ms per point
+  engine_moe  granite-moe-3b-a800m at full width (32 layers, 40 experts
+           top-8, bf16, random weights from a seed) serves 16 requests of
+           128-512 tokens through ``Engine.from_config`` on the lanes
+           layout with staged expert dispatch, blocking and chunked at
+           128: K1 launched once a layer of every MoE call, K3 and K4
+           launched, a repeat serve identical; tok/s, TTFT, peak memory
+           and a decode segment's profile
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
-profiler's trace, warm, mean of 20 calls. A trace that holds no device event
-is taken again, up to three times in all; where none does, the time is that
-between CUDA events around the 20 calls, and the ``done`` line names it under
-``traces_without_device_time``. The time between CUDA events around one call
-(median of 30) stands beside it as ``*event_ms``; for calls shorter than
-their own enqueue it measures the host. The last line is
+profiler's trace, warm, mean of 20 calls (but lru_scan's ``plain_ms``: its
+plain version runs on the CPU, so that is host time). A trace that holds no
+device event is taken again, up to three times in all; where none does, the
+time is that between CUDA events around the 20 calls, and the ``done`` line
+names it under ``traces_without_device_time``. The time between CUDA events
+around one call (median of 30) stands beside it as ``*event_ms``; for calls
+shorter than their own enqueue it measures the host. The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 import dataclasses
@@ -160,12 +189,14 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import (FIG3_CLAIMS, PAPER_WORKLOAD,  # noqa: E402
+                                 get_config)
 from repro_torch.core import (AlwaysOffload, AlwaysUnload,  # noqa: E402
-                              CMSMonitor, DecisionModule, FrequencyPolicy,
+                              CMSMonitor, DecisionModule, ExactMonitor,
+                              FrequencyPolicy, HintPolicy,
                               HysteresisPolicy, MonitorState,
                               RemoteWriteEngine, make_umtt, make_write_batch,
-                              register, zipf_regions)
+                              register, sweep_point, zipf_regions)
 from repro_torch.kernels.cms import cms_hash  # noqa: E402
 from repro_torch.data import synthetic_requests  # noqa: E402
 from repro_torch.distributed import (VIRTUAL_DEVICES_ENV, Mesh,  # noqa: E402
@@ -181,9 +212,12 @@ from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  flash_decode_paged_sharded,
                                  flash_decode_paged_sharded_ref,
                                  flash_decode_ref, launch_counts,
+                                 lru_scan, lru_scan_ref,
                                  reset_launch_counts, staged_scatter,
                                  staged_scatter_layers, staged_scatter_ref)
+from repro_torch.kernels.lru_scan import longest_chain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import moe as MOE_L  # noqa: E402
 from repro_torch.kvcache import paged as PG  # noqa: E402
 from repro_torch.models import prng  # noqa: E402
 from repro_torch.models import sampling as SMP  # noqa: E402
@@ -241,6 +275,22 @@ LANES_REQUESTS, LANES_PROMPTS, LANES_NEW = 12, [512, 2048, 4608], 64
 LANES_GROUP = 2  # 4608-token prompts per prefill call (the first admission's)
 # chunked prefill on the lanes slice: one prompt inside the window, one past
 LANES_CHUNK, LANES_CHUNKED_PROMPTS, LANES_CHUNKED_NEW = 512, [2048, 4608], 16
+
+# the paper's Fig. 3 (PAPER_WORKLOAD): 11 region counts x offload / unload /
+# hint top-4096 / frequency over an exact monitor, 200 000 writes, warm-up
+# 20 000; one frequency arm over a count-min sketch at 2^20 (its monitor
+# step is K5 then K6, unfused); the headline at the paper's 5 000 000
+FIG3_CMS = (4, 16)        # depth, log2 width of the sketch arm
+FIG3_THRESHOLD = 3        # the frequency policy's count threshold
+# the MoE family at full width (granite-moe-3b-a800m, 32 layers, 40 experts
+# top-8, bf16) on the lanes layout, staged expert dispatch: 16 requests of
+# 128-512 tokens, 32 new tokens each, 8 slots; chunked at 128
+MOE = dict(arch="granite-moe-3b-a800m", reduced=False, max_seq=640,
+           n_slots=8, segment_len=16, path="direct")
+MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_CHUNK = 16, [128, 256, 384, 512], 32, 128
+# the memory tier's two phases run the slice at this depth (of its 24
+# layers) to keep the script's time: every check is kept
+MEMORY_LAYERS = 12
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
 WRITE = dict(log2_regions=20, region_elems=1024, batches=64, batch=4096,
@@ -1924,6 +1974,246 @@ def time_cms_fused(gen):
     return rows, step
 
 
+# ---------------------------------------------------------------------------
+# lru_scan: the simulator's two-cache LRU scan (no TPU kernel: a lax.scan)
+# ---------------------------------------------------------------------------
+
+
+def _paper_regions(n_regions, seed=0, n=PAPER_WORKLOAD.sim_writes):
+    """The paper workload's regions on the card (200 000 writes unless
+    ``n`` says otherwise), from ``sweep_point``'s uniforms (the JAX
+    package's bits for the same seed)."""
+    return zipf_regions(n, n_regions, PAPER_WORKLOAD.zipf_skew,
+                        u=prng.uniform(prng.key(seed, DEV), n))
+
+
+def _lru_masks(regions, n_regions):
+    """The three routings the sweep gives the scan: all offloaded (MTT),
+    all unloaded (TLB), and the hint policy's (top-4096 offloaded)."""
+    n = regions.shape[0]
+    hot = torch.zeros((n_regions,), dtype=torch.bool, device=DEV)
+    hot[:min(PAPER_WORKLOAD.adaptive_top_k, n_regions)] = True
+    return {"offload": torch.zeros((n,), dtype=torch.bool, device=DEV),
+            "unload": torch.ones((n,), dtype=torch.bool, device=DEV),
+            "hint": ~hot[regions]}
+
+
+def check_lru_scan():
+    """The kernel's hit flags ``torch.equal`` to the plain version's (run on
+    the CPU) at the paper workload (200 000 writes) at 1, 2^12 and 2^20
+    regions, under each of the three routings; and at 2^20 regions at the
+    paper's own 5 000 000 writes (the ``fig3`` headline's regions), all
+    offloaded and all unloaded."""
+    cases = []
+    runs = [(r, PAPER_WORKLOAD.sim_writes, ("offload", "unload", "hint"))
+            for r in (1, 1 << 12, 1 << 20)]
+    runs.append((1 << 20, PAPER_WORKLOAD.n_writes, ("offload", "unload")))
+    for r, n, names in runs:
+        regions = _paper_regions(r, n=n)
+        masks = _lru_masks(regions, r)
+        for name in names:
+            unload = masks[name]
+            got = lru_scan(regions, unload)
+            torch.cuda.synchronize()
+            want = lru_scan_ref(regions.cpu(), unload.cpu())
+            if not torch.equal(got.cpu(), want):
+                raise AssertionError(
+                    f"lru_scan mismatch at {r} regions, {n} writes, {name}: "
+                    f"{int((got.cpu() != want).sum())} flags differ")
+            cases.append(dict(regions=r, writes=n, mask=name,
+                              hits=int(want.sum()),
+                              longest_chain=longest_chain(regions, unload)))
+    return cases
+
+
+def lru_step_probe_ns(steps, miss):
+    """Device ns of one step of the scan's loop-carried chain, run alone by
+    one warp for ``steps`` steps (``lru_step_probe_launch``): every step a
+    hit, or every step a miss (8 ways)."""
+    out = torch.empty((32,), dtype=torch.int64, device=DEV)
+
+    def probe():
+        err = kbuild.load_library().lru_step_probe_launch(
+            steps, 8, int(miss), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"lru_step_probe launch failed: CUDA error "
+                               f"{err}")
+    return device_ms(probe, f"lru_step_probe miss={miss}", reps=5) / steps * 1e6
+
+
+def _chain_ns(regions, unload, hit, hit_ns, miss_ns, mtt=(512, 8),
+              tlb=(256, 8)):
+    """The slowest (cache, set) chain at the probe's step times: its hits
+    times a hit step plus its misses times a miss step."""
+    key = torch.where(unload, mtt[0] + regions % tlb[0], regions % mtt[0])
+    size = mtt[0] + tlb[0]
+    n_all = torch.bincount(key, minlength=size).double()
+    n_hit = torch.bincount(key, weights=hit.double(), minlength=size)
+    return float((n_hit * hit_ns + (n_all - n_hit) * miss_ns).max())
+
+
+def time_lru_scan():
+    """lru_scan at the paper workload, every write offloaded (the MTT's 512
+    sets), at 2^20 regions (the kernels line's row) and at 1 region (all
+    200 000 writes in one set: the longest chain). The bound is the larger
+    of the bytes (8-byte region, 1-byte flag in, 1-byte hit out per write)
+    over the memory rate and the slowest set's chain: its hits and misses
+    at a hit step and a miss step that ``lru_step_probe_ns`` times alone,
+    not at the kernel's own rate. The plain version runs on the CPU: its
+    time is host seconds."""
+    n = PAPER_WORKLOAD.sim_writes
+    hit_ns, miss_ns = (lru_step_probe_ns(n, miss) for miss in (False, True))
+    t_bytes = n * (8 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+    out = {}
+    for tag, r in (("2e20", 1 << 20), ("1", 1)):
+        regions = _paper_regions(r)
+        unload = torch.zeros((n,), dtype=torch.bool, device=DEV)
+        fn = lambda: lru_scan(regions, unload)  # noqa: E731
+        cpu = (regions.cpu(), unload.cpu())
+        t0 = time.perf_counter()
+        hit = lru_scan_ref(*cpu)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        t_ops = _chain_ns(*cpu, hit, hit_ns, miss_ns) * 1e-6
+        out[tag] = dict(ms=device_ms(fn, f"lru_scan {tag}"),
+                        event_ms=time_ms(fn), plain_ms=plain_ms,
+                        plain_event_ms=None,
+                        longest_chain=longest_chain(regions, unload),
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by=("bytes" if t_bytes >= t_ops
+                                  else "operations"))
+    main = out.pop("2e20")
+    return dict(**main, library_ms=None, library_event_ms=None,
+                step_ns=dict(hit=hit_ns, miss=miss_ns, probe_steps=n),
+                one_region=out["1"],
+                shape=f"{n} writes (int64 regions), Zipf(0.5) over 2^20 "
+                      f"regions, all offloaded: MTT 512 x 8, TLB 256 x 8; "
+                      f"plain_ms is the plain version's host time")
+
+
+# ---------------------------------------------------------------------------
+# K1, K3 and K4 at the MoE family's shapes (granite-moe-3b-a800m)
+# ---------------------------------------------------------------------------
+
+
+def _moe_k1_inputs(gen, t):
+    """K1 as ``dispatch_staged`` calls it for ``t`` tokens of granite: the
+    routing of random router logits (top-8 of 40 experts), the staging rows
+    ``x[token_sorted]`` (bf16, d_model 1536) and ``dest[E * C, D]`` zeros."""
+    c = get_config(MOE["arch"])
+    logits = torch.randn((t, c.n_experts), generator=gen, device=DEV)
+    idx = logits.argsort(dim=-1, descending=True)[:, :c.top_k]
+    cap = MOE_L.expert_capacity(c, t)
+    perm, dst, ok, _ = MOE_L.staging_plan(
+        idx, torch.ones_like(idx, dtype=torch.bool), cap, c.n_experts)
+    x = torch.randn((t, c.d_model), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    staging = x[perm // c.top_k]
+    dest = torch.zeros((c.n_experts * cap, c.d_model), dtype=torch.bfloat16,
+                       device=DEV)
+    return dest, staging, dst, ok
+
+
+def _moe_k3_inputs(gen, dtype, what):
+    """K3 at granite's prefill (2 prompts of 512 a call) or lanes chunk
+    (2 x 128 queries at the end of 512 keys): 24 / 8 heads of 64 (GQA
+    group 3), ``[B, S, H, D]`` tensors seen transposed."""
+    c = get_config(MOE["arch"])
+    s = max(MOE_PROMPTS) if what == "prefill" else MOE_CHUNK
+    return _k3_inputs(gen, dtype, 2, c.n_heads, c.n_kv_heads, s,
+                      max(MOE_PROMPTS), c.resolved_head_dim)
+
+
+def _moe_k4_inputs(gen):
+    """K4 at granite's decode step: ``q[8, 24, 64]`` over the lanes
+    ``k/v[8, 640, 8, 64]`` bf16, slot i live up to its position (a prompt of
+    128-512 tokens plus up to 31 generated)."""
+    c = get_config(MOE["arch"])
+    b, t = MOE["n_slots"], MOE["max_seq"]
+    q, k, v, _ = _k4_inputs(gen, torch.bfloat16, b, c.n_heads, c.n_kv_heads,
+                            t, c.resolved_head_dim)
+    pos = torch.tensor(MOE_PROMPTS * 2, device=DEV) + torch.randint(
+        0, MOE_NEW, (b,), generator=gen, device=DEV)
+    return q, k, v, torch.arange(t, device=DEV)[None] <= pos[:, None]
+
+
+def check_moe_shapes(gen):
+    """K1 ``torch.equal`` to its plain version at a decode step (8 tokens)
+    and a prefill group (2 x 512 tokens); K3 at the prefill and chunk
+    shapes and K4 at the decode shape: fp32 within TOL_F32 of the plain
+    version, bf16 by ``held_bf16``."""
+    out = {}
+    for tag, t in (("decode", MOE["n_slots"]), ("prefill",
+                                                2 * max(MOE_PROMPTS))):
+        dest, staging, dst, ok = _moe_k1_inputs(gen, t)
+        want = staged_scatter_ref(dest, staging, dst, ok)
+        got = staged_scatter(dest.clone(), staging, dst, ok)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"staged_scatter mismatch, MoE {tag}")
+        out[f"staged_scatter_{tag}"] = dict(
+            dest=list(dest.shape), staging=list(staging.shape),
+            valid_rows=int(ok.sum()), exact=True)
+    for what in ("prefill", "chunk"):
+        args32 = _moe_k3_inputs(gen, torch.float32, what)
+        ref32 = flash_attention_ref(*args32, True, 0)
+        got32 = flash_attention(*args32, True, 0)
+        torch.testing.assert_close(
+            got32, ref32, **TOL_F32,
+            msg=lambda m: f"flash_attention fp32, MoE {what}: {m}")
+        args = tuple(a.to(torch.bfloat16) for a in args32)
+        got = flash_attention(*args, True, 0)
+        plain = flash_attention_ref(*args, True, 0)
+        torch.cuda.synchronize()
+        h = held_bf16("flash_attention", f"MoE {what}", got, plain, ref32,
+                      K3_TILE)
+        out[f"flash_attention_{what}"] = dict(
+            shape=f"q{list(args[0].shape)} k/v{list(args[1].shape)}",
+            err_f32=float((got32 - ref32).abs().max()),
+            err_bf16_vs_f32_ref=h["err"],
+            plain_err_bf16_vs_f32_ref=h["err_plain"],
+            worst_block_share=h["worst_block_share"])
+    out["flash_decode_decode"] = _check_k4_at("MoE decode shape",
+                                              _moe_k4_inputs(gen))
+    return out
+
+
+def time_moe_shapes():
+    """K1, K3 and K4 timed at granite's shapes, each beside its bound and
+    one library call: K1 at a decode step's drain (``index_copy_`` of the
+    valid rows), K3 at the prefill shape (SDPA, causal), K4 at the decode
+    shape (SDPA with a ``[B,1,1,T]`` mask)."""
+    dest, staging, dst, ok = _moe_k1_inputs(timed_gen(121), MOE["n_slots"])
+    rows, src = dst[ok], staging[ok]
+    t1 = timings("staged_scatter moe",
+                 lambda: staged_scatter(dest, staging, dst, ok),
+                 lambda: staged_scatter_ref(dest, staging, dst, ok,
+                                            inplace=True),
+                 lambda: dest.index_copy_(0, rows, src))
+    n_valid, w = int(ok.sum()), staging.shape[1]
+    k1 = dict(**t1, bound_ms=(2 * n_valid * w * 2 + dst.numel() * 5)
+              / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+              shape=f"dest[{dest.shape[0]},{w}] staging[{staging.shape[0]},"
+                    f"{w}] bf16, {n_valid} valid rows")
+    q, k, v = _moe_k3_inputs(timed_gen(122), torch.bfloat16, "prefill")
+    b, hq, s, d = q.shape
+    t3 = timings("flash_attention moe",
+                 lambda: flash_attention(q, k, v, True, 0),
+                 lambda: flash_attention_ref(q, k, v, True, 0),
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True, enable_gqa=True))
+    pairs = live_pairs(s, s, True, 0)
+    t_ops = 4 * d * hq * b * pairs / PEAK_FLOPS[q.dtype]
+    t_bytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+               / HBM_BYTES_PER_S)
+    k3 = dict(**t3, bound_ms=max(t_ops, t_bytes) * 1e3,
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{s},{d}] "
+                    f"bf16, causal, GQA group 3")
+    k4 = _k4_timed("flash_decode moe", _moe_k4_inputs(timed_gen(123)))
+    return k1, k3, k4
+
+
 def timed_gen(seed):
     return torch.Generator(device=DEV).manual_seed(seed)
 
@@ -1955,6 +2245,13 @@ def phase_kernels():
     # self-draft's step (K4 at the slice's MHA geometry)
     k2_verify = check_k2_verify(timed_gen(112))
     k4_draft = check_k4_draft(timed_gen(113))
+    # the simulator's scan, and K1 / K3 / K4 at the MoE family's shapes
+    lru_cases = check_lru_scan()
+    lru_t = time_lru_scan()
+    moe_checks = check_moe_shapes(timed_gen(120))
+    k1_moe, k3_moe, k4_moe = time_moe_shapes()
+    k1_t["moe_shape"], k3_t["moe_shape"] = k1_moe, k3_moe
+    k4_t["moe_shape"] = k4_moe
     say("cms_monitor_step", **step_t)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
@@ -2004,7 +2301,9 @@ def phase_kernels():
         slice_err_factor=SLICE_ERR_FACTOR, cms_cases=cms_cases,
         cms_exact=True, cms_update_query_cases=fused_cases,
         cms_update_query_cases_decay_fired=fused_fired,
-        cms_update_query_exact=True)
+        cms_update_query_exact=True, lru_scan_cases=lru_cases,
+        lru_scan_equal=True, lru_scan_shape=lru_t.pop("shape"),
+        moe_shapes=moe_checks)
     # the kernels line: the write engine's sketch (depth 4, k 16) at one
     # engine batch; all four timed sizes under "sizes"
     cms_main = CMS_TIMED.index((4, 16, 4096))
@@ -2043,7 +2342,12 @@ def phase_kernels():
              source="src/repro_torch/kernels/csrc/flash_decode.cu",
              replaces="src/repro/kernels/flash_decode.py:271",
              launches=None, max_abs_err=max(k4_errs.values()), **k4_t),
-    ] + cms_rows
+    ] + cms_rows + [
+        dict(name="lru_scan", route="cuda",
+             source="src/repro_torch/kernels/csrc/lru_scan.cu",
+             replaces="no TPU kernel: the lax.scan at "
+                      "src/repro/core/simulator.py:146",
+             launches=None, max_abs_err=0.0, **lru_t)]
 
 
 # ---------------------------------------------------------------------------
@@ -2360,10 +2664,12 @@ def take_launches(kernels, counts, names):
 # ---------------------------------------------------------------------------
 
 
-def _slice_model():
-    """The slice's model at full width and depth, bf16, weights from seed
-    0."""
+def _slice_model(n_layers=None):
+    """The slice's model at full width, bf16, weights from seed 0; at full
+    depth, or cut to its first ``n_layers`` layers."""
     cfg = get_config(SLICE["arch"])
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg, build_model(cfg, device=DEV).init(0)
 
 
@@ -2512,9 +2818,9 @@ def _prefix_problems(path, passes, want):
 
 def phase_engine_prefix(kernels):
     """The slice chunked at 16 with ``MemoryConfig(prefix_cache=True)``,
-    bf16 at full width and depth: requests opening with the same 1024
-    tokens (a system prompt), suffixes of 64-192 tokens, 64 new tokens
-    each. Three passes on one engine: COLD (16 requests, a fresh engine: the
+    bf16 at full width, cut to ``MEMORY_LAYERS`` of its 24 layers:
+    requests opening with the same 1024 tokens (a system prompt), suffixes
+    of 64-192 tokens, 64 new tokens each. Three passes on one engine: COLD (16 requests, a fresh engine: the
     first 8 find nothing cached, the next 8 the system prompt), WARM after
     ``reset(keep_cache=True)`` (16 requests with the same system prompt and
     suffixes never seen: each takes its 1024 rows from the cache), and
@@ -2542,7 +2848,7 @@ def phase_engine_prefix(kernels):
     128, where the cold pass ran them in decode steps at M = 8); cuBLAS and
     K2 round those differently (``tools/prefix_divergence.py`` finds the
     first such row)."""
-    cfg, model = _slice_model()
+    cfg, model = _slice_model(MEMORY_LAYERS)
     first_wave = N_REQUESTS // 2
     want = dict(cold=[0] * first_wave
                 + _expected_hits(range(first_wave, N_REQUESTS), False),
@@ -2581,6 +2887,7 @@ def phase_engine_prefix(kernels):
     del model
     torch.cuda.empty_cache()
     say("engine_prefix", config=dict(SLICE, chunked=True, chunk_size=CHUNK),
+        n_layers=cfg.n_layers,
         shared_prefix=PREFIX_SHARED, prompt_lens=PREFIX_LENS,
         new_tokens=NEW_TOKENS, requests=N_REQUESTS,
         hit_rows_expected={k: sum(v) for k, v in want.items()}, **report)
@@ -2749,7 +3056,8 @@ def _host_tier_case(model, shape, extra, queue, tag):
 def phase_engine_host_tier(kernels):
     """The slice with ``MemoryConfig(host_tier=True)`` over a pool of 320
     blocks (about half the working set of 8 live slots, at least the largest
-    request's 116 pages), bf16 at full width and depth, on the staged path:
+    request's 116 pages), bf16 at full width, cut to ``MEMORY_LAYERS`` of
+    its 24 layers, on the staged path:
     16 requests of 512 / 1024 / 1536 / 1792 tokens, 64 new tokens each,
     blocking, chunked at 16, and chunked with the prefix cache and the host
     tier together (the prefix cache needs chunked prefill; every prompt
@@ -2769,7 +3077,7 @@ def phase_engine_host_tier(kernels):
     against the ample pool; each park's and restore's blocks, bytes, host
     ms and GB/s; one 116-block park and restore traced on the device
     against a plain pinned copy of the same bytes and the link's bound."""
-    cfg, model = _slice_model()
+    cfg, model = _slice_model(MEMORY_LAYERS)
     sp = SamplingParams(max_tokens=NEW_TOKENS)
 
     def queue(shared=0):
@@ -2806,7 +3114,8 @@ def phase_engine_host_tier(kernels):
         torch.cuda.empty_cache()
     del model
     torch.cuda.empty_cache()
-    say("engine_host_tier", requests=N_REQUESTS, prompt_lens=HOST_LENS,
+    say("engine_host_tier", n_layers=cfg.n_layers, requests=N_REQUESTS,
+        prompt_lens=HOST_LENS,
         new_tokens=NEW_TOKENS, n_blocks=HOST_BLOCKS,
         shared_prefix_with_prefix_cache=HOST_SHARED,
         working_set_pages=sum(-(-(p + NEW_TOKENS - 1) // ps)
@@ -4013,6 +4322,259 @@ def phase_write_parity():
     say("write_parity", shape=shape, engines=report, identical=True)
 
 
+# ---------------------------------------------------------------------------
+# the paper's Fig. 3 on the card
+# ---------------------------------------------------------------------------
+
+
+def _fig3_arm(arm, r):
+    """(policy, monitor) of one Fig. 3 line at ``r`` regions, state on the
+    card."""
+    if arm == "offload":
+        return AlwaysOffload(), None
+    if arm == "unload":
+        return AlwaysUnload(), None
+    if arm == "hint":
+        hot = torch.zeros((r,), dtype=torch.bool, device=DEV)
+        hot[:min(PAPER_WORKLOAD.adaptive_top_k, r)] = True
+        return HintPolicy(hot_regions=hot), None
+    mon = (ExactMonitor(n_regions=r) if arm == "frequency"
+           else CMSMonitor(*FIG3_CMS))
+    return FrequencyPolicy(monitor=mon, threshold=FIG3_THRESHOLD), mon
+
+
+def phase_fig3(kernels):
+    """The paper's Fig. 3 on the card: ``sweep_point`` (seed 0) at each of
+    ``PAPER_WORKLOAD.region_counts`` for offload, unload, hint (top-4096)
+    and frequency over an exact monitor, 200 000 writes, warm-up 20 000;
+    frequency over a count-min sketch at 2^20 (its monitor step: one K5
+    and one K6 launch); then the 2^20 headline at the paper's 5 000 000
+    writes (warm-up 500 000). Launch counts are set to 0 just before the
+    sweep and read just after it: one lru_scan a point, K5 and K6 > 0.
+    Held: the ``FIG3_CLAIMS`` bounds of ``tests/test_fig3_regression.py``
+    (the fixed paths on the paper's calibration; adaptive no slower than
+    the better fixed path + 0.15 us at 1 and 2^20 regions) and the
+    improvement at 2^20 within 0.05 of 31 %, at 200 000 and at 5 000 000
+    writes; the 2^20 offload point equal, within 1e-5 us, to the same
+    point run on the CPU (the plain scan). The microseconds are the
+    paper's model constants, not device times."""
+    pw = PAPER_WORKLOAD
+    n, warm = pw.sim_writes, pw.sim_warmup
+    key = prng.key(0)
+    sweep_point(key, 16, 4096, 64, FrequencyPolicy(
+        monitor=CMSMonitor(*FIG3_CMS), threshold=1), CMSMonitor(*FIG3_CMS))
+    torch.cuda.synchronize()
+    arms = ("offload", "unload", "hint", "frequency")
+    table = {arm: {} for arm in arms}
+    point_ms = {arm: {} for arm in arms}
+    reset_launch_counts()           # counts = 0 just before the sweep
+    t_sweep = time.perf_counter()
+    for r in pw.region_counts:
+        for arm in arms:
+            pol, mon = _fig3_arm(arm, r)
+            t0 = time.perf_counter()
+            table[arm][r], _ = sweep_point(key, r, n, warm, pol, mon)
+            point_ms[arm][r] = (time.perf_counter() - t0) * 1e3
+    pol, mon = _fig3_arm("frequency_cms", 1 << 20)
+    cms_avg, cms_res = sweep_point(key, 1 << 20, n, warm, pol, mon)
+    head = {}
+    for arm in ("offload", "unload"):
+        pol, _ = _fig3_arm(arm, 1 << 20)
+        head[arm], _ = sweep_point(key, 1 << 20, pw.n_writes,
+                                   pw.n_writes // 10, pol)
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t_sweep
+    counts = launch_counts()        # read just after
+    n_points = len(pw.region_counts) * len(arms) + 1 + len(head)
+    # device time of one sweep point: 2^20 offload and the 1-region chain,
+    # at 200 000 writes, and the headline's 5 000 000
+    dev = {}
+    for tag, r, nw in (("2e20", 1 << 20, n), ("1", 1, n),
+                       ("2e20_5M", 1 << 20, pw.n_writes)):
+        dev[tag] = device_ms(
+            lambda: sweep_point(key, r, nw, nw // 10, AlwaysOffload()),
+            f"fig3 point {tag}", reps=3)
+    cpu_off, _ = sweep_point(key, 1 << 20, n, warm, AlwaysOffload(),
+                             device="cpu")
+    lo, hi = 1, 1 << 20
+    imp = 1.0 - table["unload"][hi] / table["offload"][hi]
+    imp_5m = 1.0 - head["unload"] / head["offload"]
+    say("fig3_table", unit="us (the paper's model constants, not device "
+        "times)", writes=n, warmup=warm, seed=0,
+        regions=list(pw.region_counts),
+        **{arm: [table[arm][r] for r in pw.region_counts] for arm in arms})
+    say("fig3", frequency_cms_2e20=cms_avg,
+        frequency_cms_unload_share=int(cms_res.n_unloaded) / n,
+        headline_5M=dict(head, improvement=imp_5m, warmup=pw.n_writes // 10),
+        improvement_2e20=imp, claims=FIG3_CLAIMS,
+        offload_2e20_cpu=cpu_off, launches=counts, points=n_points,
+        sweep_seconds=sweep_s, point_host_ms=point_ms,
+        point_device_ms=dev)
+    problems = []
+
+    def near(what, got, want, tol):
+        if not abs(got - want) < tol:
+            problems.append(f"{what}: {got} not within {tol} of {want}")
+
+    near("offload at 1 region", table["offload"][lo],
+         FIG3_CLAIMS["offload_rtt_1_region"], 0.1)
+    near("offload at 2^20", table["offload"][hi],
+         FIG3_CLAIMS["offload_rtt_2e20_regions"], 0.3)
+    near("unload at 1 region", table["unload"][lo],
+         FIG3_CLAIMS["unload_rtt_flat"], 0.2)
+    near("unload at 2^20", table["unload"][hi],
+         FIG3_CLAIMS["unload_rtt_2e20_regions"], 0.2)
+    near("hint at 1 region", table["hint"][lo],
+         FIG3_CLAIMS["offload_rtt_1_region"], 0.15)
+    near("hint at 2^20", table["hint"][hi],
+         FIG3_CLAIMS["unload_rtt_2e20_regions"], 0.25)
+    near("improvement at 2^20", imp, FIG3_CLAIMS["improvement_at_2e20"], 0.05)
+    near("improvement at 2^20, 5M writes", imp_5m,
+         FIG3_CLAIMS["improvement_at_2e20"], 0.05)
+    near("2^20 offload, card against CPU", table["offload"][hi], cpu_off,
+         1e-5)
+    for arm in ("hint", "frequency"):
+        for r in (lo, hi):
+            best = min(table["offload"][r], table["unload"][r])
+            if not table[arm][r] <= best + 0.15:
+                problems.append(f"{arm} at {r} regions: {table[arm][r]} > "
+                                f"best fixed {best} + 0.15")
+    if counts["lru_scan"] != n_points:
+        problems.append(f"lru_scan launched {counts['lru_scan']} times for "
+                        f"{n_points} points")
+    for k in ("cms_update", "cms_query"):
+        if counts[k] <= 0:
+            problems.append(f"{k} never launched by the sketch arm: {counts}")
+    if problems:
+        raise AssertionError("fig3: " + "; ".join(problems))
+    for k in kernels:
+        if k["name"] == "lru_scan":
+            k["launches"] = counts["lru_scan"]
+        elif k["name"] in ("cms_update", "cms_query"):
+            k["launches_write_engine"] = k["launches"]
+            k["launches"] = counts[k["name"]]
+
+
+# ---------------------------------------------------------------------------
+# the MoE family at full width on the lanes layout
+# ---------------------------------------------------------------------------
+
+
+def _count_model_calls(model):
+    """Count the calls of the model's three lanes entry points (each runs
+    ``moe_ffn_layer``, so one K1 drain, in every layer). Returns the
+    counter and the function that unwraps them."""
+    calls = {"n": 0}
+    names = ("prefill", "chunk_prefill", "decode_step")
+    for name in names:
+        def counted(*a, _f=getattr(model, name), **kw):
+            calls["n"] += 1
+            return _f(*a, **kw)
+        setattr(model, name, counted)
+
+    def unwrap():
+        for name in names:
+            delattr(model, name)
+    return calls, unwrap
+
+
+def phase_engine_moe(kernels):
+    """granite-moe-3b-a800m at full width (32 layers, d_model 1536, 40
+    experts top-8, bf16, random weights from seed 0) through
+    ``Engine.from_config`` on the lanes layout, direct KV writes, staged
+    expert dispatch (``MoELM``'s default): 16 requests of 128-512 tokens,
+    32 new tokens each, 8 slots, blocking and chunked at 128. Launch counts
+    set to 0 just before each first serve and read just after it; the
+    model's calls counted alongside. Held: K1 launched once a layer of
+    every MoE call (32 x calls), K3 and K4 launched; every request's 32
+    tokens in the vocabulary, 31 direct writes, none staged; admitted =
+    retired = 16; a second serve identical. Reported: blocking against
+    chunked (a chunk routes its own token count, so capacity drops can
+    differ by construction), tok/s, TTFT, peak memory, a decode segment's
+    profile."""
+    cfg = get_config(MOE["arch"])
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV).init(0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    if model.dispatch_mode != "staged":
+        raise AssertionError(f"MoE dispatch {model.dispatch_mode}")
+    sp = SamplingParams(max_tokens=MOE_NEW)
+
+    def queue():
+        return synthetic_requests(MOE_REQUESTS, MOE_PROMPTS, cfg.vocab,
+                                  MOE_NEW, params=sp)
+
+    runs, problems, profile = {}, [], None
+    for name, chunked in (("blocking", False), ("chunked", True)):
+        shape = dict(MOE, chunked=chunked, chunk_size=MOE_CHUNK)
+        eng = Engine.from_config(EngineConfig(**shape), model)
+        if eng.layout != "lanes":
+            raise AssertionError(f"MoE served on {eng.layout}")
+        eng.serve(synthetic_requests(len(MOE_PROMPTS), MOE_PROMPTS,
+                                     cfg.vocab, 2,
+                                     params=SamplingParams(max_tokens=2)))
+        eng.reset()
+        calls, unwrap = _count_model_calls(model)
+        reset_launch_counts()       # counts = 0 just before the main path
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out, comps, secs = _serve_once(eng, queue())
+            counts = launch_counts()    # read just after
+        finally:
+            unwrap()
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(eng.stats)
+        eng.reset()
+        again, _, secs2 = _serve_once(eng, queue())
+        n_tok = sum(len(t) for t in out.values())
+        if _stream_diff(again, out):
+            problems.append(f"{name}: a second serve differs "
+                            f"{_stream_diff(again, out)}")
+        if len(out) != MOE_REQUESTS:
+            problems.append(f"{name}: {len(out)} requests served")
+        for rid, toks in out.items():
+            pc = comps[rid].path_counts
+            if toks.shape != (MOE_NEW,) or not (
+                    (toks >= 0) & (toks < cfg.vocab)).all():
+                problems.append(f"{name}: request {rid} tokens {toks}")
+            if pc["direct"] != MOE_NEW - 1 or pc["staged"] != 0:
+                problems.append(f"{name}: request {rid} path counts {pc}")
+        if not stats["admitted"] == stats["retired"] == MOE_REQUESTS:
+            problems.append(f"{name}: stats {stats}")
+        if counts["staged_scatter"] != cfg.n_layers * calls["n"]:
+            problems.append(f"{name}: staged_scatter launched "
+                            f"{counts['staged_scatter']} times for "
+                            f"{calls['n']} MoE calls x {cfg.n_layers} layers")
+        for k in ("flash_attention", "flash_decode"):
+            if counts[k] <= 0:
+                problems.append(f"{name}: {k} never launched: {counts}")
+        runs[name] = dict(out=out, report=dict(
+            tok_per_s=[n_tok / secs, n_tok / secs2], seconds=[secs, secs2],
+            tokens=n_tok, ttft=_ttft(comps), model_calls=calls["n"],
+            launches=counts, stats=stats, peak_mem_gb=peak / 1e9))
+        for k in kernels:
+            if k["name"] in ("staged_scatter", "flash_attention",
+                             "flash_decode"):
+                k["moe_shape"][f"launches_{name}"] = counts[k["name"]]
+        if not chunked:
+            profile = engine_profile(eng, cfg, MOE, MOE_PROMPTS)
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    say("engine_moe", config=MOE, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        n_experts=cfg.n_experts, top_k=cfg.top_k, chunk_size=MOE_CHUNK,
+        params_billions=cfg.param_count() / 1e9,
+        model_build_seconds=t_build, requests=MOE_REQUESTS,
+        prompt_lens=MOE_PROMPTS, new_tokens=MOE_NEW,
+        blocking_vs_chunked=_stream_diff(runs["chunked"]["out"],
+                                         runs["blocking"]["out"]),
+        profile=profile, **{k: r["report"] for k, r in runs.items()})
+    if problems:
+        raise AssertionError("engine_moe: " + "; ".join(problems))
+
+
 PHASE_SECONDS = {}
 
 
@@ -4045,6 +4607,8 @@ def main():
     timed("parity_chunked", phase_parity_chunked)
     timed("write_engine", phase_write_engine, kernels)
     timed("write_parity", phase_write_parity)
+    timed("fig3", phase_fig3, kernels)
+    timed("engine_moe", phase_engine_moe, kernels)
     say("done", seconds=round(time.perf_counter() - t0, 1),
         phase_seconds=PHASE_SECONDS,
         traces_without_device_time=TRACE_MISSES)

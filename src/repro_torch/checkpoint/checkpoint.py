@@ -2,7 +2,7 @@
 bridge from the JAX package's parameter layout.
 
 ``params_from_numpy(tree, model)`` loads a nested dict of numpy arrays in
-the JAX layout into the port's ``DecoderLM``::
+the JAX layout into the port's ``DecoderLM`` or ``MoELM``::
 
     embed/{tok, head}           [V, D]
     ln_f/{scale, bias}          [D]
@@ -10,6 +10,8 @@ the JAX layout into the port's ``DecoderLM``::
     blocks/attn/{wq,wk,wv}      [L, D, H, Dh]   blocks/attn/wo [L, Hq, Dh, D]
     blocks/attn/{bq,bk,bv}      [L, H, Dh]      (qkv_bias archs only)
     blocks/mlp/{wi,wg}          [L, D, F]       blocks/mlp/wo  [L, F, D]
+    blocks/moe/router           [L, D, E]       (MoE in place of mlp)
+    blocks/moe/{wi,wg}          [L, E, D, F]    blocks/moe/wo  [L, E, F, D]
 
 ``load_checkpoint(dir)`` reads one step directory of the JAX package's
 checkpoint layout (``manifest.json`` + one ``leaf_*.npy`` per leaf, keys
@@ -58,7 +60,9 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 def params_from_numpy(tree: Dict[str, Any], model) -> Any:
     """Load a JAX-layout parameter tree (see the module docstring) into
-    ``model`` (a ``repro_torch`` ``DecoderLM``), in place; returns it."""
+    ``model`` (a ``repro_torch`` ``DecoderLM`` or ``MoELM``), in place;
+    returns it. Every group under ``blocks`` loads into the block module of
+    its name."""
     dev = model.device
 
     def t(a):
@@ -68,8 +72,7 @@ def params_from_numpy(tree: Dict[str, Any], model) -> Any:
     model.ln_f.load({k: t(v) for k, v in tree["ln_f"].items()})
     blocks = tree["blocks"]
     n_layers = len(model.blocks)
-    for name in ("ln1", "attn", "ln2", "mlp"):
-        group = blocks[name]
+    for name, group in blocks.items():
         for k, v in group.items():
             if np.asarray(v).shape[0] != n_layers:
                 raise ValueError(

@@ -11,7 +11,8 @@ PyTorch modules.
   unload        the flat staging ring + validated drain
   staged_write  RemoteWriteEngine: the bidirectional write API
   paths         WritePath registry, capability negotiation, validate()
-  simulator     the section 4 workload generator (zipf_regions)
+  simulator     the paper's Fig. 3 simulator: zipf_regions, RDMASimulator
+                (MTT + dTLB LRU scan on the lru_scan kernel), sweep_point
 
 ``validate`` is the uMTT's security check, as in the JAX package; the
 config -> plan entry point is ``paths.validate``.
@@ -29,11 +30,11 @@ from .policy import (AlwaysOffload, AlwaysUnload, FrequencyPolicy, HintPolicy,
                      HysteresisPolicy, available_policies, get_policy_factory,
                      register_policy, top_k_hot_table)
 from .ring import RingState
-from .simulator import zipf_regions
+from .simulator import RDMASimulator, SimResult, sweep_point, zipf_regions
 from .staged_write import EngineState, RemoteWriteEngine
 from .types import (OFFLOAD, PHASE_BULK, PHASE_SCATTERED, UNLOAD,
-                    DecisionStats, LatencyModel, SpecStats, WriteBatch,
-                    make_write_batch, resolve_device)
+                    CPUTLBConfig, DecisionStats, LatencyModel, MTTConfig,
+                    SpecStats, WriteBatch, make_write_batch, resolve_device)
 from .umtt import (PERM_READ, PERM_WRITE, UMTT, deregister, make_umtt,
                    register, validate)
 from .unload import StagingRing, append, drain, make_ring, need_drain
@@ -49,7 +50,8 @@ __all__ = [
     "register_path", "resolve_attention", "AlwaysOffload", "AlwaysUnload",
     "FrequencyPolicy", "HintPolicy", "HysteresisPolicy", "available_policies",
     "get_policy_factory", "register_policy", "top_k_hot_table", "RingState",
-    "zipf_regions", "EngineState", "RemoteWriteEngine", "OFFLOAD",
+    "zipf_regions", "RDMASimulator", "SimResult", "sweep_point",
+    "MTTConfig", "CPUTLBConfig", "EngineState", "RemoteWriteEngine", "OFFLOAD",
     "PHASE_BULK", "PHASE_SCATTERED", "UNLOAD", "DecisionStats",
     "LatencyModel", "SpecStats", "WriteBatch",
     "make_write_batch", "resolve_device", "PERM_READ", "PERM_WRITE", "UMTT",

@@ -3,8 +3,8 @@
 Decision module (paper section 3.2): intercept write requests, consult the
 monitor + policy, and emit per-request offload/unload routing decisions. The
 hot path is one counter update + one compare per request, vectorized over
-the batch. ``replicate_for_readback`` (mesh) and ``expert_hot_mask`` (MoE)
-are not ported yet.
+the batch. ``expert_hot_mask`` applies the paper's policy to MoE expert ids.
+``replicate_for_readback`` (mesh) is not ported yet.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from .monitor import calibrate_threshold
+from .policy import top_k_hot_table
 from .types import PHASE_BULK, DecisionStats, WriteBatch, resolve_device
 
 
@@ -116,3 +117,13 @@ class DecisionModule:
 def page_threshold(counts: torch.Tensor, offload_top_k: int) -> torch.Tensor:
     """Count threshold putting about the top-k pages on the offload path."""
     return calibrate_threshold(counts, offload_top_k)
+
+
+def expert_hot_mask(expert_load: torch.Tensor,
+                    offload_top_k: int) -> torch.Tensor:
+    """bool[E] hot-expert table from accumulated expert-load counters: the
+    paper's hint/frequency policy applied to MoE expert ids. Hot
+    (heavy-hitter) experts stay on the direct dispatch path, cold ones are
+    staged (``models.moe.moe_ffn_layer(mode="adaptive")``). Called off the
+    critical path, between steps."""
+    return top_k_hot_table(expert_load, offload_top_k)

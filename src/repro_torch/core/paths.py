@@ -344,6 +344,10 @@ def resolve_draft(spec: SpecConfig, *, vocab: Optional[int] = None,
         raise _not_ported(
             f"speculative draft {name!r} of family {dcfg.family!r} (the "
             f"recurrent drafts' snapshot rollback)")
+    if dcfg.family == "moe":
+        raise _not_ported(
+            f"speculative draft {name!r} of family 'moe' (the draft lanes "
+            f"serve the dense family only)")
     return dcfg
 
 

@@ -299,10 +299,13 @@ register_policy("hysteresis", _mk_hysteresis)
 def top_k_hot_table(counts: torch.Tensor, k: int) -> torch.Tensor:
     """bool[n_regions] table marking the top-k regions by count: the paper's
     evaluation policy ("offloads only the top-4096 heavy-hitter memory
-    regions") built from observed or oracle frequencies."""
+    regions") built from observed or oracle frequencies. Ties go to the
+    lower index, as ``jax.lax.top_k`` breaks them (``torch.topk`` makes no
+    such promise): the first k of a stable descending sort."""
     n = counts.shape[0]
     k = min(int(k), n)
     hot = torch.zeros((n,), dtype=torch.bool, device=counts.device)
     if k > 0:
-        hot[torch.topk(counts, k).indices] = True
+        order = torch.sort(counts, descending=True, stable=True).indices
+        hot[order[:k]] = True
     return hot

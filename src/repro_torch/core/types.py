@@ -5,8 +5,8 @@ Core datatypes of the bidirectional-offload engine: ``WriteBatch``
 ``DecisionStats``. Everything is a NamedTuple of tensors on one explicit
 device. ``LatencyModel`` holds the paper's per-path write latencies, the
 constants of the virtual-time cost model (``serve.traffic``); ``SpecStats``
-the speculative path's tallies. ``MTTConfig`` and ``CPUTLBConfig`` belong to
-the simulator and are not ported yet.
+the speculative path's tallies. ``MTTConfig`` and ``CPUTLBConfig`` are the
+two set-associative caches of the simulator (``core.simulator``).
 
 Conventions: region ids and the other integer fields are int64 tensors
 (PyTorch's index type); the JAX package uses int32 for the same values.
@@ -156,3 +156,30 @@ class LatencyModel:
     def unload_copy_us(self, size_bytes: torch.Tensor) -> torch.Tensor:
         extra = torch.clamp(size_bytes.to(torch.float32) - 16.0, min=0.0)
         return extra / (self.copy_gbps * 1e3)  # bytes / (GB/s) -> us
+
+
+@dataclasses.dataclass(frozen=True)
+class MTTConfig:
+    """Set-associative model of the RNIC Memory Translation Table cache.
+
+    ConnectX-5-class RNICs cache a few thousand translations; the paper's
+    adaptive policy offloads the top-4096 regions and matches the offload
+    path at <=2^12 regions, so the default is 4096 entries (512 sets x 8
+    ways)."""
+
+    n_sets: int = 512
+    n_ways: int = 8
+
+    @property
+    def entries(self) -> int:
+        return self.n_sets * self.n_ways
+
+
+@dataclasses.dataclass(frozen=True)
+class CPUTLBConfig:
+    """CPU-side dTLB model for the unload path's final memcpy: larger than
+    the RNIC MTT (STLB ~1.5-2K entries), and a miss costs a page walk from
+    DRAM-adjacent caches, not a PCIe round trip."""
+
+    n_sets: int = 256
+    n_ways: int = 8

@@ -17,6 +17,9 @@ hot spots of the serving path, each with a plain PyTorch version beside it.
   cms_update_query    the CMS monitor's whole step in one launch: update,
                       total, decay, then estimate (all three
                       ``csrc/cms.cu``)
+  lru_scan            the simulator's two-cache set-associative LRU scan
+                      (MTT + dTLB), one warp a set (``csrc/lru_scan.cu``;
+                      ports a ``lax.scan``, not a Pallas kernel)
 
 CPU tests of the plain versions against the JAX package: ``PYTHONPATH=src
 python -m pytest -q tests/test_torch_cms.py`` (the sketch kernels) and
@@ -39,6 +42,8 @@ from .ops import (
     flash_decode_paged_sharded_ref,
     flash_decode_ref,
     launch_counts,
+    lru_scan,
+    lru_scan_ref,
     reset_launch_counts,
     staged_scatter,
     staged_scatter_layers,
@@ -51,7 +56,7 @@ __all__ = [
     "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
-    "launch_counts",
+    "launch_counts", "lru_scan", "lru_scan_ref",
     "reset_launch_counts", "staged_scatter", "staged_scatter_layers",
     "staged_scatter_ref",
 ]

@@ -190,6 +190,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cms_update_launch.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp]
     lib.cms_query_launch.restype = i32
     lib.cms_query_launch.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp]
+    lib.lru_scan_launch.restype = i32
+    lib.lru_scan_launch.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
+    lib.lru_step_probe_launch.restype = i32
+    lib.lru_step_probe_launch.argtypes = [i64, i32, i32, vp, vp]
     lib.cms_update_query_launch.restype = i32
     lib.cms_update_query_launch.argtypes = [
         vp, vp, vp, vp, i32, vp, vp, i64, i32, i32, i64, i32, i32, vp]

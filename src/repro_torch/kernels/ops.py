@@ -15,6 +15,7 @@ from .flash_attention import flash_attention, flash_attention_ref
 from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_decode_paged_ref, flash_decode_paged_sharded,
                            flash_decode_paged_sharded_ref, flash_decode_ref)
+from .lru_scan import lru_scan, lru_scan_ref
 from .staged_scatter import (staged_scatter, staged_scatter_layers,
                              staged_scatter_ref)
 
@@ -26,6 +27,7 @@ _WRAPPERS = {
     "cms_update": (cms_update,),
     "cms_query": (cms_query,),
     "cms_update_query": (cms_update_query,),
+    "lru_scan": (lru_scan,),
 }
 
 
@@ -45,7 +47,7 @@ __all__ = [
     "cms_update_query_ref", "cms_update_ref", "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
-    "staged_scatter",
+    "lru_scan", "lru_scan_ref", "staged_scatter",
     "staged_scatter_layers", "staged_scatter_ref", "launch_counts",
     "reset_launch_counts",
 ]

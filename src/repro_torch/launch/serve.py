@@ -17,8 +17,10 @@ weights' seed is ``--init-seed``). Runs on the GPU unless ``--device cpu``
 is given (no GPU: it raises).
 ``--full-width`` serves the architecture at its published widths instead of
 the reduced test variant. An architecture the paged pool cannot serve (the
-sliding-window h2o-danube-3-4b) runs on the lanes layout, which is
-direct-only: ``--write-mode`` is downgraded to ``direct`` with a message.
+sliding-window h2o-danube-3-4b, and the MoE granite-moe-3b-a800m and
+qwen3-moe-235b-a22b, whose expert dispatch is staged and drains through
+K1) runs on the lanes layout, which is direct-only: ``--write-mode`` is
+downgraded to ``direct`` with a message.
 """
 from __future__ import annotations
 

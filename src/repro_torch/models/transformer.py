@@ -119,15 +119,20 @@ class DecoderLM(nn.Module):
     """Dense decoder-only LM, with or without a sliding window. Parameters
     are fp32 masters created on ``device`` (the GPU unless the caller asks
     for the CPU; ``"cuda"`` without CUDA raises); activations and the KV
-    cache use ``cfg.dtype``."""
+    cache use ``cfg.dtype``. A subclass of another family swaps the block
+    (``block_cls``) and its FFN (``_ffn``): ``models.moe_lm.MoELM``."""
+
+    family = DENSE
+    block_cls = DenseBlock
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
-        if cfg.family != DENSE or cfg.cross_attn_every:
+        if cfg.family != self.family or cfg.cross_attn_every:
             raise NotImplementedError(
                 f"not ported yet: {cfg.name} (family {cfg.family!r}, "
-                f"cross_attn_every={cfg.cross_attn_every}); the dense "
-                f"decoder only")
+                f"cross_attn_every={cfg.cross_attn_every}) in "
+                f"{type(self).__name__}, which takes the {self.family!r} "
+                f"family")
         device = resolve_device(device)
         self.cfg = cfg
         self.is_vlm = False
@@ -135,7 +140,13 @@ class DecoderLM(nn.Module):
         self.embed = L.Embed(cfg, device)
         self.ln_f = L.Norm(cfg, device)
         self.blocks = nn.ModuleList(
-            DenseBlock(cfg, device) for _ in range(cfg.n_layers))
+            self.block_cls(cfg, device) for _ in range(cfg.n_layers))
+
+    def _ffn(self, blk, x: torch.Tensor) -> torch.Tensor:
+        """The block's FFN on the residual stream ``x`` (pre-norm)."""
+        cfg = self.cfg
+        return L.apply_mlp(cfg, blk.mlp.tensors(x.dtype),
+                           L.apply_norm(cfg, blk.ln2.tensors(), x))
 
     # -- init ------------------------------------------------------------
     def init(self, seed: int = 0) -> "DecoderLM":
@@ -197,8 +208,7 @@ class DecoderLM(nn.Module):
             keep_ring(cache["v"][i], v)
             out = L.attention_core(cfg, q, k, v)
             x = x + torch.einsum("bshk,hkd->bsd", out, pa["wo"].to(dtype))
-            x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
-                                L.apply_norm(cfg, blk.ln2.tensors(), x))
+            x = x + self._ffn(blk, x)
         x = L.apply_norm(cfg, self.ln_f.tensors(), x[:, -1:])
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
         return logits, cache
@@ -231,8 +241,7 @@ class DecoderLM(nn.Module):
                                       v_new, start_pos)
             L.write_chunk(kc, k_new, start_pos)
             L.write_chunk(vc, v_new, start_pos)
-            x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
-                                L.apply_norm(cfg, blk.ln2.tensors(), x))
+            x = x + self._ffn(blk, x)
         x = L.apply_norm(cfg, self.ln_f.tensors(), x[:, -1:])
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
         return logits, cache
@@ -270,8 +279,7 @@ class DecoderLM(nn.Module):
             k_new, v_new = L.project_kv(cfg, pa, hn, pos[:, None])
             write_lanes(kc, vc, k_new, v_new, plan)
             x = x + L.decode_attention(cfg, pa, hn, pos, kc, vc, vmask)
-            x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
-                                L.apply_norm(cfg, blk.ln2.tensors(), x))
+            x = x + self._ffn(blk, x)
         x = L.apply_norm(cfg, self.ln_f.tensors(), x)
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
         return logits, cache
@@ -350,8 +358,7 @@ class DecoderLM(nn.Module):
                     av = torch.cat([av, PG.whole(rv)], dim=1)
                 a = L.decode_attention(cfg, pa, hn, pos, ak, av, full_mask)
             x = x + a
-            x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
-                                L.apply_norm(cfg, blk.ln2.tensors(), x))
+            x = x + self._ffn(blk, x)
 
         if ring:
             PG.ring_commit(cache, pos, unload_mask)
@@ -446,8 +453,7 @@ class DecoderLM(nn.Module):
                 a = L.masked_chunk_attention(cfg, pa, hn, positions, ak, av,
                                              full_mask)
             x = x + a
-            x = x + L.apply_mlp(cfg, blk.mlp.tensors(dtype),
-                                L.apply_norm(cfg, blk.ln2.tensors(), x))
+            x = x + self._ffn(blk, x)
 
         if ring:
             PG.ring_commit(cache, start, unload_mask)

@@ -9,8 +9,9 @@ layouts, as in the JAX package:
 
 * ``paged`` (linear-addressed dense decoders): per-slot destination blocks
   in a SHARED physical pool, all three write paths;
-* ``lanes`` (the sliding-window dense decoder): one dense cache lane per
-  slot (``model.init_cache(n_slots, max_seq)``, ring-addressed under SWA),
+* ``lanes`` (the sliding-window dense decoder and the MoE family, whose
+  every layer dispatches its tokens to experts and drains them through K1
+  in staged mode): one dense cache lane per slot (``model.init_cache(n_slots, max_seq)``, ring-addressed under SWA),
   direct writes only, read by the ``flash_decode`` kernel. The monitor's
   region is ``slot * max_pages + pos // page_size``.
 
@@ -122,6 +123,7 @@ from ..kvcache import paged as PG
 from ..models import prng
 from ..models import sampling as SMP
 from ..models.sampling import SamplingParams, SlotParams
+from ..configs.base import DENSE
 from ..models.transformer import DecoderLM, compute_dtype
 
 PHASE_PREFILL = 0
@@ -130,8 +132,10 @@ PHASE_DECODE = 1
 
 def paged_capable(model) -> bool:
     """Can this model serve from the paged pool? Linear-addressed dense
-    ``DecoderLM`` only."""
+    ``DecoderLM`` only (an ``MoELM`` is a ``DecoderLM`` of the moe family:
+    lanes, as in the JAX package)."""
     return (isinstance(model, DecoderLM)
+            and model.cfg.family == DENSE
             and not model.is_vlm
             and not model.cfg.sliding_window)
 

@@ -58,7 +58,11 @@ def test_package_has_every_ported_module():
             "serve/traffic/harness.py",
             "serve/scheduler.py", "serve/api.py", "launch/serve.py",
             "checkpoint/checkpoint.py", "distributed/__init__.py",
-            "distributed/sharding.py"]
+            "distributed/sharding.py", "configs/paper_urdma.py",
+            "configs/granite_moe_3b_a800m.py",
+            "configs/qwen3_moe_235b_a22b.py", "models/moe.py",
+            "models/moe_lm.py", "kernels/lru_scan.py",
+            "kernels/csrc/lru_scan.cu"]
     missing = [w for w in want if not os.path.isfile(os.path.join(PKG, w))]
     assert not missing, missing
 
@@ -115,8 +119,9 @@ def test_cuda_device_raises_without_cuda():
 
 
 def test_build_model_defaults_to_the_card():
-    """``build_model(cfg)`` and ``DecoderLM(cfg)`` with no device run on the
-    card: without CUDA they raise and name ``device='cpu'``."""
+    """``build_model(cfg)``, ``DecoderLM(cfg)`` and ``MoELM(cfg)`` with no
+    device run on the card: without CUDA they raise and name
+    ``device='cpu'``."""
     res = _run(
         "import pytest\n"
         "from repro_torch.configs import get_config\n"
@@ -127,6 +132,11 @@ def test_build_model_defaults_to_the_card():
         "    with pytest.raises(RuntimeError, match=\"device='cpu'\"):\n"
         "        make(cfg)\n"
         "assert build_model(cfg, device='cpu').device.type == 'cpu'\n"
+        "from repro_torch.models import MoELM\n"
+        "moe = get_config('granite-moe-3b-a800m').reduced()\n"
+        "for make in (build_model, MoELM):\n"
+        "    with pytest.raises(RuntimeError, match=\"device='cpu'\"):\n"
+        "        make(moe)\n"
         "print('refused')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("refused")
@@ -162,19 +172,23 @@ def test_chip_smoke_fails_without_a_gpu():
 
 def test_unported_archs_and_families_raise():
     from repro_torch.configs import ARCHS, get_config
-    from repro_torch.configs.base import MOE
-    from repro_torch.models import build_model
+    from repro_torch.configs.base import SSM
+    from repro_torch.models import DecoderLM, build_model
     import dataclasses
-    assert sorted(ARCHS) == ["h2o-danube-3-4b", "nemotron-4-15b", "qwen2-7b",
-                             "stablelm-1.6b"]
+    assert sorted(ARCHS) == ["granite-moe-3b-a800m", "h2o-danube-3-4b",
+                             "nemotron-4-15b", "qwen2-7b",
+                             "qwen3-moe-235b-a22b", "stablelm-1.6b"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
         get_config("mamba2-130m")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    moe = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
-                              family=MOE)
+    ssm = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              family=SSM)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(moe)
+        build_model(ssm, device="cpu")
+    # the dense class takes the dense family only
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        DecoderLM(get_config("granite-moe-3b-a800m").reduced(), device="cpu")
 
 
 def test_media_requests_still_not_ported():
@@ -210,8 +224,9 @@ def test_launcher_downgrades_the_write_mode_on_lanes():
 
 
 def test_new_modules_import_no_jax_when_loaded():
-    """The key chain, the sampler and the traffic stack load without JAX or
-    the JAX package, and ``chip_smoke.py`` imports neither."""
+    """The key chain, the sampler, the traffic stack, the simulator and the
+    MoE family load without JAX or the JAX package, and ``chip_smoke.py``
+    imports neither."""
     res = _run(
         "import sys\n"
         "import repro_torch.models.prng, repro_torch.models.sampling\n"
@@ -220,6 +235,9 @@ def test_new_modules_import_no_jax_when_loaded():
         "assert D.ParallelConfig and D.ShardedTensor\n"
         "import repro_torch.serve.traffic.workload, "
         "repro_torch.serve.traffic.harness\n"
+        "import repro_torch.core.simulator as S, repro_torch.models.moe_lm\n"
+        "import repro_torch.configs.paper_urdma, repro_torch.kernels.lru_scan\n"
+        "assert S.RDMASimulator and S.sweep_point\n"
         "assert T.run_loadtest and T.PreemptAdmission\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
         f"{BANNED!r})\n"
@@ -229,7 +247,11 @@ def test_new_modules_import_no_jax_when_loaded():
     assert res.stdout.strip() == "clean"
     for rel in ("models/prng.py", "serve/traffic/workload.py",
                 "serve/traffic/harness.py", "serve/traffic/sched.py",
-                "distributed/__init__.py", "distributed/sharding.py"):
+                "distributed/__init__.py", "distributed/sharding.py",
+                "core/simulator.py", "configs/paper_urdma.py",
+                "configs/granite_moe_3b_a800m.py",
+                "configs/qwen3_moe_235b_a22b.py", "models/moe.py",
+                "models/moe_lm.py", "kernels/lru_scan.py"):
         assert not _imported_roots(os.path.join(PKG, rel)) & set(BANNED)
 
 

@@ -257,7 +257,8 @@ def test_launch_counters_count_kernel_launches_only():
     from repro_torch.distributed import Mesh
     K.flash_decode_paged_sharded(Mesh([torch.device("cpu")] * 2, (2,),
                                       ("model",)), *args)
+    K.lru_scan(torch.arange(5), torch.tensor([0, 1, 0, 1, 0]).bool())
     assert K.launch_counts() == {"staged_scatter": 0, "flash_decode_paged": 0,
                                  "flash_attention": 0, "flash_decode": 0,
                                  "cms_update": 0, "cms_query": 0,
-                                 "cms_update_query": 0}
+                                 "cms_update_query": 0, "lru_scan": 0}
