@@ -6,7 +6,8 @@ device and ``nvcc``; without a GPU it exits non-zero and prints no result.
 Phases, each failing the run on any exception or mismatch:
 
   env      the card's name and power limit, torch / CUDA / nvcc versions
-  build    builds the CUDA kernels from ``src/repro_torch/kernels/csrc``
+  build    builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+           ``lru_scan.cu``'s kernels must have no stack frame and no spills
   kernels  each kernel against its plain PyTorch version on the card, and
            their times at the shapes the engine phases give them; the CMS
            monitor's step at the write engine's sketch and batch, its
@@ -28,13 +29,21 @@ Phases, each failing the run on any exception or mismatch:
            verify (C = k + 1 = 5, the ring empty and with 3 live lanes) and
            flash_decode at the self-draft's dense lanes (stablelm-1.6b's MHA,
            2048 rows), checked and timed (``verify_shape``,
-           ``draft_shape``); lru_scan (the simulator's scan) ``torch.equal``
+           ``draft_shape``); lru_scan (the simulator's scan: a stable
+           counting sort by cache set, then one thread a set) ``torch.equal``
            to its plain version at the paper workload (200 000 writes) at
            1, 2^12 and 2^20 regions under the offload, unload and hint
            routings, and at 2^20 regions at the paper's 5 000 000 writes
-           (offload, unload), timed at 2^20 regions and at 1 (the longest
-           chain) beside a bound whose step, a hit and a miss, is timed
-           alone (``lru_step_probe``: one warp running only the chain);
+           (offload, unload), and at 2^20 regions at 98 tiles of 2048
+           writes with only the last 10 in the last set (the bit map's last
+           word), the bucketing that each call ran ``torch.equal`` to
+           ``lru_buckets_ref`` in the same cases, and at way counts 1-32
+           (``LRU_WAYS``: the chain's other paths), timed at 2^20 regions,
+           1, 4 and 16 (the longest chains) and 2^20 at 5 000 000 writes
+           beside a bound whose step, a hit and a miss, is the faster of
+           two timed alone (``lru_chain_probe``: one thread running only
+           the kernel's chain; ``lru_step_probe``: one warp running the
+           first design's), with each of its five launches' time and count;
            staged_scatter, flash_attention and flash_decode at
            granite-moe-3b-a800m's shapes (a decode step's expert drain and
            a prefill group's, prefill and lanes chunk attention with GQA
@@ -148,7 +157,8 @@ Phases, each failing the run on any exception or mismatch:
            frequency over an exact monitor, 200 000 writes (warm-up 20 000);
            frequency over a count-min sketch at 2^20 (one K5 and one K6
            launch); the 2^20 headline at the paper's 5 000 000 writes; one
-           lru_scan launch a point; the ``FIG3_CLAIMS`` bounds held (the
+           lru_scan call a point, each of its five kernels launched once a
+           point (counted where launched); the ``FIG3_CLAIMS`` bounds held (the
            microseconds are the paper's model constants); the 2^20 offload
            point equal to the CPU's; device ms per point
   engine_moe  granite-moe-3b-a800m at full width (32 layers, 40 experts
@@ -211,11 +221,14 @@ from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  flash_decode_paged, flash_decode_paged_ref,
                                  flash_decode_paged_sharded,
                                  flash_decode_paged_sharded_ref,
-                                 flash_decode_ref, launch_counts,
+                                 flash_decode_ref, kernel_launch_counts,
+                                 launch_counts, lru_buckets_ref,
                                  lru_scan, lru_scan_ref,
                                  reset_launch_counts, staged_scatter,
                                  staged_scatter_layers, staged_scatter_ref)
-from repro_torch.kernels.lru_scan import longest_chain  # noqa: E402
+from repro_torch.kernels.lru_scan import (LRU_KERNELS,  # noqa: E402
+                                          bucket_keys, longest_chain,
+                                          lru_scan_buckets)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as MOE_L  # noqa: E402
 from repro_torch.kvcache import paged as PG  # noqa: E402
@@ -440,9 +453,28 @@ def phase_build():
                               "flash_decode_paged.cu")
         if keep and ("ptxas" in ln or "warning" in ln.lower()):
             attn.append(ln.strip())
+    lru = _ptxas_of(str(info["log"]), "lru_scan.cu")
+    frames = [ln for ln in lru if "stack frame" in ln]
     say("build", seconds=round(float(info["seconds"]), 2),
         built=info["built"], sources=info["sources"], ptxas=ptxas[:24],
-        ptxas_attention=attn)
+        ptxas_attention=attn, ptxas_lru_scan=lru)
+    bad = [ln for ln in frames
+           if ln != "0 bytes stack frame, 0 bytes spill stores, "
+                    "0 bytes spill loads"]
+    if not frames or bad:
+        raise AssertionError(f"lru_scan.cu: every kernel must have no stack "
+                             f"frame and no spills: {bad or 'no ptxas lines'}")
+
+
+def _ptxas_of(log, source):
+    """The ``-Xptxas -v`` lines of one source in the build log."""
+    out, keep = [], False
+    for ln in log.splitlines():
+        if ln.startswith("== "):
+            keep = ln[3:] == source
+        elif keep and ln.strip():
+            out.append(ln.strip())
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1998,94 +2030,225 @@ def _lru_masks(regions, n_regions):
             "hint": ~hot[regions]}
 
 
+def _last_word_regions(n):
+    """2^20 paper regions for ``n`` writes (a multiple of the bucketing's
+    2048-write tile, so the chain's bit map has no word past the writes),
+    moved off the last MTT and TLB sets (``r % 256 == 255``) but for the
+    last 10 writes, all at region 511: when every write goes to one cache,
+    the last bucket is those 10 and its last group of steps starts at bit
+    22 of the map's last word."""
+    regions = _paper_regions(1 << 20, n=n)
+    regions = torch.where(regions % 256 == 255, regions - 1, regions)
+    regions[-10:] = 511
+    return regions
+
+
 def check_lru_scan():
     """The kernel's hit flags ``torch.equal`` to the plain version's (run on
     the CPU) at the paper workload (200 000 writes) at 1, 2^12 and 2^20
-    regions, under each of the three routings; and at 2^20 regions at the
+    regions, under each of the three routings; at 2^20 regions at the
     paper's own 5 000 000 writes (the ``fig3`` headline's regions), all
-    offloaded and all unloaded."""
+    offloaded and all unloaded; and at 98 x 2048 writes whose last bucket
+    ends the bit map (``_last_word_regions``), under each routing. In every
+    case the bucketing that the same call ran (``lru_scan_buckets``: what
+    the scan's first three launches wrote) gives ``lru_buckets_ref``'s
+    order and offsets, ``torch.equal``."""
     cases = []
-    runs = [(r, PAPER_WORKLOAD.sim_writes, ("offload", "unload", "hint"))
-            for r in (1, 1 << 12, 1 << 20)]
-    runs.append((1 << 20, PAPER_WORKLOAD.n_writes, ("offload", "unload")))
-    for r, n, names in runs:
-        regions = _paper_regions(r, n=n)
+    runs = [(r, PAPER_WORKLOAD.sim_writes, ("offload", "unload", "hint"),
+             _paper_regions) for r in (1, 1 << 12, 1 << 20)]
+    runs.append((1 << 20, PAPER_WORKLOAD.n_writes, ("offload", "unload"),
+                 _paper_regions))
+    runs.append((1 << 20, 98 * 2048, ("offload", "unload", "hint"),
+                 lambda r, n: _last_word_regions(n)))
+    for r, n, names, make in runs:
+        regions = make(r, n=n)
         masks = _lru_masks(regions, r)
         for name in names:
             unload = masks[name]
-            got = lru_scan(regions, unload)
+            got, inv, offsets = lru_scan_buckets(regions, unload)
             torch.cuda.synchronize()
-            want = lru_scan_ref(regions.cpu(), unload.cpu())
+            cpu = (regions.cpu(), unload.cpu())
+            want = lru_scan_ref(*cpu)
             if not torch.equal(got.cpu(), want):
                 raise AssertionError(
                     f"lru_scan mismatch at {r} regions, {n} writes, {name}: "
                     f"{int((got.cpu() != want).sum())} flags differ")
+            want_order, want_offsets = lru_buckets_ref(*cpu)
+            order = torch.full_like(want_order, -1)
+            order[inv.cpu()] = torch.arange(n)
+            if not (torch.equal(order, want_order)
+                    and torch.equal(offsets.cpu(), want_offsets)):
+                raise AssertionError(
+                    f"lru_scan's buckets mismatch at {r} regions, {n} "
+                    f"writes, {name}: {int((order != want_order).sum())} "
+                    f"places, {int((offsets.cpu() != want_offsets).sum())} "
+                    f"offsets differ")
             cases.append(dict(regions=r, writes=n, mask=name,
-                              hits=int(want.sum()),
-                              longest_chain=longest_chain(regions, unload)))
+                              hits=int(want.sum()), buckets_equal=True,
+                              longest_chain=longest_chain(*cpu)))
     return cases
 
 
-def lru_step_probe_ns(steps, miss):
-    """Device ns of one step of the scan's loop-carried chain, run alone by
-    one warp for ``steps`` steps (``lru_step_probe_launch``): every step a
-    hit, or every step a miss (8 ways)."""
-    out = torch.empty((32,), dtype=torch.int64, device=DEV)
+# (MTT, TLB) geometries beside the paper's 8 / 8 ways, so that the chain's
+# other paths run on the card: a list of 16 and of 32 with a hit mask below
+# the way count, and exactly 32 ways
+LRU_WAYS = (((509, 3), (250, 9)), ((300, 1), (200, 20)), ((64, 32), (32, 32)))
 
+
+def check_lru_ways():
+    """``lru_scan`` ``torch.equal`` to its plain version at ``LRU_WAYS``, on
+    the paper workload's 200 000 writes at 2^12 regions, the odd regions
+    unloaded (so both caches run)."""
+    regions = _paper_regions(1 << 12)
+    unload = (regions & 1).bool()
+    cpu = (regions.cpu(), unload.cpu())
+    cases = []
+    for mtt, tlb in LRU_WAYS:
+        got = lru_scan(regions, unload, mtt, tlb)
+        want = lru_scan_ref(*cpu, mtt, tlb)
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(
+                f"lru_scan mismatch at MTT {mtt}, TLB {tlb}: "
+                f"{int((got.cpu() != want).sum())} flags differ")
+        cases.append(dict(mtt=list(mtt), tlb=list(tlb), hits=int(want.sum())))
+    return cases
+
+
+def _probe_ns(launch, what, steps):
+    """Device ns a step of a probe kernel that runs ``steps`` steps."""
     def probe():
-        err = kbuild.load_library().lru_step_probe_launch(
-            steps, 8, int(miss), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+        err = launch()
         if err != 0:
-            raise RuntimeError(f"lru_step_probe launch failed: CUDA error "
-                               f"{err}")
-    return device_ms(probe, f"lru_step_probe miss={miss}", reps=5) / steps * 1e6
+            raise RuntimeError(f"{what} launch failed: CUDA error {err}")
+    return device_ms(probe, what, reps=5) / steps * 1e6
+
+
+def lru_step_probe_ns(steps, miss):
+    """Device ns of one step of the first design's loop-carried chain, run
+    alone by one warp for ``steps`` steps (``lru_step_probe_launch``: one
+    warp a set, the ways on lanes): every step a hit, or every step a miss
+    (8 ways)."""
+    out = torch.empty((32,), dtype=torch.int64, device=DEV)
+    return _probe_ns(lambda: kbuild.load_library().lru_step_probe_launch(
+        steps, 8, int(miss), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream),
+        f"lru_step_probe miss={miss}", steps)
+
+
+def lru_chain_probe_ns(steps, miss):
+    """Device ns of one step of the kernel's chain (``lru_step``), run alone
+    by one thread, registers only, for ``steps`` steps
+    (``lru_chain_probe_launch``): every step a hit, or every step a miss (8
+    ways)."""
+    out = torch.empty((1,), dtype=torch.int64, device=DEV)
+    return _probe_ns(lambda: kbuild.load_library().lru_chain_probe_launch(
+        steps, int(miss), out.data_ptr(),
+        torch.cuda.current_stream().cuda_stream),
+        f"lru_chain_probe miss={miss}", steps)
 
 
 def _chain_ns(regions, unload, hit, hit_ns, miss_ns, mtt=(512, 8),
               tlb=(256, 8)):
     """The slowest (cache, set) chain at the probe's step times: its hits
     times a hit step plus its misses times a miss step."""
-    key = torch.where(unload, mtt[0] + regions % tlb[0], regions % mtt[0])
+    key = bucket_keys(regions, unload, mtt, tlb)
     size = mtt[0] + tlb[0]
     n_all = torch.bincount(key, minlength=size).double()
     n_hit = torch.bincount(key, weights=hit.double(), minlength=size)
     return float((n_hit * hit_ns + (n_all - n_hit) * miss_ns).max())
 
 
-def time_lru_scan():
-    """lru_scan at the paper workload, every write offloaded (the MTT's 512
-    sets), at 2^20 regions (the kernels line's row) and at 1 region (all
-    200 000 writes in one set: the longest chain). The bound is the larger
-    of the bytes (8-byte region, 1-byte flag in, 1-byte hit out per write)
-    over the memory rate and the slowest set's chain: its hits and misses
-    at a hit step and a miss step that ``lru_step_probe_ns`` times alone,
-    not at the kernel's own rate. The plain version runs on the CPU: its
-    time is host seconds."""
-    n = PAPER_WORKLOAD.sim_writes
-    hit_ns, miss_ns = (lru_step_probe_ns(n, miss) for miss in (False, True))
-    t_bytes = n * (8 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+# (tag, regions, writes) timed: the kernels line's row first, then 1 region
+# (the longest chain), 4 and 16 (the long chains after it), and the fig3
+# headline's 5 000 000 writes
+LRU_TIMED = (("2e20", 1 << 20, PAPER_WORKLOAD.sim_writes),
+             ("1", 1, PAPER_WORKLOAD.sim_writes),
+             ("4", 4, PAPER_WORKLOAD.sim_writes),
+             ("16", 16, PAPER_WORKLOAD.sim_writes),
+             ("2e20_5M", 1 << 20, PAPER_WORKLOAD.n_writes))
+
+
+def lru_sub_kernels(fn, what, reps=20):
+    """Per call, over one profiler trace of ``reps`` calls: each of the
+    scan's five kernels' launches (``kernel_launch_counts``, counted where
+    each is launched), the launches the trace holds, and its device ms (the
+    trace's mean a launch times the counted launches a call). ``None``
+    where no trace held device time."""
+    fn()
+    before, runs = kernel_launch_counts(), []
+
+    def run():                      # a trace with no device time runs again
+        runs.append(reps)
+        for _ in range(reps):
+            fn()
+    rows = trace_rows(run, what)
+    counted = {k: v - before[k] for k, v in kernel_launch_counts().items()}
+    if not rows:
+        return None
     out = {}
-    for tag, r in (("2e20", 1 << 20), ("1", 1)):
-        regions = _paper_regions(r)
-        unload = torch.zeros((n,), dtype=torch.bool, device=DEV)
+    for name in LRU_KERNELS:
+        mine = [(us, c) for us, c, k in rows if us > 0 and f"{name}_kernel" in k]
+        traced = sum(c for _, c in mine)
+        per_call = counted[name] / sum(runs)
+        out[name] = dict(
+            launches_per_call=per_call, traced_launches=traced,
+            ms=(sum(us for us, _ in mine) / traced / 1e3 * per_call
+                if traced else None))
+    return out
+
+
+def time_lru_scan():
+    """lru_scan, every write offloaded (the MTT's 512 sets), at each of
+    ``LRU_TIMED``: 2^20 regions (the kernels line's row), 1 region (all
+    200 000 writes in one set: the longest chain), 4, 16, and 2^20 at
+    5 000 000 writes. The bound is the larger of the bytes (8-byte region,
+    1-byte flag in, 1-byte hit out per write) over the memory rate and the
+    slowest set's chain: its hits and misses at a hit step and a miss step,
+    each the faster of the two designs' steps timed alone
+    (``lru_chain_probe_ns``, ``lru_step_probe_ns``), not at the kernel's own
+    rate. At 2^20 (200 000 and 5 000 000 writes) and at 1 region the trace
+    also splits the time among the five launches (``sub_kernels``);
+    ``event_ms - ms`` is the gaps between them. The chain's hits are the kernel's flags, held ``torch.equal`` to
+    the plain version's here at 200 000 writes and by ``check_lru_scan`` at
+    5 000 000. The plain version runs on the CPU: its time is host seconds
+    (not measured at 5 000 000 writes)."""
+    n = PAPER_WORKLOAD.sim_writes
+    warp = {m: lru_step_probe_ns(n, m) for m in (False, True)}
+    chain = {m: lru_chain_probe_ns(n, m) for m in (False, True)}
+    hit_ns, miss_ns = (min(warp[m], chain[m]) for m in (False, True))
+    out, sub = {}, {}
+    for tag, r, nw in LRU_TIMED:
+        regions = _paper_regions(r, n=nw)
+        unload = torch.zeros((nw,), dtype=torch.bool, device=DEV)
         fn = lambda: lru_scan(regions, unload)  # noqa: E731
-        cpu = (regions.cpu(), unload.cpu())
-        t0 = time.perf_counter()
-        hit = lru_scan_ref(*cpu)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        t_ops = _chain_ns(*cpu, hit, hit_ns, miss_ns) * 1e-6
-        out[tag] = dict(ms=device_ms(fn, f"lru_scan {tag}"),
-                        event_ms=time_ms(fn), plain_ms=plain_ms,
+        hit, plain_ms = fn(), None
+        if nw == n:
+            cpu = (regions.cpu(), unload.cpu())
+            t0 = time.perf_counter()
+            want = lru_scan_ref(*cpu)
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(hit.cpu(), want):
+                raise AssertionError(f"lru_scan mismatch at {r} regions")
+        t_bytes = nw * (8 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+        t_ops = _chain_ns(regions, unload, hit, hit_ns, miss_ns) * 1e-6
+        ms = device_ms(fn, f"lru_scan {tag}")
+        out[tag] = dict(ms=ms, event_ms=time_ms(fn), plain_ms=plain_ms,
                         plain_event_ms=None,
                         longest_chain=longest_chain(regions, unload),
                         bound_ms=max(t_bytes, t_ops),
                         bound_by=("bytes" if t_bytes >= t_ops
-                                  else "operations"))
+                                  else "operations"),
+                        ms_over_bound=ms / max(t_bytes, t_ops))
+        if tag in ("2e20", "1", "2e20_5M"):
+            sub[tag] = lru_sub_kernels(fn, f"lru_scan sub-kernels {tag}")
     main = out.pop("2e20")
     return dict(**main, library_ms=None, library_event_ms=None,
-                step_ns=dict(hit=hit_ns, miss=miss_ns, probe_steps=n),
-                one_region=out["1"],
+                step_ns=dict(hit=hit_ns, miss=miss_ns, chain_hit=chain[False],
+                             chain_miss=chain[True], warp_hit=warp[False],
+                             warp_miss=warp[True], probe_steps=n),
+                one_region=out["1"], four_regions=out["4"],
+                sixteen_regions=out["16"], writes_5M=out["2e20_5M"],
+                sub_kernels=sub,
                 shape=f"{n} writes (int64 regions), Zipf(0.5) over 2^20 "
                       f"regions, all offloaded: MTT 512 x 8, TLB 256 x 8; "
                       f"plain_ms is the plain version's host time")
@@ -2247,6 +2410,7 @@ def phase_kernels():
     k4_draft = check_k4_draft(timed_gen(113))
     # the simulator's scan, and K1 / K3 / K4 at the MoE family's shapes
     lru_cases = check_lru_scan()
+    lru_ways = check_lru_ways()
     lru_t = time_lru_scan()
     moe_checks = check_moe_shapes(timed_gen(120))
     k1_moe, k3_moe, k4_moe = time_moe_shapes()
@@ -2302,6 +2466,7 @@ def phase_kernels():
         cms_exact=True, cms_update_query_cases=fused_cases,
         cms_update_query_cases_decay_fired=fused_fired,
         cms_update_query_exact=True, lru_scan_cases=lru_cases,
+        lru_scan_way_cases=lru_ways,
         lru_scan_equal=True, lru_scan_shape=lru_t.pop("shape"),
         moe_shapes=moe_checks)
     # the kernels line: the write engine's sketch (depth 4, k 16) at one
@@ -4350,7 +4515,8 @@ def phase_fig3(kernels):
     frequency over a count-min sketch at 2^20 (its monitor step: one K5
     and one K6 launch); then the 2^20 headline at the paper's 5 000 000
     writes (warm-up 500 000). Launch counts are set to 0 just before the
-    sweep and read just after it: one lru_scan a point, K5 and K6 > 0.
+    sweep and read just after it: one lru_scan a point, each of its five
+    kernels launched once a point, K5 and K6 > 0.
     Held: the ``FIG3_CLAIMS`` bounds of ``tests/test_fig3_regression.py``
     (the fixed paths on the paper's calibration; adaptive no slower than
     the better fixed path + 0.15 us at 1 and 2^20 regions) and the
@@ -4385,6 +4551,7 @@ def phase_fig3(kernels):
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t_sweep
     counts = launch_counts()        # read just after
+    by_kernel = kernel_launch_counts()
     n_points = len(pw.region_counts) * len(arms) + 1 + len(head)
     # device time of one sweep point: 2^20 offload and the 1-region chain,
     # at 200 000 writes, and the headline's 5 000 000
@@ -4407,7 +4574,8 @@ def phase_fig3(kernels):
         frequency_cms_unload_share=int(cms_res.n_unloaded) / n,
         headline_5M=dict(head, improvement=imp_5m, warmup=pw.n_writes // 10),
         improvement_2e20=imp, claims=FIG3_CLAIMS,
-        offload_2e20_cpu=cpu_off, launches=counts, points=n_points,
+        offload_2e20_cpu=cpu_off, launches=counts,
+        lru_scan_launches_by_kernel=by_kernel, points=n_points,
         sweep_seconds=sweep_s, point_host_ms=point_ms,
         point_device_ms=dev)
     problems = []
@@ -4442,6 +4610,9 @@ def phase_fig3(kernels):
     if counts["lru_scan"] != n_points:
         problems.append(f"lru_scan launched {counts['lru_scan']} times for "
                         f"{n_points} points")
+    if any(by_kernel[name] != n_points for name in LRU_KERNELS):
+        problems.append(f"lru_scan's kernels launched {by_kernel} times for "
+                        f"{n_points} points")
     for k in ("cms_update", "cms_query"):
         if counts[k] <= 0:
             problems.append(f"{k} never launched by the sketch arm: {counts}")
@@ -4450,6 +4621,7 @@ def phase_fig3(kernels):
     for k in kernels:
         if k["name"] == "lru_scan":
             k["launches"] = counts["lru_scan"]
+            k["launches_by_kernel"] = by_kernel
         elif k["name"] in ("cms_update", "cms_query"):
             k["launches_write_engine"] = k["launches"]
             k["launches"] = counts[k["name"]]

@@ -14,8 +14,10 @@ times of any device.
   set-associative LRU; a miss adds ``t_cpu_tlb_walk``.
 * Copy cost: payloads beyond the 16 B inlined size add size / copy_gbps.
 
-The scan over the write stream is the kernel ``kernels.lru_scan`` (one warp
-a cache set on a CUDA tensor, its plain Python version on a CPU tensor); the
+The scan over the write stream is the kernel ``kernels.lru_scan`` on a CUDA
+tensor (a stable counting sort of the writes by cache set, then one thread
+a set with its ways in registers; bound by the longest set's chain of
+dependent steps) and its plain Python version on a CPU tensor; the
 latency arithmetic is elementwise torch, as the JAX package's ``jnp.where``s
 are. ``CacheState`` / ``make_cache`` / ``cache_access`` are the JAX
 package's one-write-at-a-time step, kept as the reference. The workload

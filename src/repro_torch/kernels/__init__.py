@@ -18,8 +18,12 @@ hot spots of the serving path, each with a plain PyTorch version beside it.
                       total, decay, then estimate (all three
                       ``csrc/cms.cu``)
   lru_scan            the simulator's two-cache set-associative LRU scan
-                      (MTT + dTLB), one warp a set (``csrc/lru_scan.cu``;
-                      ports a ``lax.scan``, not a Pallas kernel)
+                      (MTT + dTLB): a stable counting sort of the writes by
+                      (cache, set), then one thread a set, its ways in
+                      registers (``csrc/lru_scan.cu``; ports a ``lax.scan``,
+                      not a Pallas kernel; bound by the longest set's chain
+                      of dependent steps; five launches a call, each
+                      counted in ``kernel_launch_counts``)
 
 CPU tests of the plain versions against the JAX package: ``PYTHONPATH=src
 python -m pytest -q tests/test_torch_cms.py`` (the sketch kernels) and
@@ -41,7 +45,9 @@ from .ops import (
     flash_decode_paged_sharded,
     flash_decode_paged_sharded_ref,
     flash_decode_ref,
+    kernel_launch_counts,
     launch_counts,
+    lru_buckets_ref,
     lru_scan,
     lru_scan_ref,
     reset_launch_counts,
@@ -56,7 +62,8 @@ __all__ = [
     "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
-    "launch_counts", "lru_scan", "lru_scan_ref",
+    "kernel_launch_counts", "launch_counts", "lru_buckets_ref", "lru_scan",
+    "lru_scan_ref",
     "reset_launch_counts", "staged_scatter", "staged_scatter_layers",
     "staged_scatter_ref",
 ]

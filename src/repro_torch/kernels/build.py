@@ -191,7 +191,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cms_query_launch.restype = i32
     lib.cms_query_launch.argtypes = [vp, vp, i32, vp, i64, i32, i32, vp]
     lib.lru_scan_launch.restype = i32
-    lib.lru_scan_launch.argtypes = [vp, vp, i64, i32, i32, i32, i32, vp, vp]
+    lib.lru_scan_launch.argtypes = [
+        vp, vp, i64, i32, i32, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp]
+    lib.lru_scan_max_keys.restype = i32
+    lib.lru_scan_max_keys.argtypes = []
+    lib.lru_scan_tile.restype = i32
+    lib.lru_scan_tile.argtypes = []
+    lib.lru_chain_probe_launch.restype = i32
+    lib.lru_chain_probe_launch.argtypes = [i64, i32, vp, vp]
     lib.lru_step_probe_launch.restype = i32
     lib.lru_step_probe_launch.argtypes = [i64, i32, i32, vp, vp]
     lib.cms_update_query_launch.restype = i32

@@ -15,7 +15,7 @@ from .flash_attention import flash_attention, flash_attention_ref
 from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_decode_paged_ref, flash_decode_paged_sharded,
                            flash_decode_paged_sharded_ref, flash_decode_ref)
-from .lru_scan import lru_scan, lru_scan_ref
+from .lru_scan import lru_buckets_ref, lru_scan, lru_scan_ref
 from .staged_scatter import (staged_scatter, staged_scatter_layers,
                              staged_scatter_ref)
 
@@ -36,10 +36,18 @@ def launch_counts() -> Dict[str, int]:
     return {k: sum(w.launches for w in ws) for k, ws in _WRAPPERS.items()}
 
 
+def kernel_launch_counts() -> Dict[str, int]:
+    """Launches since the last reset of each kernel of a wrapper that
+    launches several in one call (``lru_scan``'s five), by kernel name."""
+    return dict(lru_scan.kernel_launches)
+
+
 def reset_launch_counts() -> None:
     for ws in _WRAPPERS.values():
         for w in ws:
             w.launches = 0
+    for k in lru_scan.kernel_launches:
+        lru_scan.kernel_launches[k] = 0
 
 
 __all__ = [
@@ -47,7 +55,8 @@ __all__ = [
     "cms_update_query_ref", "cms_update_ref", "flash_attention", "flash_attention_ref", "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
-    "lru_scan", "lru_scan_ref", "staged_scatter",
-    "staged_scatter_layers", "staged_scatter_ref", "launch_counts",
+    "lru_buckets_ref", "lru_scan", "lru_scan_ref",
+    "staged_scatter",
+    "staged_scatter_layers", "staged_scatter_ref", "kernel_launch_counts", "launch_counts",
     "reset_launch_counts",
 ]
