@@ -9,7 +9,12 @@ Phases, each failing the run on any exception or mismatch:
   build    builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
            ``lru_scan.cu``'s kernels must have no stack frame and no spills
   kernels  each kernel against its plain PyTorch version on the card, and
-           their times at the shapes the engine phases give them; the CMS
+           their times at the shapes the engine phases give them;
+           staged_scatter on one plane and on tables of planes (K and V,
+           a tp-4 device's eight shards, planes of other widths, layer
+           counts and strides, more planes than one launch takes), int32
+           and int64 rows, timed as the paged engine's drain of K and V in
+           one launch and as the MoE drain, each one device op a call; the CMS
            monitor's step at the write engine's sketch and batch, its
            unfused chain of launches against the fused one (line
            ``cms_monitor_step``); flash_decode_paged at the chunked engine's
@@ -19,7 +24,8 @@ Phases, each failing the run on any exception or mismatch:
            the same blocks, a cursor past the cached rows, a 1-row chunk at
            ``plen - 1``) under ``prefix_shape``, and such aliased page
            tables among its checked cases; flash_decode_paged_sharded (one
-           K2 launch per head shard) on virtual meshes of the card, equal
+           K2 grid a device over the head shards there: one launch on a
+           virtual mesh) on virtual meshes of the card, equal
            to unsharded K2 (``torch.equal``) for the head geometries of
            stablelm-1.6b, qwen2-7b and nemotron-4-15b at tp 2-8, C = 1 and
            16, with and without the ring, fp32 and bf16, and at the main
@@ -57,8 +63,10 @@ Phases, each failing the run on any exception or mismatch:
            on a tp-4 virtual mesh of the card (``ParallelConfig.tensor(4)``,
            ``REPRO_TORCH_VIRTUAL_DEVICES``): the pool and ring split on the
            head axis ([24, n_blocks+1, 16, 8, 64] a shard); streams, stats
-           and path counts equal the engine phase's, K1 and K2 launches 4x
-           its; a decode segment profiled against the engine's. Then tp 2,
+           and path counts equal the engine phase's, K1 and the sharded K2
+           launched once per device per drain or read (as often as the
+           engine phase's K1 and K2), K2 alone never; a decode segment
+           profiled against the engine's. Then tp 2,
            chunked at 16 with the prefix cache and the host tier on the
            staged path over a pool tight enough to park: equal to the same
            engine unsharded, every restore read back bit-equal
@@ -92,14 +100,16 @@ Phases, each failing the run on any exception or mismatch:
            and the CPU (differing tokens counted, greedy held equal);
            ``filtered`` twice on the card identical; each mode's device
            time per call
-  engine_sampled  the slice serving 16 requests with mixed sampling
+  engine_sampled  the slice, cut to 12 of its 24 layers, serving 16
+           requests with mixed sampling
            parameters (greedy, T = 0.8, top-k 40, top-p 0.9, explicit
            seeds), blocking and chunked at 16: a repeat run identical, an
            all-(T = 1, top_k = 1) run equal to an all-greedy run; a decode
            step with the mix against a greedy one (device ms, device
            operations, tok/s)
-  engine_spec  the slice with ``SpecConfig(enabled=True, k=4)`` (self-draft)
-           serving the engine phase's requests: adaptive blocking greedy,
+  engine_spec  the slice, cut to 12 of its 24 layers, with
+           ``SpecConfig(enabled=True, k=4)`` (self-draft) serving
+           engine_sampled's requests: adaptive blocking greedy,
            staged chunked (chunks of 16) greedy, adaptive blocking with
            engine_sampled's mix; per arm ``spec_proposed == k *
            spec_rounds``, ``0 <= spec_accepted <= spec_proposed``, on the
@@ -107,7 +117,8 @@ Phases, each failing the run on any exception or mismatch:
            pool's audit, and staged_scatter, flash_decode_paged,
            flash_attention and flash_decode launched; tok/s, committed
            tokens per round, the acceptance share, the greedy streams
-           against the engine phase's, a spec segment profiled
+           against engine_sampled's greedy run at the same depth, a spec
+           segment profiled
   loadtest ``benchmarks/loadtest.py``'s three arms on the slice's model in
            virtual time (SLO counts, goodputs, their ratio; the streams'
            equality across arms reported), then the adaptive arm on the
@@ -182,6 +193,7 @@ shorter than their own enqueue it measures the host. The last line is
 """
 import dataclasses
 import importlib
+import itertools
 import json
 import os
 import subprocess
@@ -225,7 +237,11 @@ from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  launch_counts, lru_buckets_ref,
                                  lru_scan, lru_scan_ref,
                                  reset_launch_counts, staged_scatter,
-                                 staged_scatter_layers, staged_scatter_ref)
+                                 staged_scatter_layers, staged_scatter_planes,
+                                 staged_scatter_planes_ref,
+                                 staged_scatter_ref)
+from repro_torch.kernels.staged_scatter import (  # noqa: E402
+    MAX_PLANES as K1_MAX_PLANES)
 from repro_torch.kernels.lru_scan import (LRU_KERNELS,  # noqa: E402
                                           bucket_keys, longest_chain,
                                           lru_scan_buckets)
@@ -301,8 +317,10 @@ FIG3_THRESHOLD = 3        # the frequency policy's count threshold
 MOE = dict(arch="granite-moe-3b-a800m", reduced=False, max_seq=640,
            n_slots=8, segment_len=16, path="direct")
 MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_CHUNK = 16, [128, 256, 384, 512], 32, 128
-# the memory tier's two phases run the slice at this depth (of its 24
-# layers) to keep the script's time: every check is kept
+# the memory tier's two phases, engine_sampled and engine_spec run the slice
+# at this depth (of its 24 layers) to keep the script under 800 of its
+# 1200 s (on an H100 80GB HBM3 at 700 W it took 817 s with engine_sampled
+# at 24 layers, 807 s with engine_spec at 24): every check is kept
 MEMORY_LAYERS = 12
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
@@ -363,6 +381,9 @@ def time_ms(fn, warm=5, reps=30):
 # CUPTI now and then delivers none for a short trace, so every trace is
 # retried and a miss that lasts is reported in the ``done`` line.
 TRACE_MISSES = []
+# Traces that held fewer launches of a kernel than its wrapper counted, after
+# their retries: CUPTI dropped some of their events
+TRACE_SHORT = []
 
 
 def trace_rows(run, what, tries=3):
@@ -482,16 +503,23 @@ def _ptxas_of(log, source):
 # ---------------------------------------------------------------------------
 
 
-def _k1_case(gen, dtype, r, w, n, valid_kind, layers=0):
+def _k1_routing(gen, r, n, valid_kind, idx=torch.int64):
+    """K1's routing: ``n`` distinct rows of ``[-4, r + 4)`` (some out of
+    range) in ``idx``, and the valid mask of ``valid_kind``."""
+    rows = (torch.randperm(r + 8, generator=gen, device=DEV)[:n] - 4).to(idx)
+    valid = {"none": torch.zeros(n, dtype=torch.bool, device=DEV),
+             "all": torch.ones(n, dtype=torch.bool, device=DEV),
+             "mixed": torch.rand(n, generator=gen, device=DEV) > 0.4}[valid_kind]
+    return rows, valid
+
+
+def _k1_case(gen, dtype, r, w, n, valid_kind, layers=0, idx=torch.int64):
     lead = (layers,) if layers else ()
     # a pool with spare rows after row r, as the engine's sink block gives
     store = torch.randn(lead + (r + 16, w), generator=gen, device=DEV).to(dtype)
     dest = store[..., :r, :]
     staging = torch.randn(lead + (n, w), generator=gen, device=DEV).to(dtype)
-    rows = torch.randperm(r + 8, generator=gen, device=DEV)[:n] - 4  # some out of range
-    valid = {"none": torch.zeros(n, dtype=torch.bool, device=DEV),
-             "all": torch.ones(n, dtype=torch.bool, device=DEV),
-             "mixed": torch.rand(n, generator=gen, device=DEV) > 0.4}[valid_kind]
+    rows, valid = _k1_routing(gen, r, n, valid_kind, idx)
     if layers:
         want = torch.stack([staged_scatter_ref(dest[l], staging[l], rows, valid)
                             for l in range(layers)])
@@ -504,48 +532,212 @@ def _k1_case(gen, dtype, r, w, n, valid_kind, layers=0):
     if not torch.equal(got, want):
         raise AssertionError(
             f"staged_scatter mismatch: {dtype} r={r} w={w} n={n} "
-            f"{valid_kind} layers={layers}")
+            f"{valid_kind} layers={layers} {idx}")
     return float((got.float() - want.float()).abs().max())
 
 
+def _k1_table_case(gen, planes, r, n, valid_kind, idx):
+    """``staged_scatter_planes`` over a table of planes, one ``(dtype, w,
+    layers, spare)`` each: ``dest[layers, r, w]`` cut from a store with
+    ``spare`` rows more (so the planes differ in width and layer stride),
+    one routing list; ``torch.equal`` to the plain version, the spare rows
+    untouched."""
+    rows, valid = _k1_routing(gen, r, n, valid_kind, idx)
+    stores, table = [], []
+    for dtype, w, layers, spare in planes:
+        store = torch.randn((layers, r + spare, w), generator=gen,
+                            device=DEV).to(dtype)
+        staging = torch.randn((layers, n, w), generator=gen,
+                              device=DEV).to(dtype)
+        stores.append(store)
+        table.append((store[:, :r], staging))
+    want = [s.clone() for s in stores]
+    staged_scatter_planes_ref([(s[:, :r], st) for s, (_, st) in
+                               zip(want, table)], rows, valid)
+    staged_scatter_planes(table, rows, valid)
+    torch.cuda.synchronize()
+    for j, (got, w) in enumerate(zip(stores, want)):
+        if not torch.equal(got, w):
+            raise AssertionError(
+                f"staged_scatter_planes mismatch: plane {j} of "
+                f"{planes}, r={r} n={n} {valid_kind} {idx}")
+
+
+# tables of planes: (dtype, width, layers, spare rows) a plane. The paged
+# drain's K and V; a tp-4 device's eight shards; planes that differ in
+# width, layer count and layer stride (16-byte, 4-byte and 2-byte units);
+# more planes than one launch takes (two launches)
+K1_TABLES = (
+    [(torch.bfloat16, 256, 3, 16)] * 2,
+    [(torch.bfloat16, 64, 5, 16)] * 8,
+    [(torch.bfloat16, 256, 3, 16), (torch.bfloat16, 64, 7, 5),
+     (torch.float32, 24, 1, 0), (torch.float32, 40, 2, 3)],
+    [(torch.bfloat16, 7, 2, 1), (torch.bfloat16, 256, 9, 0)],
+    [(torch.float32, 8, 2, 1)] * (K1_MAX_PLANES + 3),
+)
+
+
 def check_k1(gen):
+    """K1 ``torch.equal`` to its plain version: one plane (``staged_scatter``,
+    ``staged_scatter_layers``) and tables of planes
+    (``staged_scatter_planes``), int32 and int64 rows, rows out of range,
+    nothing / everything / some valid; the slice's drain of K and V."""
     err, cases = 0.0, 0
-    for dtype in (torch.float32, torch.bfloat16):
-        for kind in ("none", "all", "mixed"):
-            for (r, w, n) in ((64, 256, 16), (40, 24, 9), (33, 7, 12)):
-                err = max(err, _k1_case(gen, dtype, r, w, n, kind))
-                err = max(err, _k1_case(gen, dtype, r, w, n, kind, layers=3))
-                cases += 2
-    # the slice's shape, one layer count as the engine drains it
-    err = max(err, _k1_case(gen, torch.bfloat16, 16384, 2048, 64, "mixed",
-                            layers=24))
-    return err, cases + 1
+    for idx in (torch.int64, torch.int32):
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("none", "all", "mixed"):
+                for (r, w, n) in ((64, 256, 16), (40, 24, 9), (33, 7, 12)):
+                    err = max(err, _k1_case(gen, dtype, r, w, n, kind,
+                                            idx=idx))
+                    err = max(err, _k1_case(gen, dtype, r, w, n, kind,
+                                            layers=3, idx=idx))
+                    cases += 2
+        for planes in K1_TABLES:
+            for kind in ("none", "mixed"):
+                _k1_table_case(gen, planes, 48, 20, kind, idx)
+                cases += 1
+        # the slice's shape, one layer count as the engine drains it, both
+        # planes
+        err = max(err, _k1_case(gen, torch.bfloat16, 16384, 2048, 64,
+                                "mixed", layers=24, idx=idx))
+        _k1_table_case(gen, [(torch.bfloat16, 2048, 24, 16)] * 2, 16384, 64,
+                       "mixed", idx)
+        cases += 2
+    return err, cases
+
+
+def _counted(fn, counter):
+    """``fn`` that counts its calls in ``.calls``, and ``.launched()``: the
+    launches its wrapper counted (``launch_counts()[counter]``) since."""
+    before = launch_counts()[counter]
+
+    def call():
+        call.calls += 1
+        return fn()
+    call.calls = 0
+    call.launched = lambda: launch_counts()[counter] - before
+    return call
+
+
+def one_device_op(fn, what, counter, reps=20, tries=3):
+    """The device operations of ``reps`` calls of ``fn``: raises unless its
+    wrapper counted one launch a call (``launch_counts()[counter]``, where
+    it launches) and the profiler's trace holds that kernel and no other
+    device op (a drain or read a device: no conversion or copy beside it),
+    at most once a call. CUPTI now and then drops some of a trace's events
+    (13 of 20 once on an H100), so a trace holding fewer than ``reps``
+    launches is taken again, up to ``tries`` times, and one that stays short
+    is listed in ``TRACE_SHORT``. Returns the kernel's name, its counted
+    launches a call, its traced launches a call, and its device ms a launch
+    (its time over its traced launches); None when no trace holds a device
+    event (listed in ``TRACE_MISSES``)."""
+    call = _counted(fn, counter)
+    call()
+
+    def run():
+        for _ in range(reps):
+            call()
+    op = None
+    for _ in range(tries):
+        rows = trace_rows(run, what)
+        if not rows:
+            break
+        ops = [(name[:80], n, us) for us, n, name in rows if us > 0]
+        if len(ops) != 1 or ops[0][1] > reps:
+            raise AssertionError(f"{what}: not one device op a call: "
+                                 f"{[(o[0], o[1] / reps) for o in ops]}")
+        if op is None or ops[0][1] > op[1]:
+            op = ops[0]
+        if op[1] == reps:
+            break
+    if call.launched() != call.calls:
+        raise AssertionError(f"{what}: {call.launched()} launches counted "
+                             f"over {call.calls} calls")
+    if op is None:
+        return None
+    name, n, us = op
+    if n < reps:
+        TRACE_SHORT.append(f"{what}: {n} of {reps}")
+    return dict(kernel=name, launches_a_call=call.launched() / call.calls,
+                traced_a_call=n / reps, ms_a_launch=us / n / 1e3)
+
+
+def cold_sets(nbytes):
+    """How many sets of buffers, ``nbytes`` each, a timing takes in turn so
+    that together they fill four times the card's L2: a set's bytes have
+    left the L2 before its turn comes again, so each call reads and writes
+    HBM, as a bytes bound at ``HBM_BYTES_PER_S`` assumes."""
+    l2 = torch.cuda.get_device_properties(DEV).L2_cache_size
+    return max(2, -(-4 * l2 // nbytes))
+
+
+def rotating(sets, call):
+    """A function that runs ``call(*s)`` for the sets ``s`` of ``sets`` in
+    turn, one set a call."""
+    it = itertools.cycle(sets)
+    return lambda: call(*next(it))
 
 
 def time_k1(gen):
+    """The paged engine's drain: the K and V planes ``dest[24, 16384, 2048]``
+    (each a narrowed pool with spare rows) of one routing list of 64 int64
+    rows, all valid, in one ``staged_scatter_planes`` launch, against the
+    plain version (a loop over ``staged_scatter_ref``) and one
+    ``index_copy_`` a plane (two calls: no PyTorch call drains two planes);
+    the gated drain with no valid row; one plane alone (``one_plane``,
+    ``staged_scatter_layers``, the shape that earlier records timed). Timed
+    cold, as the engine drains: every call takes the next of
+    ``cold_sets`` sets of staging planes and rows (the pools shared), so
+    its bytes come from HBM as the bound counts them. ``l2_warm_ms``: the
+    same set every call, its bytes in the L2 (not held to the bound)."""
     l, r, w, n = 24, 16384, 2048, 64
-    store = torch.zeros((l, r + 16, w), dtype=torch.bfloat16, device=DEV)
-    dest = store[:, :r]
-    staging = torch.randn((l, n, w), generator=gen, device=DEV).to(torch.bfloat16)
-    rows = torch.randperm(r, generator=gen, device=DEV)[:n]
+    stores = [torch.zeros((l, r + 16, w), dtype=torch.bfloat16, device=DEV)
+              for _ in range(2)]
     valid = torch.ones(n, dtype=torch.bool, device=DEV)
     none = torch.zeros(n, dtype=torch.bool, device=DEV)
-    def plain():
-        for i in range(l):
-            staged_scatter_ref(dest[i], staging[i], rows, valid, inplace=True)
+    routing = n * (8 + 1)
+    nbytes = 2 * 2 * n * w * 2 * l + routing
+    sets = [([(st[:, :r], torch.randn((l, n, w), generator=gen,
+                                      device=DEV).to(torch.bfloat16))
+              for st in stores],
+             torch.randperm(r, generator=gen, device=DEV)[:n])
+            for _ in range(cold_sets(nbytes))]
 
-    t = timings("staged_scatter",
-                lambda: staged_scatter_layers(dest, staging, rows, valid),
-                plain, lambda: dest.index_copy_(1, rows, staging))
-    empty = lambda: staged_scatter_layers(dest, staging, rows, none)  # noqa: E731
-    ms_empty = device_ms(empty, "staged_scatter, no valid row")
-    n_valid = int(valid.sum())
-    nbytes = 2 * n_valid * w * 2 * l + n * 5
+    def library(planes, rows):
+        for dest, staging in planes:
+            dest.index_copy_(1, rows, staging)
+
+    kernel = rotating(sets, lambda planes, rows: staged_scatter_planes(
+        planes, rows, valid))
+    t = timings("staged_scatter", kernel,
+                rotating(sets, lambda planes, rows: staged_scatter_planes_ref(
+                    planes, rows, valid)),
+                rotating(sets, library))
+    ops = one_device_op(kernel, "staged_scatter paged drain, device ops",
+                        "staged_scatter")
+    ms_empty = device_ms(rotating(sets, lambda planes, rows:
+                                  staged_scatter_planes(planes, rows, none)),
+                         "staged_scatter, no valid row")
+    warm = device_ms(lambda: staged_scatter_planes(*sets[0], valid),
+                     "staged_scatter paged drain, L2 warm")
+    # one plane: the K and V planes of every set in turn, twice the sets
+    planes1 = [([p], rows) for planes, rows in sets for p in planes]
+    one = timings(
+        "staged_scatter one plane",
+        rotating(planes1, lambda planes, rows: staged_scatter_layers(
+            *planes[0], rows, valid)),
+        rotating(planes1, lambda planes, rows: staged_scatter_planes_ref(
+            planes, rows, valid)),
+        rotating(planes1, library))
+    one["bound_ms"] = ((2 * n * w * 2 * l + routing)
+                       / HBM_BYTES_PER_S * 1e3)
     return dict(**t,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                ms_no_valid_rows=ms_empty,
-                shape=f"dest[{l},{r},{w}] staging[{l},{n},{w}] bf16, "
-                      f"{n_valid} valid rows")
+                library_of="two index_copy_ calls, one a plane",
+                device_op=ops, ms_no_valid_rows=ms_empty,
+                l2_warm_ms=warm, cold_sets=len(sets), one_plane=one,
+                shape=f"K and V: dest[{l},{r},{w}] staging[{l},{n},{w}] "
+                      f"bf16, {n} valid int64 rows, one launch, cold")
 
 
 # ---------------------------------------------------------------------------
@@ -898,8 +1090,9 @@ def time_k2(gen):
 
 
 # (arch, Hq, Hkv, D, tp values): the head geometries of the three paged
-# archs at full width, at every mesh size whose model axis divides both
-K2_SHARDED_GEOMS = [("stablelm-1.6b", 32, 32, 64, (2, 4, 8)),
+# archs at full width, at every mesh size whose model axis divides both;
+# stablelm at tp 32 too, more shards than one launch takes (two launches)
+K2_SHARDED_GEOMS = [("stablelm-1.6b", 32, 32, 64, (2, 4, 8, 32)),
                     ("qwen2-7b", 28, 4, 128, (2, 4)),
                     ("nemotron-4-15b", 48, 8, 128, (2, 4, 8))]
 
@@ -953,11 +1146,14 @@ def _check_k2_sharded_at(what, args, mesh):
 
 
 def check_k2_sharded(gen):
-    """``flash_decode_paged_sharded`` on virtual meshes of the card: equal
-    to unsharded K2 on the same operands (``torch.equal``: each shard's
-    launch takes the whole shape's split count) and within TOL_F32 /
-    TOL_BF16 of its plain version (the loop over the plain K2), on small
-    shapes of every geometry and on the main path's own shapes
+    """``flash_decode_paged_sharded`` on virtual meshes of the card (one
+    grid over every shard: one launch a call, one per ``MAX_SHARDS`` shards
+    past that): equal to unsharded K2 on the
+    same operands (``torch.equal``: the launch takes the whole shape's
+    split count) and within TOL_F32 / TOL_BF16 of its plain version (the
+    plain K2 over the device's shards joined), on small shapes of every
+    geometry, the planes placed on the mesh and, at tp 4, whole (cut by
+    the wrapper), and on the main path's own shapes
     (``_check_k2_sharded_at``); a model axis that does not divide the heads
     raises. Returns (cases, the largest error against the plain version by
     dtype)."""
@@ -971,14 +1167,25 @@ def check_k2_sharded(gen):
                     args = _k2_inputs(gen, dtype, 3, c, hq, hkv, d, 40, 16,
                                       12, r)
                     whole = flash_decode_paged(*args)
-                    for tp in tps:
+                    for tp, whole_planes in [(t, False) for t in tps] + [
+                            (4, True)]:
                         mesh = _virtual_mesh(tp)
-                        placed = _place_heads(args, mesh)
+                        placed = (args if whole_planes
+                                  else _place_heads(args, mesh))
+                        reset_launch_counts()
                         got = flash_decode_paged_sharded(mesh, *placed)
+                        want = -(-tp // FD.MAX_SHARDS)
+                        if launch_counts()["flash_decode_paged_sharded"] \
+                                != want:
+                            raise AssertionError(
+                                f"flash_decode_paged_sharded: "
+                                f"{launch_counts()} launches on a virtual "
+                                f"mesh of tp {tp}, not {want}")
                         plain = flash_decode_paged_sharded_ref(mesh, *placed)
                         torch.cuda.synchronize()
                         what = (f"flash_decode_paged_sharded {arch} tp {tp} "
-                                f"C={c} R={r} {dtype}")
+                                f"C={c} R={r} {dtype}"
+                                + (" whole planes" if whole_planes else ""))
                         if not torch.equal(got, whole):
                             diff = (got.float() - whole.float()).abs().max()
                             raise AssertionError(
@@ -1013,35 +1220,40 @@ def check_k2_sharded(gen):
     return cases + 1, errs
 
 
-def kernel_ms(fn, what, kernel, reps=20):
-    """Mean device time a call of the kernels named ``kernel`` alone, from
-    the profiler's trace of ``reps`` calls; None when no trace holds a
-    device event. Raises when a trace holds device time but none of it is
+def kernel_ms(fn, what, kernel, counter, reps=20):
+    """Mean device time a call of the kernels named ``kernel`` alone: their
+    mean a launch in the profiler's trace of ``reps`` calls times the
+    launches a call that the wrapper counted (``launch_counts()[counter]``),
+    so that events CUPTI dropped do not shorten it; None when no trace holds
+    a device event. Raises when a trace holds device time but none of it is
     ``kernel``'s."""
-    fn()
+    call = _counted(fn, counter)
+    call()
 
     def run():
         for _ in range(reps):
-            fn()
+            call()
     rows = trace_rows(run, what)
     if not rows:
         return None
-    ms = sum(r[0] for r in rows if kernel in r[2]) / reps / 1e3
-    if ms <= 0:
+    mine = [(us, n) for us, n, name in rows if kernel in name and us > 0]
+    if not mine:
         raise AssertionError(f"{what}: the trace holds no {kernel} time: "
                              f"{[r[2] for r in rows[:8]]}")
-    return ms
+    a_launch = sum(us for us, _ in mine) / sum(n for _, n in mine) / 1e3
+    return a_launch * call.launched() / call.calls
 
 
 def time_k2_sharded(gen):
     """At the engine's decode shape (``_k2_engine_inputs``) on a tp-4
     virtual mesh, the pool and ring placed on their head axis: ``ms`` the
-    sum of the four K2 launches' device time a call, ``wrapper_ms`` the
-    wrapper's whole device time (with the q slices and the join),
-    ``unsharded_ms`` one K2 launch on the same operands; the plain version
-    (the loop over the plain K2) and the library yardstick (per shard a
-    gathered view and one SDPA call); the bound is K2's, the bytes of the
-    live keys, which sharding does not change."""
+    K2 launch's own device time a call (one grid over the four shards),
+    ``wrapper_ms`` the wrapper's whole device time (which must be that one
+    device op), ``unsharded_ms`` one K2 launch on the same operands, whole;
+    the plain version (the plain K2 over the shards joined) and the
+    library yardstick (per shard a gathered view and one SDPA call); the
+    bound is K2's, the bytes of the live keys, which sharding does not
+    change."""
     args = _k2_engine_inputs(gen)
     mesh = _virtual_mesh(SHARDED_TP)
     placed = _place_heads(args, mesh)
@@ -1083,27 +1295,25 @@ def time_k2_sharded(gen):
         msg=lambda m: f"flash_decode_paged_sharded timed shape: {m}")
     t = timings("flash_decode_paged_sharded", kernel, plain, library)
     t["wrapper_ms"] = t["ms"]
-    ms = kernel_ms(kernel, "flash_decode_paged_sharded K2 launches",
-                   "paged_decode_kernel")
+    t["device_op"] = one_device_op(
+        kernel, "flash_decode_paged_sharded, device ops",
+        "flash_decode_paged_sharded")
+    ms = kernel_ms(kernel, "flash_decode_paged_sharded K2 launch",
+                   "paged_decode_kernel", "flash_decode_paged_sharded")
     if ms is not None:
-        t["ms"], t["ms_of"] = ms, (f"the {SHARDED_TP} K2 launches' own "
-                                   f"device time, profiler trace")
+        t["ms"], t["ms_of"] = ms, ("the K2 launch's own device time (one "
+                                   "grid over the shards), profiler trace")
     else:
-        # no trace: CUDA events around the bare launches on pre-cut slices
+        # no trace: CUDA events around the bare launch
         n_split = FD.paged_splits(
             torch.cuda.get_device_properties(DEV).multi_processor_count, b,
             c, hq, pk.shape[2], d, blocks.shape[1], ps, r, q.element_size())
-        shards = [(q[:, :, j * hs:(j + 1) * hs].contiguous(),
-                   *(placed[i].shards[j] for i in (1, 2)), blocks, view_ok,
-                   *(placed[i].shards[j] for i in (5, 6)), rok)
+        shards = [tuple(placed[i].shards[j] for i in (1, 2, 5, 6))
                   for j in range(SHARDED_TP)]
-
-        def bare():
-            for xs in shards:
-                flash_decode_paged(*xs, n_split=n_split)
-        t["ms"] = time_ms(bare)
-        t["ms_of"] = (f"CUDA events around the {SHARDED_TP} bare K2 "
-                      f"launches, host gaps in (no profiler trace)")
+        t["ms"] = time_ms(lambda: FD._paged_launch(q, shards, blocks, view_ok,
+                                                   rok, n_split))
+        t["ms_of"] = ("CUDA events around the bare launch, host gaps in (no "
+                      "profiler trace)")
     t["unsharded_ms"] = device_ms(lambda: flash_decode_paged(*args),
                                   "flash_decode_paged unsharded twin")
     t["tp"] = SHARDED_TP
@@ -2309,14 +2519,17 @@ def check_moe_shapes(gen):
     for tag, t in (("decode", MOE["n_slots"]), ("prefill",
                                                 2 * max(MOE_PROMPTS))):
         dest, staging, dst, ok = _moe_k1_inputs(gen, t)
-        want = staged_scatter_ref(dest, staging, dst, ok)
-        got = staged_scatter(dest.clone(), staging, dst, ok)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"staged_scatter mismatch, MoE {tag}")
+        # the routing as staging_plan gives it (int64) and in int32
+        for rows in (dst, dst.to(torch.int32)):
+            want = staged_scatter_ref(dest, staging, rows, ok)
+            got = staged_scatter(dest.clone(), staging, rows, ok)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"staged_scatter mismatch, MoE {tag}, "
+                                     f"{rows.dtype} rows")
         out[f"staged_scatter_{tag}"] = dict(
             dest=list(dest.shape), staging=list(staging.shape),
-            valid_rows=int(ok.sum()), exact=True)
+            valid_rows=int(ok.sum()), rows=["int64", "int32"], exact=True)
     for what in ("prefill", "chunk"):
         args32 = _moe_k3_inputs(gen, torch.float32, what)
         ref32 = flash_attention_ref(*args32, True, 0)
@@ -2347,17 +2560,26 @@ def time_moe_shapes():
     valid rows), K3 at the prefill shape (SDPA, causal), K4 at the decode
     shape (SDPA with a ``[B,1,1,T]`` mask)."""
     dest, staging, dst, ok = _moe_k1_inputs(timed_gen(121), MOE["n_slots"])
-    rows, src = dst[ok], staging[ok]
-    t1 = timings("staged_scatter moe",
-                 lambda: staged_scatter(dest, staging, dst, ok),
-                 lambda: staged_scatter_ref(dest, staging, dst, ok,
-                                            inplace=True),
-                 lambda: dest.index_copy_(0, rows, src))
     n_valid, w = int(ok.sum()), staging.shape[1]
-    k1 = dict(**t1, bound_ms=(2 * n_valid * w * 2 + dst.numel() * 5)
-              / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+    nbytes = 2 * n_valid * w * 2 + dst.numel() * (dst.element_size() + 1)
+    # timed cold (``cold_sets``): each call its own dest and staging, the
+    # routing shared
+    sets = [(dest.clone(), staging.clone()) for _ in range(cold_sets(nbytes))]
+    rows, sel = dst[ok], [(d, s[ok]) for d, s in sets]
+    kernel = rotating(sets, lambda d, s: staged_scatter(d, s, dst, ok))
+    t1 = timings("staged_scatter moe", kernel,
+                 rotating(sets, lambda d, s: staged_scatter_ref(
+                     d, s, dst, ok, inplace=True)),
+                 rotating(sel, lambda d, src: d.index_copy_(0, rows, src)))
+    ops = one_device_op(kernel, "staged_scatter MoE drain, device ops",
+                        "staged_scatter")
+    warm = device_ms(lambda: staged_scatter(dest, staging, dst, ok),
+                     "staged_scatter MoE drain, L2 warm")
+    k1 = dict(**t1, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+              bound_by="bytes", device_op=ops, l2_warm_ms=warm,
+              cold_sets=len(sets),
               shape=f"dest[{dest.shape[0]},{w}] staging[{staging.shape[0]},"
-                    f"{w}] bf16, {n_valid} valid rows")
+                    f"{w}] bf16, {n_valid} valid int64 rows, cold")
     q, k, v = _moe_k3_inputs(timed_gen(122), torch.bfloat16, "prefill")
     b, hq, s, d = q.shape
     t3 = timings("flash_attention moe",
@@ -2743,10 +2965,13 @@ def _sharded_memory_arm(cfg, model):
                         f"path counts "
                         f"{one['payload'][1] == two['payload'][1]}, stats "
                         f"{one['payload'][2]} vs {two['payload'][2]}")
-    for k in ("staged_scatter", "flash_decode_paged"):
-        if two["counts"][k] != m["tp"] * one["counts"][k]:
+    # once per device per drain or read: the mesh is one device
+    for k, base in (("staged_scatter", "staged_scatter"),
+                    ("flash_decode_paged_sharded", "flash_decode_paged")):
+        if two["counts"][k] != one["counts"][base]:
             problems.append(f"memory arm: {k} launches {two['counts'][k]} "
-                            f"!= {m['tp']} x {one['counts'][k]}")
+                            f"!= the unsharded {base}'s "
+                            f"{one['counts'][base]}")
     return dict(config=dict(SHARDED_MEM, chunk_size=CHUNK, path="staged"),
                 equal_unsharded=same, unsharded=one["report"],
                 sharded=two["report"]), problems
@@ -2758,10 +2983,11 @@ def phase_engine_sharded(kernels, blocking):
     tp-4 virtual mesh of the card: each shard's pool ``[24, n_blocks + 1,
     16, 8, 64]`` on its device, the decision plane whole; streams, stats
     and per-request path counts equal to the engine phase's first timed
-    run (the same configuration, weights, warm-up and requests); K1 and K2
-    launched 4x as often (each drain and each read once per shard), K3 as
-    often. One decode segment profiled against the engine phase's. Then
-    the memory arm (``_sharded_memory_arm``)."""
+    run (the same configuration, weights, warm-up and requests); K1 and the
+    sharded K2 launched once per device per drain or read (the virtual
+    mesh is one device: as often as the engine phase's K1 and K2), K2 never
+    alone, K3 as often. One decode segment profiled against the engine
+    phase's. Then the memory arm (``_sharded_memory_arm``)."""
     cfg = get_config(SLICE["arch"])
     tp = SHARDED_TP
     shape = dict(SLICE, attention="fused")
@@ -2779,18 +3005,21 @@ def phase_engine_sharded(kernels, blocking):
             problems.append(f"tp {tp}: {what} differ from the unsharded "
                             f"engine's")
     counts, base = run["counts"], blocking["report"]["launches"]
-    for k, times in (("staged_scatter", tp), ("flash_decode_paged", tp),
-                     ("flash_attention", 1)):
-        if counts[k] != times * base[k]:
+    # once per device per drain or read: the virtual mesh is one device
+    for k, want in (("staged_scatter", base["staged_scatter"]),
+                    ("flash_decode_paged_sharded",
+                     base["flash_decode_paged"]),
+                    ("flash_decode_paged", 0),
+                    ("flash_attention", base["flash_attention"])):
+        if counts[k] != want:
             problems.append(f"tp {tp}: {k} launched {counts[k]} times, not "
-                            f"{times} x {base[k]}")
-    # row 7's launches: K2's count in this run, every one a shard's launch
-    # of the sharded read
+                            f"{want} (once per device per drain or read)")
+    # row 7's launches: its own count in this run
     sharded_row = next(k for k in kernels
                        if k["name"] == "flash_decode_paged_sharded")
-    sharded_row["launches"] = counts["flash_decode_paged"]
+    sharded_row["launches"] = counts["flash_decode_paged_sharded"]
     if sharded_row["launches"] <= 0:
-        problems.append(f"tp {tp}: the sharded read never launched K2")
+        problems.append(f"tp {tp}: the sharded read was never launched")
     profile = engine_profile(eng, cfg, SLICE, PROMPT_LENS)
     del eng, sch
     torch.cuda.empty_cache()
@@ -2798,7 +3027,7 @@ def phase_engine_sharded(kernels, blocking):
     mem, found = _sharded_memory_arm(cfg, model)
     problems += found
     sharded_row["launches_memory_arm"] = mem["sharded"]["launches"][
-        "flash_decode_paged"]
+        "flash_decode_paged_sharded"]
     del model
     torch.cuda.empty_cache()
     unsharded = blocking["profile"]
@@ -3430,8 +3659,9 @@ def _sampled_queue(vocab, params, n=None, new_tokens=None, lens=None):
 
 
 def phase_engine_sampled(kernels):
-    """The slice (stablelm-1.6b at full width and depth, bf16, paged,
-    adaptive) serving 16 requests with mixed sampling parameters (greedy,
+    """The slice (stablelm-1.6b at full width, cut to ``MEMORY_LAYERS`` of
+    its 24 layers, bf16, paged, adaptive: every comparison here is within
+    the phase) serving 16 requests with mixed sampling parameters (greedy,
     T = 0.8, top-k 40, top-p 0.9, explicit seeds on half of the sampled
     ones), blocking and chunked at 16. Held in each: a repeat run gives
     identical streams (the key chain and the sampler are deterministic);
@@ -3439,13 +3669,15 @@ def phase_engine_sampled(kernels):
     the same requests (the filter keeps the argmax alone, exact by
     construction); K1 and K2 launched. Reported: tok/s; a decode segment's
     device ms, device operations and host ms per step with the mix (the
-    ``filtered`` sampler) against an all-greedy one."""
-    cfg, model = _slice_model()
+    ``filtered`` sampler) against an all-greedy one. Returns the blocking
+    all-greedy run (streams, tok/s, decode profile), which ``engine_spec``
+    compares with at the same depth."""
+    cfg, model = _slice_model(MEMORY_LAYERS)
     mixed = _sampled_params
     topk1 = lambda i, n: SamplingParams(  # noqa: E731
         max_tokens=n, temperature=1.0, top_k=1, seed=i)
     greedy = lambda i, n: SamplingParams(max_tokens=n)  # noqa: E731
-    report, problems = {}, []
+    report, problems, ref = {}, [], {}
     for name, shape in (("blocking", SLICE),
                         ("chunked", dict(SLICE, chunked=True,
                                          chunk_size=CHUNK))):
@@ -3490,6 +3722,10 @@ def phase_engine_sampled(kernels):
                 for mode, params in (("greedy", greedy), ("mixed", mixed))}
             for mode, prof in report["steps"].items():
                 prof["tok_per_s"] = shape["n_slots"] / prof["step_ms"] * 1e3
+            ref = dict(outputs=runs["greedy"][0],
+                       report=dict(tok_per_s=report[name]["tok_per_s"][
+                           "greedy"]),
+                       profile=report["steps"]["greedy"])
         del eng
         torch.cuda.empty_cache()
     del model
@@ -3500,6 +3736,7 @@ def phase_engine_sampled(kernels):
         **report)
     if problems:
         raise AssertionError("engine_sampled: " + "; ".join(problems))
+    return ref
 
 
 # ---------------------------------------------------------------------------
@@ -3534,7 +3771,8 @@ def _spec_arm(model, cfg, extra, mix):
 
 
 def phase_engine_spec(kernels, blocking):
-    """The slice (stablelm-1.6b at full width and depth, bf16, paged) with
+    """The slice (stablelm-1.6b at full width, cut to ``MEMORY_LAYERS`` of
+    its 24 layers, bf16, paged) with
     ``SpecConfig(enabled=True, k=4)``, self-draft, serving the engine
     phase's 16 requests x 64 tokens: adaptive blocking greedy, staged
     chunked (chunks of 16) greedy, and adaptive blocking with
@@ -3548,10 +3786,11 @@ def phase_engine_spec(kernels, blocking):
     committed tokens per round, the acceptance share (self-draft reads its
     keys through K4 on lanes and the target through K2 on pages, so in
     bf16 a share below 1 is a finding), the greedy arm's streams against
-    the engine phase's non-spec ones (the verify's GEMM has M = 8 x 5
-    where a decode step's has M = 8: a known difference by construction),
-    and a spec segment profiled beside the engine phase's decode one."""
-    cfg, model = _slice_model()
+    ``blocking``, the non-spec greedy run of ``engine_sampled`` at the same
+    depth (the verify's GEMM has M = 8 x 5 where a decode step's has M = 8:
+    a known difference by construction), and a spec segment profiled beside
+    that run's decode one."""
+    cfg, model = _slice_model(MEMORY_LAYERS)
     report, problems = {}, []
     for name, extra, mix in SPEC_ARMS:
         out, st, counts, secs, eng = _spec_arm(model, cfg, extra, mix)
@@ -3601,8 +3840,8 @@ def phase_engine_spec(kernels, blocking):
         torch.cuda.empty_cache()
     del model
     torch.cuda.empty_cache()
-    say("engine_spec", config=SLICE, k=SPEC_K, requests=N_REQUESTS,
-        new_tokens=NEW_TOKENS, **report)
+    say("engine_spec", config=SLICE, n_layers=MEMORY_LAYERS, k=SPEC_K,
+        requests=N_REQUESTS, new_tokens=NEW_TOKENS, **report)
     if problems:
         raise AssertionError("engine_spec: " + "; ".join(problems))
 
@@ -4769,8 +5008,8 @@ def main():
     timed("engine_prefix", phase_engine_prefix, kernels)
     timed("engine_host_tier", phase_engine_host_tier, kernels)
     timed("sampler", phase_sampler)
-    timed("engine_sampled", phase_engine_sampled, kernels)
-    timed("engine_spec", phase_engine_spec, kernels, blocking)
+    greedy = timed("engine_sampled", phase_engine_sampled, kernels)
+    timed("engine_spec", phase_engine_spec, kernels, greedy)
     timed("loadtest", phase_loadtest, kernels)
     timed("preempt", phase_preempt, kernels)
     timed("lanes", phase_lanes, kernels)
@@ -4783,7 +5022,8 @@ def main():
     timed("engine_moe", phase_engine_moe, kernels)
     say("done", seconds=round(time.perf_counter() - t0, 1),
         phase_seconds=PHASE_SECONDS,
-        traces_without_device_time=TRACE_MISSES)
+        traces_without_device_time=TRACE_MISSES,
+        traces_that_lost_events=TRACE_SHORT)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,9 @@ after a drain and occupancy is counted from ``live``; dense, for the KV
 overlay: entries fill 0..head and the ring rewinds on drain), slot
 assignment and recording, ``push_column`` at a device-side cursor,
 shadowing, lane merging, conflict detection, uMTT-validated drain
-eligibility (``drain_mask``) and the two drain copies: ``scatter_rows``, the
-single dispatch point of the ``staged_scatter`` kernel, and
+eligibility (``drain_mask``) and the drain copies: ``scatter_rows`` and
+``scatter_rows_layers`` (one plane, and a table of planes in one launch),
+the dispatch points of the ``staged_scatter`` kernel, and
 ``scatter_elems``, the partial-row scatter that the flat ring's drain and
 the offload path's direct write share.
 
@@ -32,7 +33,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels import staged_scatter, staged_scatter_layers
+from ..kernels import staged_scatter, staged_scatter_planes
 from . import umtt as U
 from .types import resolve_device
 
@@ -234,16 +235,18 @@ def scatter_rows(
     ok: torch.Tensor,       # bool[N]
 ) -> torch.Tensor:
     """Full-row drain: staged row i -> dest[rows[i]] where ok[i], IN PLACE.
-    The single dispatch point of the ``staged_scatter`` kernel (a CUDA
-    tensor launches it, a CPU tensor takes its plain version).
+    A dispatch point of the ``staged_scatter`` kernel (a CUDA tensor
+    launches it, a CPU tensor takes its plain version).
     PRECONDITION: valid rows are unique within one drain."""
     return staged_scatter(dest, staging, rows, ok)
 
 
-def scatter_rows_layers(dest, staging, rows, ok) -> torch.Tensor:
-    """:func:`scatter_rows` for every layer of one plane in one launch:
-    ``dest[L, R, W]``, ``staging[L, N, W]``, shared ``rows``/``ok`` [N]."""
-    return staged_scatter_layers(dest, staging, rows, ok)
+def scatter_rows_layers(planes, rows, ok) -> None:
+    """:func:`scatter_rows` for every layer of a list of ``(dest [L, R, W],
+    staging [L, N, W])`` planes on one device, in one launch, IN PLACE: the
+    K and V planes of a pool and every shard of them there share the row
+    list ``rows`` / ``ok`` [N]."""
+    staged_scatter_planes(planes, rows, ok)
 
 
 def scatter_elems(

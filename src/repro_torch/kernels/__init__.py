@@ -1,13 +1,16 @@
 """Port of repro/kernels/__init__.py: hand-written Hopper kernels for the
 hot spots of the serving path, each with a plain PyTorch version beside it.
 
-  staged_scatter      the unload path's drain: staging ring -> pool rows
-                      (``csrc/staged_scatter.cu``)
+  staged_scatter      the unload path's drain: staging ring -> pool rows,
+                      a table of planes over one routing list in one
+                      launch (``staged_scatter_planes``;
+                      ``csrc/staged_scatter.cu``)
   flash_decode_paged  fused paged decode: page-table walk + staging-ring
                       overlay + SDPA in one kernel
                       (``csrc/flash_decode_paged.cu``)
   flash_decode_paged_sharded
-                      the same under a mesh: one K2 launch per head shard
+                      the same under a mesh: one K2 launch per device over
+                      the head shards there
   flash_attention     causal / sliding-window prefill attention, GQA by
                       index (``csrc/flash_attention.cu``)
   flash_decode        one-query decode over a dense per-slot cache, the
@@ -53,6 +56,8 @@ from .ops import (
     reset_launch_counts,
     staged_scatter,
     staged_scatter_layers,
+    staged_scatter_planes,
+    staged_scatter_planes_ref,
     staged_scatter_ref,
 )
 
@@ -65,5 +70,5 @@ __all__ = [
     "kernel_launch_counts", "launch_counts", "lru_buckets_ref", "lru_scan",
     "lru_scan_ref",
     "reset_launch_counts", "staged_scatter", "staged_scatter_layers",
-    "staged_scatter_ref",
+    "staged_scatter_planes", "staged_scatter_planes_ref", "staged_scatter_ref",
 ]

@@ -173,11 +173,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.staged_scatter_launch.restype = i32
     lib.staged_scatter_launch.argtypes = [
-        vp, vp, vp, vp, i32, i32, i32, i64, i32, i64, i64, vp]
+        i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i64, vp, i64, i32, i32, vp]
     lib.flash_decode_paged_launch.restype = i32
     lib.flash_decode_paged_launch.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, vp,
-        i32, i32, i32, i32, i32, i32, i32, i32, i32, ctypes.c_float, i32, vp]
+        vp, i32, vp, vp, vp, vp, vp, vp, vp, vp,
+        i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32,
+        ctypes.c_float, i32, vp]
     lib.flash_decode_paged_prepare.restype = i32
     lib.flash_decode_paged_prepare.argtypes = []
     lib.flash_attention_launch.restype = i32

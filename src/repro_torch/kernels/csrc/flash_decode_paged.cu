@@ -8,6 +8,21 @@
 // K/V of pool row t = pages[blocks[b, t / ps], t % ps, hq / G, :], masked by
 // view_ok[b, c, t]; ring lane r masked by ring_ok[b, r].
 //
+// Also the head-sharded read, flash_decode_paged_sharded (the TPU kernel
+// under shard_map, src/repro/kernels/flash_decode.py:207): the pool and ring
+// planes may be a TABLE of head shards, each with its own base pointers and
+// hkv_s of the KV heads ([n_blocks, ps, hkv_s, D], [B, R, hkv_s, D]). KV
+// head h of the grid reads shard h / hkv_s, its head h % hkv_s; q and out
+// keep their whole head axis, the grid's head 0 at KV head h0 of them. So
+// the shards that share a device are one grid, one launch (a virtual mesh on
+// one card read 4 quarter-full grids in turn before); unsharded K2 is the
+// table of one. The table is a __grid_constant__ parameter, passed by value,
+// of at most 16 shards: a device with more is read by one launch per 16, each
+// writing its own heads of one output (K1 likewise takes 32 planes, the K and
+// V of 16 shards, a launch). A block's result depends
+// only on its (slot, KV head, rows) and n_split, so any table gives
+// unsharded K2's bits when it takes the unsharded split count.
+//
 // What bounds it on this card: bytes. Each K/V row serves the C x G query
 // rows of its (slot, KV head) for 4 * C * G * D FLOP against 2 * D * elemsize
 // bytes, and only the rows that some query column of the slot sees have to
@@ -44,7 +59,7 @@
 //     device memory. n_split comes from the shapes and the SM count only
 //     (kernels/flash_decode.py::_paged_splits);
 //   * page gathers by cp.async, 16-byte pieces, neighbouring lanes on the
-//     neighbouring bytes of a key row (rows of one head lie Hkv * D elements
+//     neighbouring bytes of a key row (rows of one head lie hkv_s * D elements
 //     apart, pages anywhere in the pool): each warp walks its own chunks of
 //     16 keys (chunks w, w + kWarps, ...) through a ring of stages (8 warps
 //     and 3 stages in bf16), so a warp waits on its own copies only and no
@@ -65,11 +80,25 @@ using namespace decode;
 constexpr uint32_t kIn = 1u << 31;  // a key word's bit: the key is in the split
 constexpr int kMaxSmem = 227 * 1024;  // dynamic shared memory a block may use
 constexpr int kNoCol = 30;          // the column bit of a padding row: never set
+constexpr int kMaxShards = 16;      // head shards one launch reads
 
 struct Geometry {
   int C, Hq, Hkv, D, P, ps, R, G, NR, n_rg, n_view, n_words, n_cg, n_split;
-  int al4;  // view_ok may be read 4 bytes at a time
+  int hkv_s;  // KV heads of one shard: grid head h is shard h / hkv_s's
+  int h0;     // the KV head of q and out that grid head 0 is
+  int al4;    // view_ok may be read 4 bytes at a time
   float scale;
+};
+
+// The planes of the head shards one launch reads: per shard the base
+// pointers of its pool ([n_blocks, ps, hkv_s, D]) and ring ([B, R, hkv_s,
+// D]) planes; ring pointers unused when R = 0.
+template <typename T>
+struct Shards {
+  const T* pages_k[kMaxShards];
+  const T* pages_v[kMaxShards];
+  const T* ring_k[kMaxShards];
+  const T* ring_v[kMaxShards];
 };
 
 // per type: values in a 16-byte piece, warps a block, stages of each warp's
@@ -160,11 +189,10 @@ __device__ __forceinline__ int piece_at(int r, int pc) {
 
 template <typename T, int kDp>
 __global__ void __launch_bounds__(Smem<T, kDp>::kThreads) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ pages_k,
-    const T* __restrict__ pages_v, const int* __restrict__ blocks,
-    const unsigned char* __restrict__ view_ok, const T* __restrict__ ring_k,
-    const T* __restrict__ ring_v, const unsigned char* __restrict__ ring_ok,
-    T* __restrict__ out, Geometry g) {
+    const T* __restrict__ q, const __grid_constant__ Shards<T> sh,
+    const int* __restrict__ blocks, const unsigned char* __restrict__ view_ok,
+    const unsigned char* __restrict__ ring_ok, T* __restrict__ out,
+    Geometry g) {
   using L = Smem<T, kDp>;
   constexpr int kVec = Cfg<T>::kVec, kWarps = L::kWarps, kStages = L::kStages;
   constexpr int kThreads = L::kThreads, kStride = L::kStride, kTile = L::kTile;
@@ -184,6 +212,13 @@ __global__ void __launch_bounds__(Smem<T, kDp>::kThreads) paged_decode_kernel(
   const int split = blockIdx.x;  // = the rank in the cluster (cluster = splits)
   const int h = blockIdx.y / g.n_rg, row0 = (blockIdx.y % g.n_rg) * kRows;
   const int b = blockIdx.z;
+  // the shard that holds grid head h, h's head there, and its KV head in q
+  // and out
+  const int shard = h / g.hkv_s, hl = h - shard * g.hkv_s, hq0 = (g.h0 + h) * g.G;
+  const T* pages_k = sh.pages_k[shard];
+  const T* pages_v = sh.pages_v[shard];
+  const T* ring_k = sh.ring_k[shard];
+  const T* ring_v = sh.ring_v[shard];
   const int rows = min(kRows, g.NR - row0);
   const int c_lo = row0 / g.G, n_cols = (row0 + rows - 1) / g.G - c_lo + 1;
   const uint32_t gmask = (1u << n_cols) - 1;  // the block's columns
@@ -208,7 +243,7 @@ __global__ void __launch_bounds__(Smem<T, kDp>::kThreads) paged_decode_kernel(
     if (r < rows && pc < dch) {
       const int row = row0 + r, c = row / g.G, grp = row - c * g.G;
       val = *reinterpret_cast<const uint4*>(
-          q + (((long long)b * g.C + c) * g.Hq + h * g.G + grp) * g.D + pc * kVec);
+          q + (((long long)b * g.C + c) * g.Hq + hq0 + grp) * g.D + pc * kVec);
     }
     *reinterpret_cast<uint4*>(Qs + r * kStride + pc * kVec) = val;
   }
@@ -321,14 +356,14 @@ __global__ void __launch_bounds__(Smem<T, kDp>::kThreads) paged_decode_kernel(
       if (kk < n_page_keys) {
         const int j = kk / g.ps, r = kk - j * g.ps;
         const int u = units[lo + j], t = u * g.ps + r;
-        off = (((long long)phys[u] * g.ps + r) * g.Hkv + h) * g.D;
+        off = (((long long)phys[u] * g.ps + r) * g.hkv_s + hl) * g.D;
         const int wi = 4 * (t >> 7) + (t & 3), sh = (t >> 2) & 31;
         word = kIn;
         for (int jc = 0; jc < n_cols; ++jc)
           word |= ((planes[jc * g.n_words + wi] >> sh) & 1u) << jc;
       } else if (kk < n_keys) {
         const int rr = kk - n_page_keys;
-        off = (((long long)b * g.R + rr) * g.Hkv + h) * g.D;
+        off = (((long long)b * g.R + rr) * g.hkv_s + hl) * g.D;
         in_ring = 1;
         word = kIn | (rok[rr] ? gmask : 0u);
       }
@@ -402,20 +437,28 @@ __global__ void __launch_bounds__(Smem<T, kDp>::kThreads) paged_decode_kernel(
 
   merge_and_store<T, kDp, kWarps>(w, sm, rows, g.D, g.n_split, split, [&](int r) {
     const int row = row0 + r, c = row / g.G, grp = row - c * g.G;
-    return out + (((long long)b * g.C + c) * g.Hq + h * g.G + grp) * g.D;
+    return out + (((long long)b * g.C + c) * g.Hq + hq0 + grp) * g.D;
   });
 }
 
 template <typename T, int kDp>
-int launch(const void* q, const void* pages_k, const void* pages_v,
-           const int* blocks, const unsigned char* view_ok, const void* ring_k,
-           const void* ring_v, const unsigned char* ring_ok, void* out, int B,
-           const Geometry& g, cudaStream_t s) {
+int launch(const void* q, int n_shards, const void* const* pages_k,
+           const void* const* pages_v, const void* const* ring_k,
+           const void* const* ring_v, const int* blocks,
+           const unsigned char* view_ok, const unsigned char* ring_ok,
+           void* out, int B, const Geometry& g, cudaStream_t s) {
   using L = Smem<T, kDp>;
   const int bytes = tables(L::fixed, g).bytes;
   if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  Shards<T> sh = {};
+  for (int j = 0; j < n_shards; ++j) {
+    sh.pages_k[j] = static_cast<const T*>(pages_k[j]);
+    sh.pages_v[j] = static_cast<const T*>(pages_v[j]);
+    sh.ring_k[j] = g.R ? static_cast<const T*>(ring_k[j]) : nullptr;
+    sh.ring_v[j] = g.R ? static_cast<const T*>(ring_v[j]) : nullptr;
+  }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(g.n_split, g.Hkv * g.n_rg, B);
+  cfg.gridDim = dim3(g.n_split, n_shards * g.hkv_s * g.n_rg, B);
   cfg.blockDim = dim3(L::kThreads, 1, 1);
   cfg.dynamicSmemBytes = bytes;
   cfg.stream = s;
@@ -427,10 +470,8 @@ int launch(const void* q, const void* pages_k, const void* pages_v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
-      &cfg, paged_decode_kernel<T, kDp>, static_cast<const T*>(q),
-      static_cast<const T*>(pages_k), static_cast<const T*>(pages_v), blocks,
-      view_ok, static_cast<const T*>(ring_k), static_cast<const T*>(ring_v),
-      ring_ok, static_cast<T*>(out), g);
+      &cfg, paged_decode_kernel<T, kDp>, static_cast<const T*>(q), sh, blocks,
+      view_ok, ring_ok, static_cast<T*>(out), g);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -456,20 +497,28 @@ extern "C" int flash_decode_paged_prepare() {
   return e;
 }
 
-// q [B,C,Hq,D], pages [n_blocks,ps,Hkv,D], blocks int32 [B,P], view_ok bool
-// [B,C,P*ps], ring [B,R,Hkv,D], ring_ok bool [B,R], out [B,C,Hq,D], all
-// contiguous, q / pages / ring / out 16-byte aligned. dtype: 0 = float32,
-// 1 = bfloat16. D <= 128, a whole number of 16-byte pieces. R = 0 means no
-// ring (ring pointers unused). The live units of a slot are shared among
-// n_split (1..8) blocks of a cluster. Returns 0 when launched, else a CUDA
-// error (cudaErrorInvalidValue for what the kernel does not take, shared
-// memory past 227 KB included).
+// q [B,C,Hq,D] over Hkv KV heads; n_shards (1..16) head shards, each with
+// its pool planes [n_blocks,ps,hkv_s,D] and ring planes [B,R,hkv_s,D] (host
+// arrays of n_shards device pointers), together KV heads [h0, h0 + n_shards
+// hkv_s) of q's: KV head h0 + h is shard h / hkv_s's. A table of more head
+// shards is read by one launch per 16, each writing its heads of out.
+// blocks int32 [B,P], view_ok bool [B,C,P*ps], ring_ok bool
+// [B,R], out [B,C,Hq,D], all contiguous, q / pages / ring / out 16-byte
+// aligned. dtype: 0 = float32, 1 = bfloat16. D <= 128, a whole number of
+// 16-byte pieces. R = 0 means no ring (ring arrays unused). The live units
+// of a slot are shared among n_split (1..8) blocks of a cluster. Returns 0
+// when launched, else a CUDA error (cudaErrorInvalidValue for what the
+// kernel does not take, shared memory past 227 KB included).
 extern "C" int flash_decode_paged_launch(
-    const void* q, const void* pages_k, const void* pages_v, const int* blocks,
-    const unsigned char* view_ok, const void* ring_k, const void* ring_v,
-    const unsigned char* ring_ok, void* out, int B, int C, int Hq, int Hkv,
-    int D, int P, int ps, int R, int n_split, float scale, int dtype,
-    void* stream) {
+    const void* q, int n_shards, const void* const* pages_k,
+    const void* const* pages_v, const void* const* ring_k,
+    const void* const* ring_v, const int* blocks,
+    const unsigned char* view_ok, const unsigned char* ring_ok, void* out,
+    int B, int C, int Hq, int Hkv, int D, int P, int ps, int R, int n_split,
+    int hkv_s, int h0, float scale, int dtype, void* stream) {
+  if (n_shards < 1 || n_shards > kMaxShards || hkv_s < 1 || h0 < 0 ||
+      h0 + (long long)n_shards * hkv_s > Hkv)
+    return (int)cudaErrorInvalidValue;
   if (B <= 0 || C <= 0 || Hkv <= 0 || Hq % Hkv || D <= 0 || D > 128 ||
       B > 65535 || P < 0 || ps <= 0 || R < 0 || (long long)P * ps + R <= 0 ||
       (long long)P * ps > (1 << 30) || n_split < 1 || n_split > kMaxSplit)
@@ -482,24 +531,28 @@ extern "C" int flash_decode_paged_launch(
   if (g.n_cg > kRows) g.n_cg = kRows;
   if (g.n_cg > C) g.n_cg = C;
   g.n_split = n_split;
+  g.hkv_s = hkv_s;
+  g.h0 = h0;
   g.al4 = g.n_view % 4 == 0 && reinterpret_cast<uintptr_t>(view_ok) % 4 == 0;
   g.scale = scale;
-  if ((long long)Hkv * g.n_rg > 65535) return (int)cudaErrorInvalidValue;
+  if ((long long)n_shards * hkv_s * g.n_rg > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (D % 4) return (int)cudaErrorInvalidValue;
-    return D <= 64 ? launch<float, 64>(q, pages_k, pages_v, blocks, view_ok, ring_k,
-                                       ring_v, ring_ok, out, B, g, s)
-                   : launch<float, 128>(q, pages_k, pages_v, blocks, view_ok, ring_k,
-                                        ring_v, ring_ok, out, B, g, s);
+    return D <= 64 ? launch<float, 64>(q, n_shards, pages_k, pages_v, ring_k, ring_v,
+                                       blocks, view_ok, ring_ok, out, B, g, s)
+                   : launch<float, 128>(q, n_shards, pages_k, pages_v, ring_k, ring_v,
+                                        blocks, view_ok, ring_ok, out, B, g, s);
   }
   if (dtype == 1) {
     if (D % 8) return (int)cudaErrorInvalidValue;
     return D <= 64
-               ? launch<__nv_bfloat16, 64>(q, pages_k, pages_v, blocks, view_ok, ring_k,
-                                           ring_v, ring_ok, out, B, g, s)
-               : launch<__nv_bfloat16, 128>(q, pages_k, pages_v, blocks, view_ok,
-                                            ring_k, ring_v, ring_ok, out, B, g, s);
+               ? launch<__nv_bfloat16, 64>(q, n_shards, pages_k, pages_v, ring_k,
+                                           ring_v, blocks, view_ok, ring_ok,
+                                           out, B, g, s)
+               : launch<__nv_bfloat16, 128>(q, n_shards, pages_k, pages_v, ring_k,
+                                            ring_v, blocks, view_ok, ring_ok,
+                                            out, B, g, s);
   }
   return (int)cudaErrorInvalidValue;
 }

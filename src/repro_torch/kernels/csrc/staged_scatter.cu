@@ -1,81 +1,200 @@
 // staged_scatter: the unload path's drain, for Hopper (sm_90a).
 //
-// dest[l][dst_row[i]][:] = staging[l][i][:]  where valid[i] and
-// 0 <= dst_row[i] < n_rows_dest, in place, for every layer l of one plane.
+// Replaces the Pallas TPU kernel src/repro/kernels/staged_scatter.py:44
+// staged_scatter (_drain_kernel). For every plane p of a table and every
+// layer l of that plane:
+//   dest_p[l][dst_row[i]][:] = staging_p[l][i][:]
+// where valid[i] and 0 <= dst_row[i] < n_rows_p, in place. The routing
+// (dst_row, valid) is one list shared by every plane: the K and V planes of
+// the paged pool, and every head shard of them that sits on this device,
+// drain in ONE launch.
 //
-// One block per (staged row, layer). The predicate is read from global
-// memory by the block itself, so an entry that is not live costs one
-// 5-byte read and no copy. A row is a plain byte copy: it moves as 16-byte
-// vectors when the row size, both base pointers and both layer strides are
-// 16-byte aligned, and in units of the element size (2 or 4 bytes)
-// otherwise. Valid destination rows are unique within one drain, so blocks
-// never write the same bytes.
+// What bounds it on this card: bytes, 2 * n_valid * row bytes a (plane,
+// layer), plus the routing. The design:
+//   * the routing is read as the caller holds it: int32 or int64 rows (a
+//     template on the index type), bool valid, any element stride. No
+//     conversion kernel runs before the launch;
+//   * the table of planes (destination, staging, row size, layer strides,
+//     layer and row counts) is a __grid_constant__ parameter, passed by
+//     value: no device array, no copy of its own. A block reads its plane
+//     from the parameter space;
+//   * one block per (staged entry, group of kLayers layers, plane). It loads
+//     the predicate and the row together (neither load waits for the
+//     other), and only a live, in-range entry reads payload: the gated
+//     in-segment drain, where nothing is due, reads 2 routing values a
+//     block and no row;
+//   * a thread keeps kLayers x kPer 16-byte loads in flight before its
+//     stores (a block's layers and two vectors of each row), streamed
+//     (ld.global.cs: the staging is read once). 8 layers a block: of the
+//     variants timed (1 x 1 to 8 x 2), it has the fewest blocks for the
+//     gated drain with nothing due (384 at the paged engine's shape) and
+//     the fastest full drain;
+//   * the block is sized to the widest row: ceil(vectors / kPer) threads,
+//     rounded to a warp, at most 256 (a 1536-wide bf16 row is 192 vectors:
+//     96 threads);
+//   * rows move as 16-byte vectors when every row size, base pointer and
+//     layer stride allows it, else in the largest power-of-two unit that
+//     does (at least the element size).
+// Valid destination rows are unique within one drain, so blocks never write
+// the same bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxPlanes = 32;  // planes a launch (the table is 1.5 KB)
+constexpr int kLayers = 8;      // layers a block
+constexpr int kPer = 2;         // vectors of one row a thread loads at once
+constexpr int kMaxThreads = 256;
 
-template <typename U>
-__global__ void __launch_bounds__(kThreads) drain_rows_kernel(
-    unsigned char* __restrict__ dest, const unsigned char* __restrict__ staging,
-    const int* __restrict__ dst_row, const unsigned char* __restrict__ valid,
-    long long dest_layer_bytes, long long staging_layer_bytes,
-    int n_rows_dest, long long row_bytes) {
-  const int i = blockIdx.x;
-  const int l = blockIdx.y;
-  if (!valid[i]) return;
-  const int r = dst_row[i];
-  if (r < 0 || r >= n_rows_dest) return;
-  const U* src = reinterpret_cast<const U*>(
-      staging + l * staging_layer_bytes + (long long)i * row_bytes);
-  U* dst = reinterpret_cast<U*>(
-      dest + l * dest_layer_bytes + (long long)r * row_bytes);
-  const long long n = row_bytes / (long long)sizeof(U);
-  for (long long j = threadIdx.x; j < n; j += kThreads) dst[j] = src[j];
+struct Plane {
+  unsigned char* dest;
+  const unsigned char* staging;
+  long long dest_layer;     // bytes from one layer to the next
+  long long staging_layer;
+  int n_vec;                // units a row
+  int n_layers;
+  int n_rows;               // destination rows; an entry past them is dropped
+};
+
+struct Table {
+  Plane p[kMaxPlanes];
+};
+
+template <typename U, typename I>
+__global__ void __launch_bounds__(kMaxThreads) drain_rows_kernel(
+    const __grid_constant__ Table t, const I* __restrict__ dst_row,
+    long long row_stride, const unsigned char* __restrict__ valid,
+    long long valid_stride) {
+  const Plane& p = t.p[blockIdx.z];
+  const int l0 = blockIdx.y * kLayers;
+  if (l0 >= p.n_layers) return;
+  const long long i = blockIdx.x;
+  // the predicate and the row together: neither load waits for the other
+  const unsigned char ok = valid[i * valid_stride];
+  const long long r = (long long)dst_row[i * row_stride];
+  if (!ok || r < 0 || r >= p.n_rows) return;
+  const int nl = min(kLayers, p.n_layers - l0);
+  const int n = p.n_vec;
+  const U* src = reinterpret_cast<const U*>(p.staging + l0 * p.staging_layer) + i * n;
+  U* dst = reinterpret_cast<U*>(p.dest + l0 * p.dest_layer) + r * n;
+  const long long sl = p.staging_layer / (long long)sizeof(U);
+  const long long dl = p.dest_layer / (long long)sizeof(U);
+  const int step = kPer * blockDim.x;
+  for (int base = threadIdx.x; base < n; base += step) {
+    U v[kLayers][kPer];
+#pragma unroll
+    for (int l = 0; l < kLayers; ++l)
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int j = base + k * blockDim.x;
+        if (l < nl && j < n) v[l][k] = __ldcs(src + l * sl + j);
+      }
+#pragma unroll
+    for (int l = 0; l < kLayers; ++l)
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int j = base + k * blockDim.x;
+        if (l < nl && j < n) dst[l * dl + j] = v[l][k];
+      }
+  }
 }
 
-template <typename U>
-int launch(void* dest, const void* staging, const int* dst_row,
-           const unsigned char* valid, int n_layers, int n_staged,
-           int n_rows_dest, long long row_bytes, long long dest_layer_bytes,
-           long long staging_layer_bytes, cudaStream_t stream) {
-  dim3 grid(n_staged, n_layers);
-  drain_rows_kernel<U><<<grid, kThreads, 0, stream>>>(
-      static_cast<unsigned char*>(dest),
-      static_cast<const unsigned char*>(staging), dst_row, valid,
-      dest_layer_bytes, staging_layer_bytes, n_rows_dest, row_bytes);
+template <typename U, typename I>
+int launch(const Table& t, int n_planes, int max_layers, int threads,
+           const void* dst_row, long long row_stride,
+           const unsigned char* valid, long long valid_stride, int n_staged,
+           cudaStream_t s) {
+  dim3 grid(n_staged, (max_layers + kLayers - 1) / kLayers, n_planes);
+  drain_rows_kernel<U, I><<<grid, threads, 0, s>>>(
+      t, static_cast<const I*>(dst_row), row_stride, valid, valid_stride);
   return (int)cudaGetLastError();
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+template <typename U>
+int launch_idx(const Table& t, int n_planes, int max_layers, int threads,
+               const void* dst_row, int idx_bytes, long long row_stride,
+               const unsigned char* valid, long long valid_stride,
+               int n_staged, cudaStream_t s) {
+  if (idx_bytes == 8)
+    return launch<U, long long>(t, n_planes, max_layers, threads, dst_row,
+                                row_stride, valid, valid_stride, n_staged, s);
+  if (idx_bytes == 4)
+    return launch<U, int>(t, n_planes, max_layers, threads, dst_row,
+                          row_stride, valid, valid_stride, n_staged, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launch (0 = launched).
+// One drain of n_planes planes (at most kMaxPlanes) over one routing list:
+// per plane its dest and staging base pointers, row bytes, bytes from one
+// layer to the next in each, its layer count and destination row count
+// (host arrays, copied into the kernel's parameters). dst_row: n_staged
+// indices of idx_bytes (4 or 8) bytes, row_stride elements apart; valid:
+// n_staged bools, valid_stride apart. elem_size: 2 or 4, the smallest unit
+// a row moves in. Returns cudaGetLastError() after the launch (0 =
+// launched); cudaErrorInvalidValue for what the kernel does not take.
 extern "C" int staged_scatter_launch(
-    void* dest, const void* staging, const int* dst_row,
-    const unsigned char* valid, int n_layers, int n_staged, int n_rows_dest,
-    long long row_bytes, int elem_size, long long dest_layer_bytes,
-    long long staging_layer_bytes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_layers <= 0 || n_staged <= 0 || n_layers > 65535)
+    int n_planes, void* const* dest, const void* const* staging,
+    const long long* row_bytes, const long long* dest_layer_bytes,
+    const long long* staging_layer_bytes, const int* n_layers,
+    const int* n_rows, const void* dst_row, int idx_bytes,
+    long long row_stride, const unsigned char* valid, long long valid_stride,
+    int n_staged, int elem_size, void* stream) {
+  if (n_planes <= 0 || n_planes > kMaxPlanes || n_staged <= 0 ||
+      (elem_size != 2 && elem_size != 4))
     return (int)cudaErrorInvalidValue;
-  const bool vec = (row_bytes % 16 == 0) && aligned16(dest) &&
-                   aligned16(staging) && (dest_layer_bytes % 16 == 0) &&
-                   (staging_layer_bytes % 16 == 0);
-  if (vec)
-    return launch<uint4>(dest, staging, dst_row, valid, n_layers, n_staged,
-                         n_rows_dest, row_bytes, dest_layer_bytes,
-                         staging_layer_bytes, s);
-  if (elem_size == 4)
-    return launch<uint32_t>(dest, staging, dst_row, valid, n_layers, n_staged,
-                            n_rows_dest, row_bytes, dest_layer_bytes,
-                            staging_layer_bytes, s);
-  if (elem_size == 2)
-    return launch<uint16_t>(dest, staging, dst_row, valid, n_layers, n_staged,
-                            n_rows_dest, row_bytes, dest_layer_bytes,
-                            staging_layer_bytes, s);
-  return (int)cudaErrorInvalidValue;
+  // the largest unit every row size, base pointer and layer stride allows
+  int unit = 16;
+  int max_layers = 0;
+  long long max_bytes = 0;
+  for (int j = 0; j < n_planes; ++j) {
+    if (n_layers[j] <= 0 || row_bytes[j] <= 0 || row_bytes[j] % elem_size)
+      return (int)cudaErrorInvalidValue;
+    // (a plane of one layer never steps to a next layer)
+    unsigned long long bits = (unsigned long long)row_bytes[j] |
+                              reinterpret_cast<uintptr_t>(dest[j]) |
+                              reinterpret_cast<uintptr_t>(staging[j]);
+    if (n_layers[j] > 1)
+      bits |= (unsigned long long)dest_layer_bytes[j] |
+              (unsigned long long)staging_layer_bytes[j];
+    while (unit > elem_size && (bits & (unit - 1))) unit >>= 1;
+    if (n_layers[j] > max_layers) max_layers = n_layers[j];
+    if (row_bytes[j] > max_bytes) max_bytes = row_bytes[j];
+  }
+  if ((max_layers + kLayers - 1) / kLayers > 65535 ||
+      max_bytes / unit > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  Table t = {};
+  for (int j = 0; j < n_planes; ++j) {
+    t.p[j].dest = static_cast<unsigned char*>(dest[j]);
+    t.p[j].staging = static_cast<const unsigned char*>(staging[j]);
+    t.p[j].dest_layer = dest_layer_bytes[j];
+    t.p[j].staging_layer = staging_layer_bytes[j];
+    t.p[j].n_vec = (int)(row_bytes[j] / unit);
+    t.p[j].n_layers = n_layers[j];
+    t.p[j].n_rows = n_rows[j];
+  }
+  const long long vecs = max_bytes / unit;
+  long long threads = ((vecs + kPer - 1) / kPer + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int th = (int)threads;
+  switch (unit) {
+    case 16:
+      return launch_idx<uint4>(t, n_planes, max_layers, th, dst_row, idx_bytes,
+                               row_stride, valid, valid_stride, n_staged, s);
+    case 8:
+      return launch_idx<uint2>(t, n_planes, max_layers, th, dst_row, idx_bytes,
+                               row_stride, valid, valid_stride, n_staged, s);
+    case 4:
+      return launch_idx<unsigned int>(t, n_planes, max_layers, th, dst_row,
+                                      idx_bytes, row_stride, valid,
+                                      valid_stride, n_staged, s);
+    default:
+      return launch_idx<unsigned short>(t, n_planes, max_layers, th, dst_row,
+                                        idx_bytes, row_stride, valid,
+                                        valid_stride, n_staged, s);
+  }
 }

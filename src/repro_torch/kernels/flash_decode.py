@@ -36,6 +36,21 @@ cp.async in 16-byte pieces, each warp walking its own 16-key chunks through
 a ring of stages; the C x G query rows are scored 16 at a time on the
 tensor cores (``mma.sync``), float32 on the CUDA cores.
 
+Source note, ``flash_decode_paged_sharded``
+-------------------------------------------
+Replaces the TPU kernel under ``shard_map``
+(``repro/kernels/flash_decode.py:207 flash_decode_paged_sharded``): K2 per
+head shard, each shard on its own device. Bound: K2's, the bytes of the
+live keys, which sharding does not change. ``csrc/flash_decode_paged.cu``
+takes the pool and ring planes as a table of head shards (base pointers,
+passed by value): KV head ``h`` of the grid reads shard ``h / hkv_s``. So
+the wrapper launches ONE grid per device over the shards there
+(``device_groups``), at the unsharded split count: a virtual mesh of one
+card is one launch a read with q read whole and nothing joined (four
+quarter-full launches, four q slices and a join before), a mesh of
+distinct cards one launch a card, the outputs joined on the lead. Each
+head's result is unsharded K2's bit for bit.
+
 Source note, ``flash_decode``
 -----------------------------
 Replaces the Pallas TPU kernel ``repro/kernels/flash_decode.py::
@@ -64,6 +79,7 @@ launch the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -147,30 +163,69 @@ def _check(q, pages_k, pages_v, blocks, view_ok, ring_k, ring_v, ring_ok):
 
 
 def flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
-                       ring_k=None, ring_v=None, ring_ok=None, *,
-                       n_split: Optional[int] = None) -> torch.Tensor:
+                       ring_k=None, ring_v=None, ring_ok=None) -> torch.Tensor:
     """Fused paged decode: page-table walk + staging-ring overlay + SDPA.
-    Returns ``[B, C, Hq, D]`` in ``q.dtype``. ``n_split`` replaces the
-    split plan's count (``flash_decode_paged_sharded`` passes the unsharded
-    shape's, so a head slice's result is the whole call's bit for bit)."""
+    Returns ``[B, C, Hq, D]`` in ``q.dtype``: one launch, a table of one
+    head shard (``_paged_launch``)."""
     _check(q, pages_k, pages_v, blocks, view_ok, ring_k, ring_v, ring_ok)
     if q.device.type == "cpu":
         return flash_decode_paged_ref(q, pages_k, pages_v, blocks, view_ok,
                                       ring_k, ring_v, ring_ok)
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v, sms)
+    out, launches = _paged_launch(q, [(pages_k, pages_v, ring_k, ring_v)],
+                                  blocks, view_ok, ring_ok, plan)
+    flash_decode_paged.launches += launches
+    return out
+
+
+flash_decode_paged.launches = 0
+
+# head shards one K2 launch reads (``csrc/flash_decode_paged.cu::kMaxShards``);
+# a larger table launches once per this many
+MAX_SHARDS = 16
+
+
+def shard_launches(n_shards: int, hkv_s: int):
+    """The K2 launches that read a table of ``n_shards`` head shards of
+    ``hkv_s`` KV heads each: ``[(first shard, end shard, first KV head)]``,
+    one per ``MAX_SHARDS`` shards."""
+    return [(j, min(j + MAX_SHARDS, n_shards), j * hkv_s)
+            for j in range(0, n_shards, MAX_SHARDS)]
+
+
+def _paged_launch(q, shards, blocks, view_ok, ring_ok, n_split):
+    """K2 over a table of head shards on q's device: ``shards`` is a list of
+    ``(pages_k, pages_v, ring_k, ring_v)``, each ``[n_blocks, ps, hkv_s,
+    D]`` / ``[B, R, hkv_s, D]``, shard j holding KV heads ``[j hkv_s, (j +
+    1) hkv_s)`` of q's. One launch per ``MAX_SHARDS`` shards
+    (``shard_launches``), each writing its heads of one output. Returns
+    ``([B, C, Hq, D], launches)``."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_decode_paged takes float32 or bfloat16, got "
                         f"{q.dtype}")
+    if not shards:
+        raise ValueError("flash_decode_paged: no head shard to read")
     b, c, hq, d = q.shape
-    ps, hkv = pages_k.shape[1], pages_k.shape[2]
+    pk0 = shards[0][0]
+    ps, hkv_s = pk0.shape[1], pk0.shape[2]
+    hkv = hkv_s * len(shards)
+    if hq % hkv or any(x.shape != pk0.shape for s in shards for x in s[:2]):
+        raise ValueError(f"flash_decode_paged: {len(shards)} shards of "
+                         f"{tuple(pk0.shape)} do not read q {tuple(q.shape)}")
     p = blocks.shape[1]
-    r = 0 if ring_k is None else ring_k.shape[1]
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    plan = paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v, sms)
-    n_split = plan if n_split is None else n_split
+    r = 0 if shards[0][2] is None else shards[0][2].shape[1]
+    for pk, pv, rk, rv in shards:
+        _kernel_takes(q, pk, pv, rk, rv, p, hq // hkv)
     blocks32 = blocks.to(torch.int32).contiguous()
     vok = view_ok.to(torch.bool).contiguous()
     rok = ring_ok.to(torch.bool).contiguous() if r else None
+
+    def ptrs(part, i):
+        return (ctypes.c_void_p * len(part))(
+            *[sh[i].data_ptr() if sh[i] is not None else None for sh in part])
     out = torch.empty_like(q)
+    launches = shard_launches(len(shards), hkv_s)
     with build.on_device(q.device):
         lib = build.load_library()
         if q.device.index not in _PAGED_READY:
@@ -179,30 +234,26 @@ def flash_decode_paged(q, pages_k, pages_v, blocks, view_ok,
                 raise RuntimeError(f"flash_decode_paged: shared-memory limit "
                                    f"refused, CUDA error {err}")
             _PAGED_READY.add(q.device.index)
-        err = lib.flash_decode_paged_launch(
-            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-            blocks32.data_ptr(), vok.data_ptr(),
-            ring_k.data_ptr() if r else None,
-            ring_v.data_ptr() if r else None,
-            rok.data_ptr() if r else None,
-            out.data_ptr(), b, c, hq, hkv, d, p, ps, r, n_split,
-            float(d ** -0.5), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_decode_paged launch failed: CUDA error {err}")
-    flash_decode_paged.launches += 1
-    return out
-
-
-flash_decode_paged.launches = 0
+        for lo, hi, h0 in launches:
+            part = shards[lo:hi]
+            err = lib.flash_decode_paged_launch(
+                q.data_ptr(), len(part), ptrs(part, 0), ptrs(part, 1),
+                ptrs(part, 2), ptrs(part, 3), blocks32.data_ptr(),
+                vok.data_ptr(), rok.data_ptr() if r else None,
+                out.data_ptr(), b, c, hq, hkv, d, p, ps, r, n_split, hkv_s,
+                h0, float(d ** -0.5), _DTYPES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"flash_decode_paged launch failed: CUDA error {err}")
+    return out, len(launches)
 
 
 def _head_pieces(x, axis: str, mesh, devices):
-    """``x`` (``[..., H, D]``) as one contiguous head slice per read device
-    of ``axis``, each on its device: a ``ShardedTensor`` split on ``axis``
+    """``x`` (``[..., H, D]``) as one head slice per read device of
+    ``axis``, each on its device: a ``ShardedTensor`` split on ``axis``
     gives its own pieces; a whole tensor, or the lead's copy of a replicated
-    one, is cut here."""
+    one, is cut here (each slice made contiguous on its device)."""
     from ..distributed.sharding import ShardedTensor
 
     if x is None:
@@ -219,35 +270,74 @@ def _head_pieces(x, axis: str, mesh, devices):
             for part, d in zip(x.chunk(len(devices), dim=-2), devices)]
 
 
-def _per_shard(fn, mesh, axis, q, pages_k, pages_v, blocks, view_ok, ring_k,
-               ring_v, ring_ok):
-    """``fn`` once per shard of ``axis`` (once on the lead device where the
-    mesh has no such axis or it has size 1) on that shard's head slice of
-    q, pool and ring, on its device, the routing inputs copied there; the
-    outputs joined on the head axis on the lead device."""
+def device_groups(mesh, axis: str = "model"):
+    """The read devices of ``axis`` grouped by device: ``[(device, [shard
+    positions on it])]``, devices in the order of their first shard, each
+    list ascending. One group when every shard sits on one device (a
+    virtual mesh), one per card on a mesh of distinct cards; ``[(lead,
+    [0])]`` where ``axis`` is missing or has size 1."""
     from ..distributed.sharding import axis_size
 
-    devices = ([mesh.devices[i] for i in mesh.axis_group(axis)]
-               if axis_size(mesh, axis) > 1 else [mesh.lead])
-    qs, pks, pvs, rks, rvs = (_head_pieces(x, axis, mesh, devices) for x in (
-        q, pages_k, pages_v, ring_k, ring_v))
-    outs = []
-    for j, d in enumerate(devices):
-        outs.append(fn(qs[j], pks[j], pvs[j], blocks.to(d), view_ok.to(d),
-                       rks[j], rvs[j],
-                       None if ring_ok is None else ring_ok.to(d)))
-    if len(outs) == 1:
-        return outs[0]
-    return torch.cat([o.to(mesh.lead) for o in outs], dim=2)
+    if axis_size(mesh, axis) <= 1:
+        return [(mesh.lead, [0])]
+    groups = {}
+    for j, i in enumerate(mesh.axis_group(axis)):
+        groups.setdefault(mesh.devices[i], []).append(j)
+    return list(groups.items())
+
+
+def _per_device(fn, mesh, axis, q, pages_k, pages_v, blocks, view_ok,
+                ring_k, ring_v, ring_ok):
+    """``fn(q_d, [(pages_k, pages_v, ring_k, ring_v) of each shard on the
+    device], blocks, view_ok, ring_ok)`` once per device of ``axis``
+    (``device_groups``), the routing inputs copied there. On one device q
+    is whole and its output is the result; on several, each device reads
+    the q heads of its shards and the outputs are joined on the head axis
+    in shard order on ``mesh.lead``."""
+    groups = device_groups(mesh, axis)
+    where = {j: d for d, js in groups for j in js}
+    devices = [where[j] for j in range(len(where))]
+    planes = [_head_pieces(x, axis, mesh, devices)
+              for x in (pages_k, pages_v, ring_k, ring_v)]
+
+    def call(qd, dev, js):
+        return fn(qd, [tuple(x[j] for x in planes) for j in js],
+                  blocks.to(dev), view_ok.to(dev),
+                  None if ring_ok is None else ring_ok.to(dev))
+    if len(groups) == 1:
+        dev, js = groups[0]
+        return call(q.to(dev), dev, js)
+    hs = q.shape[2] // len(devices)
+    outs = {}
+    for dev, js in groups:
+        qd = torch.cat([q[:, :, j * hs:(j + 1) * hs] for j in js], dim=2)
+        out = call(qd.to(dev), dev, js)
+        for k, j in enumerate(js):
+            outs[j] = out[:, :, k * hs:(k + 1) * hs]
+    return torch.cat([outs[j].to(mesh.lead) for j in range(len(devices))],
+                     dim=2)
+
+
+def _plain_read(q, shards, blocks, view_ok, ring_ok):
+    """One device's read, plain: its shards' planes joined on the head axis,
+    one ``flash_decode_paged_ref`` call."""
+    def join(i):
+        xs = [sh[i] for sh in shards]
+        if xs[0] is None:
+            return None
+        return xs[0] if len(xs) == 1 else torch.cat(xs, dim=-2)
+    return flash_decode_paged_ref(q, join(0), join(1), blocks, view_ok,
+                                  join(2), join(3), ring_ok)
 
 
 def flash_decode_paged_sharded_ref(mesh, q, pages_k, pages_v, blocks,
                                    view_ok, ring_k=None, ring_v=None,
                                    ring_ok=None, *, axis: str = "model"):
-    """Plain version of :func:`flash_decode_paged_sharded`: the same loop
-    over the shards, each running ``flash_decode_paged_ref``."""
-    return _per_shard(flash_decode_paged_ref, mesh, axis, q, pages_k,
-                      pages_v, blocks, view_ok, ring_k, ring_v, ring_ok)
+    """Plain version of :func:`flash_decode_paged_sharded`, grouped by device
+    as the kernel is: per device, its shards' planes joined on the head
+    axis and one ``flash_decode_paged_ref`` call."""
+    return _per_device(_plain_read, mesh, axis, q, pages_k, pages_v, blocks,
+                       view_ok, ring_k, ring_v, ring_ok)
 
 
 def flash_decode_paged_sharded(mesh, q, pages_k, pages_v, blocks, view_ok,
@@ -255,23 +345,28 @@ def flash_decode_paged_sharded(mesh, q, pages_k, pages_v, blocks, view_ok,
                                axis: str = "model") -> torch.Tensor:
     """Head-sharded :func:`flash_decode_paged`, the counterpart of the JAX
     package's ``shard_map`` of K2 (``repro/kernels/flash_decode.py:207``):
-    one K2 launch per shard of ``axis``, each walking the SAME page table
-    over its own head slice of the pool and ring on its own device; the
-    routing inputs (``blocks``, ``view_ok``, ``ring_ok``) are copied to each
-    device, the outputs joined on the head axis on ``mesh.lead``. q is
-    whole; the pool and ring planes are whole tensors or ``ShardedTensor``
-    pieces split on their head axis over ``axis`` (or whole copies).
+    ONE K2 launch per device of ``axis`` (``device_groups``; one per
+    ``MAX_SHARDS`` shards where a device holds more), its grid over the
+    head shards on that device, each walking the SAME page table over its
+    own head slice of the pool and ring (the launch takes the shards'
+    planes as a table). The routing inputs (``blocks``, ``view_ok``,
+    ``ring_ok``) are copied to each device. q is whole: on one device (a
+    virtual mesh) the launch reads it whole and its output is the result;
+    on distinct cards each launch reads its shards' q heads and the outputs
+    are joined on the head axis on ``mesh.lead``. The pool and ring planes
+    are whole tensors or ``ShardedTensor`` pieces split on their head axis
+    over ``axis`` (or whole copies).
 
     Both Hq and Hkv must divide the ``axis`` size (whole GQA groups per
     shard; softmax is per q-head, so no cross-shard combine). Every launch
     takes the split count of the UNSHARDED shape: K2 picks its splits from
-    the (slot, KV head) clusters, so a head slice would pick more and merge
-    them in another order; with the whole call's count each head's result
-    is the whole call's bit for bit. Where ``axis`` is missing from the mesh
-    or has size 1 this is ``flash_decode_paged`` itself, on the lead's copy.
-    Each launch counts in ``flash_decode_paged.launches``. On a CPU tensor
-    the plain version runs; on a CUDA tensor the kernel launches or
-    raises."""
+    the (slot, KV head) clusters, so a grid over fewer heads would pick
+    more and merge them in another order; with the whole call's count each
+    head's result is the whole call's bit for bit. Where ``axis`` is
+    missing from the mesh or has size 1 this is the lead's copy read by
+    one launch. Each launch counts in ``flash_decode_paged_sharded.
+    launches``. On a CPU tensor the plain version runs; on a CUDA tensor
+    the kernel launches or raises."""
     from ..distributed.sharding import axis_size
 
     tp = axis_size(mesh, axis)
@@ -285,20 +380,25 @@ def flash_decode_paged_sharded(mesh, q, pages_k, pages_v, blocks, view_ok,
         return flash_decode_paged_sharded_ref(
             mesh, q, pages_k, pages_v, blocks, view_ok, ring_k, ring_v,
             ring_ok, axis=axis)
-    n_split = None
-    if tp > 1:
-        b, c, _, d = q.shape
-        ps, p = pages_k.shape[-3], blocks.shape[1]
-        r = 0 if ring_k is None else ring_k.shape[-3]
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        n_split = paged_splits(sms, b, c, hq, hkv, d, p, ps, r,
-                               q.element_size())
+    b, c, _, d = q.shape
+    ps, p = pages_k.shape[-3], blocks.shape[1]
+    r = 0 if ring_k is None else ring_k.shape[-3]
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_split = paged_splits(sms, b, c, hq, hkv, d, p, ps, r, q.element_size())
 
-    def launch(*xs):
-        return flash_decode_paged(*xs, n_split=n_split)
+    def read(qd, shards, blocks_d, view_ok_d, ring_ok_d):
+        for pk, pv, rk, rv in shards:
+            _check(qd, pk, pv, blocks_d, view_ok_d, rk, rv, ring_ok_d)
+        out, launches = _paged_launch(qd, shards, blocks_d, view_ok_d,
+                                      ring_ok_d, n_split)
+        flash_decode_paged_sharded.launches += launches
+        return out
 
-    return _per_shard(launch, mesh, axis, q, pages_k, pages_v, blocks,
-                      view_ok, ring_k, ring_v, ring_ok)
+    return _per_device(read, mesh, axis, q, pages_k, pages_v, blocks,
+                       view_ok, ring_k, ring_v, ring_ok)
+
+
+flash_decode_paged_sharded.launches = 0
 
 
 def flash_decode_ref(
@@ -412,16 +512,13 @@ def _paged_splits(sms: int, b: int, hkv: int, rows: int, units: int,
     return max(1, min(MAX_SPLIT, per_sm * sms // clusters, units, rounds))
 
 
-def paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v,
-                      sms: int) -> int:
-    """K2's ``n_split`` for these operands on a card of ``sms`` SMs
-    (``_paged_splits``). Raises ``ValueError`` on what the kernel does not
-    take: a head_dim that is not a whole number of 16-byte pieces or is past
-    128, an empty KV set, q / pages / ring not contiguous or not 16-byte
-    aligned, a block's shared memory past 227 KB."""
+def _kernel_takes(q, pages_k, pages_v, ring_k, ring_v, p: int, g: int):
+    """Raises ``ValueError`` on what K2 does not take: a head_dim that is
+    not a whole number of 16-byte pieces or is past 128, an empty KV set, q
+    / pages / ring not contiguous or not 16-byte aligned, a block's shared
+    memory past 227 KB (GQA groups of ``g``, ``p`` pages a slot)."""
     b, c, hq, d = q.shape
-    ps, hkv = pages_k.shape[1], pages_k.shape[2]
-    p = blocks.shape[1]
+    ps = pages_k.shape[1]
     r = 0 if ring_k is None else ring_k.shape[1]
     es = q.element_size()
     if d % (16 // es) or d > 128:
@@ -434,11 +531,23 @@ def paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v,
         raise ValueError("flash_decode_paged needs contiguous q, pages, ring")
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("q, pages and ring planes must be 16-byte aligned")
-    smem = paged_smem_bytes(es, d, c, hq // hkv, p, ps, r)
+    smem = paged_smem_bytes(es, d, c, g, p, ps, r)
     if smem > 227 * 1024:
         raise ValueError(f"a block would need {smem} bytes of shared memory "
                          f"(C={c}, P={p}, ps={ps}, R={r}); at most 227 KB")
-    return paged_splits(sms, b, c, hq, hkv, d, p, ps, r, es)
+
+
+def paged_kernel_plan(q, pages_k, pages_v, blocks, ring_k, ring_v,
+                      sms: int) -> int:
+    """K2's ``n_split`` for these operands on a card of ``sms`` SMs
+    (``_paged_splits``). Raises ``ValueError`` on what the kernel does not
+    take (``_kernel_takes``)."""
+    b, c, hq, d = q.shape
+    ps, hkv = pages_k.shape[1], pages_k.shape[2]
+    p = blocks.shape[1]
+    r = 0 if ring_k is None else ring_k.shape[1]
+    _kernel_takes(q, pages_k, pages_v, ring_k, ring_v, p, hq // hkv)
+    return paged_splits(sms, b, c, hq, hkv, d, p, ps, r, q.element_size())
 
 
 def paged_splits(sms: int, b: int, c: int, hq: int, hkv: int, d: int,

@@ -17,11 +17,14 @@ from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_decode_paged_sharded_ref, flash_decode_ref)
 from .lru_scan import lru_buckets_ref, lru_scan, lru_scan_ref
 from .staged_scatter import (staged_scatter, staged_scatter_layers,
+                             staged_scatter_planes, staged_scatter_planes_ref,
                              staged_scatter_ref)
 
 _WRAPPERS = {
-    "staged_scatter": (staged_scatter, staged_scatter_layers),
+    "staged_scatter": (staged_scatter, staged_scatter_layers,
+                       staged_scatter_planes),
     "flash_decode_paged": (flash_decode_paged,),
+    "flash_decode_paged_sharded": (flash_decode_paged_sharded,),
     "flash_attention": (flash_attention,),
     "flash_decode": (flash_decode,),
     "cms_update": (cms_update,),
@@ -56,7 +59,7 @@ __all__ = [
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
     "lru_buckets_ref", "lru_scan", "lru_scan_ref",
-    "staged_scatter",
-    "staged_scatter_layers", "staged_scatter_ref", "kernel_launch_counts", "launch_counts",
+    "staged_scatter", "staged_scatter_layers", "staged_scatter_planes",
+    "staged_scatter_planes_ref", "staged_scatter_ref", "kernel_launch_counts", "launch_counts",
     "reset_launch_counts",
 ]

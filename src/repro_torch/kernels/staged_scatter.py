@@ -8,23 +8,39 @@ staged_scatter`` (``_drain_kernel``). It computes
 ``dest[dst_row[i]] = staging[i]`` where ``valid[i]``, in place; valid rows
 are unique within one drain. The TPU version has an unpredicated body and a
 wrapper that sorts valid entries first and duplicates the last valid write
-into the tail; on Hopper a per-row predicate read by the block is free, so
-``csrc/staged_scatter.cu`` runs one block per staged row, skips rows that
-are not live or out of range, and copies the row as 16-byte vectors (by
-element size when something is misaligned). Bound: bytes. It moves
-``2 * n_valid * W * elemsize`` bytes per plane; nothing else is read but
-``5 * N`` bytes of routing. The batched entry drains every layer of one
-plane in one launch (grid ``(N, L)``), because a per-layer drain of the KV
-pool would launch ``2 * L`` kernels.
+into the tail; on Hopper a per-row predicate read by the block is free.
+Bound: bytes, ``2 * n_valid * W * elemsize`` a plane and layer, plus the
+routing (``N`` indices and ``N`` bools). ``csrc/staged_scatter.cu`` drains
+a TABLE of planes over one shared routing list in one launch: the K and V
+planes of the paged pool, and every head shard of them on one device
+(``staged_scatter_planes``; ``staged_scatter`` and
+``staged_scatter_layers`` are tables of one). The routing is read as the
+caller holds it (int32 or int64 rows, bool valid, any stride): on a CUDA
+tensor the wrappers make no conversion and no copy, and raise on another
+dtype. The table goes to the kernel by value; one block per (staged entry,
+8 layers, plane) loads the predicate and the row together and, for a live
+in-range entry only, keeps up to 16 16-byte loads a thread in flight
+before its stores, the block sized to the widest row.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise.
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Sequence, Tuple
+
 import torch
 
 from . import build
+
+# planes one launch takes (``csrc/staged_scatter.cu::kMaxPlanes``): the K
+# and V planes of 16 head shards, as K2s reads 16 shards a launch
+# (``flash_decode.MAX_SHARDS``); a larger table launches once per this many
+MAX_PLANES = 32
+_INDEX_DTYPES = (torch.int32, torch.int64)
+
+Plane = Tuple[torch.Tensor, torch.Tensor]
 
 
 def staged_scatter_ref(
@@ -41,6 +57,17 @@ def staged_scatter_ref(
     out = dest if inplace else dest.clone()
     out.index_copy_(0, dst_row[keep].long(), staging[keep].to(dest.dtype))
     return out
+
+
+def staged_scatter_planes_ref(planes: Sequence[Plane], dst_row: torch.Tensor,
+                              valid: torch.Tensor) -> None:
+    """Plain version of a table entry: ``staged_scatter_ref`` over every
+    layer of every ``(dest [L, R, W], staging [L, N, W])`` plane, in place.
+    The wrappers run it on CPU tensors only."""
+    for dest, staging in planes:
+        for l in range(dest.shape[0]):
+            staged_scatter_ref(dest[l], staging[l], dst_row, valid,
+                               inplace=True)
 
 
 def _check(dest, staging, dst_row, valid, lead):
@@ -70,60 +97,101 @@ def _check(dest, staging, dst_row, valid, lead):
             raise ValueError("all staged_scatter operands must share a device")
 
 
-def _launch(dest, staging, dst_row, valid, n_layers, dest_stride, stage_stride):
-    n, w = staging.shape[-2], staging.shape[-1]
-    rows = dst_row.to(torch.int32).contiguous()
-    ok = valid.to(torch.bool).contiguous()
-    es = dest.element_size()
-    with build.on_device(dest.device):
-        err = _c_launch(
-            dest, staging, rows, ok, n_layers, n, w, es, dest_stride,
-            stage_stride)
-    if err != 0:
-        raise RuntimeError(f"staged_scatter launch failed: CUDA error {err}")
+def _launch(planes, dst_row, valid):
+    """Launch the kernel once per ``MAX_PLANES`` planes of ``planes``
+    (``(dest [L, R, W], staging [L, N, W])`` on one CUDA device, checked);
+    returns the launches made. The routing goes as the caller holds it."""
+    if dst_row.dtype not in _INDEX_DTYPES:
+        raise TypeError(f"staged_scatter takes int32 or int64 rows on the "
+                        f"GPU, got {dst_row.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"staged_scatter takes bool valid on the GPU, got "
+                        f"{valid.dtype}")
+    planes = [(d, s) for d, s in planes if d.shape[0] and d.shape[-1]]
+    n = dst_row.shape[0]
+    if n == 0 or not planes:
+        return 0
+    dev = planes[0][0].device
+    lib = build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    launches = 0
+    for k in range(0, len(planes), MAX_PLANES):
+        part = planes[k:k + MAX_PLANES]
+        m = len(part)
+        es = [d.element_size() for d, _ in part]
+
+        def arr(ctype, xs):
+            return (ctype * m)(*xs)
+        with build.on_device(dev):
+            err = lib.staged_scatter_launch(
+                m, arr(ctypes.c_void_p, [d.data_ptr() for d, _ in part]),
+                arr(ctypes.c_void_p, [s.data_ptr() for _, s in part]),
+                arr(ctypes.c_longlong, [d.shape[-1] * e
+                                        for (d, _), e in zip(part, es)]),
+                arr(ctypes.c_longlong, [d.stride(0) * e
+                                        for (d, _), e in zip(part, es)]),
+                arr(ctypes.c_longlong, [s.stride(0) * e
+                                        for (_, s), e in zip(part, es)]),
+                arr(ctypes.c_int, [d.shape[0] for d, _ in part]),
+                arr(ctypes.c_int, [d.shape[1] for d, _ in part]),
+                dst_row.data_ptr(), dst_row.element_size(), dst_row.stride(0),
+                valid.data_ptr(), valid.stride(0), n, min(es), stream)
+        if err != 0:
+            raise RuntimeError(f"staged_scatter launch failed: CUDA error "
+                               f"{err}")
+        launches += 1
+    return launches
 
 
-def _c_launch(dest, staging, rows, ok, n_layers, n, w, es, dest_stride,
-              stage_stride) -> int:
-    return build.load_library().staged_scatter_launch(
-        dest.data_ptr(), staging.data_ptr(), rows.data_ptr(), ok.data_ptr(),
-        n_layers, n, dest.shape[-2], w * es, es,
-        dest_stride * es, stage_stride * es,
-        torch.cuda.current_stream(dest.device).cuda_stream)
+def staged_scatter_planes(planes: Sequence[Plane], dst_row: torch.Tensor,
+                          valid: torch.Tensor) -> None:
+    """Drain one routing list into a table of planes, IN PLACE: for each
+    ``(dest [L, R, W], staging [L, N, W])`` pair (layers may be strided
+    apart; planes may differ in width, layer count, row count and dtype),
+    ``dest[l][dst_row[i]] = staging[l][i]`` where ``valid[i]``. The paged
+    drain passes the K and V planes of every shard on one device: one
+    launch (one per ``MAX_PLANES`` planes) for all of them."""
+    planes = list(planes)
+    if not planes:
+        return
+    dev = planes[0][0].device
+    for dest, staging in planes:
+        _check(dest, staging, dst_row, valid, lead=1)
+        if dest.device != dev:
+            raise ValueError("staged_scatter_planes: every plane must be on "
+                             "one device")
+    if dev.type == "cpu":
+        staged_scatter_planes_ref(planes, dst_row, valid)
+        return
+    staged_scatter_planes.launches += _launch(planes, dst_row, valid)
 
 
 def staged_scatter(dest, staging, dst_row, valid) -> torch.Tensor:
     """Drain staged rows into destination rows, IN PLACE on ``dest``
     (returned). ``dest[R, W]``, ``staging[N, W]``, ``dst_row int[N]``,
-    ``valid bool[N]``."""
+    ``valid bool[N]``: a table of one plane of one layer."""
     _check(dest, staging, dst_row, valid, lead=0)
     if dest.device.type == "cpu":
         return staged_scatter_ref(dest, staging, dst_row, valid, inplace=True)
-    if staging.shape[0] == 0:
-        return dest
-    _launch(dest, staging, dst_row, valid, 1, 0, 0)
-    staged_scatter.launches += 1
+    staged_scatter.launches += _launch(
+        [(dest.unsqueeze(0), staging.unsqueeze(0))], dst_row, valid)
     return dest
 
 
 def staged_scatter_layers(dest, staging, dst_row, valid) -> torch.Tensor:
-    """Batched entry: drain all layers of one plane in ONE launch, IN PLACE.
-    ``dest[L, R, W]`` (layers may be strided apart: a pool with spare rows
-    after row ``R`` passes a narrowed view), ``staging[L, N, W]``; the
+    """Drain all layers of one plane in ONE launch, IN PLACE: a table of
+    one. ``dest[L, R, W]`` (layers may be strided apart: a pool with spare
+    rows after row ``R`` passes a narrowed view), ``staging[L, N, W]``; the
     routing ``dst_row``/``valid`` [N] is shared by every layer."""
     _check(dest, staging, dst_row, valid, lead=1)
     if dest.device.type == "cpu":
-        for l in range(dest.shape[0]):
-            staged_scatter_ref(dest[l], staging[l], dst_row, valid,
-                               inplace=True)
+        staged_scatter_planes_ref([(dest, staging)], dst_row, valid)
         return dest
-    if staging.shape[1] == 0 or dest.shape[0] == 0:
-        return dest
-    _launch(dest, staging, dst_row, valid, dest.shape[0],
-            dest.stride(0), staging.stride(0))
-    staged_scatter_layers.launches += 1
+    staged_scatter_layers.launches += _launch([(dest, staging)], dst_row,
+                                              valid)
     return dest
 
 
 staged_scatter.launches = 0
 staged_scatter_layers.launches = 0
+staged_scatter_planes.launches = 0

@@ -19,8 +19,8 @@ straight to its physical row. STAGED (unload): append to the per-slot ring
 overlay (``ring_k`` / ``ring_v`` / ``ring_pos`` / ``ring_fill``); attention
 reads pool-view U ring; drains bulk-copy the ring into the pool through
 ``core.ring.scatter_rows_layers`` (the ``staged_scatter`` kernel on the
-GPU). Ring entries record LOGICAL rows, resolved through the page table at
-drain time. The decision module's region for a write is its physical BLOCK.
+GPU, both planes in one launch). Ring entries record LOGICAL rows, resolved
+through the page table at drain time. The decision module's region for a write is its physical BLOCK.
 
 PyTorch idiom: the pool, the ring planes and the ring metadata are updated
 IN PLACE (a functional update would copy the whole pool every step); the
@@ -44,10 +44,11 @@ one per mesh device, each with its own sink block (whole copies where the
 table and the ring metadata stay whole on the lead device. Every write
 (``scatter_token``, ``scatter_chunk``, ``stage_tile``, ``scatter_prefill``)
 lands each shard's head slice on its device, every drain is one
-``scatter_rows_layers`` per shard and plane from the lead's row list, and
-the host tier keeps the UNSHARDED layout: the shards' slabs joined on the
-head axis in one pinned buffer, a restore cutting it back. ``n_blocks`` /
-``pool_rows`` / ``view_len`` read the whole's shape.
+``scatter_rows_layers`` call per device (every plane of every shard there)
+from the lead's row list, and the host tier keeps the UNSHARDED layout:
+the shards' slabs joined on the head axis in one pinned buffer, a restore
+cutting it back. ``n_blocks`` / ``pool_rows`` / ``view_len`` read the
+whole's shape.
 """
 from __future__ import annotations
 
@@ -695,7 +696,8 @@ def overlay_chunk_parts(
 def _drain(cache: PagedKV, gate: Optional[torch.Tensor]) -> PagedKV:
     """Copy live staged entries into the pool (only where ``gate``, a device
     bool scalar, holds; None = always) and empty the ring likewise. The row
-    list is the lead's; each shard drains its own head slice with it."""
+    list is the lead's; each shard drains its own head slice with it, all
+    the planes of one device in one ``scatter_rows_layers`` call."""
     l, b, r, _, dh = cache["ring_k"].shape
     n_phys = pool_rows(cache)
     ps = cache["pages_k"].shape[2]
@@ -709,12 +711,16 @@ def _drain(cache: PagedKV, gate: Optional[torch.Tensor]) -> PagedKV:
     rows, ok = R.merge_lanes(ring_state(cache), phys)
     if gate is not None:
         ok = ok & gate
+    # one drain a device: the K and V planes of every shard there
+    by_device: Dict[torch.device, list] = {}
     for pk, rk in (("pages_k", "ring_k"), ("pages_v", "ring_v")):
         for pool, stage in zip(pieces(cache[pk]), pieces(cache[rk])):
             w = pool.shape[3] * dh
             dest = pool.view(l, -1, w)[:, :n_phys]  # sink left out
-            R.scatter_rows_layers(dest, stage.view(l, b * r, w),
-                                  rows.to(pool.device), ok.to(pool.device))
+            by_device.setdefault(pool.device, []).append(
+                (dest, stage.view(l, b * r, w)))
+    for dev, planes in by_device.items():
+        R.scatter_rows_layers(planes, rows.to(dev), ok.to(dev))
     if gate is None:
         cache["ring_pos"].fill_(-1)
         cache["ring_fill"] = torch.zeros_like(cache["ring_fill"])
@@ -728,9 +734,10 @@ def drain_ring(cache: PagedKV) -> PagedKV:
     """Bulk-copy all staged entries into the pool, empty the ring. IN PLACE.
 
     ALL slots' entries flatten into ONE entry list (``core.ring.
-    merge_lanes``) and each plane (K, V) lands with a single
-    ``scatter_rows_layers`` call covering every layer: two kernel launches
-    per drain (per shard under a mesh). Block ownership makes destinations
+    merge_lanes``) and both planes (K, V) land with a single
+    ``scatter_rows_layers`` call covering every layer: one kernel launch
+    per drain (per device under a mesh, every shard there in it). Block
+    ownership makes destinations
     unique across slots, conflict-forced drains make them unique within a
     slot (the ``staged_scatter`` precondition)."""
     return _drain(cache, None)

@@ -306,8 +306,9 @@ def fused_paged_attention(
     so no gathered view is materialized. Projections and the output einsum
     are shared with the plain cores. Under a mesh (the pool and ring planes
     are ``ShardedTensor`` pieces split on their head axis) the read is
-    ``flash_decode_paged_sharded``: one K2 launch per shard, the heads
-    joined on the lead device."""
+    ``flash_decode_paged_sharded``: one K2 launch per device, its grid over
+    the shards there (on distinct cards the heads are joined on the lead
+    device)."""
     from ..distributed.sharding import ShardedTensor
     from ..kernels import flash_decode_paged, flash_decode_paged_sharded
 

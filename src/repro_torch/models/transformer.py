@@ -13,7 +13,8 @@ the page table and folds the ring lanes into the same softmax). Under a
 mesh the cache's data planes are split on the head axis: every write lands
 each shard's head slice (``kvcache.paged``), the reference read gathers the
 view shard by shard and joins the heads, and the fused read is one
-``flash_decode_paged`` launch per shard (``flash_decode_paged_sharded``);
+``flash_decode_paged`` launch per device over its shards
+(``flash_decode_paged_sharded``);
 the projections run whole on the lead device. The layer
 stack is a Python loop over ``nn.ModuleList`` blocks where the JAX package
 scans stacked parameters.

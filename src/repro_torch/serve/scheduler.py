@@ -87,7 +87,8 @@ layouts, as in the JAX package:
   across ``tp`` shards (``_make_cache``); the decision plane (page
   table, ring cursors, monitor, slot state, stats) stays whole on the lead
   device, where the segment-end readback reads it. Each drain is one K1
-  launch per shard and plane, each fused read one K2 launch per shard; the
+  launch per device (the K and V planes of every shard there), each fused
+  read one K2 launch per device (its grid over the shards there); the
   parameters stay whole on the lead device, which runs the projections. The
   output is the unsharded engine's, bit for bit.
 

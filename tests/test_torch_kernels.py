@@ -259,6 +259,7 @@ def test_launch_counters_count_kernel_launches_only():
                                       ("model",)), *args)
     K.lru_scan(torch.arange(5), torch.tensor([0, 1, 0, 1, 0]).bool())
     assert K.launch_counts() == {"staged_scatter": 0, "flash_decode_paged": 0,
+                                 "flash_decode_paged_sharded": 0,
                                  "flash_attention": 0, "flash_decode": 0,
                                  "cms_update": 0, "cms_query": 0,
                                  "cms_update_query": 0, "lru_scan": 0}

@@ -531,9 +531,9 @@ def _guard_writes(monkeypatch, eng, seen):
         check(dest)
         return scatter_chunk(pages_l, dest, tiles)
 
-    def drain(dest, staging, rows, ok):
+    def drain(planes, rows, ok):
         check(rows[ok.bool()])
-        return rows_layers(dest, staging, rows, ok)
+        return rows_layers(planes, rows, ok)
 
     monkeypatch.setattr(PG, "scatter_token", token)
     monkeypatch.setattr(PG, "scatter_chunk", chunk)

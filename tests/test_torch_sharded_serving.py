@@ -282,29 +282,34 @@ def test_per_shard_drain_volumes_sum_to_unsharded():
     # keep-the-unload-local: each shard drains exactly its own head slice,
     # per-shard drained volumes sum to the unsharded drain volume, the
     # drain COUNT telemetry is identical, and each drain is one K1 call per
-    # shard and plane. ring_size (4) < segment_len (8): full-ring drains
-    # fire inside the segment
+    # device holding the K and V planes of every shard there (a virtual
+    # mesh: one device, so as many calls as unsharded, with 2 x tp planes).
+    # ring_size (4) < segment_len (8): full-ring drains fire inside the
+    # segment
     import repro_torch.core.ring as R
     calls = []
     orig = R.scatter_rows_layers
 
-    def spy(dest, staging, rows, ok):
-        calls.append((tuple(staging.shape), staging.device))
-        return orig(dest, staging, rows, ok)
+    def spy(planes, rows, ok):
+        assert all(d.device == rows.device == ok.device for d, _ in planes)
+        calls.append([tuple(staging.shape) for _, staging in planes])
+        return orig(planes, rows, ok)
 
     R.scatter_rows_layers = spy
     try:
         e1, _ = _serve("stablelm-1.6b", 1, path="staged", segment_len=8)
         n1 = len(calls)
-        vol1 = sum(np.prod(s) for s, _ in calls)
+        vol1 = sum(np.prod(s) for c in calls for s in c)
         e2, _ = _serve("stablelm-1.6b", 2, path="staged", segment_len=8)
     finally:
         R.scatter_rows_layers = orig
     sharded = calls[n1:]
     assert e1.stats["drains"] > 0
     assert e2.stats["drains"] == e1.stats["drains"]
-    assert len(sharded) == 2 * n1
-    assert sum(np.prod(s) for s, _ in sharded) == vol1
+    assert len(sharded) == n1
+    assert all(len(c) == 2 for c in calls[:n1])
+    assert all(len(c) == 2 * 2 for c in sharded)
+    assert sum(np.prod(s) for c in sharded for s in c) == vol1
     l, s, r, h, dh = e1.scheduler.cache["ring_k"].shape
     ring = e2.scheduler.cache["ring_k"]
     shard_vols = [p.numel() for p in ring.shards]
