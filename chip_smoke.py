@@ -3,7 +3,9 @@
 
 Run ``python3 chip_smoke.py`` from the root of a checkout. It needs a CUDA
 device and ``nvcc``; without a GPU it exits non-zero and prints no result.
-Phases, each failing the run on any exception or mismatch:
+``python3 chip_smoke.py PHASE [PHASE ...]`` runs env, build, the named
+phases and those whose results they take (``PHASES``), and prints no result
+line. Phases, each failing the run on any exception or mismatch:
 
   env      the card's name and power limit, torch / CUDA / nvcc versions
   build    builds the CUDA kernels from ``src/repro_torch/kernels/csrc``;
@@ -54,7 +56,13 @@ Phases, each failing the run on any exception or mismatch:
            granite-moe-3b-a800m's shapes (a decode step's expert drain and
            a prefill group's, prefill and lanes chunk attention with GQA
            group 3 and head_dim 64, the decode read), checked and timed
-           (``moe_shape``)
+           (``moe_shape``); flash_attention and flash_decode at head_dim
+           80 (zamba2-2.7b's shared block: ``q[2,32,S,80]`` at S = T =
+           512, 777 and 2048 and at the chunked arm's S = 256 queries over
+           T = 512 and 2048 keys, fp32 and bf16; ``q[8,32,80]`` over lanes
+           of 1024 and 2560 with ragged masks), checked, and timed at the
+           engine's largest prefill call and its decode step
+           (``zamba_shape``)
   engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
            a seed) serves 16 requests through ``Engine.from_config`` on the
            paged layout; the launch counts of staged_scatter,
@@ -74,7 +82,7 @@ Phases, each failing the run on any exception or mismatch:
            prefilled inside mixed-phase segments; staged_scatter and
            flash_decode_paged launched, flash_attention never; every prompt
            row counted as a prefill write; a mixed segment profiled
-  engine_prefix  the chunked slice, cut to 12 of its 24 layers, with the
+  engine_prefix  the chunked slice, cut to 8 of its 24 layers, with the
            prefix cache: 16 requests
            opening with the same 1024 tokens, cold on a fresh engine, warm
            (new suffixes: each takes its 1024 rows from the cache) and
@@ -85,7 +93,7 @@ Phases, each failing the run on any exception or mismatch:
            on the staged path the cold and warm streams held equal to the
            engine's without the cache (exact by construction: see the
            phase); TTFT cold / warm / repeat and mixed-step device time
-  engine_host_tier  the slice, cut to 12 of its 24 layers, on the staged
+  engine_host_tier  the slice, cut to 8 of its 24 layers, on the staged
            path over a 320-block pool
            with the host tier (16 requests of 512-1792 tokens): blocking,
            chunked, and chunked with the prefix cache too, each against an
@@ -100,14 +108,14 @@ Phases, each failing the run on any exception or mismatch:
            and the CPU (differing tokens counted, greedy held equal);
            ``filtered`` twice on the card identical; each mode's device
            time per call
-  engine_sampled  the slice, cut to 12 of its 24 layers, serving 16
+  engine_sampled  the slice, cut to 8 of its 24 layers, serving 16
            requests with mixed sampling
            parameters (greedy, T = 0.8, top-k 40, top-p 0.9, explicit
            seeds), blocking and chunked at 16: a repeat run identical, an
            all-(T = 1, top_k = 1) run equal to an all-greedy run; a decode
            step with the mix against a greedy one (device ms, device
            operations, tok/s)
-  engine_spec  the slice, cut to 12 of its 24 layers, with
+  engine_spec  the slice, cut to 8 of its 24 layers, with
            ``SpecConfig(enabled=True, k=4)`` (self-draft) serving
            engine_sampled's requests: adaptive blocking greedy,
            staged chunked (chunks of 16) greedy, adaptive blocking with
@@ -179,6 +187,29 @@ Phases, each failing the run on any exception or mismatch:
            128: K1 launched once a layer of every MoE call, K3 and K4
            launched, a repeat serve identical; tok/s, TTFT, peak memory
            and a decode segment's profile
+  engine_ssm  mamba2-130m at full width (24 layers, d_model 768, bf16,
+           random weights from seed 0) serves 16 requests of 256-2048
+           tokens, 32 new tokens each, on the lanes layout, direct writes,
+           blocking and chunked at 256 (the SSD's own chunk): every
+           request's 32 tokens in the vocabulary with 31 direct writes and
+           none staged, admitted = retired = 16, a repeat serve identical,
+           no kernel launched (the SSD is plain PyTorch, as the JAX
+           package's is ``jnp``); tok/s, TTFT, peak memory, blocking
+           against chunked, a decode segment's profile with the SSD's share
+           of the device time
+  engine_hybrid  zamba2-2.7b at full width (54 layers, d_model 2560, the
+           shared attention block 9 times, 32 heads of 80, bf16), the same
+           traffic: the same checks, and flash_attention
+           launched 9 x the model's prefill and chunk calls, flash_decode
+           9 x its decode calls, nothing else
+  parity_ssm  mamba2-130m at 4 layers and zamba2-2.7b at 6 (one
+           application), full width, fp32: the engine on the card and the
+           same weights on the CPU (plain versions) give identical greedy
+           streams, blocking and chunked (blocking against chunked on the
+           card reported); greedy
+           speculative decoding on the card with the reduced mamba2 draft
+           (snapshot rollback) for the reduced stablelm-1.6b equals the
+           engine without it
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
@@ -247,6 +278,7 @@ from repro_torch.kernels.lru_scan import (LRU_KERNELS,  # noqa: E402
                                           lru_scan_buckets)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import moe as MOE_L  # noqa: E402
+from repro_torch.models import mamba2 as MAMBA  # noqa: E402
 from repro_torch.kvcache import paged as PG  # noqa: E402
 from repro_torch.models import prng  # noqa: E402
 from repro_torch.models import sampling as SMP  # noqa: E402
@@ -317,11 +349,21 @@ FIG3_THRESHOLD = 3        # the frequency policy's count threshold
 MOE = dict(arch="granite-moe-3b-a800m", reduced=False, max_seq=640,
            n_slots=8, segment_len=16, path="direct")
 MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_CHUNK = 16, [128, 256, 384, 512], 32, 128
+# the SSM and hybrid families at full width on the lanes layout: mamba2-130m
+# (24 layers, d_model 768) and zamba2-2.7b (54 layers, d_model 2560, the
+# shared attention block 9 times, 32 heads of 80), bf16, direct writes: 16
+# requests of 256-2048 tokens, 32 new tokens each, 8 slots; chunked at 256,
+# the SSD's own chunk, so chunking keeps its chunk boundaries
+SSM = dict(arch="mamba2-130m", reduced=False, max_seq=2560, n_slots=8,
+           segment_len=16, path="direct")
+HYBRID = dict(SSM, arch="zamba2-2.7b")
+SSM_REQUESTS, SSM_PROMPTS, SSM_NEW, SSM_CHUNK = 16, [256, 768, 1280, 2048], 32, 256
 # the memory tier's two phases, engine_sampled and engine_spec run the slice
 # at this depth (of its 24 layers) to keep the script under 800 of its
 # 1200 s (on an H100 80GB HBM3 at 700 W it took 817 s with engine_sampled
-# at 24 layers, 807 s with engine_spec at 24): every check is kept
-MEMORY_LAYERS = 12
+# at 24 layers, 807 s with engine_spec at 24, 731.5 s with all four at 12
+# before the SSM and hybrid phases added about 90 s): every check is kept
+MEMORY_LAYERS = 8
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
 WRITE = dict(log2_regions=20, region_elems=1024, batches=64, batch=4096,
@@ -2599,6 +2641,106 @@ def time_moe_shapes():
     return k1, k3, k4
 
 
+def _zamba_k3_inputs(gen, dtype, s, t=None):
+    """K3 at zamba2-2.7b's shared block: 2 prompts of ``s`` tokens a call,
+    32 heads of 80 (MHA, no window), ``[B, S, H, D]`` tensors seen
+    transposed (a row of 160 bytes, columns 80-127 of the second TMA box
+    past the tensor). With ``t``: a lanes chunk, the ``s`` queries at the
+    end of ``t`` keys (``layers.chunk_attention``)."""
+    c = get_config(HYBRID["arch"])
+    return _k3_inputs(gen, dtype, 2, c.n_heads, c.n_kv_heads, s, t or s,
+                      c.resolved_head_dim)
+
+
+def _zamba_k4_inputs(gen, t):
+    """K4 at zamba2-2.7b's decode step: ``q[8, 32, 80]`` over one
+    application's lanes ``k/v[8, t, 32, 80]`` bf16, slot i live up to a
+    ragged position (a prompt of 256-2048 tokens plus up to 31 generated,
+    cut to the lanes)."""
+    c = get_config(HYBRID["arch"])
+    b = HYBRID["n_slots"]
+    q, k, v, _ = _k4_inputs(gen, torch.bfloat16, b, c.n_heads, c.n_kv_heads,
+                            t, c.resolved_head_dim)
+    pos = (torch.tensor(SSM_PROMPTS * 2, device=DEV) + torch.randint(
+        0, SSM_NEW, (b,), generator=gen, device=DEV)).clamp(max=t - 1)
+    return q, k, v, torch.arange(t, device=DEV)[None] <= pos[:, None]
+
+
+ZAMBA_K3_S = (512, 777, 2048)     # 777: ragged against the 192-row blocks
+# the chunked arm's calls: a chunk of SSM_CHUNK queries at the end of the
+# keys before it plus its own (the second chunk, and the last of a 2048-token
+# prompt)
+ZAMBA_K3_CHUNK_T = (512, 2048)
+ZAMBA_K4_T = (1024, 2560)
+
+
+def check_zamba_shapes(gen):
+    """K3 at head_dim 80 (``q[2, 32, S, 80]``: S = T = 512, 777 and 2048,
+    and the chunked arm's S = 256 queries at the end of T = 512 and 2048
+    keys; causal) and K4 at head_dim 80 (``q[8, 32, 80]``, ``k/v[8, T, 32,
+    80]``, T = 1024 and 2560, ragged masks): fp32 within TOL_F32 of the
+    plain version, bf16 by ``held_bf16`` against the plain version in
+    fp32."""
+    out = {}
+    cases = ([(f"s{s}", s, s) for s in ZAMBA_K3_S]
+             + [(f"chunk_s{SSM_CHUNK}_t{t}", SSM_CHUNK, t)
+                for t in ZAMBA_K3_CHUNK_T])
+    for tag, s, t in cases:
+        args32 = _zamba_k3_inputs(gen, torch.float32, s, t)
+        ref32 = flash_attention_ref(*args32, True, 0)
+        got32 = flash_attention(*args32, True, 0)
+        torch.testing.assert_close(
+            got32, ref32, **TOL_F32,
+            msg=lambda m: f"flash_attention fp32, zamba S={s} T={t}: {m}")
+        err32 = float((got32 - ref32).abs().max())
+        del got32
+        args = tuple(a.to(torch.bfloat16) for a in args32)
+        got = flash_attention(*args, True, 0)
+        plain = flash_attention_ref(*args, True, 0)
+        torch.cuda.synchronize()
+        h = held_bf16("flash_attention", f"zamba S={s} T={t}", got, plain,
+                      ref32, K3_TILE)
+        out[f"flash_attention_{tag}"] = dict(
+            shape=f"q{list(args[0].shape)} k/v{list(args[1].shape)}",
+            err_f32=err32, err_bf16_vs_f32_ref=h["err"],
+            plain_err_bf16_vs_f32_ref=h["err_plain"],
+            worst_block_share=h["worst_block_share"])
+        del args32, args, ref32, got, plain
+    for t in ZAMBA_K4_T:
+        out[f"flash_decode_t{t}"] = _check_k4_at(
+            f"zamba decode T={t}", _zamba_k4_inputs(gen, t))
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_zamba_shapes():
+    """K3 and K4 timed at zamba2's shapes beside their bounds and one library
+    call: K3 at the engine's largest prefill call (2 prompts of 2048, SDPA
+    causal), K4 at its decode step over lanes of 2560 (SDPA with a
+    ``[B,1,1,T]`` mask)."""
+    q, k, v = _zamba_k3_inputs(timed_gen(131), torch.bfloat16,
+                               max(SSM_PROMPTS))
+    b, hq, s, d = q.shape
+    t3 = timings("flash_attention zamba",
+                 lambda: flash_attention(q, k, v, True, 0),
+                 lambda: flash_attention_ref(q, k, v, True, 0),
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=True))
+    pairs = live_pairs(s, s, True, 0)
+    t_ops = 4 * d * hq * b * pairs / PEAK_FLOPS[q.dtype]
+    t_bytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+               / HBM_BYTES_PER_S)
+    k3 = dict(**t3, bound_ms=max(t_ops, t_bytes) * 1e3,
+              bound_by="operations" if t_ops >= t_bytes else "bytes",
+              shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{s},{d}] "
+                    f"bf16, causal, MHA, head_dim {d}")
+    del q, k, v
+    k4 = _k4_timed("flash_decode zamba",
+                   _zamba_k4_inputs(timed_gen(132), HYBRID["max_seq"]))
+    torch.cuda.empty_cache()
+    return k3, k4
+
+
 def timed_gen(seed):
     return torch.Generator(device=DEV).manual_seed(seed)
 
@@ -2638,6 +2780,9 @@ def phase_kernels():
     k1_moe, k3_moe, k4_moe = time_moe_shapes()
     k1_t["moe_shape"], k3_t["moe_shape"] = k1_moe, k3_moe
     k4_t["moe_shape"] = k4_moe
+    # K3 and K4 at head_dim 80: zamba2-2.7b's shared attention block
+    zamba_checks = check_zamba_shapes(timed_gen(130))
+    k3_t["zamba_shape"], k4_t["zamba_shape"] = time_zamba_shapes()
     say("cms_monitor_step", **step_t)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
@@ -2690,7 +2835,7 @@ def phase_kernels():
         cms_update_query_exact=True, lru_scan_cases=lru_cases,
         lru_scan_way_cases=lru_ways,
         lru_scan_equal=True, lru_scan_shape=lru_t.pop("shape"),
-        moe_shapes=moe_checks)
+        moe_shapes=moe_checks, zamba_shapes=zamba_checks)
     # the kernels line: the write engine's sketch (depth 4, k 16) at one
     # engine batch; all four timed sizes under "sizes"
     cms_main = CMS_TIMED.index((4, 16, 4096))
@@ -4872,19 +5017,19 @@ def phase_fig3(kernels):
 
 
 def _count_model_calls(model):
-    """Count the calls of the model's three lanes entry points (each runs
-    ``moe_ffn_layer``, so one K1 drain, in every layer). Returns the
-    counter and the function that unwraps them."""
-    calls = {"n": 0}
-    names = ("prefill", "chunk_prefill", "decode_step")
-    for name in names:
-        def counted(*a, _f=getattr(model, name), **kw):
-            calls["n"] += 1
+    """Count the calls of the model's three lanes entry points, each on its
+    own (an MoE model's every call runs ``moe_ffn_layer``, so one K1 drain,
+    in every layer). Returns the counter and the function that unwraps
+    them."""
+    calls = {"prefill": 0, "chunk_prefill": 0, "decode_step": 0}
+    for name in calls:
+        def counted(*a, _f=getattr(model, name), _n=name, **kw):
+            calls[_n] += 1
             return _f(*a, **kw)
         setattr(model, name, counted)
 
     def unwrap():
-        for name in names:
+        for name in calls:
             delattr(model, name)
     return calls, unwrap
 
@@ -4953,16 +5098,17 @@ def phase_engine_moe(kernels):
                 problems.append(f"{name}: request {rid} path counts {pc}")
         if not stats["admitted"] == stats["retired"] == MOE_REQUESTS:
             problems.append(f"{name}: stats {stats}")
-        if counts["staged_scatter"] != cfg.n_layers * calls["n"]:
+        n_calls = sum(calls.values())
+        if counts["staged_scatter"] != cfg.n_layers * n_calls:
             problems.append(f"{name}: staged_scatter launched "
                             f"{counts['staged_scatter']} times for "
-                            f"{calls['n']} MoE calls x {cfg.n_layers} layers")
+                            f"{n_calls} MoE calls x {cfg.n_layers} layers")
         for k in ("flash_attention", "flash_decode"):
             if counts[k] <= 0:
                 problems.append(f"{name}: {k} never launched: {counts}")
         runs[name] = dict(out=out, report=dict(
             tok_per_s=[n_tok / secs, n_tok / secs2], seconds=[secs, secs2],
-            tokens=n_tok, ttft=_ttft(comps), model_calls=calls["n"],
+            tokens=n_tok, ttft=_ttft(comps), model_calls=n_calls,
             launches=counts, stats=stats, peak_mem_gb=peak / 1e9))
         for k in kernels:
             if k["name"] in ("staged_scatter", "flash_attention",
@@ -4986,6 +5132,232 @@ def phase_engine_moe(kernels):
         raise AssertionError("engine_moe: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# the SSM and hybrid families at full width on the lanes layout
+# ---------------------------------------------------------------------------
+
+
+def _ssd_step_ms(model, slots):
+    """Device ms a decode step spends in the SSD recurrence
+    (``ssd_decode_step``, the state update and read-out) and in the whole
+    mamba blocks (``mamba_decode_step``), each timed alone at the step's
+    shapes (``slots`` rows, bf16, the state in bf16) and multiplied by the
+    layer count."""
+    cfg = model.cfg
+    gen = timed_gen(140)
+    bf = torch.bfloat16
+    h, pd, g, n = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_groups, \
+        cfg.ssm_state
+    ch = cfg.d_inner + 2 * g * n
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=DEV) * scale).to(bf)
+    p = model.blocks[0].params(bf)
+    x, b_t, c_t = rn(slots, h, pd), rn(slots, g, n), rn(slots, g, n)
+    dt = F.softplus(torch.randn((slots, h), generator=gen, device=DEV) - 2)
+    a = -torch.exp(p["A_log"])
+    state = rn(slots, h, pd, n, scale=0.1)
+    u, tail = rn(slots, cfg.d_model), rn(slots, cfg.ssm_conv - 1, ch)
+    ssd = device_ms(lambda: MAMBA.ssd_decode_step(x, dt, a, b_t, c_t, state),
+                    f"{cfg.name} ssd_decode_step")
+    block = device_ms(lambda: MAMBA.mamba_decode_step(cfg, p, u, state, tail),
+                      f"{cfg.name} mamba_decode_step")
+    return dict(ssd_ms_per_step=ssd * cfg.n_layers,
+                mamba_blocks_ms_per_step=block * cfg.n_layers)
+
+
+def _recurrent_engine_phase(kernels, shape, requests, what):
+    """One family at full width (bf16, random weights from seed 0) through
+    ``Engine.from_config`` on the lanes layout, direct writes: ``requests``
+    requests of ``SSM_PROMPTS`` tokens, ``SSM_NEW`` new tokens each, 8
+    slots, blocking and chunked at ``SSM_CHUNK``. Launch counts set to 0
+    just before each first serve and read just after it, the model's calls
+    counted alongside by entry point. Held: every request's tokens in the
+    vocabulary, ``SSM_NEW - 1`` direct writes and none staged; admitted =
+    retired = requests; a second serve identical; flash_attention launched
+    once an application of the shared block in every prefill and chunk
+    call, flash_decode once an application in every decode call (none of
+    either without a shared block), no other kernel. Reported: blocking
+    against chunked, tok/s, TTFT, peak memory, a decode segment's profile
+    with the SSD's device-ms share."""
+    cfg = get_config(shape["arch"])
+    apps = cfg.n_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every \
+        else 0
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV).init(0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    sp = SamplingParams(max_tokens=SSM_NEW)
+
+    def queue():
+        return synthetic_requests(requests, SSM_PROMPTS, cfg.vocab, SSM_NEW,
+                                  params=sp)
+
+    runs, problems, profile = {}, [], None
+    for name, chunked in (("blocking", False), ("chunked", True)):
+        eng = Engine.from_config(EngineConfig(
+            chunked=chunked, chunk_size=SSM_CHUNK, **shape), model)
+        if eng.layout != "lanes":
+            raise AssertionError(f"{what} served on {eng.layout}")
+        eng.serve(synthetic_requests(len(SSM_PROMPTS), SSM_PROMPTS,
+                                     cfg.vocab, 2,
+                                     params=SamplingParams(max_tokens=2)))
+        eng.reset()
+        calls, unwrap = _count_model_calls(model)
+        reset_launch_counts()       # counts = 0 just before the main path
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            out, comps, secs = _serve_once(eng, queue())
+            counts = launch_counts()    # read just after
+        finally:
+            unwrap()
+        peak = torch.cuda.max_memory_allocated()
+        stats = dict(eng.stats)
+        eng.reset()
+        again, _, secs2 = _serve_once(eng, queue())
+        n_tok = sum(len(t) for t in out.values())
+        if _stream_diff(again, out):
+            problems.append(f"{name}: a second serve differs "
+                            f"{_stream_diff(again, out)}")
+        if len(out) != requests:
+            problems.append(f"{name}: {len(out)} requests served")
+        for rid, toks in out.items():
+            pc = comps[rid].path_counts
+            if toks.shape != (SSM_NEW,) or not (
+                    (toks >= 0) & (toks < cfg.vocab)).all():
+                problems.append(f"{name}: request {rid} tokens {toks}")
+            if pc["direct"] != SSM_NEW - 1 or pc["staged"] != 0:
+                problems.append(f"{name}: request {rid} path counts {pc}")
+        if not stats["admitted"] == stats["retired"] == requests:
+            problems.append(f"{name}: stats {stats}")
+        want = dict(flash_attention=apps * (calls["prefill"]
+                                            + calls["chunk_prefill"]),
+                    flash_decode=apps * calls["decode_step"])
+        for k, n in counts.items():
+            if n != want.get(k, 0):
+                problems.append(f"{name}: {k} launched {n} times, "
+                                f"want {want.get(k, 0)} ({apps} "
+                                f"applications x calls {calls})")
+        runs[name] = dict(out=out, report=dict(
+            tok_per_s=[n_tok / secs, n_tok / secs2], seconds=[secs, secs2],
+            tokens=n_tok, ttft=_ttft(comps), model_calls=calls,
+            launches=counts, stats=stats, peak_mem_gb=peak / 1e9))
+        if apps:
+            for k in kernels:
+                if k["name"] in ("flash_attention", "flash_decode"):
+                    k["zamba_shape"][f"launches_{name}"] = counts[k["name"]]
+        if not chunked:
+            profile = engine_profile(eng, cfg, shape, SSM_PROMPTS)
+            profile.update(_ssd_step_ms(model, shape["n_slots"]))
+            dev_ms = profile["device_ms_per_step"]
+            for part in ("ssd", "mamba_blocks"):
+                profile[f"{part}_share"] = (
+                    profile[f"{part}_ms_per_step"] / dev_ms if dev_ms
+                    else None)
+        del eng
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    say(what, config=shape, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        d_model=cfg.d_model, shared_block_applications=apps,
+        chunk_size=SSM_CHUNK, params_billions=cfg.param_count() / 1e9,
+        model_build_seconds=t_build, requests=requests,
+        prompt_lens=SSM_PROMPTS, new_tokens=SSM_NEW,
+        blocking_vs_chunked=_stream_diff(runs["chunked"]["out"],
+                                         runs["blocking"]["out"]),
+        profile=profile, **{k: r["report"] for k, r in runs.items()})
+    if problems:
+        raise AssertionError(f"{what}: " + "; ".join(problems))
+
+
+def phase_engine_ssm(kernels):
+    """mamba2-130m at full width (24 layers, d_model 768, 24 SSD heads of
+    64, state 128): no attention kernel may run (``_recurrent_engine_phase``)."""
+    _recurrent_engine_phase(kernels, SSM, SSM_REQUESTS, "engine_ssm")
+
+
+def phase_engine_hybrid(kernels):
+    """zamba2-2.7b at full width (54 layers, d_model 2560, the shared block
+    9 times, 32 heads of 80): K3 launched 9 x the prefill and chunk calls,
+    K4 9 x the decode calls (``_recurrent_engine_phase``)."""
+    _recurrent_engine_phase(kernels, HYBRID, SSM_REQUESTS, "engine_hybrid")
+
+
+def phase_parity_ssm():
+    """Full width, fp32, cut depth: mamba2-130m at 4 layers and zamba2-2.7b
+    at 6 (one application of the shared block). The engine on the card
+    (K3 and K4 for zamba) and the same weights in a CPU engine (their plain
+    versions) must give identical greedy streams, blocking and chunked
+    (the chunked arm's K3 calls: chunks of 64 queries at the end of the
+    keys before them); blocking against chunked on the card is reported
+    (matrix products of another row count round otherwise). Then greedy speculative decoding on the card, the reduced
+    stablelm-1.6b target (vocabulary 256) with the reduced mamba2-130m
+    draft (k = 3, snapshot rollback), must equal the non-speculative
+    engine."""
+    shape = dict(max_seq=512, n_slots=4, segment_len=8, path="direct")
+    plens, new, chunk = [100, 200, 300], 16, 64
+    report = {}
+    for arch, layers, seed in (("mamba2-130m", 4, 3), ("zamba2-2.7b", 6, 4)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  dtype="float32")
+        gpu_model = build_model(cfg, device=DEV).init(seed)
+        cpu_model = build_model(cfg, device="cpu")
+        cpu_model.load_state_dict(gpu_model.state_dict())
+        outs = {}
+        for tag, dev, model, chunked in (
+                ("cuda", DEV, gpu_model, False),
+                ("cpu", "cpu", cpu_model, False),
+                ("cuda_chunked", DEV, gpu_model, True),
+                ("cpu_chunked", "cpu", cpu_model, True)):
+            eng = Engine.from_config(EngineConfig(
+                device=dev, chunked=chunked, chunk_size=chunk, **shape),
+                model)
+            assert eng.layout == "lanes"
+            outs[tag] = eng.serve(synthetic_requests(4, plens, cfg.vocab,
+                                                     new))
+            del eng
+        for arm in ("", "_chunked"):
+            diff = _stream_diff(outs["cuda" + arm], outs["cpu" + arm])
+            if diff:
+                raise AssertionError(
+                    f"{arch} greedy streams differ, card vs CPU{arm} (first "
+                    f"differing token by request): {diff}")
+        report[arch] = dict(
+            n_layers=layers, requests=len(outs["cpu"]),
+            tokens=sum(len(t) for t in outs["cpu"].values()),
+            card_equals_cpu=True, card_equals_cpu_chunked=True,
+            chunked_vs_blocking_on_card=_stream_diff(outs["cuda_chunked"],
+                                                     outs["cuda"]))
+        del gpu_model, cpu_model
+        torch.cuda.empty_cache()
+    target = build_model(get_config(SLICE["arch"]).reduced(),
+                         device=DEV).init(5)
+    kw = dict(max_seq=256, n_slots=4, page_size=16, segment_len=8,
+              path="direct")
+    spec = SpecConfig(draft_arch="mamba2-130m", enabled=True, k=3)
+    outs, stats = {}, {}
+    for tag, sp in (("base", None), ("spec", spec)):
+        eng = Engine.from_config(EngineConfig(spec=sp, **kw), target)
+        outs[tag] = eng.serve(synthetic_requests(6, [40, 90], 256, 24))
+        stats[tag] = {k: eng.stats[k] for k in (
+            "spec_proposed", "spec_accepted", "spec_committed",
+            "spec_rounds")}
+        if sp is not None and eng.scheduler._draft_positional:
+            raise AssertionError("the mamba2 draft is not rolled back by "
+                                 "snapshots")
+        del eng
+    diff = _stream_diff(outs["spec"], outs["base"])
+    if diff or stats["spec"]["spec_rounds"] <= 0:
+        raise AssertionError(f"greedy spec with the mamba2 draft differs "
+                             f"from non-spec: {diff}, {stats['spec']}")
+    report["spec_mamba2_draft"] = dict(
+        target=target.cfg.name, draft="mamba2-130m-smoke", k=3,
+        identical_streams=True, stats=stats["spec"])
+    del target
+    torch.cuda.empty_cache()
+    say("parity_ssm", dtype="float32", **report)
+
+
 PHASE_SECONDS = {}
 
 
@@ -4997,39 +5369,66 @@ def timed(name, fn, *args):
     return out
 
 
-def main():
+# every phase in order: (name, function, the phases whose results it takes)
+PHASES = (
+    ("env", phase_env, ()),
+    ("build", phase_build, ()),
+    ("kernels", phase_kernels, ()),
+    ("engine", phase_engine, ("kernels",)),
+    ("engine_sharded", phase_engine_sharded, ("kernels", "engine")),
+    ("engine_chunked", phase_engine_chunked, ("kernels", "engine")),
+    ("engine_prefix", phase_engine_prefix, ("kernels",)),
+    ("engine_host_tier", phase_engine_host_tier, ("kernels",)),
+    ("sampler", phase_sampler, ()),
+    ("engine_sampled", phase_engine_sampled, ("kernels",)),
+    ("engine_spec", phase_engine_spec, ("kernels", "engine_sampled")),
+    ("loadtest", phase_loadtest, ("kernels",)),
+    ("preempt", phase_preempt, ("kernels",)),
+    ("lanes", phase_lanes, ("kernels",)),
+    ("lanes_chunked", phase_lanes_chunked, ("kernels",)),
+    ("parity", phase_parity, ()),
+    ("parity_chunked", phase_parity_chunked, ()),
+    ("write_engine", phase_write_engine, ("kernels",)),
+    ("write_parity", phase_write_parity, ()),
+    ("fig3", phase_fig3, ("kernels",)),
+    ("engine_moe", phase_engine_moe, ("kernels",)),
+    ("engine_ssm", phase_engine_ssm, ("kernels",)),
+    ("engine_hybrid", phase_engine_hybrid, ("kernels",)),
+    ("parity_ssm", phase_parity_ssm, ()),
+)
+
+
+def main(names=()):
+    """Every phase in order. With ``names`` (``python3 chip_smoke.py PHASE
+    ...``, to run a few phases while working on them): env, build, the
+    named phases and the phases whose results they take, in the same
+    order, and no result line."""
+    known = [name for name, _, _ in PHASES]
+    unknown = sorted(set(names) - set(known))
+    if unknown:
+        sys.exit(f"chip_smoke: unknown phases {unknown}; phases: {known}")
+    chosen = set(names or known) | {"env", "build"}
+    for name, _, needs in reversed(PHASES):
+        if name in chosen:
+            chosen.update(needs)
     t0 = time.perf_counter()
-    card = timed("env", phase_env)
-    timed("build", phase_build)
-    kernels = timed("kernels", phase_kernels)
-    blocking = timed("engine", phase_engine, kernels)
-    timed("engine_sharded", phase_engine_sharded, kernels, blocking)
-    timed("engine_chunked", phase_engine_chunked, kernels, blocking)
-    timed("engine_prefix", phase_engine_prefix, kernels)
-    timed("engine_host_tier", phase_engine_host_tier, kernels)
-    timed("sampler", phase_sampler)
-    greedy = timed("engine_sampled", phase_engine_sampled, kernels)
-    timed("engine_spec", phase_engine_spec, kernels, greedy)
-    timed("loadtest", phase_loadtest, kernels)
-    timed("preempt", phase_preempt, kernels)
-    timed("lanes", phase_lanes, kernels)
-    timed("lanes_chunked", phase_lanes_chunked, kernels)
-    timed("parity", phase_parity)
-    timed("parity_chunked", phase_parity_chunked)
-    timed("write_engine", phase_write_engine, kernels)
-    timed("write_parity", phase_write_parity)
-    timed("fig3", phase_fig3, kernels)
-    timed("engine_moe", phase_engine_moe, kernels)
+    results = {}
+    for name, fn, needs in PHASES:
+        if name in chosen:
+            results[name] = timed(name, fn, *(results[n] for n in needs))
     say("done", seconds=round(time.perf_counter() - t0, 1),
         phase_seconds=PHASE_SECONDS,
         traces_without_device_time=TRACE_MISSES,
         traces_that_lost_events=TRACE_SHORT)
-    print(json.dumps({"kernels": kernels}), flush=True)
-    print(card, flush=True)
+    if "kernels" in results:
+        print(json.dumps({"kernels": results["kernels"]}), flush=True)
+    print(results["env"], flush=True)
+    if names:
+        return
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -2,7 +2,8 @@
 bridge from the JAX package's parameter layout.
 
 ``params_from_numpy(tree, model)`` loads a nested dict of numpy arrays in
-the JAX layout into the port's ``DecoderLM`` or ``MoELM``::
+the JAX layout into the port's ``DecoderLM``, ``MoELM``, ``MambaLM`` or
+``ZambaLM``::
 
     embed/{tok, head}           [V, D]
     ln_f/{scale, bias}          [D]
@@ -12,6 +13,16 @@ the JAX layout into the port's ``DecoderLM`` or ``MoELM``::
     blocks/mlp/{wi,wg}          [L, D, F]       blocks/mlp/wo  [L, F, D]
     blocks/moe/router           [L, D, E]       (MoE in place of mlp)
     blocks/moe/{wi,wg}          [L, E, D, F]    blocks/moe/wo  [L, E, F, D]
+
+    the mamba2 blocks (ssm, hybrid): leaves flat under blocks/
+    blocks/ln/{scale,bias}      [L, D]
+    blocks/in_proj              [L, D, 2 d_in + 2 G N + H]
+    blocks/conv_w               [L, W, Ch]      blocks/conv_b  [L, Ch]
+    blocks/{A_log,dt_bias,D}    [L, H]          blocks/norm    [L, d_in]
+    blocks/out_proj             [L, d_in, D]
+
+    the hybrid's one shared block (unstacked): shared/ln1, shared/attn,
+    shared/ln2, shared/mlp with the shapes above less the layer axis
 
 ``load_checkpoint(dir)`` reads one step directory of the JAX package's
 checkpoint layout (``manifest.json`` + one ``leaf_*.npy`` per leaf, keys
@@ -60,9 +71,11 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
 
 def params_from_numpy(tree: Dict[str, Any], model) -> Any:
     """Load a JAX-layout parameter tree (see the module docstring) into
-    ``model`` (a ``repro_torch`` ``DecoderLM`` or ``MoELM``), in place;
-    returns it. Every group under ``blocks`` loads into the block module of
-    its name."""
+    ``model`` (a ``repro_torch`` ``DecoderLM``, ``MoELM``, ``MambaLM`` or
+    ``ZambaLM``), in place; returns it. Every group under ``blocks`` loads
+    into the block module of its name, the leaves flat under ``blocks``
+    (the mamba2 blocks') into the block itself, and ``shared`` (the
+    hybrid's shared block) into ``model.shared``."""
     dev = model.device
 
     def t(a):
@@ -72,13 +85,22 @@ def params_from_numpy(tree: Dict[str, Any], model) -> Any:
     model.ln_f.load({k: t(v) for k, v in tree["ln_f"].items()})
     blocks = tree["blocks"]
     n_layers = len(model.blocks)
-    for name, group in blocks.items():
-        for k, v in group.items():
-            if np.asarray(v).shape[0] != n_layers:
-                raise ValueError(
-                    f"blocks/{name}/{k}: leading axis "
-                    f"{np.asarray(v).shape[0]} != n_layers {n_layers}")
-        for i, blk in enumerate(model.blocks):
+    groups = {k: v for k, v in blocks.items() if isinstance(v, dict)}
+    flat = {k: v for k, v in blocks.items() if not isinstance(v, dict)}
+    for name, leaf in [(f"{g}/{k}", v) for g, grp in groups.items()
+                       for k, v in grp.items()] + list(flat.items()):
+        if np.asarray(leaf).shape[0] != n_layers:
+            raise ValueError(
+                f"blocks/{name}: leading axis {np.asarray(leaf).shape[0]} "
+                f"!= n_layers {n_layers}")
+    for i, blk in enumerate(model.blocks):
+        for name, group in groups.items():
             getattr(blk, name).load({k: t(np.asarray(v)[i])
                                      for k, v in group.items()})
+        if flat:
+            blk.load({k: t(np.asarray(v)[i]) for k, v in flat.items()})
+    if "shared" in tree:
+        for name, group in tree["shared"].items():
+            getattr(model.shared, name).load(
+                {k: t(v) for k, v in group.items()})
     return model

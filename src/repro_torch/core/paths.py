@@ -294,10 +294,10 @@ class SpecConfig:
     enabled: bool = False
 
 
-# draft cache families the engine can roll back on rejection: dense
-# (positional KV rows: rewinding the write cursor IS the rollback) and
+# draft cache families the engine can roll back on rejection: dense and
+# moe (positional KV rows: rewinding the write cursor IS the rollback) and
 # pure-SSM (no positions; a small recurrent state snapshotted per draft
-# step, not ported yet). Mixed families have neither property.
+# step). Mixed families (hybrid) have neither property.
 _DRAFT_POSITIONAL = ("dense", "moe")
 _DRAFT_SNAPSHOT = ("ssm",)
 
@@ -308,8 +308,9 @@ def resolve_draft(spec: SpecConfig, *, vocab: Optional[int] = None,
     whose vocab matches the target's actual ``vocab`` (the full config
     first, then its reduced variant: a reduced target pairs with a reduced
     draft). Raises ``ValueError`` on a vocab mismatch or a draft family
-    that cannot be rolled back, with the JAX package's messages, and
-    ``NotImplementedError`` for a draft arch or family not ported yet."""
+    that cannot be rolled back (hybrid), with the JAX package's messages,
+    and ``NotImplementedError`` for a draft arch not ported yet (encdec,
+    vlm)."""
     from ..configs import get_config
 
     name = spec.draft_arch or arch_name
@@ -340,14 +341,6 @@ def resolve_draft(spec: SpecConfig, *, vocab: Optional[int] = None,
             f"positional and recurrent cache state, which the engine "
             f"cannot roll back on rejection; supported draft families: "
             f"dense/moe (positional rewind) and ssm (state snapshot)")
-    if dcfg.family in _DRAFT_SNAPSHOT:
-        raise _not_ported(
-            f"speculative draft {name!r} of family {dcfg.family!r} (the "
-            f"recurrent drafts' snapshot rollback)")
-    if dcfg.family == "moe":
-        raise _not_ported(
-            f"speculative draft {name!r} of family 'moe' (the draft lanes "
-            f"serve the dense family only)")
     return dcfg
 
 

@@ -32,9 +32,10 @@ copy-on-write; ``unload_blocks`` / ``load_blocks`` / ``copy_block`` are the
 host tier's and the CoW's block moves (pinned, stream-ordered copies on the
 card). The chunk variants of the mixed-phase step
 (``logical_to_physical_many``, ``scatter_chunk``, ``view_chunk_mask_from``,
-``overlay_chunk_parts``) sit beside their one-token originals. The
-snapshot stacks of recurrent (SSM) speculative drafts come with the SSM
-family and are not ported yet.
+``overlay_chunk_parts``) sit beside their one-token originals.
+``snapshot_stack`` / ``select_snapshot`` are the recurrent (SSM) speculative
+draft's rollback: one copy of its state a draft step, and a per-slot gather
+at the committed count.
 
 Under a mesh (``make_paged_kv(..., mesh=)``, DESIGN.md §9) the data planes
 ``pages_k`` / ``pages_v`` / ``ring_k`` / ``ring_v`` are
@@ -755,3 +756,46 @@ def maybe_drain(cache: PagedKV,
     if incoming_pos is not None:
         due = due | ring_conflicts(cache, incoming_pos)
     return _drain(cache, due), due
+
+
+# ---------------------------------------------------------------------------
+# Speculative-decoding draft-cache rollback (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+
+
+def snapshot(cache: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A copy of every leaf of a lanes cache: the port updates caches IN
+    PLACE, so a snapshot the draft loop keeps must be a copy."""
+    return {k: v.clone() for k, v in cache.items()}
+
+
+def snapshot_stack(snaps: List[Dict[str, torch.Tensor]]
+                   ) -> Dict[str, torch.Tensor]:
+    """Stack draft-cache snapshots along a NEW leading snapshot axis.
+
+    The spec segment's draft loop keeps one snapshot per draft step
+    (``snaps[j]`` = the state after the draft consumed ``j`` tokens of the
+    round). Recurrent drafts (SSM) carry no sequence axis, so the stack is
+    k + 2 copies of a per-slot state, and the per-slot rollback after the
+    verify is one gather (:func:`select_snapshot`). Positional drafts
+    (dense / moe KV lanes) never need this: their rollback is cursor
+    arithmetic, stale rows past the committed position being overwritten
+    before any read."""
+    return {k: torch.stack([s[k] for s in snaps]) for k in snaps[0]}
+
+
+def select_snapshot(stacked: Dict[str, torch.Tensor],
+                    idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-slot rollback gather over a :func:`snapshot_stack` result.
+
+    Every cache leaf follows the lanes convention, batch on axis 1, so a
+    stacked leaf is ``[n_snaps, X, B, ...]``; slot ``b`` rolls back to
+    snapshot ``idx[b]`` (its committed-token count this round: 0 = full
+    rejection, k + 1 = full acceptance and the bonus token). Each leaf
+    comes back contiguous, ``[X, B, ...]``."""
+    def pick(leaf):
+        moved = leaf.movedim(2, 0)                  # [B, n_snaps, X, ...]
+        sel = moved[torch.arange(moved.shape[0], device=leaf.device),
+                    idx.long()]
+        return sel.movedim(0, 1).contiguous()       # [X, B, ...]
+    return {k: pick(v) for k, v in stacked.items()}

@@ -1,8 +1,10 @@
-"""Port of repro/models/__init__.py: the dense and MoE decoders and the
-sampler."""
+"""Port of repro/models/__init__.py: the dense, MoE, SSM and hybrid
+decoders and the sampler."""
 from .model import build_model
 from .moe_lm import MoELM
 from .sampling import SamplingParams
+from .ssm_lm import MambaLM, ZambaLM
 from .transformer import DecoderLM
 
-__all__ = ["DecoderLM", "MoELM", "SamplingParams", "build_model"]
+__all__ = ["DecoderLM", "MambaLM", "MoELM", "SamplingParams", "ZambaLM",
+           "build_model"]

@@ -116,6 +116,68 @@ def valid_mask(cfg: ModelConfig, pos: torch.Tensor,
     return linear
 
 
+# ---------------------------------------------------------------------------
+# One layer's attention and MLP: the bodies DecoderLM runs for each layer and
+# ZambaLM for each application of its shared block. ``ln1`` / ``ln2`` and
+# ``pa`` / ``pm`` are the block's norm, attention and MLP tensors in the
+# compute dtype; ``kc`` / ``vc`` the layer's K/V lanes [B, clen, Hkv, Dh]
+# ---------------------------------------------------------------------------
+
+
+def dense_ffn(cfg: ModelConfig, ln2, pm, x: torch.Tensor) -> torch.Tensor:
+    """The pre-norm MLP on the residual stream ``x`` (its output, not yet
+    added)."""
+    return L.apply_mlp(cfg, pm, L.apply_norm(cfg, ln2, x))
+
+
+def attend_prefill(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
+                   positions: torch.Tensor, kc: torch.Tensor,
+                   vc: torch.Tensor) -> torch.Tensor:
+    """``x`` plus the prompt's causal attention (``flash_attention``); the
+    prompt's K/V written into the lanes in one dense slice. A prompt longer
+    than the lanes (sliding window) keeps its last ``clen`` positions, each
+    at slot ``pos % clen``."""
+    s, clen = x.shape[1], kc.shape[1]
+    hn = L.apply_norm(cfg, ln1, x)
+    # q/k/v once: the values layers.attention would recompute
+    q = L.project_q(cfg, pa, hn, positions)
+    k, v = L.project_kv(cfg, pa, hn, positions)
+    for dst, kv in ((kc, k), (vc, v)):
+        if s <= clen:
+            dst[:, :s] = kv
+        else:
+            dst.copy_(torch.roll(kv[:, -clen:], s % clen, dims=1))
+    out = L.attention_core(cfg, q, k, v)
+    return x + torch.einsum("bshk,hkd->bsd", out, pa["wo"].to(x.dtype))
+
+
+def attend_chunk(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
+                 positions: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                 start_pos: int) -> torch.Tensor:
+    """``x`` plus a prompt chunk's attention over the lanes as they stand
+    before the chunk plus its own keys (``chunk_attention``); then the
+    chunk's K/V written (``write_chunk``)."""
+    hn = L.apply_norm(cfg, ln1, x)
+    k_new, v_new = L.project_kv(cfg, pa, hn, positions)
+    x = x + L.chunk_attention(cfg, pa, hn, positions, kc, vc, k_new, v_new,
+                              start_pos)
+    L.write_chunk(kc, k_new, start_pos)
+    L.write_chunk(vc, v_new, start_pos)
+    return x
+
+
+def attend_decode(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
+                  pos: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
+                  plan, vmask: torch.Tensor) -> torch.Tensor:
+    """``x`` [B, 1, D] plus one decode step's attention: the new K/V row
+    written at ``plan`` (``lane_write_plan``), then the lanes read through
+    ``flash_decode`` under ``vmask``."""
+    hn = L.apply_norm(cfg, ln1, x)
+    k_new, v_new = L.project_kv(cfg, pa, hn, pos[:, None])
+    write_lanes(kc, vc, k_new, v_new, plan)
+    return x + L.decode_attention(cfg, pa, hn, pos, kc, vc, vmask)
+
+
 class DecoderLM(nn.Module):
     """Dense decoder-only LM, with or without a sliding window. Parameters
     are fp32 masters created on ``device`` (the GPU unless the caller asks
@@ -145,9 +207,8 @@ class DecoderLM(nn.Module):
 
     def _ffn(self, blk, x: torch.Tensor) -> torch.Tensor:
         """The block's FFN on the residual stream ``x`` (pre-norm)."""
-        cfg = self.cfg
-        return L.apply_mlp(cfg, blk.mlp.tensors(x.dtype),
-                           L.apply_norm(cfg, blk.ln2.tensors(), x))
+        return dense_ffn(self.cfg, blk.ln2.tensors(), blk.mlp.tensors(x.dtype),
+                         x)
 
     # -- init ------------------------------------------------------------
     def init(self, seed: int = 0) -> "DecoderLM":
@@ -190,25 +251,9 @@ class DecoderLM(nn.Module):
         x = L.embed_tokens(cfg, self.embed.tensors(), tokens, dtype)
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         cache = self.init_cache(b, max_seq, dtype)
-        clen = cache["k"].shape[2]
-
-        def keep_ring(dst, kv):
-            """Last ``clen`` positions, placed at slot = pos % clen."""
-            if s <= clen:
-                dst[:, :s] = kv
-            else:
-                dst.copy_(torch.roll(kv[:, -clen:], s % clen, dims=1))
-
         for i, blk in enumerate(self.blocks):
-            pa = blk.attn.tensors(dtype)
-            hn = L.apply_norm(cfg, blk.ln1.tensors(), x)
-            # q/k/v once: the values layers.attention would recompute
-            q = L.project_q(cfg, pa, hn, positions)
-            k, v = L.project_kv(cfg, pa, hn, positions)
-            keep_ring(cache["k"][i], k)
-            keep_ring(cache["v"][i], v)
-            out = L.attention_core(cfg, q, k, v)
-            x = x + torch.einsum("bshk,hkd->bsd", out, pa["wo"].to(dtype))
+            x = attend_prefill(cfg, blk.ln1.tensors(), blk.attn.tensors(dtype),
+                               x, positions, cache["k"][i], cache["v"][i])
             x = x + self._ffn(blk, x)
         x = L.apply_norm(cfg, self.ln_f.tensors(), x[:, -1:])
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
@@ -234,14 +279,9 @@ class DecoderLM(nn.Module):
         positions = (start_pos
                      + torch.arange(c, device=tokens.device)).expand(b, c)
         for i, blk in enumerate(self.blocks):
-            pa = blk.attn.tensors(dtype)
-            kc, vc = cache["k"][i], cache["v"][i]
-            hn = L.apply_norm(cfg, blk.ln1.tensors(), x)
-            k_new, v_new = L.project_kv(cfg, pa, hn, positions)
-            x = x + L.chunk_attention(cfg, pa, hn, positions, kc, vc, k_new,
-                                      v_new, start_pos)
-            L.write_chunk(kc, k_new, start_pos)
-            L.write_chunk(vc, v_new, start_pos)
+            x = attend_chunk(cfg, blk.ln1.tensors(), blk.attn.tensors(dtype),
+                             x, positions, cache["k"][i], cache["v"][i],
+                             start_pos)
             x = x + self._ffn(blk, x)
         x = L.apply_norm(cfg, self.ln_f.tensors(), x[:, -1:])
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]
@@ -274,12 +314,9 @@ class DecoderLM(nn.Module):
         plan = lane_write_plan(slots, clen)
         vmask = valid_mask(cfg, pos, clen)
         for i, blk in enumerate(self.blocks):
-            pa = blk.attn.tensors(dtype)
-            kc, vc = cache["k"][i], cache["v"][i]
-            hn = L.apply_norm(cfg, blk.ln1.tensors(), x)
-            k_new, v_new = L.project_kv(cfg, pa, hn, pos[:, None])
-            write_lanes(kc, vc, k_new, v_new, plan)
-            x = x + L.decode_attention(cfg, pa, hn, pos, kc, vc, vmask)
+            x = attend_decode(cfg, blk.ln1.tensors(), blk.attn.tensors(dtype),
+                              x, pos, cache["k"][i], cache["v"][i], plan,
+                              vmask)
             x = x + self._ffn(blk, x)
         x = L.apply_norm(cfg, self.ln_f.tensors(), x)
         logits = L.lm_logits(cfg, self.embed.tensors(), x)[:, 0]

@@ -66,7 +66,7 @@ class EngineConfig:
     engine runs: ``"cuda"`` (the default) raises when CUDA is unavailable,
     ``"cpu"`` is for tests. ``kv_layout="auto"`` picks ``paged`` for the
     linear-addressed dense decoders and ``lanes`` for a sliding-window one
-    and for the MoE family (direct writes only). ``chunked`` prefills in ``chunk_size``-token
+    and for the MoE, SSM and hybrid families (direct writes only). ``chunked`` prefills in ``chunk_size``-token
     pieces (inside the segments on paged, at admission on lanes).
     ``memory=MemoryConfig(prefix_cache=True)`` (paged, chunked) shares
     cached prompt pages; ``MemoryConfig(host_tier=True)`` (paged) parks

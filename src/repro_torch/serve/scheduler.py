@@ -9,11 +9,14 @@ layouts, as in the JAX package:
 
 * ``paged`` (linear-addressed dense decoders): per-slot destination blocks
   in a SHARED physical pool, all three write paths;
-* ``lanes`` (the sliding-window dense decoder and the MoE family, whose
+* ``lanes`` (the sliding-window dense decoder; the MoE family, whose
   every layer dispatches its tokens to experts and drains them through K1
-  in staged mode): one dense cache lane per slot (``model.init_cache(n_slots, max_seq)``, ring-addressed under SWA),
-  direct writes only, read by the ``flash_decode`` kernel. The monitor's
-  region is ``slot * max_pages + pos // page_size``.
+  in staged mode; the SSM and hybrid families, whose cache holds a
+  recurrent state a slot): one cache lane per slot in every leaf of
+  ``model.init_cache(n_slots, max_seq)`` (batch on axis 1; KV lanes
+  ring-addressed under SWA, read by the ``flash_decode`` kernel), direct
+  writes only. The monitor's region is ``slot * max_pages + pos //
+  page_size``.
 
 * **SlotState**: per-slot phase / token / position / done-flag /
   remaining-budget / key chain / request-id / sampling parameters / stop
@@ -47,14 +50,17 @@ layouts, as in the JAX package:
   favour of later ones that do (bounded by ``skip_ahead_limit``). Without
   ``chunked`` prompts are prefilled at admission, same-length prompts in one
   batched call; the rows land in the pool by a host-computed physical row
-  list (paged), or the group's lane cache overwrites the slots' lanes
-  wholesale (lanes; with ``chunked`` its prompts are prefilled chunk by
-  chunk through ``model.chunk_prefill``).
+  list (paged), or the group's cache overwrites the slots' lanes wholesale,
+  every leaf (lanes; with ``chunked`` its prompts are prefilled chunk by
+  chunk through ``model.chunk_prefill``, the recurrent state carried from
+  chunk to chunk).
 * **KV writes** (paged): every decode-time write resolves through the page
   table to a physical pool row; direct writes scatter straight in, staged
   writes ride the per-slot ring overlay and drain in bulk through
   ``core.ring.scatter_rows_layers``. The monitor's region is the BLOCK id.
-  (lanes): a retired slot's write goes to the drop row ``cache_len``.
+  (lanes): a retired slot's write goes to the drop row ``cache_len``; a
+  recurrent state has no rows to drop (slot-private, overwritten at
+  admission).
 * **Prefix cache** (``MemoryConfig(prefix_cache=True)``, paged + chunked):
   between segments (after the boundary drain, so pool content is final)
   every fully written full prompt page is registered under its chained
@@ -95,15 +101,18 @@ layouts, as in the JAX package:
 * **Speculative decoding** (``spec=SpecConfig(enabled=True, k=...)``, paged
   layout, DESIGN.md §11): once no slot prefills, a segment is
   ``segment_len`` draft-then-verify rounds. Each round the draft (the
-  target itself for self-draft, else its own ``DecoderLM``) runs ``k + 1``
-  decode steps on its own dense lanes cache, sampling ``k`` proposals off
-  the slot's separate ``dkey`` chain; the target verifies ``[token,
+  target itself for self-draft, else its own model: a dense or MoE
+  ``DecoderLM`` or an SSM ``MambaLM``) runs ``k + 1`` decode steps on its
+  own lanes cache, sampling ``k`` proposals off the slot's separate
+  ``dkey`` chain; the target verifies ``[token,
   d_1..d_k]`` in ONE ``decode_chunk_paged(all_logits=True)`` step, whose
   rows go to the decision plane tagged ``PHASE_BULK`` (pinned to the
   offload path); ``spec_verify`` commits the accepted run plus one target
   token, cut at the budget and the first stop. Rejected rows are rolled
   back by cursor: the draft's and the pool's stale rows past ``pos`` are
-  rewritten before any read. The draft cache is derived data:
+  rewritten before any read; a recurrent (SSM) draft keeps one copy of its
+  state a draft step and each slot takes back the one at its committed
+  count (``PG.select_snapshot``). The draft cache is derived data:
   ``_sync_draft`` re-prefills a stale lane (after admission, a resume or
   a mixed segment) from the prompt and the committed tokens.
 """
@@ -116,7 +125,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..core.paths import MemoryConfig, normalize_groups, validate
+from ..core.paths import (_DRAFT_POSITIONAL, MemoryConfig,
+                          normalize_groups, validate)
 from ..core.types import (PHASE_BULK, PHASE_SCATTERED, SpecStats,
                           WriteBatch, make_write_batch, resolve_device)
 from ..data.pipeline import RequestQueue
@@ -133,8 +143,9 @@ PHASE_DECODE = 1
 
 def paged_capable(model) -> bool:
     """Can this model serve from the paged pool? Linear-addressed dense
-    ``DecoderLM`` only (an ``MoELM`` is a ``DecoderLM`` of the moe family:
-    lanes, as in the JAX package)."""
+    ``DecoderLM`` only (an ``MoELM`` is a ``DecoderLM`` of the moe family,
+    and ``MambaLM`` / ``ZambaLM`` are no ``DecoderLM``: lanes, as in the JAX
+    package)."""
     return (isinstance(model, DecoderLM)
             and model.cfg.family == DENSE
             and not model.is_vlm
@@ -305,8 +316,9 @@ class BatchedServeEngine:
         # inside the spec segment; the target verifies them in one step
         self.spec = plan.spec
         self._spec_enabled = plan.spec.enabled
-        self.draft_model: Optional[DecoderLM] = None
+        self.draft_model = None
         self.draft_cache = None
+        self._draft_positional = True
         self._draft_pos: List[int] = [-1] * cfg.n_slots
         if self._spec_enabled:
             self._init_draft(plan.draft_cfg)
@@ -318,19 +330,22 @@ class BatchedServeEngine:
         target's) shares the target's modules and parameters, also for a
         target config the registry does not hold (a cut depth or dtype),
         where the JAX engine would build the registry's config with fresh
-        weights instead; another dense
-        arch gets its own ``DecoderLM`` on the engine's lead device, weights
-        from seed 17 (the JAX engine draws its draft's from
-        ``jax.random.key(17)``; to compare the two, load the same weights
-        with ``checkpoint.params_from_numpy``). Its cache is a dense lanes
-        cache (``init_cache``), made by ``reset``; under a mesh it stays
-        whole on the lead device, as the parameters do."""
+        weights instead; another arch (dense, MoE or SSM) gets its own
+        model on the engine's lead device, weights from seed 17 (the JAX
+        engine draws its draft's from ``jax.random.key(17)``; to compare
+        the two, load the same weights with
+        ``checkpoint.params_from_numpy``). Its cache is a lanes cache
+        (``init_cache``), made by ``reset``; under a mesh it stays whole on
+        the lead device, as the parameters do. Positional drafts (dense,
+        moe) roll back by cursor, recurrent ones (ssm) by state snapshots
+        (``_draft_positional`` False)."""
         model = self.model
         if self.spec.draft_arch is None or dcfg == model.cfg:
             self.draft_model = model
         else:
             from ..models.model import build_model
             self.draft_model = build_model(dcfg, device=model.device).init(17)
+        self._draft_positional = dcfg.family in _DRAFT_POSITIONAL
 
     def _make_cache(self):
         """The layout's device cache. Under ``self.mesh`` (the JAX engine's
@@ -609,11 +624,15 @@ class BatchedServeEngine:
         the budget and after the first stop token. Retired and stalled
         slots write neither the draft lanes (their rows go to the drop row)
         nor the pool. Rejected rows need no undo: the next round rewrites
-        them before any read. Nothing in here reads a device value on the
+        them before any read. A recurrent draft's state advances in every
+        slot, so it keeps a copy after each draft step and every slot takes
+        back the one at its committed count (the round's first for a slot
+        that was not active). Nothing in here reads a device value on the
         host. Returns the segment's stats, ``SpecStats``, per-slot writes,
         and the emissions ``[T, S, k + 1]`` with their mask."""
         model, cfg, dev = self.model, self.cfg, self.device
         k, dmodel = self.spec.k, self.draft_model
+        positional = self._draft_positional
         ps, nb = cfg.page_size, self.n_blocks
         decision, attn = self.decision, self.attention
         cache, dcache, st, mon = (self.cache, self.draft_cache, self.slots,
@@ -634,6 +653,7 @@ class BatchedServeEngine:
             # draft: k proposals, then the catch-up step
             d_tok, dkey = st.token, st.dkey
             d_toks, d_logits = [], []
+            snaps = None if positional else [PG.snapshot(dcache)]
             for j in range(k + 1):
                 dl, dcache = dmodel.decode_step(dcache, d_tok, st.pos + j,
                                                 write_mask=active)
@@ -642,6 +662,8 @@ class BatchedServeEngine:
                                                     mode=mode)
                     d_toks.append(d_tok)
                     d_logits.append(dl)
+                if snaps is not None:
+                    snaps.append(PG.snapshot(dcache))
             d_tokens = torch.stack(d_toks, dim=1)          # [S, k]
             d_log = torch.stack(d_logits, dim=1)           # [S, k, V]
             # verify: ONE chunked target step over [t_cur, d_1..d_k]
@@ -671,6 +693,11 @@ class BatchedServeEngine:
             remaining = st.remaining - n_emit
             ended = (remaining <= 0) | (emit & is_stop).any(dim=1)
             last = commit.gather(1, (n_emit - 1).clamp(min=0)[:, None])[:, 0]
+            if snaps is not None:
+                # the recurrent draft's rollback: each slot's state after
+                # its round's first n_emit inputs
+                dcache = PG.select_snapshot(PG.snapshot_stack(snaps), n_emit)
+                del snaps
             st = st._replace(
                 token=torch.where(active & (n_emit > 0), last, st.token),
                 pos=st.pos + n_emit, done=st.done | (active & ended),
@@ -1094,14 +1121,14 @@ class BatchedServeEngine:
                                                             device=dev)
             regions = np.concatenate([b[rows // ps] for b in blocks])
         else:
-            # the group's lane cache overwrites the slots' lanes wholesale,
-            # and is freed right after the copy
+            # the group's cache overwrites the slots' lanes wholesale, every
+            # leaf (KV lanes, recurrent states), and is freed right after
             if cfg.chunked:
                 logits, pc = self._chunk_prefill_host(prompts, cfg.max_seq)
             else:
                 logits, pc = self.model.prefill(prompts, cfg.max_seq)
-            for name in ("k", "v"):
-                self.cache[name][:, slot_arr] = pc[name]
+            for name, leaf in pc.items():
+                self.cache[name][:, slot_arr] = leaf
             del pc
             regions = np.concatenate([
                 s * self.max_pages + np.arange(plen) // ps for s in slots])
@@ -1377,8 +1404,10 @@ class BatchedServeEngine:
         this re-prefills it from the prompt plus the emitted tokens whose
         KV the target has written (``pos - plen`` of them: the last emitted
         token's KV is not written yet), one exact-length prefill per stale
-        slot. Inside a spec segment the draft then stays in step with
-        ``pos`` by construction."""
+        slot (never padded to a bucket: a recurrent draft folds the whole
+        sequence into its state), every leaf of its cache copied. Inside a
+        spec segment the draft then stays in step with ``pos`` by
+        construction."""
         cfg, dev = self.cfg, self.device
         pos = self.slots.pos.cpu().numpy()
         done = self.done_flags()
@@ -1394,8 +1423,8 @@ class BatchedServeEngine:
                 np.asarray(self.outputs[rid][:p - plen], np.int64)])
             _, lane = self.draft_model.prefill(
                 torch.as_tensor(toks, device=dev)[None], cfg.max_seq)
-            for name in ("k", "v"):
-                self.draft_cache[name][:, s] = lane[name][:, 0]
+            for name, leaf in lane.items():
+                self.draft_cache[name][:, s] = leaf[:, 0]
             del lane
             self._draft_pos[s] = p
 

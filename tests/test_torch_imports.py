@@ -62,7 +62,9 @@ def test_package_has_every_ported_module():
             "configs/granite_moe_3b_a800m.py",
             "configs/qwen3_moe_235b_a22b.py", "models/moe.py",
             "models/moe_lm.py", "kernels/lru_scan.py",
-            "kernels/csrc/lru_scan.cu"]
+            "kernels/csrc/lru_scan.cu", "configs/mamba2_130m.py",
+            "configs/zamba2_2_7b.py", "models/mamba2.py",
+            "models/ssm_lm.py"]
     missing = [w for w in want if not os.path.isfile(os.path.join(PKG, w))]
     assert not missing, missing
 
@@ -172,20 +174,21 @@ def test_chip_smoke_fails_without_a_gpu():
 
 def test_unported_archs_and_families_raise():
     from repro_torch.configs import ARCHS, get_config
-    from repro_torch.configs.base import SSM
+    from repro_torch.configs.base import ENCDEC
     from repro_torch.models import DecoderLM, build_model
     import dataclasses
     assert sorted(ARCHS) == ["granite-moe-3b-a800m", "h2o-danube-3-4b",
-                             "nemotron-4-15b", "qwen2-7b",
-                             "qwen3-moe-235b-a22b", "stablelm-1.6b"]
+                             "mamba2-130m", "nemotron-4-15b", "qwen2-7b",
+                             "qwen3-moe-235b-a22b", "stablelm-1.6b",
+                             "zamba2-2.7b"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("mamba2-130m")
+        get_config("whisper-medium")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    ssm = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
-                              family=SSM)
+    encdec = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                                 family=ENCDEC)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(ssm, device="cpu")
+        build_model(encdec, device="cpu")
     # the dense class takes the dense family only
     with pytest.raises(NotImplementedError, match="not ported yet"):
         DecoderLM(get_config("granite-moe-3b-a800m").reduced(), device="cpu")

@@ -493,8 +493,13 @@ def test_vocab_mismatched_draft_is_rejected():
 
 
 def test_unported_draft_arch_raises_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _engine(spec=SpecConfig(draft_arch="mamba2-130m", enabled=True))
+    """The mamba2-130m draft engine builds (a recurrent draft: snapshot
+    rollback) and serves the non-speculative engine's greedy streams."""
+    eng = _engine(spec=SpecConfig(draft_arch="mamba2-130m", enabled=True))
+    assert eng._draft_positional is False
+    assert type(eng.draft_model).__name__ == "MambaLM"
+    assert set(eng.draft_cache) == {"ssm", "conv"}
+    _same(eng.serve(_queue()), _engine().serve(_queue()))
 
 
 def test_disabled_spec_is_inert():

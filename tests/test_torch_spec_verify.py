@@ -186,24 +186,35 @@ def test_resolve_draft_equals_jax(draft, target, reduced):
 @pytest.mark.parametrize("draft", ["mamba2-130m", "zamba2-2.7b",
                                    "granite-moe-3b-a800m"])
 def test_unported_draft_archs_raise(draft):
-    """A draft arch the port does not have raises ``not ported yet`` (the
-    JAX package resolves it, or refuses it for its family)."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TP.resolve_draft(TP.SpecConfig(draft_arch=draft, enabled=True),
-                         vocab=jget(draft).vocab, arch_name="stablelm-1.6b")
+    """The SSM, hybrid and MoE draft archs have the outcome of JAX's
+    ``resolve_draft``: mamba2-130m (snapshot rollback) and
+    granite-moe-3b-a800m (positional) resolve to the same config, zamba2-2.7b
+    raises the same ``ValueError`` (it cannot be rolled back)."""
+    spec = TP.SpecConfig(draft_arch=draft, enabled=True)
+    jspec = JP.SpecConfig(draft_arch=draft, enabled=True)
+    vocab = jget(draft).vocab
+    got = _outcome(lambda: TP.resolve_draft(spec, vocab=vocab,
+                                            arch_name="stablelm-1.6b"))
+    want = _outcome(lambda: JP.resolve_draft(jspec, vocab=vocab,
+                                             arch_name="stablelm-1.6b"))
+    assert got == want
+    if draft == "zamba2-2.7b":
+        assert got[0] == "ValueError" and "cannot roll back" in got[1]
+    else:
+        assert got[0] == "ok"
 
 
 def test_ssm_draft_family_raises_not_ported(monkeypatch):
-    """An SSM draft (snapshot rollback) is refused as not ported even where
-    its config resolves."""
+    """An SSM-family draft config resolves (snapshot rollback), as in the
+    JAX package; a hybrid one raises its ``ValueError``."""
     import dataclasses
     from repro_torch import configs as C
     ssm = dataclasses.replace(get_config("stablelm-1.6b"), family="ssm",
                               name="ssm-draft")
     monkeypatch.setitem(C.ARCHS, "ssm-draft", ssm)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TP.resolve_draft(TP.SpecConfig(draft_arch="ssm-draft", enabled=True),
-                         vocab=ssm.vocab)
+    assert TP.resolve_draft(TP.SpecConfig(draft_arch="ssm-draft",
+                                          enabled=True),
+                            vocab=ssm.vocab) == ssm
     hybrid = dataclasses.replace(ssm, family="hybrid", name="hybrid-draft")
     monkeypatch.setitem(C.ARCHS, "hybrid-draft", hybrid)
     with pytest.raises(ValueError, match="cannot roll back"):
