@@ -62,7 +62,12 @@ line. Phases, each failing the run on any exception or mismatch:
            T = 512 and 2048 keys, fp32 and bf16; ``q[8,32,80]`` over lanes
            of 1024 and 2560 with ragged masks), checked, and timed at the
            engine's largest prefill call and its decode step
-           (``zamba_shape``)
+           (``zamba_shape``); flash_attention and flash_decode at
+           whisper-medium's shapes (the causal encoder ``q[2,16,1500,64]``,
+           the non-causal cross read of S = 64 and 37 queries against 1500
+           frames; ``q[8,16,64]`` over 1500 frames all valid and over 448
+           lanes with ragged masks), fp32 and bf16, checked and each timed
+           (``whisper_shape``)
   engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
            a seed) serves 16 requests through ``Engine.from_config`` on the
            paged layout; the launch counts of staged_scatter,
@@ -180,8 +185,9 @@ line. Phases, each failing the run on any exception or mismatch:
            point (counted where launched); the ``FIG3_CLAIMS`` bounds held (the
            microseconds are the paper's model constants); the 2^20 offload
            point equal to the CPU's; device ms per point
-  engine_moe  granite-moe-3b-a800m at full width (32 layers, 40 experts
-           top-8, bf16, random weights from a seed) serves 16 requests of
+  engine_moe  granite-moe-3b-a800m at full width (40 experts top-8,
+           bf16, random weights from a seed), cut to 8 of its 32 layers
+           (``MOE_LAYERS``), serves 16 requests of
            128-512 tokens through ``Engine.from_config`` on the lanes
            layout with staged expert dispatch, blocking and chunked at
            128: K1 launched once a layer of every MoE call, K3 and K4
@@ -197,11 +203,12 @@ line. Phases, each failing the run on any exception or mismatch:
            package's is ``jnp``); tok/s, TTFT, peak memory, blocking
            against chunked, a decode segment's profile with the SSD's share
            of the device time
-  engine_hybrid  zamba2-2.7b at full width (54 layers, d_model 2560, the
-           shared attention block 9 times, 32 heads of 80, bf16), the same
-           traffic: the same checks, and flash_attention
-           launched 9 x the model's prefill and chunk calls, flash_decode
-           9 x its decode calls, nothing else
+  engine_hybrid  zamba2-2.7b at full width (d_model 2560, 32 heads of
+           80, bf16), cut to 24 of its 54 layers (``HYBRID_LAYERS``: the
+           shared attention block 4 times, not 9), the same traffic: the
+           same checks, and flash_attention launched 4 x the model's
+           prefill and chunk calls, flash_decode 4 x its decode calls,
+           nothing else
   parity_ssm  mamba2-130m at 4 layers and zamba2-2.7b at 6 (one
            application), full width, fp32: the engine on the card and the
            same weights on the CPU (plain versions) give identical greedy
@@ -210,6 +217,23 @@ line. Phases, each failing the run on any exception or mismatch:
            speculative decoding on the card with the reduced mamba2 draft
            (snapshot rollback) for the reduced stablelm-1.6b equals the
            engine without it
+  engine_encdec  whisper-medium at full width (24 encoder and 24 decoder
+           layers, d_model 1024, 16 heads of 64, bf16, random weights from
+           seed 0), max_seq 448, serves 16 requests, each with its own
+           frames [1500, 1024], of 4-224 tokens, 32 new tokens each, on the
+           lanes layout, direct writes, blocking and chunked at 64: every
+           request's 32 tokens in the vocabulary with 31 direct writes and
+           none staged, admitted = retired = 16, a repeat serve identical,
+           the encoder run once an admission group, flash_attention
+           launched 24 x the encoder's calls + 48 x the prefill and chunk
+           calls, flash_decode 48 x the decode calls, nothing else; tok/s,
+           TTFT, peak memory, the encoder's device ms a request, blocking
+           against chunked, a decode segment's profile with the cross
+           reads' share
+  parity_encdec  whisper-medium at 4 + 4 layers, full width, fp32: the
+           engine on the card and the same weights on the CPU (plain
+           versions) give identical greedy streams, blocking and chunked
+           (blocking against chunked on the card reported)
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
@@ -276,7 +300,8 @@ from repro_torch.kernels.staged_scatter import (  # noqa: E402
 from repro_torch.kernels.lru_scan import (LRU_KERNELS,  # noqa: E402
                                           bucket_keys, longest_chain,
                                           lru_scan_buckets)
-from repro_torch.models import build_model  # noqa: E402
+from repro_torch.models import (build_model, media_spec,  # noqa: E402
+                                needs_media)
 from repro_torch.models import moe as MOE_L  # noqa: E402
 from repro_torch.models import mamba2 as MAMBA  # noqa: E402
 from repro_torch.kvcache import paged as PG  # noqa: E402
@@ -349,6 +374,11 @@ FIG3_THRESHOLD = 3        # the frequency policy's count threshold
 MOE = dict(arch="granite-moe-3b-a800m", reduced=False, max_seq=640,
            n_slots=8, segment_len=16, path="direct")
 MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_CHUNK = 16, [128, 256, 384, 512], 32, 128
+# engine_moe runs granite at this depth (of its 32 layers) to keep the
+# script under 800 of its 1200 s: on an H100 80GB HBM3 at 700 W the whole
+# script took 851.1 s with the encoder-decoder phases and engine_hybrid cut
+# (engine_moe 87.6 s of it); every check is kept, K1 held at 8 x calls
+MOE_LAYERS = 8
 # the SSM and hybrid families at full width on the lanes layout: mamba2-130m
 # (24 layers, d_model 768) and zamba2-2.7b (54 layers, d_model 2560, the
 # shared attention block 9 times, 32 heads of 80), bf16, direct writes: 16
@@ -358,6 +388,22 @@ SSM = dict(arch="mamba2-130m", reduced=False, max_seq=2560, n_slots=8,
            segment_len=16, path="direct")
 HYBRID = dict(SSM, arch="zamba2-2.7b")
 SSM_REQUESTS, SSM_PROMPTS, SSM_NEW, SSM_CHUNK = 16, [256, 768, 1280, 2048], 32, 256
+# engine_hybrid runs zamba2 at this depth (of its 54 layers: 4 applications
+# of the shared block, not 9) to keep the script under 800 of its 1200 s
+# once the encoder-decoder phases came (on an H100 80GB HBM3 at 700 W the
+# script took 742.8 s before them, and they took 51.5 s): every check is
+# kept, the launches held at 4 x calls
+HYBRID_LAYERS = 24
+# the encoder-decoder family at full width (whisper-medium: 24 encoder and
+# 24 decoder layers, d_model 1024, 16 heads of 64, bf16) on the lanes layout,
+# direct writes, max_seq 448 (the decoder's context): 16 requests, each with
+# its own frames [1500, 1024], prompts of 4-224 tokens (a few task tokens,
+# or up to 224 tokens of earlier text), 32 new tokens each, 8 slots; chunked
+# at 64
+ENCDEC = dict(arch="whisper-medium", reduced=False, max_seq=448, n_slots=8,
+              segment_len=16, path="direct")
+ENCDEC_REQUESTS, ENCDEC_PROMPTS, ENCDEC_NEW, ENCDEC_CHUNK = \
+    16, [4, 32, 96, 224], 32, 64
 # the memory tier's two phases, engine_sampled and engine_spec run the slice
 # at this depth (of its 24 layers) to keep the script under 800 of its
 # 1200 s (on an H100 80GB HBM3 at 700 W it took 817 s with engine_sampled
@@ -2511,6 +2557,51 @@ def time_lru_scan():
 # ---------------------------------------------------------------------------
 
 
+def _check_k3_at(what, args32, causal):
+    """K3 at a real shape (fp32 operands): fp32 within TOL_F32 of the plain
+    version, then the same operands in bf16 by ``held_bf16`` against the
+    plain version in fp32, block by block of 64 query rows."""
+    ref32 = flash_attention_ref(*args32, causal, 0)
+    got32 = flash_attention(*args32, causal, 0)
+    torch.testing.assert_close(
+        got32, ref32, **TOL_F32,
+        msg=lambda m: f"flash_attention fp32, {what}: {m}")
+    err32 = float((got32 - ref32).abs().max())
+    del got32
+    args = tuple(a.to(torch.bfloat16) for a in args32)
+    got = flash_attention(*args, causal, 0)
+    plain = flash_attention_ref(*args, causal, 0)
+    torch.cuda.synchronize()
+    h = held_bf16("flash_attention", what, got, plain, ref32, K3_TILE)
+    return dict(shape=f"q{list(args[0].shape)} k/v{list(args[1].shape)}",
+                err_f32=err32, err_bf16_vs_f32_ref=h["err"],
+                plain_err_bf16_vs_f32_ref=h["err_plain"],
+                worst_block_share=h["worst_block_share"])
+
+
+def _k3_timed(name, args, causal, note):
+    """Device times of K3 (no window), its plain version and SDPA (causal
+    or not as K3; GQA by index where the head counts differ) on these bf16
+    operands, its bound (the live pairs' operations against the operands'
+    bytes) and shape."""
+    q, k, v = args
+    b, hq, s, d = q.shape
+    t = k.shape[2]
+    t3 = timings(name, lambda: flash_attention(q, k, v, causal, 0),
+                 lambda: flash_attention_ref(q, k, v, causal, 0),
+                 lambda: F.scaled_dot_product_attention(
+                     q, k, v, is_causal=causal,
+                     enable_gqa=hq != k.shape[1]))
+    t_ops = (4 * d * hq * b * live_pairs(s, t, causal, 0)
+             / PEAK_FLOPS[q.dtype])
+    t_bytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+               / HBM_BYTES_PER_S)
+    return dict(**t3, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{t},{d}] "
+                      f"bf16, {note}")
+
+
 def _moe_k1_inputs(gen, t):
     """K1 as ``dispatch_staged`` calls it for ``t`` tokens of granite: the
     routing of random router logits (top-8 of 40 experts), the staging rows
@@ -2573,24 +2664,8 @@ def check_moe_shapes(gen):
             dest=list(dest.shape), staging=list(staging.shape),
             valid_rows=int(ok.sum()), rows=["int64", "int32"], exact=True)
     for what in ("prefill", "chunk"):
-        args32 = _moe_k3_inputs(gen, torch.float32, what)
-        ref32 = flash_attention_ref(*args32, True, 0)
-        got32 = flash_attention(*args32, True, 0)
-        torch.testing.assert_close(
-            got32, ref32, **TOL_F32,
-            msg=lambda m: f"flash_attention fp32, MoE {what}: {m}")
-        args = tuple(a.to(torch.bfloat16) for a in args32)
-        got = flash_attention(*args, True, 0)
-        plain = flash_attention_ref(*args, True, 0)
-        torch.cuda.synchronize()
-        h = held_bf16("flash_attention", f"MoE {what}", got, plain, ref32,
-                      K3_TILE)
-        out[f"flash_attention_{what}"] = dict(
-            shape=f"q{list(args[0].shape)} k/v{list(args[1].shape)}",
-            err_f32=float((got32 - ref32).abs().max()),
-            err_bf16_vs_f32_ref=h["err"],
-            plain_err_bf16_vs_f32_ref=h["err_plain"],
-            worst_block_share=h["worst_block_share"])
+        out[f"flash_attention_{what}"] = _check_k3_at(
+            f"MoE {what}", _moe_k3_inputs(gen, torch.float32, what), True)
     out["flash_decode_decode"] = _check_k4_at("MoE decode shape",
                                               _moe_k4_inputs(gen))
     return out
@@ -2622,21 +2697,9 @@ def time_moe_shapes():
               cold_sets=len(sets),
               shape=f"dest[{dest.shape[0]},{w}] staging[{staging.shape[0]},"
                     f"{w}] bf16, {n_valid} valid int64 rows, cold")
-    q, k, v = _moe_k3_inputs(timed_gen(122), torch.bfloat16, "prefill")
-    b, hq, s, d = q.shape
-    t3 = timings("flash_attention moe",
-                 lambda: flash_attention(q, k, v, True, 0),
-                 lambda: flash_attention_ref(q, k, v, True, 0),
-                 lambda: F.scaled_dot_product_attention(
-                     q, k, v, is_causal=True, enable_gqa=True))
-    pairs = live_pairs(s, s, True, 0)
-    t_ops = 4 * d * hq * b * pairs / PEAK_FLOPS[q.dtype]
-    t_bytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-               / HBM_BYTES_PER_S)
-    k3 = dict(**t3, bound_ms=max(t_ops, t_bytes) * 1e3,
-              bound_by="operations" if t_ops >= t_bytes else "bytes",
-              shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{s},{d}] "
-                    f"bf16, causal, GQA group 3")
+    k3 = _k3_timed("flash_attention moe",
+                   _moe_k3_inputs(timed_gen(122), torch.bfloat16, "prefill"),
+                   True, "causal, GQA group 3")
     k4 = _k4_timed("flash_decode moe", _moe_k4_inputs(timed_gen(123)))
     return k1, k3, k4
 
@@ -2686,26 +2749,9 @@ def check_zamba_shapes(gen):
              + [(f"chunk_s{SSM_CHUNK}_t{t}", SSM_CHUNK, t)
                 for t in ZAMBA_K3_CHUNK_T])
     for tag, s, t in cases:
-        args32 = _zamba_k3_inputs(gen, torch.float32, s, t)
-        ref32 = flash_attention_ref(*args32, True, 0)
-        got32 = flash_attention(*args32, True, 0)
-        torch.testing.assert_close(
-            got32, ref32, **TOL_F32,
-            msg=lambda m: f"flash_attention fp32, zamba S={s} T={t}: {m}")
-        err32 = float((got32 - ref32).abs().max())
-        del got32
-        args = tuple(a.to(torch.bfloat16) for a in args32)
-        got = flash_attention(*args, True, 0)
-        plain = flash_attention_ref(*args, True, 0)
-        torch.cuda.synchronize()
-        h = held_bf16("flash_attention", f"zamba S={s} T={t}", got, plain,
-                      ref32, K3_TILE)
-        out[f"flash_attention_{tag}"] = dict(
-            shape=f"q{list(args[0].shape)} k/v{list(args[1].shape)}",
-            err_f32=err32, err_bf16_vs_f32_ref=h["err"],
-            plain_err_bf16_vs_f32_ref=h["err_plain"],
-            worst_block_share=h["worst_block_share"])
-        del args32, args, ref32, got, plain
+        out[f"flash_attention_{tag}"] = _check_k3_at(
+            f"zamba S={s} T={t}", _zamba_k3_inputs(gen, torch.float32, s, t),
+            True)
     for t in ZAMBA_K4_T:
         out[f"flash_decode_t{t}"] = _check_k4_at(
             f"zamba decode T={t}", _zamba_k4_inputs(gen, t))
@@ -2718,25 +2764,80 @@ def time_zamba_shapes():
     call: K3 at the engine's largest prefill call (2 prompts of 2048, SDPA
     causal), K4 at its decode step over lanes of 2560 (SDPA with a
     ``[B,1,1,T]`` mask)."""
-    q, k, v = _zamba_k3_inputs(timed_gen(131), torch.bfloat16,
-                               max(SSM_PROMPTS))
-    b, hq, s, d = q.shape
-    t3 = timings("flash_attention zamba",
-                 lambda: flash_attention(q, k, v, True, 0),
-                 lambda: flash_attention_ref(q, k, v, True, 0),
-                 lambda: F.scaled_dot_product_attention(
-                     q, k, v, is_causal=True))
-    pairs = live_pairs(s, s, True, 0)
-    t_ops = 4 * d * hq * b * pairs / PEAK_FLOPS[q.dtype]
-    t_bytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-               / HBM_BYTES_PER_S)
-    k3 = dict(**t3, bound_ms=max(t_ops, t_bytes) * 1e3,
-              bound_by="operations" if t_ops >= t_bytes else "bytes",
-              shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{s},{d}] "
-                    f"bf16, causal, MHA, head_dim {d}")
-    del q, k, v
+    k3 = _k3_timed("flash_attention zamba",
+                   _zamba_k3_inputs(timed_gen(131), torch.bfloat16,
+                                    max(SSM_PROMPTS)),
+                   True, "causal, MHA, head_dim "
+                   f"{get_config(HYBRID['arch']).resolved_head_dim}")
     k4 = _k4_timed("flash_decode zamba",
                    _zamba_k4_inputs(timed_gen(132), HYBRID["max_seq"]))
+    torch.cuda.empty_cache()
+    return k3, k4
+
+
+def _whisper_k3_inputs(gen, dtype, s, t):
+    """K3 at whisper-medium's calls: 2 requests an admission group, 16 heads
+    of 64 (MHA, no window), ``[B, S, H, D]`` tensors seen transposed. The
+    encoder: ``s = t`` = 1500 frames, causal (the reference's encoder);
+    the cross read: ``s`` decoder queries against the ``t`` = 1500 frames'
+    K/V, non-causal."""
+    c = get_config(ENCDEC["arch"])
+    return _k3_inputs(gen, dtype, 2, c.n_heads, c.n_kv_heads, s, t,
+                      c.resolved_head_dim)
+
+
+def _whisper_k4_inputs(gen, t, all_valid):
+    """K4 at whisper-medium's decode step: ``q[8, 16, 64]`` over ``k/v[8,
+    t, 16, 64]`` bf16. The cross read: t = 1500 frames, every key valid;
+    the self read: t = max_seq 448, slot i live up to a ragged position (a
+    prompt of 4-224 tokens plus up to 31 generated)."""
+    c = get_config(ENCDEC["arch"])
+    b = ENCDEC["n_slots"]
+    q, k, v, _ = _k4_inputs(gen, torch.bfloat16, b, c.n_heads, c.n_kv_heads,
+                            t, c.resolved_head_dim)
+    if all_valid:
+        return q, k, v, torch.ones((b, t), dtype=torch.bool, device=DEV)
+    pos = (torch.tensor(ENCDEC_PROMPTS * 2, device=DEV) + torch.randint(
+        0, ENCDEC_NEW, (b,), generator=gen, device=DEV)).clamp(max=t - 1)
+    return q, k, v, torch.arange(t, device=DEV)[None] <= pos[:, None]
+
+
+# (tag, S, T, causal): the encoder, and the cross read of a 64-token chunk
+# and of a ragged 37 queries (both ragged against the 1500 keys' 64-key
+# tiles; never ``causal`` with S < T, which would put the queries at the
+# end of the keys)
+WHISPER_K3 = (("encoder", 1500, 1500, True), ("cross_s64", 64, 1500, False),
+              ("cross_s37", 37, 1500, False))
+WHISPER_K4 = (("cross_t1500", 1500, True), ("self_t448", 448, False))
+
+
+def check_whisper_shapes(gen):
+    """K3 at whisper-medium's shapes (``WHISPER_K3``) and K4 at its decode
+    reads (``WHISPER_K4``): fp32 within TOL_F32 of the plain version, bf16
+    by ``held_bf16`` against the plain version in fp32."""
+    out = {f"flash_attention_{tag}": _check_k3_at(
+        f"whisper {tag}", _whisper_k3_inputs(gen, torch.float32, s, t),
+        causal) for tag, s, t, causal in WHISPER_K3}
+    for tag, t, all_valid in WHISPER_K4:
+        out[f"flash_decode_{tag}"] = _check_k4_at(
+            f"whisper {tag}", _whisper_k4_inputs(gen, t, all_valid))
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_whisper_shapes():
+    """K3 and K4 timed at every ``check_whisper_shapes`` shape beside their
+    bounds and one library call (SDPA: causal for the encoder, no mask for
+    the cross reads; a ``[B,1,1,T]`` mask for K4). Returns ({tag: K3
+    timing}, {tag: K4 timing})."""
+    k3 = {tag: _k3_timed(f"flash_attention whisper {tag}",
+                         _whisper_k3_inputs(timed_gen(150 + i),
+                                            torch.bfloat16, s, t), causal,
+                         f"{'causal' if causal else 'non-causal'}, MHA")
+          for i, (tag, s, t, causal) in enumerate(WHISPER_K3)}
+    k4 = {tag: _k4_timed(f"flash_decode whisper {tag}",
+                         _whisper_k4_inputs(timed_gen(155 + i), t, all_valid))
+          for i, (tag, t, all_valid) in enumerate(WHISPER_K4)}
     torch.cuda.empty_cache()
     return k3, k4
 
@@ -2783,6 +2884,9 @@ def phase_kernels():
     # K3 and K4 at head_dim 80: zamba2-2.7b's shared attention block
     zamba_checks = check_zamba_shapes(timed_gen(130))
     k3_t["zamba_shape"], k4_t["zamba_shape"] = time_zamba_shapes()
+    # K3 and K4 at whisper-medium's encoder, cross and decode shapes
+    whisper_checks = check_whisper_shapes(timed_gen(140))
+    k3_t["whisper_shape"], k4_t["whisper_shape"] = time_whisper_shapes()
     say("cms_monitor_step", **step_t)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
@@ -2835,7 +2939,8 @@ def phase_kernels():
         cms_update_query_exact=True, lru_scan_cases=lru_cases,
         lru_scan_way_cases=lru_ways,
         lru_scan_equal=True, lru_scan_shape=lru_t.pop("shape"),
-        moe_shapes=moe_checks, zamba_shapes=zamba_checks)
+        moe_shapes=moe_checks, zamba_shapes=zamba_checks,
+        whisper_shapes=whisper_checks)
     # the kernels line: the write engine's sketch (depth 4, k 16) at one
     # engine batch; all four timed sizes under "sizes"
     cms_main = CMS_TIMED.index((4, 16, 4096))
@@ -3793,12 +3898,14 @@ def _sampled_params(i, new_tokens):
                           seed=seed)
 
 
-def _sampled_queue(vocab, params, n=None, new_tokens=None, lens=None):
+def _sampled_queue(vocab, params, n=None, new_tokens=None, lens=None,
+                   media_shape=None):
     """The slice's requests (``N_REQUESTS`` of ``PROMPT_LENS``,
     ``NEW_TOKENS`` new unless given), request ``i`` with ``params(i,
-    new_tokens)``."""
+    new_tokens)``, each with frames of ``media_shape`` if given."""
     n, new_tokens = n or N_REQUESTS, new_tokens or NEW_TOKENS
     return synthetic_requests(n, lens or PROMPT_LENS, vocab, new_tokens,
+                              media_shape=media_shape,
                               params=[params(i, new_tokens)
                                       for i in range(n)])
 
@@ -4393,8 +4500,9 @@ def engine_profile(eng, cfg, shape, prompt_lens, mixed=False, params=None):
     # at most 7 segments run below
     n_new = 8 * shape["segment_len"] * per_step
     params = params or (lambda i, n: SamplingParams(max_tokens=n))
-    sch.admit(_sampled_queue(cfg.vocab, params, shape["n_slots"], n_new,
-                             prompt_lens))
+    sch.admit(_sampled_queue(
+        cfg.vocab, params, shape["n_slots"], n_new, prompt_lens,
+        media_spec(cfg, 1)[1:] if needs_media(cfg) else None))
 
     def segment():
         if mixed and not sch._mixed_phase_pending():
@@ -5019,9 +5127,11 @@ def phase_fig3(kernels):
 def _count_model_calls(model):
     """Count the calls of the model's three lanes entry points, each on its
     own (an MoE model's every call runs ``moe_ffn_layer``, so one K1 drain,
-    in every layer). Returns the counter and the function that unwraps
-    them."""
-    calls = {"prefill": 0, "chunk_prefill": 0, "decode_step": 0}
+    in every layer), and of an encoder-decoder's ``encode`` (called by
+    ``prefill`` and by a ``chunk_prefill`` given media). Returns the counter
+    and the function that unwraps them."""
+    calls = {name: 0 for name in ("prefill", "chunk_prefill", "decode_step",
+                                  "encode") if hasattr(model, name)}
     for name in calls:
         def counted(*a, _f=getattr(model, name), _n=name, **kw):
             calls[_n] += 1
@@ -5035,20 +5145,21 @@ def _count_model_calls(model):
 
 
 def phase_engine_moe(kernels):
-    """granite-moe-3b-a800m at full width (32 layers, d_model 1536, 40
-    experts top-8, bf16, random weights from seed 0) through
+    """granite-moe-3b-a800m at full width (d_model 1536, 40 experts top-8,
+    bf16, random weights from seed 0), cut to ``MOE_LAYERS`` of its 32
+    layers, through
     ``Engine.from_config`` on the lanes layout, direct KV writes, staged
     expert dispatch (``MoELM``'s default): 16 requests of 128-512 tokens,
     32 new tokens each, 8 slots, blocking and chunked at 128. Launch counts
     set to 0 just before each first serve and read just after it; the
     model's calls counted alongside. Held: K1 launched once a layer of
-    every MoE call (32 x calls), K3 and K4 launched; every request's 32
+    every MoE call (layers x calls), K3 and K4 launched; every request's 32
     tokens in the vocabulary, 31 direct writes, none staged; admitted =
     retired = 16; a second serve identical. Reported: blocking against
     chunked (a chunk routes its own token count, so capacity drops can
     differ by construction), tok/s, TTFT, peak memory, a decode segment's
     profile."""
-    cfg = get_config(MOE["arch"])
+    cfg = dataclasses.replace(get_config(MOE["arch"]), n_layers=MOE_LAYERS)
     t0 = time.perf_counter()
     model = build_model(cfg, device=DEV).init(0)
     torch.cuda.synchronize()
@@ -5166,96 +5277,122 @@ def _ssd_step_ms(model, slots):
                 mamba_blocks_ms_per_step=block * cfg.n_layers)
 
 
-def _recurrent_engine_phase(kernels, shape, requests, what):
-    """One family at full width (bf16, random weights from seed 0) through
-    ``Engine.from_config`` on the lanes layout, direct writes: ``requests``
-    requests of ``SSM_PROMPTS`` tokens, ``SSM_NEW`` new tokens each, 8
-    slots, blocking and chunked at ``SSM_CHUNK``. Launch counts set to 0
-    just before each first serve and read just after it, the model's calls
-    counted alongside by entry point. Held: every request's tokens in the
-    vocabulary, ``SSM_NEW - 1`` direct writes and none staged; admitted =
-    retired = requests; a second serve identical; flash_attention launched
-    once an application of the shared block in every prefill and chunk
-    call, flash_decode once an application in every decode call (none of
-    either without a shared block), no other kernel. Reported: blocking
-    against chunked, tok/s, TTFT, peak memory, a decode segment's profile
-    with the SSD's device-ms share."""
-    cfg = get_config(shape["arch"])
-    apps = cfg.n_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every \
-        else 0
-    t0 = time.perf_counter()
-    model = build_model(cfg, device=DEV).init(0)
-    torch.cuda.synchronize()
-    t_build = time.perf_counter() - t0
-    sp = SamplingParams(max_tokens=SSM_NEW)
+def _lanes_family_runs(kernels, model, shape, traffic, want, tag,
+                       profile_fn):
+    """One family at full width through ``Engine.from_config`` on the lanes
+    layout, direct writes: ``traffic`` (``requests`` requests of
+    ``prompts`` tokens, ``new`` new tokens each, each with its own frames
+    where the model takes media), blocking and chunked at ``chunk``. Launch
+    counts set to 0 just before each first serve and read just after it,
+    the model's calls counted alongside by entry point. Held: every
+    request's tokens in the vocabulary, ``new - 1`` direct writes and none
+    staged; admitted = retired = requests; a second serve identical; each
+    kernel launched ``want(calls)[kernel]`` times (0 where absent).
+    ``kernels`` rows of ``want``'s kernels get each arm's launches under
+    ``tag``; ``profile_fn(eng)`` profiles the blocking engine. Returns
+    (runs, problems, profile)."""
+    cfg = model.cfg
+    prompts, new = traffic["prompts"], traffic["new"]
+    media_shape = media_spec(cfg, 1)[1:] if needs_media(cfg) else None
 
-    def queue():
-        return synthetic_requests(requests, SSM_PROMPTS, cfg.vocab, SSM_NEW,
-                                  params=sp)
+    def queue(n, max_new):
+        return synthetic_requests(n, prompts, cfg.vocab, max_new,
+                                  media_shape=media_shape,
+                                  params=SamplingParams(max_tokens=max_new))
 
     runs, problems, profile = {}, [], None
     for name, chunked in (("blocking", False), ("chunked", True)):
         eng = Engine.from_config(EngineConfig(
-            chunked=chunked, chunk_size=SSM_CHUNK, **shape), model)
+            chunked=chunked, chunk_size=traffic["chunk"], **shape), model)
         if eng.layout != "lanes":
-            raise AssertionError(f"{what} served on {eng.layout}")
-        eng.serve(synthetic_requests(len(SSM_PROMPTS), SSM_PROMPTS,
-                                     cfg.vocab, 2,
-                                     params=SamplingParams(max_tokens=2)))
+            raise AssertionError(f"{cfg.name} served on {eng.layout}")
+        eng.serve(queue(len(prompts), 2))
         eng.reset()
         calls, unwrap = _count_model_calls(model)
         reset_launch_counts()       # counts = 0 just before the main path
         torch.cuda.reset_peak_memory_stats()
         try:
-            out, comps, secs = _serve_once(eng, queue())
+            out, comps, secs = _serve_once(eng, queue(traffic["requests"],
+                                                      new))
             counts = launch_counts()    # read just after
         finally:
             unwrap()
         peak = torch.cuda.max_memory_allocated()
         stats = dict(eng.stats)
         eng.reset()
-        again, _, secs2 = _serve_once(eng, queue())
+        again, _, secs2 = _serve_once(eng, queue(traffic["requests"], new))
         n_tok = sum(len(t) for t in out.values())
         if _stream_diff(again, out):
             problems.append(f"{name}: a second serve differs "
                             f"{_stream_diff(again, out)}")
-        if len(out) != requests:
+        if len(out) != traffic["requests"]:
             problems.append(f"{name}: {len(out)} requests served")
         for rid, toks in out.items():
             pc = comps[rid].path_counts
-            if toks.shape != (SSM_NEW,) or not (
+            if toks.shape != (new,) or not (
                     (toks >= 0) & (toks < cfg.vocab)).all():
                 problems.append(f"{name}: request {rid} tokens {toks}")
-            if pc["direct"] != SSM_NEW - 1 or pc["staged"] != 0:
+            if pc["direct"] != new - 1 or pc["staged"] != 0:
                 problems.append(f"{name}: request {rid} path counts {pc}")
-        if not stats["admitted"] == stats["retired"] == requests:
+        if not stats["admitted"] == stats["retired"] == traffic["requests"]:
             problems.append(f"{name}: stats {stats}")
-        want = dict(flash_attention=apps * (calls["prefill"]
-                                            + calls["chunk_prefill"]),
-                    flash_decode=apps * calls["decode_step"])
+        wanted = want(calls)
         for k, n in counts.items():
-            if n != want.get(k, 0):
-                problems.append(f"{name}: {k} launched {n} times, "
-                                f"want {want.get(k, 0)} ({apps} "
-                                f"applications x calls {calls})")
+            if n != wanted.get(k, 0):
+                problems.append(f"{name}: {k} launched {n} times, want "
+                                f"{wanted.get(k, 0)} (calls {calls})")
         runs[name] = dict(out=out, report=dict(
             tok_per_s=[n_tok / secs, n_tok / secs2], seconds=[secs, secs2],
             tokens=n_tok, ttft=_ttft(comps), model_calls=calls,
             launches=counts, stats=stats, peak_mem_gb=peak / 1e9))
-        if apps:
-            for k in kernels:
-                if k["name"] in ("flash_attention", "flash_decode"):
-                    k["zamba_shape"][f"launches_{name}"] = counts[k["name"]]
+        for k in kernels:
+            if tag and wanted.get(k["name"]):
+                k[tag][f"launches_{name}"] = counts[k["name"]]
         if not chunked:
-            profile = engine_profile(eng, cfg, shape, SSM_PROMPTS)
-            profile.update(_ssd_step_ms(model, shape["n_slots"]))
-            dev_ms = profile["device_ms_per_step"]
-            for part in ("ssd", "mamba_blocks"):
-                profile[f"{part}_share"] = (
-                    profile[f"{part}_ms_per_step"] / dev_ms if dev_ms
-                    else None)
+            profile = profile_fn(eng)
         del eng
         torch.cuda.empty_cache()
+    return runs, problems, profile
+
+
+def _recurrent_engine_phase(kernels, shape, requests, what, n_layers=None):
+    """One family at full width (bf16, random weights from seed 0; cut to
+    its first ``n_layers`` layers if given), ``requests`` requests of ``SSM_PROMPTS`` tokens, ``SSM_NEW`` new tokens
+    each, 8 slots, blocking and chunked at ``SSM_CHUNK``
+    (``_lanes_family_runs``): flash_attention launched once an application
+    of the shared block in every prefill and chunk call, flash_decode once
+    an application in every decode call (none of either without a shared
+    block), no other kernel. Reported: blocking against chunked, tok/s,
+    TTFT, peak memory, a decode segment's profile with the SSD's device-ms
+    share."""
+    cfg = get_config(shape["arch"])
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    apps = cfg.n_layers // cfg.hybrid_attn_every if cfg.hybrid_attn_every \
+        else 0
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV).init(0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+
+    def want(calls):
+        return dict(flash_attention=apps * (calls["prefill"]
+                                            + calls["chunk_prefill"]),
+                    flash_decode=apps * calls["decode_step"])
+
+    def profile_fn(eng):
+        profile = engine_profile(eng, cfg, shape, SSM_PROMPTS)
+        profile.update(_ssd_step_ms(model, shape["n_slots"]))
+        dev_ms = profile["device_ms_per_step"]
+        for part in ("ssd", "mamba_blocks"):
+            profile[f"{part}_share"] = (
+                profile[f"{part}_ms_per_step"] / dev_ms if dev_ms else None)
+        return profile
+
+    runs, problems, profile = _lanes_family_runs(
+        kernels, model, shape, dict(requests=requests, prompts=SSM_PROMPTS,
+                                    new=SSM_NEW, chunk=SSM_CHUNK),
+        want, "zamba_shape" if apps else None, profile_fn)
     del model
     torch.cuda.empty_cache()
     say(what, config=shape, n_layers=cfg.n_layers, dtype=cfg.dtype,
@@ -5277,10 +5414,12 @@ def phase_engine_ssm(kernels):
 
 
 def phase_engine_hybrid(kernels):
-    """zamba2-2.7b at full width (54 layers, d_model 2560, the shared block
-    9 times, 32 heads of 80): K3 launched 9 x the prefill and chunk calls,
-    K4 9 x the decode calls (``_recurrent_engine_phase``)."""
-    _recurrent_engine_phase(kernels, HYBRID, SSM_REQUESTS, "engine_hybrid")
+    """zamba2-2.7b at full width (d_model 2560, 32 heads of 80), cut to
+    ``HYBRID_LAYERS`` of its 54 layers (the shared block 4 times): K3
+    launched 4 x the prefill and chunk calls, K4 4 x the decode calls
+    (``_recurrent_engine_phase``)."""
+    _recurrent_engine_phase(kernels, HYBRID, SSM_REQUESTS, "engine_hybrid",
+                            n_layers=HYBRID_LAYERS)
 
 
 def phase_parity_ssm():
@@ -5358,6 +5497,137 @@ def phase_parity_ssm():
     say("parity_ssm", dtype="float32", **report)
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder family at full width on the lanes layout
+# ---------------------------------------------------------------------------
+
+
+def _encoder_ms(model, group):
+    """Device ms of the encoder over one admission group's frames (``group``
+    requests, bf16, random frames), a request."""
+    frames = torch.randn((group,) + media_spec(model.cfg, 1)[1:],
+                         generator=timed_gen(160), device=DEV)
+    return device_ms(lambda: model.encode(frames), "whisper encode",
+                     reps=5) / group
+
+
+def _cross_read_ms(cfg, slots):
+    """Device ms a decode step spends in its cross reads: K4 at ``q[slots,
+    H, Dh]`` over ``k/v[slots, n_audio_frames, H, Dh]``, every frame
+    valid, timed alone, times the decoder's layer count."""
+    q, k, v, mask = _whisper_k4_inputs(timed_gen(161), cfg.n_audio_frames,
+                                       True)
+    return device_ms(lambda: flash_decode(q, k, v, mask),
+                     "whisper cross read") * cfg.n_layers
+
+
+def phase_engine_encdec(kernels):
+    """whisper-medium at full width (24 encoder and 24 decoder layers,
+    d_model 1024, 16 heads of 64, bf16, random weights from seed 0), max_seq
+    448: ``ENCDEC_REQUESTS`` requests, each with its own frames [1500,
+    1024], of ``ENCDEC_PROMPTS`` tokens, ``ENCDEC_NEW`` new tokens each, 8
+    slots, blocking and chunked at ``ENCDEC_CHUNK``
+    (``_lanes_family_runs``). Held besides: flash_attention launched 24
+    times an ``encode`` call (once an admission group: by ``prefill``
+    blocking, by the first chunk chunked) and 48 times a ``prefill`` or
+    ``chunk_prefill`` call (self and cross, a decoder layer each),
+    flash_decode 48 times a decode step (self and cross), nothing else.
+    Reported: blocking against chunked, tok/s, TTFT, peak memory, the
+    encoder's device ms a request, a decode segment's profile with the
+    cross reads' share of its device ms."""
+    cfg = get_config(ENCDEC["arch"])
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV, max_seq=ENCDEC["max_seq"]).init(0)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    def want(calls):
+        return dict(flash_attention=cfg.n_enc_layers * calls["encode"]
+                    + 2 * cfg.n_layers * (calls["prefill"]
+                                          + calls["chunk_prefill"]),
+                    flash_decode=2 * cfg.n_layers * calls["decode_step"])
+
+    def profile_fn(eng):
+        profile = engine_profile(eng, cfg, ENCDEC, ENCDEC_PROMPTS)
+        cross = _cross_read_ms(cfg, ENCDEC["n_slots"])
+        dev_ms = profile["device_ms_per_step"]
+        profile.update(cross_read_ms_per_step=cross,
+                       cross_read_share=cross / dev_ms if dev_ms else None)
+        return profile
+
+    runs, problems, profile = _lanes_family_runs(
+        kernels, model, ENCDEC,
+        dict(requests=ENCDEC_REQUESTS, prompts=ENCDEC_PROMPTS,
+             new=ENCDEC_NEW, chunk=ENCDEC_CHUNK),
+        want, "whisper_shape", profile_fn)
+    # the encoder runs once an admission group: by prefill when blocking,
+    # by the first chunk (and only there) when chunked
+    blk, chk = (runs[arm]["report"]["model_calls"]
+                for arm in ("blocking", "chunked"))
+    if not (blk["encode"] == blk["prefill"] > 0
+            and chk["prefill"] == 0
+            and 0 < chk["encode"] <= chk["chunk_prefill"]):
+        problems.append(f"encoder calls: blocking {blk}, chunked {chk}")
+    enc_ms = _encoder_ms(model, 2)
+    del model
+    torch.cuda.empty_cache()
+    say("engine_encdec", config=ENCDEC, n_layers=cfg.n_layers,
+        n_enc_layers=cfg.n_enc_layers, dtype=cfg.dtype, d_model=cfg.d_model,
+        n_audio_frames=cfg.n_audio_frames, chunk_size=ENCDEC_CHUNK,
+        params_billions=cfg.param_count() / 1e9,
+        model_build_seconds=t_build, requests=ENCDEC_REQUESTS,
+        prompt_lens=ENCDEC_PROMPTS, new_tokens=ENCDEC_NEW,
+        encoder_device_ms_per_request=enc_ms,
+        blocking_vs_chunked=_stream_diff(runs["chunked"]["out"],
+                                         runs["blocking"]["out"]),
+        profile=profile, **{k: r["report"] for k, r in runs.items()})
+    if problems:
+        raise AssertionError("engine_encdec: " + "; ".join(problems))
+
+
+def phase_parity_encdec():
+    """whisper-medium at full width, fp32, cut to 4 encoder and 4 decoder
+    layers: the engine on the card (K3: the causal encoder, the prompt's
+    self-attention, the cross read over 1500 frames; K4: the decode reads)
+    and the same weights in a CPU engine (their plain versions) must give
+    identical greedy streams, blocking and chunked at 64 (a chunk's cross
+    read: 64 queries, non-causal, against the 1500 frames); blocking
+    against chunked on the card is reported."""
+    cfg = dataclasses.replace(get_config(ENCDEC["arch"]), n_layers=4,
+                              n_enc_layers=4, dtype="float32")
+    shape = dict(max_seq=448, n_slots=4, segment_len=8, path="direct")
+    plens, new, chunk = [4, 70, 150], 16, 64
+    gpu_model = build_model(cfg, device=DEV, max_seq=448).init(6)
+    cpu_model = build_model(cfg, device="cpu", max_seq=448)
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    frames = media_spec(cfg, 1)[1:]
+    outs = {}
+    for tag, dev, model, chunked in (
+            ("cuda", DEV, gpu_model, False),
+            ("cpu", "cpu", cpu_model, False),
+            ("cuda_chunked", DEV, gpu_model, True),
+            ("cpu_chunked", "cpu", cpu_model, True)):
+        eng = Engine.from_config(EngineConfig(
+            device=dev, chunked=chunked, chunk_size=chunk, **shape), model)
+        assert eng.layout == "lanes"
+        outs[tag] = eng.serve(synthetic_requests(4, plens, cfg.vocab, new,
+                                                 media_shape=frames))
+        del eng
+    for arm in ("", "_chunked"):
+        diff = _stream_diff(outs["cuda" + arm], outs["cpu" + arm])
+        if diff:
+            raise AssertionError(
+                f"whisper greedy streams differ, card vs CPU{arm} (first "
+                f"differing token by request): {diff}")
+    del gpu_model, cpu_model
+    torch.cuda.empty_cache()
+    say("parity_encdec", dtype="float32", n_layers=4, n_enc_layers=4,
+        requests=len(outs["cpu"]), prompt_lens=plens, chunk_size=chunk,
+        tokens=sum(len(t) for t in outs["cpu"].values()),
+        card_equals_cpu=True, card_equals_cpu_chunked=True,
+        chunked_vs_blocking_on_card=_stream_diff(outs["cuda_chunked"],
+                                                 outs["cuda"]))
+
+
 PHASE_SECONDS = {}
 
 
@@ -5395,6 +5665,8 @@ PHASES = (
     ("engine_ssm", phase_engine_ssm, ("kernels",)),
     ("engine_hybrid", phase_engine_hybrid, ("kernels",)),
     ("parity_ssm", phase_parity_ssm, ()),
+    ("engine_encdec", phase_engine_encdec, ("kernels",)),
+    ("parity_encdec", phase_parity_encdec, ()),
 )
 
 

@@ -2,8 +2,8 @@
 bridge from the JAX package's parameter layout.
 
 ``params_from_numpy(tree, model)`` loads a nested dict of numpy arrays in
-the JAX layout into the port's ``DecoderLM``, ``MoELM``, ``MambaLM`` or
-``ZambaLM``::
+the JAX layout into the port's ``DecoderLM``, ``MoELM``, ``MambaLM``,
+``ZambaLM`` or ``WhisperModel``::
 
     embed/{tok, head}           [V, D]
     ln_f/{scale, bias}          [D]
@@ -23,6 +23,12 @@ the JAX layout into the port's ``DecoderLM``, ``MoELM``, ``MambaLM`` or
 
     the hybrid's one shared block (unstacked): shared/ln1, shared/attn,
     shared/ln2, shared/mlp with the shapes above less the layer axis
+
+    the encoder-decoder (whisper): two stacks in place of blocks/
+    enc_pos                     [F, D]          dec_pos  [max(P, max_seq), D]
+    ln_enc/{scale,bias}         [D]
+    enc_blocks/{ln1,attn,ln2,mlp}               [L_enc, ...] as blocks/
+    dec_blocks/{ln1,self_attn,ln2,cross_attn,ln3,mlp}  [L, ...] (attn shapes)
 
 ``load_checkpoint(dir)`` reads one step directory of the JAX package's
 checkpoint layout (``manifest.json`` + one ``leaf_*.npy`` per leaf, keys
@@ -69,12 +75,35 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
     return tree
 
 
+def _load_stack(stack: Dict[str, Any], blocks, where: str, t) -> None:
+    """One ``[L, ...]`` stack of block parameters into ``blocks`` (an
+    ``nn.ModuleList``): every group loads into the block module of its name,
+    the leaves flat under the stack (the mamba2 blocks') into the block
+    itself."""
+    n_layers = len(blocks)
+    groups = {k: v for k, v in stack.items() if isinstance(v, dict)}
+    flat = {k: v for k, v in stack.items() if not isinstance(v, dict)}
+    for name, leaf in [(f"{g}/{k}", v) for g, grp in groups.items()
+                       for k, v in grp.items()] + list(flat.items()):
+        if np.asarray(leaf).shape[0] != n_layers:
+            raise ValueError(
+                f"{where}/{name}: leading axis {np.asarray(leaf).shape[0]} "
+                f"!= n_layers {n_layers}")
+    for i, blk in enumerate(blocks):
+        for name, group in groups.items():
+            getattr(blk, name).load({k: t(np.asarray(v)[i])
+                                     for k, v in group.items()})
+        if flat:
+            blk.load({k: t(np.asarray(v)[i]) for k, v in flat.items()})
+
+
 def params_from_numpy(tree: Dict[str, Any], model) -> Any:
     """Load a JAX-layout parameter tree (see the module docstring) into
-    ``model`` (a ``repro_torch`` ``DecoderLM``, ``MoELM``, ``MambaLM`` or
-    ``ZambaLM``), in place; returns it. Every group under ``blocks`` loads
-    into the block module of its name, the leaves flat under ``blocks``
-    (the mamba2 blocks') into the block itself, and ``shared`` (the
+    ``model`` (a ``repro_torch`` ``DecoderLM``, ``MoELM``, ``MambaLM``,
+    ``ZambaLM`` or ``WhisperModel``), in place; returns it. Each stack
+    (``blocks``, or whisper's ``enc_blocks`` and ``dec_blocks``) loads
+    into the module list of its name, the positions tables (``enc_pos``,
+    ``dec_pos``) and ``ln_enc`` into the model's own, and ``shared`` (the
     hybrid's shared block) into ``model.shared``."""
     dev = model.device
 
@@ -83,22 +112,19 @@ def params_from_numpy(tree: Dict[str, Any], model) -> Any:
 
     model.embed.load({k: t(v) for k, v in tree["embed"].items()})
     model.ln_f.load({k: t(v) for k, v in tree["ln_f"].items()})
-    blocks = tree["blocks"]
-    n_layers = len(model.blocks)
-    groups = {k: v for k, v in blocks.items() if isinstance(v, dict)}
-    flat = {k: v for k, v in blocks.items() if not isinstance(v, dict)}
-    for name, leaf in [(f"{g}/{k}", v) for g, grp in groups.items()
-                       for k, v in grp.items()] + list(flat.items()):
-        if np.asarray(leaf).shape[0] != n_layers:
-            raise ValueError(
-                f"blocks/{name}: leading axis {np.asarray(leaf).shape[0]} "
-                f"!= n_layers {n_layers}")
-    for i, blk in enumerate(model.blocks):
-        for name, group in groups.items():
-            getattr(blk, name).load({k: t(np.asarray(v)[i])
-                                     for k, v in group.items()})
-        if flat:
-            blk.load({k: t(np.asarray(v)[i]) for k, v in flat.items()})
+    for name in ("blocks", "enc_blocks", "dec_blocks"):
+        if name in tree:
+            _load_stack(tree[name], getattr(model, name), name, t)
+    if "ln_enc" in tree:
+        model.ln_enc.load({k: t(v) for k, v in tree["ln_enc"].items()})
+    for name in ("enc_pos", "dec_pos"):
+        if name in tree:
+            own = getattr(model, name)
+            if tuple(np.shape(tree[name])) != tuple(own.shape):
+                raise ValueError(f"{name}: shape {np.shape(tree[name])} != "
+                                 f"{tuple(own.shape)}")
+            with torch.no_grad():
+                own.copy_(t(tree[name]))
     if "shared" in tree:
         for name, group in tree["shared"].items():
             getattr(model.shared, name).load(

@@ -308,9 +308,9 @@ def resolve_draft(spec: SpecConfig, *, vocab: Optional[int] = None,
     whose vocab matches the target's actual ``vocab`` (the full config
     first, then its reduced variant: a reduced target pairs with a reduced
     draft). Raises ``ValueError`` on a vocab mismatch or a draft family
-    that cannot be rolled back (hybrid), with the JAX package's messages,
-    and ``NotImplementedError`` for a draft arch not ported yet (encdec,
-    vlm)."""
+    that cannot be rolled back (hybrid, encdec), with the JAX package's
+    messages, and ``NotImplementedError`` for a draft arch not ported yet
+    (the vlm)."""
     from ..configs import get_config
 
     name = spec.draft_arch or arch_name

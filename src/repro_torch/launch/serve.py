@@ -20,8 +20,16 @@ the reduced test variant. An architecture the paged pool cannot serve (the
 sliding-window h2o-danube-3-4b; the MoE granite-moe-3b-a800m and
 qwen3-moe-235b-a22b, whose expert dispatch is staged and drains through
 K1; the SSM mamba2-130m and the hybrid zamba2-2.7b, whose cache holds a
-recurrent state a slot) runs on the lanes layout, which is direct-only:
-``--write-mode`` is downgraded to ``direct`` with a message.
+recurrent state a slot; the encoder-decoder whisper-medium) runs on the
+lanes layout, which is direct-only: ``--write-mode`` is downgraded to
+``direct`` with a message.
+
+A model that takes media (whisper-medium: audio frames ``[n_audio_frames,
+d_model]``) is given one entry a request: in ``--batched`` mode the
+synthetic workload's (``synthetic_requests(..., media_shape=...)``, the
+JAX package's values), otherwise one set of frames drawn with numpy from
+seed 2 for every prompt (the JAX launcher draws its set with
+``jax.random`` from key 2, so the two CLIs' frames differ).
 """
 from __future__ import annotations
 
@@ -32,13 +40,19 @@ import numpy as np
 import torch
 
 from ..data import synthetic_requests
+from ..models import media_spec, needs_media
 from ..models.sampling import SamplingParams
 from ..serve import Engine, EngineConfig, build_model_and_params
 from ..serve.scheduler import paged_capable
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(description=(
+        "Serve an architecture of the port. A model that takes media "
+        "(whisper-medium's audio frames) gets the synthetic workload's with "
+        "--batched (the JAX package's values), else one numpy draw from "
+        "seed 2 for every prompt: the JAX launcher draws its frames with "
+        "jax.random, so the two CLIs' media differ."))
     ap.add_argument("--arch", required=True)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a GPU) or cpu")
@@ -100,9 +114,11 @@ def main(argv=None) -> None:
         if torch.device(args.device).type == "cuda":
             torch.cuda.synchronize()
 
+    media_shape = media_spec(cfg, 1)[1:] if needs_media(cfg) else None
     if args.batched:
         queue = synthetic_requests(args.requests, args.prompt_len, cfg.vocab,
-                                   args.gen_len, params=sp)
+                                   args.gen_len, media_shape=media_shape,
+                                   params=sp)
         eng = Engine.from_config(EngineConfig(
             n_slots=args.slots, segment_len=args.segment_len,
             chunked=args.chunked, chunk_size=args.chunk_size, **common),
@@ -127,11 +143,16 @@ def main(argv=None) -> None:
     rng = np.random.RandomState(1)
     prompts = [rng.randint(0, cfg.vocab, size=args.prompt_len)
                for _ in range(args.batch)]
+    media = None
+    if media_shape is not None:
+        frames = np.random.RandomState(2).standard_normal(
+            media_shape).astype(np.float32)
+        media = [frames] * args.batch
     eng = Engine.from_config(EngineConfig(n_slots=args.batch, **common),
                              model)
     sync()
     t0 = time.perf_counter()
-    comps = eng.generate(prompts, sp)
+    comps = eng.generate(prompts, sp, media=media)
     sync()
     dt = time.perf_counter() - t0
     n_toks = sum(c.n_tokens for c in comps)

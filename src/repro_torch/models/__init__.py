@@ -1,10 +1,11 @@
-"""Port of repro/models/__init__.py: the dense, MoE, SSM and hybrid
-decoders and the sampler."""
-from .model import build_model
+"""Port of repro/models/__init__.py: the dense, MoE, SSM, hybrid and
+encoder-decoder models, the media helpers and the sampler."""
+from .model import build_model, media_spec, needs_media
 from .moe_lm import MoELM
 from .sampling import SamplingParams
 from .ssm_lm import MambaLM, ZambaLM
 from .transformer import DecoderLM
+from .whisper import WhisperModel
 
-__all__ = ["DecoderLM", "MambaLM", "MoELM", "SamplingParams", "ZambaLM",
-           "build_model"]
+__all__ = ["DecoderLM", "MambaLM", "MoELM", "SamplingParams", "WhisperModel",
+           "ZambaLM", "build_model", "media_spec", "needs_media"]

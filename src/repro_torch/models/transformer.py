@@ -117,8 +117,9 @@ def valid_mask(cfg: ModelConfig, pos: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# One layer's attention and MLP: the bodies DecoderLM runs for each layer and
-# ZambaLM for each application of its shared block. ``ln1`` / ``ln2`` and
+# One layer's attention and MLP: the bodies DecoderLM runs for each layer,
+# ZambaLM for each application of its shared block and WhisperModel (with
+# ``use_rope=False``) for its decoder's self-attention. ``ln1`` / ``ln2`` and
 # ``pa`` / ``pm`` are the block's norm, attention and MLP tensors in the
 # compute dtype; ``kc`` / ``vc`` the layer's K/V lanes [B, clen, Hkv, Dh]
 # ---------------------------------------------------------------------------
@@ -132,16 +133,17 @@ def dense_ffn(cfg: ModelConfig, ln2, pm, x: torch.Tensor) -> torch.Tensor:
 
 def attend_prefill(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
                    positions: torch.Tensor, kc: torch.Tensor,
-                   vc: torch.Tensor) -> torch.Tensor:
+                   vc: torch.Tensor, use_rope: bool = True) -> torch.Tensor:
     """``x`` plus the prompt's causal attention (``flash_attention``); the
     prompt's K/V written into the lanes in one dense slice. A prompt longer
     than the lanes (sliding window) keeps its last ``clen`` positions, each
-    at slot ``pos % clen``."""
+    at slot ``pos % clen``. ``use_rope=False``: learned positions (whisper's
+    decoder), no rotary."""
     s, clen = x.shape[1], kc.shape[1]
     hn = L.apply_norm(cfg, ln1, x)
     # q/k/v once: the values layers.attention would recompute
-    q = L.project_q(cfg, pa, hn, positions)
-    k, v = L.project_kv(cfg, pa, hn, positions)
+    q = L.project_q(cfg, pa, hn, positions, use_rope)
+    k, v = L.project_kv(cfg, pa, hn, positions if use_rope else None)
     for dst, kv in ((kc, k), (vc, v)):
         if s <= clen:
             dst[:, :s] = kv
@@ -153,14 +155,14 @@ def attend_prefill(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
 
 def attend_chunk(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
                  positions: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                 start_pos: int) -> torch.Tensor:
+                 start_pos: int, use_rope: bool = True) -> torch.Tensor:
     """``x`` plus a prompt chunk's attention over the lanes as they stand
     before the chunk plus its own keys (``chunk_attention``); then the
     chunk's K/V written (``write_chunk``)."""
     hn = L.apply_norm(cfg, ln1, x)
-    k_new, v_new = L.project_kv(cfg, pa, hn, positions)
+    k_new, v_new = L.project_kv(cfg, pa, hn, positions if use_rope else None)
     x = x + L.chunk_attention(cfg, pa, hn, positions, kc, vc, k_new, v_new,
-                              start_pos)
+                              start_pos, use_rope)
     L.write_chunk(kc, k_new, start_pos)
     L.write_chunk(vc, v_new, start_pos)
     return x
@@ -168,14 +170,16 @@ def attend_chunk(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
 
 def attend_decode(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
                   pos: torch.Tensor, kc: torch.Tensor, vc: torch.Tensor,
-                  plan, vmask: torch.Tensor) -> torch.Tensor:
+                  plan, vmask: torch.Tensor,
+                  use_rope: bool = True) -> torch.Tensor:
     """``x`` [B, 1, D] plus one decode step's attention: the new K/V row
     written at ``plan`` (``lane_write_plan``), then the lanes read through
     ``flash_decode`` under ``vmask``."""
     hn = L.apply_norm(cfg, ln1, x)
-    k_new, v_new = L.project_kv(cfg, pa, hn, pos[:, None])
+    k_new, v_new = L.project_kv(cfg, pa, hn,
+                                pos[:, None] if use_rope else None)
     write_lanes(kc, vc, k_new, v_new, plan)
-    return x + L.decode_attention(cfg, pa, hn, pos, kc, vc, vmask)
+    return x + L.decode_attention(cfg, pa, hn, pos, kc, vc, vmask, use_rope)
 
 
 class DecoderLM(nn.Module):

@@ -43,7 +43,9 @@ def build_model_and_params(arch: str, max_seq: int = 0, *, seed: int = 0,
                            reduced: bool = True, device="cuda"):
     """(cfg, model) for a registered architecture, weights initialised from
     ``seed`` on ``device``. The parameters live in the model (an
-    ``nn.Module``), so there is no separate params tree to return."""
+    ``nn.Module``), so there is no separate params tree to return.
+    ``max_seq`` sizes whisper's learned decoder positions, as the JAX
+    package's ``init(key, max_seq)`` does."""
     from ..configs import get_config
     from ..models import build_model
 
@@ -51,7 +53,7 @@ def build_model_and_params(arch: str, max_seq: int = 0, *, seed: int = 0,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    model = build_model(cfg, device=dev).init(seed)
+    model = build_model(cfg, device=dev, max_seq=max_seq).init(seed)
     return cfg, model
 
 
@@ -66,7 +68,8 @@ class EngineConfig:
     engine runs: ``"cuda"`` (the default) raises when CUDA is unavailable,
     ``"cpu"`` is for tests. ``kv_layout="auto"`` picks ``paged`` for the
     linear-addressed dense decoders and ``lanes`` for a sliding-window one
-    and for the MoE, SSM and hybrid families (direct writes only). ``chunked`` prefills in ``chunk_size``-token
+    and for the MoE, SSM, hybrid and encoder-decoder families (direct
+    writes only). ``chunked`` prefills in ``chunk_size``-token
     pieces (inside the segments on paged, at admission on lanes).
     ``memory=MemoryConfig(prefix_cache=True)`` (paged, chunked) shares
     cached prompt pages; ``MemoryConfig(host_tier=True)`` (paged) parks
@@ -224,7 +227,7 @@ class Engine:
         self.scheduler.reset(keep_cache=keep_cache)
 
     # ------------------------------------------------------------------
-    def _make_queue(self, prompts: Sequence, params):
+    def _make_queue(self, prompts: Sequence, params, media):
         from ..data.pipeline import RequestQueue
 
         n = len(prompts)
@@ -235,9 +238,12 @@ class Engine:
             if len(plist) != n:
                 raise ValueError(
                     f"{len(plist)} SamplingParams for {n} prompts")
+        mlist = [None] * n if media is None else list(media)
+        if len(mlist) != n:
+            raise ValueError(f"{len(mlist)} media entries for {n} prompts")
         q = RequestQueue()
-        for prompt, p in zip(prompts, plist):
-            q.submit(prompt,
+        for prompt, p, m in zip(prompts, plist, mlist):
+            q.submit(prompt, media=m,
                      params=p or self.cfg.default_params or SamplingParams())
         return q
 
@@ -265,11 +271,14 @@ class Engine:
     # ------------------------------------------------------------------
     def stream(self, prompts: Sequence, params: Union[
             SamplingParams, Sequence[Optional[SamplingParams]], None] = None,
+            media: Optional[Sequence] = None,
             max_segments: int = 100_000) -> Iterator[StreamEvent]:
         """Serve ``prompts`` and yield :class:`StreamEvent`s as segments
-        emit tokens. The final event for a request has ``done=True`` and its
-        :class:`Completion`."""
-        queue = self._make_queue(prompts, params)
+        emit tokens. ``media`` gives each prompt its stub frontend
+        embeddings (whisper's frames ``[n_audio_frames, d_model]``), one
+        entry a prompt. The final event for a request has ``done=True`` and
+        its :class:`Completion`."""
+        queue = self._make_queue(prompts, params, media)
         yield from self.serve_stream(queue, max_segments=max_segments)
 
     def serve_stream(self, queue, max_segments: int = 100_000,
@@ -322,11 +331,12 @@ class Engine:
     # ------------------------------------------------------------------
     def generate(self, prompts: Sequence, params: Union[
             SamplingParams, Sequence[Optional[SamplingParams]], None] = None,
-            ) -> List[Completion]:
-        """Serve ``prompts`` to completion; returns one :class:`Completion`
-        per prompt, in submission order."""
+            media: Optional[Sequence] = None) -> List[Completion]:
+        """Serve ``prompts`` (with their ``media``, one entry a prompt) to
+        completion; returns one :class:`Completion` per prompt, in
+        submission order."""
         done = {ev.req_id: ev.completion
-                for ev in self.stream(prompts, params) if ev.done}
+                for ev in self.stream(prompts, params, media) if ev.done}
         return [done[rid] for rid in sorted(done)]
 
     def serve(self, queue, max_segments: int = 100_000,

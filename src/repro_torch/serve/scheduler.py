@@ -12,11 +12,17 @@ layouts, as in the JAX package:
 * ``lanes`` (the sliding-window dense decoder; the MoE family, whose
   every layer dispatches its tokens to experts and drains them through K1
   in staged mode; the SSM and hybrid families, whose cache holds a
-  recurrent state a slot): one cache lane per slot in every leaf of
+  recurrent state a slot; the encoder-decoder family, whose cache adds the
+  cross K/V of ``n_audio_frames`` rows that admission writes once from the
+  request's media): one cache lane per slot in every leaf of
   ``model.init_cache(n_slots, max_seq)`` (batch on axis 1; KV lanes
   ring-addressed under SWA, read by the ``flash_decode`` kernel), direct
   writes only. The monitor's region is ``slot * max_pages + pos //
-  page_size``.
+  page_size`` (decode writes only land in the self-attention lanes).
+* **Media**: a request's ``media`` (stub frontend embeddings) go to a
+  model that takes them (``needs_media``), stacked per admission group;
+  under ``chunked`` an encoder-decoder gets them on its first chunk only.
+  A model that takes none ignores them, as in the JAX package.
 
 * **SlotState**: per-slot phase / token / position / done-flag /
   remaining-budget / key chain / request-id / sampling parameters / stop
@@ -135,6 +141,7 @@ from ..models import prng
 from ..models import sampling as SMP
 from ..models.sampling import SamplingParams, SlotParams
 from ..configs.base import DENSE
+from ..models.model import needs_media
 from ..models.transformer import DecoderLM, compute_dtype
 
 PHASE_PREFILL = 0
@@ -283,6 +290,8 @@ class BatchedServeEngine:
             # fp32 matrix products stay full fp32 (the default, stated)
             torch.backends.cuda.matmul.allow_tf32 = False
         self.layout = plan.layout
+        # the encoder-decoder family takes each request's media at admission
+        self._takes_media = needs_media(model.cfg)
         self._prefix_cache = plan.memory.prefix_cache
         self._host_tier = plan.memory.host_tier
         self._skip_limit = plan.memory.skip_ahead_limit
@@ -852,15 +861,23 @@ class BatchedServeEngine:
                 "cached_rows": cached_rows, "hashes": hashes,
                 "n_shared": len(shared)}
 
-    def _chunk_prefill_host(self, prompts: torch.Tensor, max_seq: int):
+    def _chunk_prefill_host(self, prompts: torch.Tensor, max_seq: int,
+                            **media):
         """Whole-prompt prefill in ``chunk_size``-token pieces through
-        ``model.chunk_prefill`` (the lanes layout under ``chunked``)."""
+        ``model.chunk_prefill`` (the lanes layout under ``chunked``). An
+        encoder-decoder (a model with ``encode``) is given the media on the
+        FIRST chunk only: the encoder runs once an admission group and later
+        chunks read its cross K/V from the cache (the JAX engine's
+        ``media_once``); a model that reads media in every chunk (the VLM's
+        gated cross layers) would be given them on each."""
         g, plen = prompts.shape
         cache = self.model.init_cache(g, max_seq)
+        media_once = hasattr(self.model, "encode")
         logits = None
         for s0 in range(0, plen, self.cfg.chunk_size):
+            kw = {} if (media_once and s0 > 0) else media
             logits, cache = self.model.chunk_prefill(
-                cache, prompts[:, s0:s0 + self.cfg.chunk_size], s0)
+                cache, prompts[:, s0:s0 + self.cfg.chunk_size], s0, **kw)
         return logits, cache
 
     def _set_slots(self, slots: List[int], reqs: List[Any], plist, *,
@@ -1099,6 +1116,12 @@ class BatchedServeEngine:
         prompts = torch.as_tensor(np.stack([r.prompt for r in reqs]),
                                   device=dev).long()
         slot_arr = torch.as_tensor(slots, device=dev).long()
+        # a model that takes media gets the group's stacked; the others
+        # ignore a request's media, as the JAX engine's models do
+        media = {}
+        if self._takes_media and reqs[0].media is not None:
+            media["media"] = torch.as_tensor(
+                np.stack([r.media for r in reqs]), device=dev)
 
         if self.layout == "paged":
             logits, pc = self.model.prefill(prompts, plen)
@@ -1124,9 +1147,11 @@ class BatchedServeEngine:
             # the group's cache overwrites the slots' lanes wholesale, every
             # leaf (KV lanes, recurrent states), and is freed right after
             if cfg.chunked:
-                logits, pc = self._chunk_prefill_host(prompts, cfg.max_seq)
+                logits, pc = self._chunk_prefill_host(prompts, cfg.max_seq,
+                                                      **media)
             else:
-                logits, pc = self.model.prefill(prompts, cfg.max_seq)
+                logits, pc = self.model.prefill(prompts, cfg.max_seq,
+                                                **media)
             for name, leaf in pc.items():
                 self.cache[name][:, slot_arr] = leaf
             del pc
@@ -1334,9 +1359,6 @@ class BatchedServeEngine:
                     f"request {req.req_id}: prompt_len+max_new "
                     f"{req.prompt_len + req.max_new} > max_seq "
                     f"{self.cfg.max_seq}")
-            if req.media is not None:
-                raise NotImplementedError(
-                    "not ported yet: requests with media")
             if self.pool is not None:
                 total = self._pages_needed(req.prompt_len, req.max_new)
                 if total > self.pool.n_blocks:

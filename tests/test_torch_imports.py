@@ -173,40 +173,52 @@ def test_chip_smoke_fails_without_a_gpu():
 
 
 def test_unported_archs_and_families_raise():
+    """The VLM (llama-3.2-vision-90b, the vlm family) is the one
+    architecture and family not ported yet."""
     from repro_torch.configs import ARCHS, get_config
-    from repro_torch.configs.base import ENCDEC
+    from repro_torch.configs.base import VLM
     from repro_torch.models import DecoderLM, build_model
     import dataclasses
     assert sorted(ARCHS) == ["granite-moe-3b-a800m", "h2o-danube-3-4b",
                              "mamba2-130m", "nemotron-4-15b", "qwen2-7b",
                              "qwen3-moe-235b-a22b", "stablelm-1.6b",
-                             "zamba2-2.7b"]
+                             "whisper-medium", "zamba2-2.7b"]
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("whisper-medium")
+        get_config("llama-3.2-vision-90b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
-    encdec = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
-                                 family=ENCDEC)
+    vlm = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              family=VLM, cross_attn_every=2)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(encdec, device="cpu")
+        build_model(vlm, device="cpu")
     # the dense class takes the dense family only
     with pytest.raises(NotImplementedError, match="not ported yet"):
         DecoderLM(get_config("granite-moe-3b-a800m").reduced(), device="cpu")
 
 
 def test_media_requests_still_not_ported():
-    """A request with media (the VLM / audio families) is refused at
-    admission; no ported family takes media."""
+    """Media requests are served for the encoder-decoder family; the VLM,
+    the other family that takes media, is still not ported. A request with
+    media to a model that takes none is served as without them, as the JAX
+    engine's models ignore them."""
     res = _run(
         "import numpy as np, pytest\n"
         "from repro_torch.data import RequestQueue\n"
+        "from repro_torch.models import needs_media\n"
         "from repro_torch.serve import Engine, EngineConfig\n"
         "eng = Engine.from_config(EngineConfig(max_seq=32, n_slots=2, "
         "arch='stablelm-1.6b', device='cpu'))\n"
-        "q = RequestQueue()\n"
-        "q.submit(np.arange(4), 4, media=np.zeros((2, 3), np.float32))\n"
+        "assert not needs_media(eng.model.cfg)\n"
+        "outs = []\n"
+        "for media in (np.zeros((2, 3), np.float32), None):\n"
+        "    q = RequestQueue()\n"
+        "    q.submit(np.arange(4), 4, media=media)\n"
+        "    outs.append(eng.serve(q)[0])\n"
+        "    eng.reset()\n"
+        "assert np.array_equal(*outs) and len(outs[0]) == 4\n"
         "with pytest.raises(NotImplementedError, match='not ported yet'):\n"
-        "    eng.serve(q)\n"
+        "    Engine.from_config(EngineConfig(max_seq=32, device='cpu', "
+        "arch='llama-3.2-vision-90b'))\n"
         "print('refused')\n")
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip().endswith("refused")

@@ -1,6 +1,6 @@
 """The SSM and hybrid engines against the JAX engine, and the twin of
 ``tests/test_config_matrix.py::test_batched_serve_smoke`` over the port's
-eight archs.
+nine archs.
 
 Reduced mamba2-130m and zamba2-2.7b with the JAX package's weights (carried
 across with ``params_from_numpy``), fp32 on the CPU, 3 requests over 2
@@ -32,7 +32,8 @@ from repro_torch.checkpoint import params_from_numpy
 from repro_torch.configs import ARCHS, get_config
 from repro_torch.data import synthetic_requests
 from repro_torch.distributed import ParallelConfig
-from repro_torch.models import MambaLM, ZambaLM, build_model
+from repro_torch.models import (MambaLM, ZambaLM, build_model, media_spec,
+                                needs_media)
 from repro_torch.serve import (Engine, EngineConfig, MemoryConfig,
                                SamplingParams, SpecConfig)
 
@@ -164,9 +165,11 @@ def test_batched_serve_smoke(arch):
     over every arch the port registers: the tiny variant serves 3 requests
     over 2 slots through the continuous-batching engine (admission AND
     retirement), dense non-SWA archs from the paged pool with adaptive
-    routing, every other family from lanes with direct writes."""
+    routing, every other family from lanes with direct writes; whisper's
+    requests carry their frames."""
     cfg = get_config(arch).reduced()
-    model = build_model(cfg, device="cpu").init(0)
+    model = build_model(cfg, device="cpu", max_seq=MAX_SEQ).init(0)
+    media_shape = media_spec(cfg, 1)[1:] if needs_media(cfg) else None
     layout = ("paged" if cfg.family == "dense" and not cfg.sliding_window
               else "lanes")
     eng = Engine.from_config(EngineConfig(
@@ -174,7 +177,8 @@ def test_batched_serve_smoke(arch):
         path="adaptive" if layout == "paged" else "direct",
         ring_size=2, hot_threshold=2, device="cpu"), model)
     assert eng.layout == layout
-    out = eng.serve(synthetic_requests(3, 8, cfg.vocab, MAX_NEW, seed=7))
+    out = eng.serve(synthetic_requests(3, 8, cfg.vocab, MAX_NEW, seed=7,
+                                       media_shape=media_shape))
     assert set(out) == {0, 1, 2}
     for toks in out.values():
         assert toks.shape == (MAX_NEW,) and toks.dtype == np.int32
