@@ -67,15 +67,28 @@ line. Phases, each failing the run on any exception or mismatch:
            the non-causal cross read of S = 64 and 37 queries against 1500
            frames; ``q[8,16,64]`` over 1500 frames all valid and over 448
            lanes with ragged masks), fp32 and bf16, checked and each timed
-           (``whisper_shape``)
-  engine   stablelm-1.6b at full width (24 layers, bf16, random weights from
-           a seed) serves 16 requests through ``Engine.from_config`` on the
-           paged layout; the launch counts of staged_scatter,
+           (``whisper_shape``); flash_attention and flash_decode at
+           llama-3.2-vision-90b's shapes (64 heads of 128 over 8 KV heads:
+           the causal prompt ``q[2,64,480,128]``, a 64-token chunk at its
+           end, the non-causal cross reads of S = 64, 37 and 480 queries
+           against 1601 image keys; ``q[8,64,128]`` over 1601 image keys all
+           valid and over 1024 lanes with ragged masks), fp32 and bf16,
+           checked and each timed (``vlm_shape``); staged_scatter at the
+           lanes ring's drain (each layer's K and V lanes a ``[8 * 1024,
+           2048]`` plane, 64 staged entries, full and half full)
+           ``torch.equal`` to its plain version, ``staged.drain_ring`` on
+           the card equal to the CPU's, and flash_decode over cache ∪ ring
+           (``q[8,32,64]`` over 1032 rows under the overlay's mask),
+           checked and timed (``lanes_ring_shape``)
+  engine   stablelm-1.6b at full width (bf16, random weights from a seed),
+           cut to 12 of its 24 layers (``SLICE_LAYERS``, as engine_sharded
+           and engine_chunked), serves 16 requests through
+           ``Engine.from_config`` on the paged layout; the launch counts of staged_scatter,
            flash_decode_paged and flash_attention must be non-zero
   engine_sharded  the engine's configuration with ``attention='fused'``
            on a tp-4 virtual mesh of the card (``ParallelConfig.tensor(4)``,
            ``REPRO_TORCH_VIRTUAL_DEVICES``): the pool and ring split on the
-           head axis ([24, n_blocks+1, 16, 8, 64] a shard); streams, stats
+           head axis ([12, n_blocks+1, 16, 8, 64] a shard); streams, stats
            and path counts equal the engine phase's, K1 and the sharded K2
            launched once per device per drain or read (as often as the
            engine phase's K1 and K2), K2 alone never; a decode segment
@@ -87,7 +100,7 @@ line. Phases, each failing the run on any exception or mismatch:
            prefilled inside mixed-phase segments; staged_scatter and
            flash_decode_paged launched, flash_attention never; every prompt
            row counted as a prefill write; a mixed segment profiled
-  engine_prefix  the chunked slice, cut to 8 of its 24 layers, with the
+  engine_prefix  the chunked slice, cut to 4 of its 24 layers, with the
            prefix cache: 16 requests
            opening with the same 1024 tokens, cold on a fresh engine, warm
            (new suffixes: each takes its 1024 rows from the cache) and
@@ -98,7 +111,7 @@ line. Phases, each failing the run on any exception or mismatch:
            on the staged path the cold and warm streams held equal to the
            engine's without the cache (exact by construction: see the
            phase); TTFT cold / warm / repeat and mixed-step device time
-  engine_host_tier  the slice, cut to 8 of its 24 layers, on the staged
+  engine_host_tier  the slice, cut to 4 of its 24 layers, on the staged
            path over a 320-block pool
            with the host tier (16 requests of 512-1792 tokens): blocking,
            chunked, and chunked with the prefix cache too, each against an
@@ -113,14 +126,14 @@ line. Phases, each failing the run on any exception or mismatch:
            and the CPU (differing tokens counted, greedy held equal);
            ``filtered`` twice on the card identical; each mode's device
            time per call
-  engine_sampled  the slice, cut to 8 of its 24 layers, serving 16
+  engine_sampled  the slice, cut to 4 of its 24 layers, serving 16
            requests with mixed sampling
            parameters (greedy, T = 0.8, top-k 40, top-p 0.9, explicit
            seeds), blocking and chunked at 16: a repeat run identical, an
            all-(T = 1, top_k = 1) run equal to an all-greedy run; a decode
            step with the mix against a greedy one (device ms, device
            operations, tok/s)
-  engine_spec  the slice, cut to 8 of its 24 layers, with
+  engine_spec  the slice, cut to 4 of its 24 layers, with
            ``SpecConfig(enabled=True, k=4)`` (self-draft) serving
            engine_sampled's requests: adaptive blocking greedy,
            staged chunked (chunks of 16) greedy, adaptive blocking with
@@ -141,8 +154,8 @@ line. Phases, each failing the run on any exception or mismatch:
            every slot; each resume's position, key and last token equal
            what was saved and its blocks read back bit-equal; streams
            against a FIFO run reported
-  lanes    h2o-danube-3-4b at full width (24 layers, bf16, sliding window
-           4096) serves 12 requests with prompts up to 4608 tokens on the
+  lanes    h2o-danube-3-4b at full width (bf16, sliding window 4096), cut
+           to 12 of its 24 layers (``LANES_LAYERS``), serves 12 requests with prompts up to 4608 tokens on the
            lanes layout; flash_attention's and flash_decode's launch counts
            must be non-zero
   lanes_chunked  the same model with ``chunked=True, chunk_size=512``:
@@ -234,6 +247,34 @@ line. Phases, each failing the run on any exception or mismatch:
            engine on the card and the same weights on the CPU (plain
            versions) give identical greedy streams, blocking and chunked
            (blocking against chunked on the card reported)
+  engine_vlm  llama-3.2-vision-90b at full width (d_model 8192, 64 heads
+           of 128 over 8 KV heads, d_ff 28672, bf16, random weights from
+           seed 0, the cross gates nonzero from seed 1), cut to 2 of its 20
+           groups (``VLM_GROUPS``: 8 self and 2 cross layers, what fits the
+           card), max_seq 1024, serves 16 requests, each with its own image
+           embeddings [1601, 8192], of 16-480 tokens, 32 new tokens each, on
+           the lanes layout, direct writes, blocking and chunked at 64 (the
+           media on every chunk): the same checks as engine_encdec,
+           flash_attention launched 10 x the prefill and chunk calls,
+           flash_decode 10 x the decode calls, nothing else; tok/s, TTFT,
+           peak memory, blocking against chunked, a decode segment's profile
+           with the cross reads' share, the cross K/V projection's device ms
+           a chunk
+  parity_vlm  the VLM's kernel geometry (head_dim 128, GQA group 8, 1601
+           image tokens, 2 groups of 5 layers) at d_model 1024, fp32, gates
+           from a seed: the engine on the card and the same weights on the
+           CPU give identical greedy streams, blocking and chunked at 64
+  engine_ring_lanes  ``ServeEngine`` on stablelm-1.6b at full width (24
+           layers, bf16) over the dense lanes cache with its staging ring:
+           8 prompts of 512 tokens, 128 new tokens, max_seq 1024, a ring of
+           8, direct / staged / adaptive, each through ``decode`` and
+           ``decode_reference``: equal tokens and stats; flash_attention 24
+           launches, flash_decode 24 a step, staged_scatter one a step and
+           one for the last drain on the ring modes (the gated drain),
+           every write staged in staged mode; the card equal to the CPU in
+           fp32 at 2 layers (conflict-forced drains); each mode's device ms
+           a step, drains, the concatenation's share of a step (its
+           ``torch.cat`` kernels in the step's trace)
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
@@ -275,7 +316,8 @@ from repro_torch.core import (AlwaysOffload, AlwaysUnload,  # noqa: E402
                               RemoteWriteEngine, make_umtt, make_write_batch,
                               register, sweep_point, zipf_regions)
 from repro_torch.kernels.cms import cms_hash  # noqa: E402
-from repro_torch.data import synthetic_requests  # noqa: E402
+from repro_torch.data import (RequestQueue,  # noqa: E402
+                              synthetic_requests)
 from repro_torch.distributed import (VIRTUAL_DEVICES_ENV, Mesh,  # noqa: E402
                                      NamedSharding, ParallelConfig,
                                      ShardedTensor)
@@ -307,8 +349,11 @@ from repro_torch.models import mamba2 as MAMBA  # noqa: E402
 from repro_torch.kvcache import paged as PG  # noqa: E402
 from repro_torch.models import prng  # noqa: E402
 from repro_torch.models import sampling as SMP  # noqa: E402
-from repro_torch.serve import (Engine, EngineConfig,  # noqa: E402
-                               MemoryConfig, SamplingParams, SpecConfig)
+from repro_torch.kvcache import staged as ST  # noqa: E402
+from repro_torch.models import layers as LAYERS  # noqa: E402
+from repro_torch.serve import (WRITE_MODES, Engine,  # noqa: E402
+                               EngineConfig, MemoryConfig, SamplingParams,
+                               ServeConfig, ServeEngine, SpecConfig)
 from repro_torch.serve.traffic import (MarkovModulatedArrivals,  # noqa: E402
                                        RequestClass, generate_workload,
                                        run_loadtest)
@@ -326,6 +371,12 @@ SLICE = dict(arch="stablelm-1.6b", reduced=False, max_seq=2048, n_slots=8,
              page_size=16, segment_len=16, ring_size=8, path="adaptive")
 N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, [128, 256, 384, 512], 64
 ENGINE_RUNS = 3  # the timed serve is repeated so its spread is seen
+# engine, engine_sharded (both arms) and engine_chunked run the slice at
+# this depth (of its 24 layers), the three at one depth because they compare
+# streams: the archive proof of the VLM and lanes-ring phases took 803.7 s on
+# an H100 80GB HBM3 at 700 W with them at 24 (149.4 s together); every check
+# is kept
+SLICE_LAYERS = 12
 # chunked prefill on the paged slice: prompt tokens per mixed-phase step
 CHUNK = 16
 # the memory tier on the paged slice. The prefix cache: 16 requests opening
@@ -359,6 +410,10 @@ LANES = dict(arch="h2o-danube-3-4b", reduced=False, max_seq=6144, n_slots=8,
              segment_len=16, path="direct")
 LANES_REQUESTS, LANES_PROMPTS, LANES_NEW = 12, [512, 2048, 4608], 64
 LANES_GROUP = 2  # 4608-token prompts per prefill call (the first admission's)
+# the lanes phase runs h2o at this depth (of its 24 layers) to keep the
+# script under 800 of its 1200 s once the VLM and lanes-ring phases came
+# (about 150 s on an H100 80GB HBM3 at 700 W): every check is kept
+LANES_LAYERS = 12
 # chunked prefill on the lanes slice: one prompt inside the window, one past
 LANES_CHUNK, LANES_CHUNKED_PROMPTS, LANES_CHUNKED_NEW = 512, [2048, 4608], 16
 
@@ -404,12 +459,35 @@ ENCDEC = dict(arch="whisper-medium", reduced=False, max_seq=448, n_slots=8,
               segment_len=16, path="direct")
 ENCDEC_REQUESTS, ENCDEC_PROMPTS, ENCDEC_NEW, ENCDEC_CHUNK = \
     16, [4, 32, 96, 224], 32, 64
+# the VLM family at full width (llama-3.2-vision-90b: d_model 8192, 64 heads
+# of 128 over 8 KV heads, d_ff 28672, 1601 image tokens, bf16), cut to 2 of
+# its 20 groups (8 self + 2 cross layers): its fp32 masters and the bf16
+# copy kept beside them take about 5.1 GB a layer and 8.4 GB of embedding
+# and head, so 2 groups come to about 60 GB and 3 to about 86 GB, past the
+# card's 80 GB. On the lanes layout, direct writes, max_seq 1024: visual
+# question answering, 16 requests, each with its own embeddings [1601, 8192]
+# (one 560x560 tile), text prompts of 16-480 tokens, 32 new tokens each, 8
+# slots; chunked at 64. The gates are drawn from a seed (nonzero: at zero
+# the cross layers would add nothing)
+VLM = dict(arch="llama-3.2-vision-90b", reduced=False, max_seq=1024,
+           n_slots=8, segment_len=16, path="direct")
+VLM_GROUPS = 2
+VLM_REQUESTS, VLM_PROMPTS, VLM_NEW, VLM_CHUNK = 16, [16, 64, 192, 480], 32, 64
+# parity_vlm: the VLM's kernel geometry (head_dim 128, GQA group 8, 1601
+# image tokens, 2 groups of 5) at a width a CPU serves in seconds in fp32
+VLM_PARITY_WIDTH = dict(d_model=1024, n_heads=8, n_kv_heads=1, d_ff=3584)
+# the staging ring on the lanes cache, through ServeEngine: stablelm-1.6b at
+# full width (24 layers, bf16), 8 sequences of 512-token prompts, 128 new
+# tokens, max_seq 1024, ring 8, pages of 64, hot threshold 4
+RING_LANES = dict(arch="stablelm-1.6b", batch=8, prompt=512, new=128,
+                  max_seq=1024, ring_size=8, page_size=64, hot_threshold=4)
 # the memory tier's two phases, engine_sampled and engine_spec run the slice
 # at this depth (of its 24 layers) to keep the script under 800 of its
 # 1200 s (on an H100 80GB HBM3 at 700 W it took 817 s with engine_sampled
 # at 24 layers, 807 s with engine_spec at 24, 731.5 s with all four at 12
-# before the SSM and hybrid phases added about 90 s): every check is kept
-MEMORY_LAYERS = 8
+# before the SSM and hybrid phases added about 90 s; 8 from PR 25, 4 since
+# the VLM and lanes-ring phases added about 150 s): every check is kept
+MEMORY_LAYERS = 4
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
 WRITE = dict(log2_regions=20, region_elems=1024, batches=64, batch=4096,
@@ -2842,6 +2920,204 @@ def time_whisper_shapes():
     return k3, k4
 
 
+def _vlm_k3_inputs(gen, dtype, s, t):
+    """K3 at llama-3.2-vision-90b's calls: 2 requests an admission group, 64
+    heads of 128 over 8 KV heads (GQA group 8), ``[B, S, H, D]`` tensors
+    seen transposed. The prompt: ``s = t`` tokens, causal; a chunk: ``s``
+    queries at the end of ``t`` keys, causal; the cross read: ``s`` text
+    queries against the ``t`` = 1601 image tokens' K/V, non-causal (1601 =
+    25 x 64 + 1: the last 64-key tile holds one key)."""
+    c = get_config(VLM["arch"])
+    return _k3_inputs(gen, dtype, 2, c.n_heads, c.n_kv_heads, s, t,
+                      c.resolved_head_dim)
+
+
+def _vlm_k4_inputs(gen, t, all_valid):
+    """K4 at the VLM's decode step: ``q[8, 64, 128]`` (GQA group 8: 16 rows
+    a KV head with padding) over ``k/v[8, t, 8, 128]`` bf16. The cross
+    read: t = 1601 image tokens, every key valid; the self read: t =
+    max_seq 1024, slot i live up to a ragged position (a prompt of 16-480
+    tokens plus up to 31 generated)."""
+    c = get_config(VLM["arch"])
+    b = VLM["n_slots"]
+    q, k, v, _ = _k4_inputs(gen, torch.bfloat16, b, c.n_heads, c.n_kv_heads,
+                            t, c.resolved_head_dim)
+    if all_valid:
+        return q, k, v, torch.ones((b, t), dtype=torch.bool, device=DEV)
+    pos = (torch.tensor(VLM_PROMPTS * 2, device=DEV) + torch.randint(
+        0, VLM_NEW, (b,), generator=gen, device=DEV)).clamp(max=t - 1)
+    return q, k, v, torch.arange(t, device=DEV)[None] <= pos[:, None]
+
+
+# (tag, S, T, causal): the largest prompt (2 x 480 tokens a prefill call),
+# a 64-token chunk at the end of it, and the cross reads of a 64-token chunk,
+# a ragged 37 queries and the whole 480-token prompt against 1601 image keys
+VLM_K3 = (("prompt", 480, 480, True), ("chunk", 64, 480, True),
+          ("cross_s64", 64, 1601, False), ("cross_s37", 37, 1601, False),
+          ("cross_s480", 480, 1601, False))
+VLM_K4 = (("cross_t1601", 1601, True), ("self_t1024", 1024, False))
+
+
+def check_vlm_shapes(gen):
+    """K3 at the VLM's shapes (``VLM_K3``) and K4 at its decode reads
+    (``VLM_K4``): fp32 within TOL_F32 of the plain version, bf16 by
+    ``held_bf16`` against the plain version in fp32."""
+    out = {f"flash_attention_{tag}": _check_k3_at(
+        f"vlm {tag}", _vlm_k3_inputs(gen, torch.float32, s, t), causal)
+        for tag, s, t, causal in VLM_K3}
+    for tag, t, all_valid in VLM_K4:
+        out[f"flash_decode_{tag}"] = _check_k4_at(
+            f"vlm {tag}", _vlm_k4_inputs(gen, t, all_valid))
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_vlm_shapes():
+    """K3 and K4 timed at every ``check_vlm_shapes`` shape beside their
+    bounds and one library call (SDPA: causal for the prompt and chunk, no
+    mask for the cross reads, GQA by ``enable_gqa``; a ``[B,1,1,T]`` mask
+    for K4). Returns ({tag: K3 timing}, {tag: K4 timing})."""
+    k3 = {tag: _k3_timed(f"flash_attention vlm {tag}",
+                         _vlm_k3_inputs(timed_gen(180 + i), torch.bfloat16,
+                                        s, t), causal,
+                         f"{'causal' if causal else 'non-causal'}, GQA "
+                         f"group 8")
+          for i, (tag, s, t, causal) in enumerate(VLM_K3)}
+    k4 = {tag: _k4_timed(f"flash_decode vlm {tag}",
+                         _vlm_k4_inputs(timed_gen(186 + i), t, all_valid))
+          for i, (tag, t, all_valid) in enumerate(VLM_K4)}
+    torch.cuda.empty_cache()
+    return k3, k4
+
+
+def _ring_lanes_cache(gen, fill, dtype=torch.bfloat16):
+    """A lanes cache with a staging ring as ``ServeEngine`` holds it on
+    the slice's model (``RING_LANES``: 24 layers, 8 sequences, 1024 slots, 32
+    heads of 64, a ring of 8) after ``fill`` staged steps: ring column j of
+    sequence b staged for slot ``pos_b + j`` (``pos_b`` a prompt of 512 plus
+    up to 100 generated), sequence 3 direct at every other column (its
+    entry -1: not live)."""
+    c = get_config(RING_LANES["arch"])
+    l, b, s = c.n_layers, RING_LANES["batch"], RING_LANES["max_seq"]
+    r, h, d = RING_LANES["ring_size"], c.n_kv_heads, c.resolved_head_dim
+    cache = {n: torch.randn((l, b, s, h, d), generator=gen, device=DEV)
+             .to(dtype) for n in ("k", "v")}
+    cache = ST.add_ring(cache, r)
+    for n in ("ring_k", "ring_v"):
+        cache[n].copy_(torch.randn(cache[n].shape, generator=gen, device=DEV))
+    pos = RING_LANES["prompt"] + torch.randint(0, 100, (b, 1), generator=gen,
+                                               device=DEV)
+    slot = pos + torch.arange(r, device=DEV)[None]
+    slot[3, 1::2] = -1
+    cache["ring_slot"].copy_(torch.where(
+        torch.arange(r, device=DEV)[None] < fill, slot, -1))
+    cache["ring_fill"] = torch.tensor(fill, device=DEV)
+    return cache, pos[:, 0]
+
+
+def check_ring_lanes_shapes(gen):
+    """The lanes ring's drain (K1) ``torch.equal`` to its plain version at
+    the slice's shape, the ring full (one sequence with entries not live)
+    and half full, int64 rows; ``staged.drain_ring`` on the card equal to
+    the same drain on the CPU copy; K4 over cache ∪ ring (``q[8, 32, 64]``
+    over ``k/v[8, 1024 + 8, 32, 64]``, the overlay's mask): fp32 within
+    TOL_F32, bf16 by ``held_bf16``."""
+    out = {}
+    for fill in (RING_LANES["ring_size"], RING_LANES["ring_size"] // 2):
+        cache, _ = _ring_lanes_cache(gen, fill)
+        planes, rows, ok = ST.drain_plan(cache)
+        want = [(d.clone(), st) for d, st in planes]
+        staged_scatter_planes_ref(want, rows, ok)
+        staged_scatter_planes(planes, rows, ok)
+        torch.cuda.synchronize()
+        for (got, _), (w, _) in zip(planes, want):
+            if not torch.equal(got, w):
+                raise AssertionError(f"staged_scatter lanes ring drain "
+                                     f"mismatch, fill {fill}")
+        del want
+        cpu = {n: x.cpu() for n, x in cache.items()}
+        ST.drain_ring(cache)
+        ST.drain_ring(cpu)
+        for n in cpu:
+            if not torch.equal(cache[n].cpu(), cpu[n]):
+                raise AssertionError(f"staged.drain_ring card != CPU: {n}")
+        out[f"staged_scatter_fill{fill}"] = dict(
+            planes=[list(p[0].shape) for p in planes],
+            staging=list(planes[0][1].shape), valid_rows=int(ok.sum()),
+            rows="int64", exact=True, drain_ring_card_equals_cpu=True)
+        del cache, cpu, planes
+    out["flash_decode_cache_ring"] = _check_k4_at(
+        "lanes cache ∪ ring", _ring_lanes_k4_inputs(gen))
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ring_lanes_k4_inputs(gen):
+    """K4 as the ring's decode step reads: ``q[8, 32, 64]`` over the
+    concatenation ``k/v[8, 1024 + 8, 32, 64]`` bf16 under the overlay's
+    mask: cache slots up to the position live but for the last 8, which
+    sit in the ring, and every ring column live."""
+    c = get_config(RING_LANES["arch"])
+    b, s, r = RING_LANES["batch"], RING_LANES["max_seq"], \
+        RING_LANES["ring_size"]
+    q, k, v, _ = _k4_inputs(gen, torch.bfloat16, b, c.n_heads, c.n_kv_heads,
+                            s + r, c.resolved_head_dim)
+    pos = RING_LANES["prompt"] + torch.randint(
+        r, RING_LANES["new"], (b, 1), generator=gen, device=DEV)
+    slot = torch.arange(s, device=DEV)[None]
+    cache_ok = (slot <= pos) & (slot <= pos - r)
+    mask = torch.cat([cache_ok, torch.ones((b, r), dtype=torch.bool,
+                                           device=DEV)], dim=1)
+    return q, k, v, mask
+
+
+def time_ring_lanes_shapes():
+    """K1 at the lanes ring's drain (the full ring: 64 entries, 63 live at
+    most, K and V of 24 layers in one launch), timed cold as ``time_k1``
+    does (each call the next of ``cold_sets`` sets of staging planes and
+    rows, the caches shared) against its plain version and two
+    ``index_copy_`` calls; K4 over cache ∪ ring against SDPA with the mask.
+    Returns (K1 timing, K4 timing)."""
+    gen = timed_gen(190)
+    cache, _ = _ring_lanes_cache(gen, RING_LANES["ring_size"])
+    planes, rows, ok = ST.drain_plan(cache)
+    (l, _, w), n = planes[0][0].shape, rows.shape[0]
+    n_valid = int(ok.sum())
+    routing = n * (8 + 1)
+    nbytes = 2 * 2 * n_valid * w * 2 * l + routing
+    # each set its own staging planes and its slots 8 further on (the next
+    # ring's worth of positions), so its destination rows differ too
+    sets = [([(d, torch.randn(st.shape, generator=gen, device=DEV)
+               .to(st.dtype)) for d, st in planes],
+             torch.where(ok, rows + 8 * i, rows))
+            for i in range(cold_sets(nbytes))]
+    sel = [([(d, st[:, ok]) for d, st in ps], rr[ok]) for ps, rr in sets]
+
+    def library(planes_, rows_):
+        for dest, staging in planes_:
+            dest.index_copy_(1, rows_, staging)
+
+    kernel = rotating(sets, lambda p, rr: staged_scatter_planes(p, rr, ok))
+    t = timings("staged_scatter lanes ring", kernel,
+                rotating(sets, lambda p, rr: staged_scatter_planes_ref(
+                    p, rr, ok)),
+                rotating(sel, library))
+    ops = one_device_op(kernel, "staged_scatter lanes ring drain, device ops",
+                        "staged_scatter")
+    k1 = dict(**t, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+              bound_by="bytes", library_of="two index_copy_ calls over the "
+                                          "live rows, one a plane",
+              device_op=ops, cold_sets=len(sets),
+              shape=f"K and V: dest[{l},{planes[0][0].shape[1]},{w}] "
+                    f"staging[{l},{n},{w}] bf16, {n_valid} valid int64 rows "
+                    f"of {n}, one launch, cold")
+    del cache, planes, sets, sel
+    torch.cuda.empty_cache()
+    k4 = _k4_timed("flash_decode lanes cache ∪ ring",
+                   _ring_lanes_k4_inputs(timed_gen(191)))
+    return k1, k4
+
+
 def timed_gen(seed):
     return torch.Generator(device=DEV).manual_seed(seed)
 
@@ -2887,6 +3163,13 @@ def phase_kernels():
     # K3 and K4 at whisper-medium's encoder, cross and decode shapes
     whisper_checks = check_whisper_shapes(timed_gen(140))
     k3_t["whisper_shape"], k4_t["whisper_shape"] = time_whisper_shapes()
+    # K3 and K4 at llama-3.2-vision-90b's prompt, chunk, cross and decode
+    # shapes; K1 and K4 at the lanes ring's drain and cache ∪ ring read
+    vlm_checks = check_vlm_shapes(timed_gen(170))
+    k3_t["vlm_shape"], k4_t["vlm_shape"] = time_vlm_shapes()
+    ring_checks = check_ring_lanes_shapes(timed_gen(175))
+    k1_t["lanes_ring_shape"], k4_t["lanes_ring_shape"] = \
+        time_ring_lanes_shapes()
     say("cms_monitor_step", **step_t)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
@@ -2940,7 +3223,8 @@ def phase_kernels():
         lru_scan_way_cases=lru_ways,
         lru_scan_equal=True, lru_scan_shape=lru_t.pop("shape"),
         moe_shapes=moe_checks, zamba_shapes=zamba_checks,
-        whisper_shapes=whisper_checks)
+        whisper_shapes=whisper_checks, vlm_shapes=vlm_checks,
+        lanes_ring_shapes=ring_checks)
     # the kernels line: the write engine's sketch (depth 4, k 16) at one
     # engine batch; all four timed sizes under "sizes"
     cms_main = CMS_TIMED.index((4, 16, 4096))
@@ -3050,9 +3334,9 @@ def _check_slice_streams(outputs, comps, stats, cfg):
 
 
 def phase_engine(kernels):
-    cfg = get_config(SLICE["arch"])
     t0 = time.perf_counter()
-    eng = Engine.from_config(EngineConfig(**SLICE))
+    cfg, model = _slice_model(SLICE_LAYERS)
+    eng = Engine.from_config(EngineConfig(**SLICE), model)
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     run = _serve_timed(eng, cfg, NEW_TOKENS, ENGINE_RUNS)
@@ -3079,9 +3363,9 @@ def phase_engine_chunked(kernels, blocking):
     Three timed serves; each request's stream is compared with the blocking
     engine's (reported, not held: in bf16 K2 over chunks and K3 over the
     prompt round differently)."""
-    cfg = get_config(SLICE["arch"])
+    cfg, model = _slice_model(SLICE_LAYERS)
     shape = dict(SLICE, chunked=True, chunk_size=CHUNK)
-    eng = Engine.from_config(EngineConfig(**shape))
+    eng = Engine.from_config(EngineConfig(**shape), model)
     run = _serve_timed(eng, cfg, NEW_TOKENS, ENGINE_RUNS)
     outputs, comps, counts, stats = (run["outputs"], run["comps"],
                                      run["counts"], run["stats"])
@@ -3238,12 +3522,12 @@ def phase_engine_sharded(kernels, blocking):
     mesh is one device: as often as the engine phase's K1 and K2), K2 never
     alone, K3 as often. One decode segment profiled against the engine
     phase's. Then the memory arm (``_sharded_memory_arm``)."""
-    cfg = get_config(SLICE["arch"])
+    cfg, model = _slice_model(SLICE_LAYERS)
     tp = SHARDED_TP
     shape = dict(SLICE, attention="fused")
     with virtual_devices(tp):
         eng = Engine.from_config(EngineConfig(
-            **shape, parallel=ParallelConfig.tensor(tp)))
+            **shape, parallel=ParallelConfig.tensor(tp)), model)
     sch = eng.scheduler
     run = _serve_timed(eng, cfg, NEW_TOKENS, 1)
     problems = _placement_problems(sch, tp, f"tp {tp}")
@@ -3273,7 +3557,6 @@ def phase_engine_sharded(kernels, blocking):
     profile = engine_profile(eng, cfg, SLICE, PROMPT_LENS)
     del eng, sch
     torch.cuda.empty_cache()
-    _, model = _slice_model()
     mem, found = _sharded_memory_arm(cfg, model)
     problems += found
     sharded_row["launches_memory_arm"] = mem["sharded"]["launches"][
@@ -4319,9 +4602,11 @@ def phase_lanes(kernels):
     """The sliding-window model on the lanes layout: 12 requests, prompts of
     512 / 2048 / 4608 tokens (the longest past the 4096 window), 64 new
     tokens each, three timed serves in turn after an uncounted warm-up."""
-    cfg = get_config(LANES["arch"])
+    cfg = dataclasses.replace(get_config(LANES["arch"]),
+                              n_layers=LANES_LAYERS)
     t0 = time.perf_counter()
-    eng = Engine.from_config(EngineConfig(**LANES))
+    eng = Engine.from_config(EngineConfig(**LANES),
+                             build_model(cfg, device=DEV).init(0))
     torch.cuda.synchronize()
     t_build = time.perf_counter() - t0
     assert eng.layout == "lanes" and eng.attention == "reference", (
@@ -5294,11 +5579,20 @@ def _lanes_family_runs(kernels, model, shape, traffic, want, tag,
     cfg = model.cfg
     prompts, new = traffic["prompts"], traffic["new"]
     media_shape = media_spec(cfg, 1)[1:] if needs_media(cfg) else None
+    # the workload's requests, media included, made once (hashing the VLM's
+    # 16 x 1601 x 8192 media takes the host seconds); each serve submits
+    # them anew (fresh arrival stamps) with its own budget: the values
+    # ``synthetic_requests`` gives for that budget
+    made = synthetic_requests(traffic["requests"], prompts, cfg.vocab, new,
+                              media_shape=media_shape)
+    template = [made.pop() for _ in range(len(made))]
 
     def queue(n, max_new):
-        return synthetic_requests(n, prompts, cfg.vocab, max_new,
-                                  media_shape=media_shape,
-                                  params=SamplingParams(max_tokens=max_new))
+        q = RequestQueue()
+        for r in template[:n]:
+            q.submit(r.prompt, media=r.media,
+                     params=SamplingParams(max_tokens=max_new))
+        return q
 
     runs, problems, profile = {}, [], None
     for name, chunked in (("blocking", False), ("chunked", True)):
@@ -5628,6 +5922,324 @@ def phase_parity_encdec():
                                                  outs["cuda"]))
 
 
+# ---------------------------------------------------------------------------
+# the VLM family at full width on the lanes layout
+# ---------------------------------------------------------------------------
+
+
+def _seed_gates(model, seed):
+    """Nonzero cross gates drawn from ``seed`` (uniform in [0.3, 1.2)): at
+    zero, ``tanh(0) = 0`` takes the cross layers out of the output, and a
+    wrong cross read would pass every stream check."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    with torch.no_grad():
+        for cb in model.cross_blocks:
+            for g in (cb.gate_attn, cb.gate_mlp):
+                g.copy_(torch.rand((), generator=gen) * 0.9 + 0.3)
+    return model
+
+
+def _vlm_cross_ms(model, slots):
+    """Device ms a decode step spends in its cross reads (K4 at ``q[slots,
+    64, 128]`` over the ``n_image_tokens`` image K/V, every key valid,
+    timed alone, times the groups) and a chunk in its cross K/V projection
+    (``project_kv`` of 2 requests' embeddings, bf16, times the groups)."""
+    cfg = model.cfg
+    q, k, v, mask = _vlm_k4_inputs(timed_gen(192), cfg.n_image_tokens, True)
+    read = device_ms(lambda: flash_decode(q, k, v, mask), "vlm cross read")
+    media = torch.randn((2, cfg.n_image_tokens, cfg.d_model),
+                        generator=timed_gen(193), device=DEV).to(
+                            torch.bfloat16)
+    pa = model.cross_blocks[0].attn.tensors(torch.bfloat16)
+    proj = device_ms(lambda: LAYERS.project_kv(cfg, pa, media, None),
+                     "vlm cross K/V projection", reps=5)
+    return dict(cross_read_ms_per_step=read * model.n_groups,
+                cross_kv_projection_ms_per_chunk=proj * model.n_groups)
+
+
+def phase_engine_vlm(kernels):
+    """llama-3.2-vision-90b at full width (d_model 8192, 64 heads of 128
+    over 8 KV heads, d_ff 28672, bf16, random weights from seed 0, gates
+    from seed 1), cut to ``VLM_GROUPS`` of its 20 groups (8 self and 2
+    cross layers: memory decides), max_seq 1024: ``VLM_REQUESTS`` requests,
+    each with its own image embeddings [1601, 8192], of ``VLM_PROMPTS``
+    tokens, ``VLM_NEW`` new tokens each, 8 slots, blocking and chunked at
+    ``VLM_CHUNK`` (``_lanes_family_runs``). Held besides: flash_attention
+    launched 10 times a ``prefill`` or ``chunk_prefill`` call (8 self, 2
+    cross), flash_decode 10 times a decode step (8 self, 2 cross), nothing
+    else. Reported: blocking against chunked, tok/s, TTFT, peak memory, a
+    decode segment's profile with the cross reads' share of its device ms,
+    the cross K/V projection's device ms a chunk."""
+    cfg = dataclasses.replace(get_config(VLM["arch"]),
+                              n_layers=VLM_GROUPS * get_config(
+                                  VLM["arch"]).cross_attn_every)
+    t0 = time.perf_counter()
+    model = _seed_gates(build_model(cfg, device=DEV).init(0), 1)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    params_gb = torch.cuda.memory_allocated() / 1e9
+
+    def want(calls):
+        return dict(flash_attention=cfg.n_layers * (calls["prefill"]
+                                                    + calls["chunk_prefill"]),
+                    flash_decode=cfg.n_layers * calls["decode_step"])
+
+    def profile_fn(eng):
+        profile = engine_profile(eng, cfg, VLM, VLM_PROMPTS)
+        profile.update(_vlm_cross_ms(model, VLM["n_slots"]))
+        dev_ms = profile["device_ms_per_step"]
+        profile["cross_read_share"] = (
+            profile["cross_read_ms_per_step"] / dev_ms if dev_ms else None)
+        return profile
+
+    runs, problems, profile = _lanes_family_runs(
+        kernels, model, VLM,
+        dict(requests=VLM_REQUESTS, prompts=VLM_PROMPTS, new=VLM_NEW,
+             chunk=VLM_CHUNK),
+        want, "vlm_shape", profile_fn)
+    del model
+    torch.cuda.empty_cache()
+    say("engine_vlm", config=VLM, n_layers=cfg.n_layers,
+        groups=VLM_GROUPS, dtype=cfg.dtype, d_model=cfg.d_model,
+        n_image_tokens=cfg.n_image_tokens, chunk_size=VLM_CHUNK,
+        params_billions=cfg.param_count() / 1e9, params_gb=params_gb,
+        model_build_seconds=t_build, requests=VLM_REQUESTS,
+        prompt_lens=VLM_PROMPTS, new_tokens=VLM_NEW,
+        gates="uniform [0.3, 1.2) from seed 1",
+        blocking_vs_chunked=_stream_diff(runs["chunked"]["out"],
+                                         runs["blocking"]["out"]),
+        profile=profile, **{k: r["report"] for k, r in runs.items()})
+    if problems:
+        raise AssertionError("engine_vlm: " + "; ".join(problems))
+
+
+def phase_parity_vlm():
+    """The VLM's kernel geometry at a CPU's width, fp32: llama-3.2-vision-90b
+    with head_dim 128, GQA group 8, 1601 image tokens and 2 groups of 5
+    layers, d_model 1024 (``VLM_PARITY_WIDTH``), gates from a seed. The
+    engine on the card (K3: the prompt, the chunks, the cross reads over
+    1601 image keys; K4: the decode reads) and the same weights in a CPU
+    engine (their plain versions) must give identical greedy streams,
+    blocking and chunked at 64 (the media on every chunk); blocking
+    against chunked on the card is reported."""
+    base = get_config(VLM["arch"])
+    cfg = dataclasses.replace(base, n_layers=2 * base.cross_attn_every,
+                              dtype="float32", **VLM_PARITY_WIDTH)
+    shape = dict(max_seq=512, n_slots=4, segment_len=8, path="direct")
+    plens, new, chunk = [16, 70, 150], 16, 64
+    gpu_model = _seed_gates(build_model(cfg, device=DEV).init(7), 8)
+    cpu_model = build_model(cfg, device="cpu")
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    image = media_spec(cfg, 1)[1:]
+    outs = {}
+    for tag, dev, model, chunked in (
+            ("cuda", DEV, gpu_model, False),
+            ("cpu", "cpu", cpu_model, False),
+            ("cuda_chunked", DEV, gpu_model, True),
+            ("cpu_chunked", "cpu", cpu_model, True)):
+        eng = Engine.from_config(EngineConfig(
+            device=dev, chunked=chunked, chunk_size=chunk, **shape), model)
+        assert eng.layout == "lanes"
+        outs[tag] = eng.serve(synthetic_requests(4, plens, cfg.vocab, new,
+                                                 media_shape=image))
+        del eng
+    for arm in ("", "_chunked"):
+        diff = _stream_diff(outs["cuda" + arm], outs["cpu" + arm])
+        if diff:
+            raise AssertionError(
+                f"VLM greedy streams differ, card vs CPU{arm} (first "
+                f"differing token by request): {diff}")
+    del gpu_model, cpu_model
+    torch.cuda.empty_cache()
+    say("parity_vlm", dtype="float32", n_layers=cfg.n_layers,
+        width=VLM_PARITY_WIDTH, head_dim=cfg.resolved_head_dim,
+        n_image_tokens=cfg.n_image_tokens, requests=len(outs["cpu"]),
+        prompt_lens=plens, chunk_size=chunk,
+        tokens=sum(len(t) for t in outs["cpu"].values()),
+        card_equals_cpu=True, card_equals_cpu_chunked=True,
+        chunked_vs_blocking_on_card=_stream_diff(outs["cuda_chunked"],
+                                                 outs["cuda"]))
+
+
+# ---------------------------------------------------------------------------
+# the staging ring on the lanes cache: ServeEngine
+# ---------------------------------------------------------------------------
+
+
+def _ring_engine(model, mode, **kw):
+    cfg = dict(max_seq=RING_LANES["max_seq"], ring_size=RING_LANES["ring_size"],
+               page_size=RING_LANES["page_size"],
+               hot_threshold=RING_LANES["hot_threshold"])
+    cfg.update(kw)
+    return ServeEngine(model, ServeConfig(write_mode=mode, **cfg),
+                       _internal=True)
+
+
+def _ring_step_profile(model, mode, prompt, steps=16):
+    """Device ms and ops a decode step of one mode: ``steps`` steps of
+    ``decode`` after a prefill, under the profiler (the host clock's ms a
+    step beside)."""
+    eng = _ring_engine(model, mode)
+    logits, cache = eng.prefill(prompt)
+    first = torch.argmax(logits, dim=-1)
+    start = torch.full_like(first, prompt.shape[1])
+    eng.decode(cache, first, start, steps)      # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.decode(cache, first, start, steps)
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / steps
+    rows = trace_rows(lambda: eng.decode(cache, first, start, steps),
+                      f"ring lanes {mode} decode")
+    dev_ms = sum(r[0] for r in rows) / 1e3 / steps
+    # torch.cat's kernel: the concatenation of cache and ring, in the step
+    cat = sum(r[0] for r in rows if "CatArray" in r[2]) / 1e3 / steps
+    return dict(step_ms=host, device_ms_per_step=dev_ms,
+                device_busy_share=dev_ms / host if dev_ms else None,
+                concat_ms_in_step=cat,
+                concat_share=cat / dev_ms if dev_ms else None,
+                device_ops_per_step=device_ops(rows) / steps,
+                top=[dict(kernel=k[:64], ms_per_step=us / 1e3 / steps,
+                          calls_per_step=n / steps)
+                     for us, n, k in rows[:6]])
+
+
+def _concat_ms(cfg):
+    """The concatenation of cache and ring (K and V, every layer) timed
+    alone: ``torch.cat`` of ``[8, 1024, 32, 64]`` and ``[8, 8, 32, 64]``
+    bf16, the same operands every call (so partly L2-warm), times 2 x
+    layers; the profile's ``concat_ms_in_step`` is its time in the step."""
+    b, s, r = RING_LANES["batch"], RING_LANES["max_seq"], \
+        RING_LANES["ring_size"]
+    h, d = cfg.n_kv_heads, cfg.resolved_head_dim
+    gen = timed_gen(194)
+    kc = torch.randn((b, s, h, d), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    rk = torch.randn((b, r, h, d), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    one = device_ms(lambda: torch.cat([kc, rk], dim=1), "cache ∪ ring cat")
+    return one * 2 * cfg.n_layers
+
+
+def phase_engine_ring_lanes(kernels):
+    """``ServeEngine`` on stablelm-1.6b at full width (24 layers, bf16,
+    weights from seed 0) over the dense lanes cache: 8 sequences of
+    512-token prompts, 128 new tokens, max_seq 1024, a ring of 8, pages of
+    64, hot threshold 4; each of direct, staged and adaptive through
+    ``decode`` (one loop, one readback) and ``decode_reference`` (a host
+    read a step). Launch counts set to 0 just before each ``generate`` and
+    read just after. Held: ``decode`` = ``decode_reference`` (tokens and
+    ``stats``); flash_attention 24 launches (the prefill), flash_decode 24
+    a decode step (the read of cache ∪ ring, or of the cache alone when
+    direct); staged_scatter one launch a ``maybe_drain`` call (every step:
+    the drain decision rides in its validity) and one for the last drain on
+    the ring modes, none when direct; every write staged in staged mode,
+    none in direct; then the card = the CPU in fp32 at 2 layers (tokens and
+    ``stats``, all three modes, a ring of 8 that fills and slots that
+    clamp past max_seq, so conflicts force drains). Reported: each mode's
+    device ms and ops a step, its drains and tok/s, the concatenation's
+    share of a step (the ``torch.cat`` kernels in the step's trace; timed
+    alone beside it), direct against staged streams (bf16: K4's key order
+    differs)."""
+    cfg = get_config(RING_LANES["arch"])
+    model = build_model(cfg, device=DEV).init(0)
+    b, plen, new = RING_LANES["batch"], RING_LANES["prompt"], \
+        RING_LANES["new"]
+    prompt = torch.randint(0, cfg.vocab, (b, plen), generator=timed_gen(195),
+                           device=DEV)
+    steps = new - 1
+    report, problems, toks = {}, [], {}
+    t_start, t_parts = time.perf_counter(), {}
+    for mode in WRITE_MODES:
+        ring = mode != "direct"
+        arm = {}
+        for tag, reference in (("decode", False), ("decode_reference", True)):
+            eng = _ring_engine(model, mode)
+            torch.cuda.synchronize()
+            reset_launch_counts()   # counts = 0 just before the main path
+            t0 = time.perf_counter()
+            out = eng.generate(prompt, new, reference=reference)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = launch_counts()    # read just after
+            want = dict(flash_attention=cfg.n_layers,
+                        flash_decode=cfg.n_layers * steps,
+                        staged_scatter=steps + 1 if ring else 0)
+            for k, n in counts.items():
+                if n != want.get(k, 0):
+                    problems.append(f"{mode} {tag}: {k} launched {n} times, "
+                                    f"want {want.get(k, 0)}")
+            st = dict(eng.stats)
+            if st["direct_writes"] + st["staged_writes"] != b * steps:
+                problems.append(f"{mode} {tag}: stats {st}")
+            if mode == "staged" and st["staged_writes"] != b * steps:
+                problems.append(f"{mode} {tag}: staged writes {st}")
+            if mode == "direct" and (st["staged_writes"] or st["drains"]):
+                problems.append(f"{mode} {tag}: stats {st}")
+            arm[tag] = dict(tokens=out.cpu().numpy(), stats=st,
+                            launches=counts, seconds=secs,
+                            tok_per_s=b * new / secs)
+            if tag == "decode":
+                for k in kernels:
+                    if k["name"] == "staged_scatter" and ring:
+                        k["lanes_ring_shape"][f"launches_{mode}"] = counts[
+                            "staged_scatter"]
+                    if k["name"] == "flash_decode":
+                        k["lanes_ring_shape"][f"launches_{mode}"] = counts[
+                            "flash_decode"]
+        a, r_ = arm["decode"], arm["decode_reference"]
+        if (a["tokens"] != r_["tokens"]).any() or a["stats"] != r_["stats"]:
+            problems.append(f"{mode}: decode != decode_reference "
+                            f"({a['stats']} / {r_['stats']})")
+        toks[mode] = a["tokens"]
+        report[mode] = dict(stats=a["stats"], launches=a["launches"],
+                            tok_per_s=[a["tok_per_s"], r_["tok_per_s"]],
+                            seconds=[a["seconds"], r_["seconds"]],
+                            decode_equals_reference=True,
+                            profile=_ring_step_profile(model, mode, prompt))
+    report["concat_ms_alone_per_step"] = _concat_ms(cfg)
+    t_parts["engines_and_profiles"] = time.perf_counter() - t_start
+    del model
+    torch.cuda.empty_cache()
+    # the card against the CPU, fp32, 2 layers: a ring of 8 that fills, and
+    # 40 steps past a 100-token prompt with max_seq 128 clamp the last
+    # slots, so conflicts force drains
+    cfg2 = dataclasses.replace(cfg, n_layers=2, dtype="float32")
+    gpu_model = build_model(cfg2, device=DEV).init(9)
+    cpu_model = build_model(cfg2, device="cpu")
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    p2 = torch.randint(0, cfg.vocab, (4, 100), generator=torch.Generator()
+                       .manual_seed(10))
+    parity = {}
+    for mode in WRITE_MODES:
+        got = {}
+        for dev, model in (("cuda", gpu_model), ("cpu", cpu_model)):
+            eng = _ring_engine(model, mode, max_seq=128, page_size=16)
+            got[dev] = (eng.generate(p2.to(model.device), 40).cpu().numpy(),
+                        dict(eng.stats))
+        if (got["cuda"][0] != got["cpu"][0]).any() or \
+                got["cuda"][1] != got["cpu"][1]:
+            problems.append(f"fp32 card != CPU, {mode}: {got['cuda'][1]} / "
+                            f"{got['cpu'][1]}")
+        parity[mode] = got["cpu"][1]
+    del gpu_model, cpu_model
+    t_parts["fp32_parity"] = time.perf_counter() - t_start - t_parts[
+        "engines_and_profiles"]
+    say("engine_ring_lanes", config=RING_LANES, n_layers=cfg.n_layers,
+        seconds_parts=t_parts,
+        dtype=cfg.dtype, decode_steps=steps,
+        direct_vs_staged=_stream_diff(
+            {i: t for i, t in enumerate(toks["staged"])},
+            {i: t for i, t in enumerate(toks["direct"])}),
+        direct_vs_adaptive=_stream_diff(
+            {i: t for i, t in enumerate(toks["adaptive"])},
+            {i: t for i, t in enumerate(toks["direct"])}),
+        fp32_card_equals_cpu_2_layers=not any("fp32" in p for p in problems),
+        fp32_stats=parity, **report)
+    if problems:
+        raise AssertionError("engine_ring_lanes: " + "; ".join(problems))
+
+
 PHASE_SECONDS = {}
 
 
@@ -5667,6 +6279,9 @@ PHASES = (
     ("parity_ssm", phase_parity_ssm, ()),
     ("engine_encdec", phase_engine_encdec, ("kernels",)),
     ("parity_encdec", phase_parity_encdec, ()),
+    ("engine_vlm", phase_engine_vlm, ("kernels",)),
+    ("parity_vlm", phase_parity_vlm, ()),
+    ("engine_ring_lanes", phase_engine_ring_lanes, ("kernels",)),
 )
 
 

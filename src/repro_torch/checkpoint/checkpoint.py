@@ -24,6 +24,10 @@ the JAX layout into the port's ``DecoderLM``, ``MoELM``, ``MambaLM``,
     the hybrid's one shared block (unstacked): shared/ln1, shared/attn,
     shared/ln2, shared/mlp with the shapes above less the layer axis
 
+    the VLM: the self layers under blocks/, its cross layers beside them
+    cross_blocks/{ln1,attn,ln2,mlp}             [G, ...] as blocks/
+    cross_blocks/{gate_attn,gate_mlp}           [G]     (0-d gates, stacked)
+
     the encoder-decoder (whisper): two stacks in place of blocks/
     enc_pos                     [F, D]          dec_pos  [max(P, max_seq), D]
     ln_enc/{scale,bias}         [D]
@@ -101,8 +105,8 @@ def params_from_numpy(tree: Dict[str, Any], model) -> Any:
     """Load a JAX-layout parameter tree (see the module docstring) into
     ``model`` (a ``repro_torch`` ``DecoderLM``, ``MoELM``, ``MambaLM``,
     ``ZambaLM`` or ``WhisperModel``), in place; returns it. Each stack
-    (``blocks``, or whisper's ``enc_blocks`` and ``dec_blocks``) loads
-    into the module list of its name, the positions tables (``enc_pos``,
+    (``blocks``, the VLM's ``cross_blocks``, or whisper's ``enc_blocks``
+    and ``dec_blocks``) loads into the module list of its name, the positions tables (``enc_pos``,
     ``dec_pos``) and ``ln_enc`` into the model's own, and ``shared`` (the
     hybrid's shared block) into ``model.shared``."""
     dev = model.device
@@ -112,7 +116,7 @@ def params_from_numpy(tree: Dict[str, Any], model) -> Any:
 
     model.embed.load({k: t(v) for k, v in tree["embed"].items()})
     model.ln_f.load({k: t(v) for k, v in tree["ln_f"].items()})
-    for name in ("blocks", "enc_blocks", "dec_blocks"):
+    for name in ("blocks", "cross_blocks", "enc_blocks", "dec_blocks"):
         if name in tree:
             _load_stack(tree[name], getattr(model, name), name, t)
     if "ln_enc" in tree:

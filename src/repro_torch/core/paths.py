@@ -15,9 +15,8 @@ and so do the mesh's conflicts (a mesh with the lanes layout, fused
 attention over heads the ``model`` axis does not divide, a mesh with more
 devices than there are) and speculative decoding's (``SpecConfig``: the
 lanes layout has no chunk verifier, ``k < 1``, a draft that shares no
-vocabulary with the target or cannot be rolled back). A draft arch this
-package does not have, and a recurrent (SSM) draft, raise
-``NotImplementedError("not ported yet: ...")``.
+vocabulary with the target or cannot be rolled back). A draft arch the
+registry does not hold raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -308,9 +307,8 @@ def resolve_draft(spec: SpecConfig, *, vocab: Optional[int] = None,
     whose vocab matches the target's actual ``vocab`` (the full config
     first, then its reduced variant: a reduced target pairs with a reduced
     draft). Raises ``ValueError`` on a vocab mismatch or a draft family
-    that cannot be rolled back (hybrid, encdec), with the JAX package's
-    messages, and ``NotImplementedError`` for a draft arch not ported yet
-    (the vlm)."""
+    that cannot be rolled back (hybrid, encdec, vlm), with the JAX
+    package's messages."""
     from ..configs import get_config
 
     name = spec.draft_arch or arch_name

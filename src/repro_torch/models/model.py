@@ -1,10 +1,10 @@
 """Port of repro/models/model.py: ``build_model(cfg, device, **kwargs)``,
-the family dispatch: dense -> ``DecoderLM``, moe -> ``MoELM``
-(``dispatch_mode``, staged by default), ssm -> ``MambaLM``, hybrid ->
-``ZambaLM``, encdec -> ``WhisperModel``; and ``media_spec`` /
-``needs_media``, which say which families take media and in what shape. The
-VLM family is not ported yet and raises ``NotImplementedError``. The model
-lives on the GPU unless the caller asks for ``device="cpu"``."""
+the family dispatch: dense and vlm -> ``DecoderLM`` (the VLM's gated cross
+layers when ``cross_attn_every > 0``), moe -> ``MoELM`` (``dispatch_mode``,
+staged by default), ssm -> ``MambaLM``, hybrid -> ``ZambaLM``, encdec ->
+``WhisperModel``; and ``media_spec`` / ``needs_media``, which say which
+families take media and in what shape. The model lives on the GPU unless
+the caller asks for ``device="cpu"``."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -15,8 +15,8 @@ from .ssm_lm import MambaLM, ZambaLM
 from .transformer import DecoderLM
 from .whisper import WhisperModel
 
-_FAMILIES = {DENSE: DecoderLM, MOE: MoELM, SSM: MambaLM, HYBRID: ZambaLM,
-             ENCDEC: WhisperModel}
+_FAMILIES = {DENSE: DecoderLM, VLM: DecoderLM, MOE: MoELM, SSM: MambaLM,
+             HYBRID: ZambaLM, ENCDEC: WhisperModel}
 
 
 def build_model(cfg: ModelConfig, device="cuda", max_seq: int = 0,
@@ -28,9 +28,7 @@ def build_model(cfg: ModelConfig, device="cuda", max_seq: int = 0,
     without CUDA raises."""
     cls = _FAMILIES.get(cfg.family)
     if cls is None:
-        raise NotImplementedError(
-            f"not ported yet: model family {cfg.family!r} ({cfg.name}); "
-            f"the vlm family is still missing")
+        raise ValueError(f"unknown model family {cfg.family!r} ({cfg.name})")
     if cls is WhisperModel:
         kwargs["max_seq"] = max_seq
     return cls(cfg, device=device, **kwargs)

@@ -28,6 +28,7 @@ class MoELM(DecoderLM):
     """Decoder-only MoE LM with the paper's dual-path expert dispatch."""
 
     family = MOE
+    families = (MOE,)
     block_cls = MOE_L.MoEBlock
 
     def __init__(self, cfg: ModelConfig, device="cuda",

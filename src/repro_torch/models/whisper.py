@@ -25,7 +25,9 @@ Every attention runs through the hand-written kernels: the encoder (causal),
 the decoder's prompt (causal) and the cross-attention of a prompt or a
 chunk (non-causal, its queries against every frame) through
 ``flash_attention`` (K3); a decode step's self and cross reads through
-``flash_decode`` (K4, the cross read under an all-true mask). ``forward``
+``flash_decode`` (K4, the cross read under an all-true mask). The cross
+reads are ``transformer.attend_cross`` / ``attend_cross_decode``, which the
+VLM's gated cross layers share. ``forward``
 and ``loss`` (training) are not ported yet.
 """
 from __future__ import annotations
@@ -38,9 +40,10 @@ from torch import nn
 from ..configs.base import ENCDEC, ModelConfig
 from ..core.paths import resolve_device
 from . import layers as L
-from .transformer import (DenseBlock, attend_chunk, attend_decode,
-                          attend_prefill, cache_slots, compute_dtype,
-                          dense_ffn, lane_write_plan, valid_mask)
+from .transformer import (DenseBlock, attend_chunk, attend_cross,
+                          attend_cross_decode, attend_decode, attend_prefill,
+                          cache_slots, compute_dtype, dense_ffn,
+                          lane_write_plan, valid_mask)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -61,19 +64,6 @@ class DecoderBlock(nn.Module):
         self.self_attn.init_(cfg, gen)
         self.cross_attn.init_(cfg, gen)
         self.mlp.init_(cfg, gen)
-
-
-def attend_cross(cfg: ModelConfig, ln, pa, x: torch.Tensor,
-                 ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
-    """``x`` [B, S, D] plus its cross-attention over the encoder's K/V
-    ``ck`` / ``cv`` [B, F, H, Dh]: every query reads every frame, one
-    non-causal ``flash_attention`` call. (The reference's chunk reads its
-    cross cache with every frame at position 0, so every key is valid for
-    every query: the same read.)"""
-    hn = L.apply_norm(cfg, ln, x)
-    q = L.project_q(cfg, pa, hn, None, use_rope=False)
-    out = L.attention_core(cfg, q, ck, cv, causal=False)
-    return x + torch.einsum("bshk,hkd->bsd", out, pa["wo"].to(x.dtype))
 
 
 class WhisperModel(nn.Module):
@@ -287,11 +277,10 @@ class WhisperModel(nn.Module):
                               blk.self_attn.tensors(dtype), x, pos,
                               cache["k"][i], cache["v"][i], plan, vmask,
                               use_rope=False)
-            pa = blk.cross_attn.tensors(dtype)
-            hn = L.apply_norm(cfg, blk.ln2.tensors(), x)
-            x = x + L.decode_attention(cfg, pa, hn, pos, cache["cross_k"][i],
-                                       cache["cross_v"][i], cross_mask,
-                                       use_rope=False)
+            x = attend_cross_decode(cfg, blk.ln2.tensors(),
+                                    blk.cross_attn.tensors(dtype), x, pos,
+                                    cache["cross_k"][i], cache["cross_v"][i],
+                                    cross_mask)
             x = x + dense_ffn(cfg, blk.ln3.tensors(), blk.mlp.tensors(dtype),
                               x)
         return self._logits(x), cache

@@ -14,14 +14,17 @@ layouts, as in the JAX package:
   in staged mode; the SSM and hybrid families, whose cache holds a
   recurrent state a slot; the encoder-decoder family, whose cache adds the
   cross K/V of ``n_audio_frames`` rows that admission writes once from the
-  request's media): one cache lane per slot in every leaf of
+  request's media; the VLM, whose cache adds each cross layer's image K/V
+  of ``n_image_tokens`` rows, also written at admission): one cache lane
+  per slot in every leaf of
   ``model.init_cache(n_slots, max_seq)`` (batch on axis 1; KV lanes
   ring-addressed under SWA, read by the ``flash_decode`` kernel), direct
   writes only. The monitor's region is ``slot * max_pages + pos //
   page_size`` (decode writes only land in the self-attention lanes).
 * **Media**: a request's ``media`` (stub frontend embeddings) go to a
   model that takes them (``needs_media``), stacked per admission group;
-  under ``chunked`` an encoder-decoder gets them on its first chunk only.
+  under ``chunked`` an encoder-decoder gets them on its first chunk only,
+  the VLM on every chunk.
   A model that takes none ignores them, as in the JAX package.
 
 * **SlotState**: per-slot phase / token / position / done-flag /
@@ -290,7 +293,8 @@ class BatchedServeEngine:
             # fp32 matrix products stay full fp32 (the default, stated)
             torch.backends.cuda.matmul.allow_tf32 = False
         self.layout = plan.layout
-        # the encoder-decoder family takes each request's media at admission
+        # the encoder-decoder and VLM families take each request's media at
+        # admission
         self._takes_media = needs_media(model.cfg)
         self._prefix_cache = plan.memory.prefix_cache
         self._host_tier = plan.memory.host_tier
@@ -869,7 +873,7 @@ class BatchedServeEngine:
         FIRST chunk only: the encoder runs once an admission group and later
         chunks read its cross K/V from the cache (the JAX engine's
         ``media_once``); a model that reads media in every chunk (the VLM's
-        gated cross layers) would be given them on each."""
+        gated cross layers) is given them on each."""
         g, plen = prompts.shape
         cache = self.model.init_cache(g, max_seq)
         media_once = hasattr(self.model, "encode")

@@ -173,38 +173,49 @@ def test_chip_smoke_fails_without_a_gpu():
 
 
 def test_unported_archs_and_families_raise():
-    """The VLM (llama-3.2-vision-90b, the vlm family) is the one
-    architecture and family not ported yet."""
-    from repro_torch.configs import ARCHS, get_config
+    """Every architecture the JAX package registers is ported (the VLM
+    llama-3.2-vision-90b last), so ``NOT_PORTED`` is empty and only an
+    unknown arch raises. What stays unported is training: the SSM's and
+    the encoder-decoder's ``forward`` / ``loss`` raise "not ported yet";
+    and the dense class takes the dense and VLM families only."""
+    from repro_torch.configs import ARCHS, NOT_PORTED, get_config
     from repro_torch.configs.base import VLM
     from repro_torch.models import DecoderLM, build_model
     import dataclasses
+    import torch
     assert sorted(ARCHS) == ["granite-moe-3b-a800m", "h2o-danube-3-4b",
-                             "mamba2-130m", "nemotron-4-15b", "qwen2-7b",
+                             "llama-3.2-vision-90b", "mamba2-130m",
+                             "nemotron-4-15b", "qwen2-7b",
                              "qwen3-moe-235b-a22b", "stablelm-1.6b",
                              "whisper-medium", "zamba2-2.7b"]
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        get_config("llama-3.2-vision-90b")
+    assert NOT_PORTED == ()
+    assert get_config("llama-3.2-vision-90b").family == VLM
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     vlm = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
                               family=VLM, cross_attn_every=2)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(vlm, device="cpu")
-    # the dense class takes the dense family only
+    model = build_model(vlm, device="cpu")
+    assert type(model) is DecoderLM and model.is_vlm
+    tokens = torch.zeros((1, 4), dtype=torch.int64)
+    for arch in ("mamba2-130m", "zamba2-2.7b", "whisper-medium"):
+        m = build_model(get_config(arch).reduced(), device="cpu")
+        for fn in (m.forward, m.loss):
+            with pytest.raises(NotImplementedError, match="not ported yet"):
+                fn(tokens)
+    # the dense class takes the dense and vlm families only
     with pytest.raises(NotImplementedError, match="not ported yet"):
         DecoderLM(get_config("granite-moe-3b-a800m").reduced(), device="cpu")
 
 
-def test_media_requests_still_not_ported():
-    """Media requests are served for the encoder-decoder family; the VLM,
-    the other family that takes media, is still not ported. A request with
-    media to a model that takes none is served as without them, as the JAX
+def test_media_requests_are_served_where_taken_and_ignored_elsewhere():
+    """Media requests are served for both families that take them, the
+    encoder-decoder and (now) the VLM; a request with media to a model
+    that takes none (stablelm) is served as without them, as the JAX
     engine's models ignore them."""
     res = _run(
-        "import numpy as np, pytest\n"
+        "import numpy as np\n"
         "from repro_torch.data import RequestQueue\n"
-        "from repro_torch.models import needs_media\n"
+        "from repro_torch.models import media_spec, needs_media\n"
         "from repro_torch.serve import Engine, EngineConfig\n"
         "eng = Engine.from_config(EngineConfig(max_seq=32, n_slots=2, "
         "arch='stablelm-1.6b', device='cpu'))\n"
@@ -216,12 +227,16 @@ def test_media_requests_still_not_ported():
         "    outs.append(eng.serve(q)[0])\n"
         "    eng.reset()\n"
         "assert np.array_equal(*outs) and len(outs[0]) == 4\n"
-        "with pytest.raises(NotImplementedError, match='not ported yet'):\n"
-        "    Engine.from_config(EngineConfig(max_seq=32, device='cpu', "
-        "arch='llama-3.2-vision-90b'))\n"
-        "print('refused')\n")
+        "eng = Engine.from_config(EngineConfig(max_seq=32, n_slots=2, "
+        "device='cpu', arch='llama-3.2-vision-90b'))\n"
+        "assert needs_media(eng.model.cfg) and eng.layout == 'lanes'\n"
+        "q = RequestQueue()\n"
+        "q.submit(np.arange(4), 4, media=np.ones(media_spec(eng.model.cfg, "
+        "1)[1:], np.float32))\n"
+        "assert len(eng.serve(q)[0]) == 4\n"
+        "print('served')\n")
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().endswith("refused")
+    assert res.stdout.strip().endswith("served")
 
 
 def test_launcher_downgrades_the_write_mode_on_lanes():

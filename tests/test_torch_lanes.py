@@ -143,12 +143,34 @@ def test_decode_step_write_mask_drops_masked_slots(pair):
 
 
 def test_decode_step_refuses_a_staging_ring(pair):
-    tmodel = pair[3]
-    cache = tmodel.init_cache(2, 40)
-    cache["ring_k"] = torch.zeros(1)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmodel.decode_step(cache, torch.zeros(2, dtype=torch.long),
-                           torch.zeros(2, dtype=torch.long))
+    """The staging ring on the lanes cache (``kvcache.staged``) is ported
+    for the dense family: on the sliding-window model a staged decode step
+    gives JAX's staged logits and the direct step's. Only the VLM's lanes
+    refuse a ring, with JAX's message (``tests/test_torch_vlm.py`` holds
+    both packages to it)."""
+    from repro.kvcache import add_ring as jadd_ring
+    from repro_torch.kvcache import add_ring
+    _, jmodel, jparams, tmodel = pair
+    tokens = np.random.RandomState(4).randint(0, 256, (2, 12))
+    _, direct = tmodel.prefill(T(tokens), 40)
+    _, cache = tmodel.prefill(T(tokens), 40)
+    cache = add_ring(cache, 2)
+    _, jc = jmodel.prefill(jparams, jnp.asarray(tokens), 40)
+    jc = jadd_ring(jc, 2)
+    tok, pos = torch.tensor([3, 4]), torch.tensor([12, 12])
+    want, _ = tmodel.decode_step(direct, tok, pos)
+    got, cache = tmodel.decode_step(cache, tok, pos)
+    jl, _ = jmodel.decode_step(jparams, jc, jnp.asarray([3, 4]),
+                               jnp.asarray([12, 12], jnp.int32))
+    np.testing.assert_allclose(got.numpy(), np.asarray(jl), **TOL)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    assert int(cache["ring_fill"]) == 1
+    vlm = build_model(get_config("llama-3.2-vision-90b").reduced(),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="staging-ring KV overlay"):
+        vlm.decode_step(add_ring(vlm.init_cache(2, 40), 2),
+                        torch.zeros(2, dtype=torch.long),
+                        torch.zeros(2, dtype=torch.long))
 
 
 # ---------------------------------------------------------------------------
