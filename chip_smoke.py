@@ -79,7 +79,18 @@ line. Phases, each failing the run on any exception or mismatch:
            ``torch.equal`` to its plain version, ``staged.drain_ring`` on
            the card equal to the CPU's, and flash_decode over cache ∪ ring
            (``q[8,32,64]`` over 1032 rows under the overlay's mask),
-           checked and timed (``lanes_ring_shape``)
+           checked and timed (``lanes_ring_shape``); training's kernels:
+           K3's backward (``flash_attention_bwd``, from K3's ``out`` and
+           ``lse``) against autograd of the plain version at the training
+           microbatch of stablelm-1.6b ``q[4,32,512,64]`` and
+           granite-moe-3b-a800m ``q[4,24,512,64]`` over 8 KV heads, a
+           window shorter than S, S < T and a non-causal read, fp32 within
+           TOL_F32 of the plain version in float64 and bf16 by
+           ``held_bf16``; K3 with ``lse`` bit-equal to
+           K3 without; K1's functional drain (``staged_drain``) and its
+           adjoint ``staged_gather`` ``torch.equal`` to their plain versions
+           at granite's training dispatch; both timed (rows
+           ``flash_attention_bwd``, ``staged_gather``)
   engine   stablelm-1.6b at full width (bf16, random weights from a seed),
            cut to 12 of its 24 layers (``SLICE_LAYERS``, as engine_sharded
            and engine_chunked), serves 16 requests through
@@ -264,17 +275,41 @@ line. Phases, each failing the run on any exception or mismatch:
            image tokens, 2 groups of 5 layers) at d_model 1024, fp32, gates
            from a seed: the engine on the card and the same weights on the
            CPU give identical greedy streams, blocking and chunked at 64
-  engine_ring_lanes  ``ServeEngine`` on stablelm-1.6b at full width (24
-           layers, bf16) over the dense lanes cache with its staging ring:
+  engine_ring_lanes  ``ServeEngine`` on stablelm-1.6b at full width, cut
+           to 12 of its 24 layers (``RING_LANES_LAYERS``, bf16), over the
+           dense lanes cache with its staging ring:
            8 prompts of 512 tokens, 128 new tokens, max_seq 1024, a ring of
            8, direct / staged / adaptive, each through ``decode`` and
-           ``decode_reference``: equal tokens and stats; flash_attention 24
-           launches, flash_decode 24 a step, staged_scatter one a step and
+           ``decode_reference``: equal tokens and stats; flash_attention one
+           launch a layer, flash_decode one a layer and step, staged_scatter one a step and
            one for the last drain on the ring modes (the gated drain),
            every write staged in staged mode; the card equal to the CPU in
            fp32 at 2 layers (conflict-forced drains); each mode's device ms
            a step, drains, the concatenation's share of a step (its
            ``torch.cat`` kernels in the step's trace)
+  parity_train  training on the card = on the CPU (plain versions), fp32,
+           at the kernels' geometry and small widths (``PARITY_TRAIN_*``):
+           stablelm-1.6b's family, granite-moe-3b-a800m's staged and
+           adaptive; the first batch's gradients (every attention and
+           expert weight nonzero), then 3 train steps (microbatches 2):
+           losses, grad norms, lr, expert counts and hot masks, final
+           parameters, and the launches of K3, its backward, the drain and
+           its adjoint
+  train_dense  stablelm-1.6b at full width (bf16 over fp32 masters), cut
+           to 4 of its 24 layers (``TRAIN_DENSE_LAYERS``): ``Trainer`` on
+           ``SyntheticSource`` batches of 8 x 512 in 2 microbatches, remat,
+           AdamW under ``warmup_cosine``, 6 steps with a checkpoint at 3;
+           a fresh model and ``Trainer`` resumed from it repeat steps 3-5
+           within ``TRAIN_RESUME_RTOL``; K3 = 2 x, its backward 1 x layers
+           x microbatches x steps; losses, grad norms, step ms, tokens/s,
+           peak memory, a step's device ms, busy share and device ops
+  train_moe  granite-moe-3b-a800m at full width, cut to 4 of its 32 layers
+           (``TRAIN_MOE_LAYERS``), the same batches: 3 steps staged, 3
+           adaptive (10 hot experts of 40, the mask recalibrated every
+           step): the counts sum to tokens x 8 x layers x steps, each
+           step's mask equals ``expert_hot_mask`` of its counts on the CPU,
+           K1's drain 2 x and its adjoint 1 x layers x microbatches x
+           steps; the same report as train_dense
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
@@ -316,7 +351,9 @@ from repro_torch.core import (AlwaysOffload, AlwaysUnload,  # noqa: E402
                               RemoteWriteEngine, make_umtt, make_write_batch,
                               register, sweep_point, zipf_regions)
 from repro_torch.kernels.cms import cms_hash  # noqa: E402
-from repro_torch.data import (RequestQueue,  # noqa: E402
+from repro_torch.core.decision import expert_hot_mask  # noqa: E402
+from repro_torch.data import (DataConfig, Pipeline,  # noqa: E402
+                              RequestQueue, SyntheticSource,
                               synthetic_requests)
 from repro_torch.distributed import (VIRTUAL_DEVICES_ENV, Mesh,  # noqa: E402
                                      NamedSharding, ParallelConfig,
@@ -325,7 +362,9 @@ from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  cms_update, cms_update_query,
                                  cms_update_query_ref, cms_update_ref,
-                                 flash_attention,
+                                 flash_attention, flash_attention_bwd,
+                                 flash_attention_bwd_ref, flash_attention_lse,
+                                 flash_attention_lse_ref,
                                  flash_attention_ref, flash_decode,
                                  flash_decode_paged, flash_decode_paged_ref,
                                  flash_decode_paged_sharded,
@@ -333,7 +372,9 @@ from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  flash_decode_ref, kernel_launch_counts,
                                  launch_counts, lru_buckets_ref,
                                  lru_scan, lru_scan_ref,
-                                 reset_launch_counts, staged_scatter,
+                                 reset_launch_counts, staged_drain,
+                                 staged_gather, staged_gather_ref,
+                                 staged_scatter,
                                  staged_scatter_layers, staged_scatter_planes,
                                  staged_scatter_planes_ref,
                                  staged_scatter_ref)
@@ -348,6 +389,9 @@ from repro_torch.models import moe as MOE_L  # noqa: E402
 from repro_torch.models import mamba2 as MAMBA  # noqa: E402
 from repro_torch.kvcache import paged as PG  # noqa: E402
 from repro_torch.models import prng  # noqa: E402
+from repro_torch.optim import AdamW, warmup_cosine  # noqa: E402
+from repro_torch.train import (Trainer, TrainerConfig,  # noqa: E402
+                               init_train_state, make_train_step)
 from repro_torch.models import sampling as SMP  # noqa: E402
 from repro_torch.kvcache import staged as ST  # noqa: E402
 from repro_torch.models import layers as LAYERS  # noqa: E402
@@ -488,6 +532,47 @@ RING_LANES = dict(arch="stablelm-1.6b", batch=8, prompt=512, new=128,
 # before the SSM and hybrid phases added about 90 s; 8 from PR 25, 4 since
 # the VLM and lanes-ring phases added about 150 s): every check is kept
 MEMORY_LAYERS = 4
+# training on the card (train_dense, train_moe): stablelm-1.6b and
+# granite-moe-3b-a800m at full width, bf16 compute over fp32 masters,
+# batches of 8 x 512 tokens from SyntheticSource in 2 microbatches of 4,
+# remat (K3's forward twice a layer and microbatch, its backward once),
+# AdamW under warmup_cosine. train_dense: 6 steps, a checkpoint at 3, then
+# a fresh Trainer resumed from it runs to 6 again. train_moe: 3 steps
+# staged (the unload path), then 3 adaptive with 10 hot experts of 40, the
+# mask recalibrated from the counts after every step
+TRAIN = dict(batch=8, seq=512, microbatches=2, lr=3e-4, warmup=2)
+TRAIN_MB = TRAIN["batch"] // TRAIN["microbatches"]
+TRAIN_DENSE_STEPS, TRAIN_RESUME_AT, TRAIN_MOE_STEPS, TRAIN_N_HOT = 6, 3, 3, 10
+# the training phases run the two models at this depth (stablelm of its
+# 24 layers, granite of its 32) to keep the script under 800 of its 1200 s:
+# the last archive proof took 674.5 s on an H100 80GB HBM3 at 700 W. At
+# full depth the training state (fp32 masters, gradients, AdamW mu / nu and
+# the new moments) comes to about 20 B a parameter, some 33 GB for stablelm
+# and 66 GB for granite's 3.3 B; at 4 layers about 12 GB and 11 GB, most of
+# it stablelm's 100352 x 2048 embedding and head (every check kept)
+TRAIN_DENSE_LAYERS = TRAIN_MOE_LAYERS = 4
+# the resumed run's losses against the first run's: relative, because the
+# embedding's backward (an index_put with accumulation) adds with atomics
+# on the card, in an order that differs from run to run
+TRAIN_RESUME_RTOL = 1e-3
+# parity_train: the training kernels' geometry (head_dim 64, GQA group 3 for
+# the MoE, 128-token sequences: two 64-row tiles) at widths a CPU trains in
+# seconds, fp32; the same weights and batches on the card (the kernels) and
+# the CPU (the plain versions), 3 steps, lr 1e-4 (Adam turns the fp32 noise
+# of the two backward passes into up to about lr of an entry whose gradient
+# is near zero; a small lr keeps the routing of later steps the same)
+PARITY_TRAIN = dict(seq=128, batch=4, microbatches=2, steps=3, lr=1e-4)
+PARITY_TRAIN_DENSE = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4,
+                          head_dim=64, d_ff=512, vocab=2048, dtype="float32")
+PARITY_TRAIN_MOE = dict(n_layers=2, d_model=384, n_heads=6, n_kv_heads=2,
+                        head_dim=64, n_experts=8, top_k=2, expert_d_ff=128,
+                        vocab=2048, dtype="float32")
+# engine_ring_lanes runs the slice at this depth (of its 24 layers) to keep
+# the script under 800 of its 1200 s once the training phases came: they
+# and the kernels' training checks added about 48 s (688.2 s in all on an
+# H100 80GB HBM3 at 700 W; 965.7 s on a host about 37 % slower), and this
+# phase is the largest (90.8 s at 24 layers); every check is kept
+RING_LANES_LAYERS = 12
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
 WRITE = dict(log2_regions=20, region_elems=1024, batches=64, batch=4096,
@@ -3118,6 +3203,207 @@ def time_ring_lanes_shapes():
     return k1, k4
 
 
+# ---------------------------------------------------------------------------
+# training: K3's backward, its lse, and K1's adjoint
+# ---------------------------------------------------------------------------
+
+# b, hq, hkv, s, t, d, causal, window: the training phases' microbatch for
+# stablelm-1.6b (32 heads of 64) and granite-moe-3b-a800m (24 over 8),
+# a window shorter than S at head_dim 120, S < T, and a non-causal read at
+# head_dim 80
+K3_BWD_CASES = [(TRAIN_MB, 32, 32, TRAIN["seq"], TRAIN["seq"], 64, True, 0),
+                (TRAIN_MB, 24, 8, TRAIN["seq"], TRAIN["seq"], 64, True, 0),
+                (1, 8, 2, 700, 700, 120, True, 256),
+                (2, 4, 1, 100, 300, 64, True, 0),
+                (2, 4, 2, 64, 200, 80, False, 0)]
+
+
+def _k3_bwd_inputs(gen, case, dtype):
+    """q, k, v (``[B, S, H, D]`` tensors seen transposed, as the model
+    passes them) and a cotangent of the output's shape, likewise."""
+    b, hq, hkv, s, t, d, _, _ = case
+    q, k, v = _k3_inputs(gen, dtype, b, hq, hkv, s, t, d)
+    do = torch.randn((b, s, hq, d), generator=gen, device=DEV).to(
+        dtype).transpose(1, 2)
+    return q, k, v, do
+
+
+def check_k3_bwd(gen):
+    """K3's backward (``flash_attention_bwd`` from K3's own ``out`` and
+    ``lse``) against autograd of the plain version on the card: fp32 within
+    TOL_F32 of the plain version run in float64 (the plain fp32 version's
+    own error there is reported beside the kernel's), bf16 by ``held_bf16``
+    (each of dq, dk, dv, block by block of 64 rows) against the plain
+    version in fp32 on the upcast operands. K3
+    with ``lse`` equal to K3 without, bit for bit; ``lse`` within 1e-4
+    (absolute and relative) of the plain version's on the same (upcast)
+    operands."""
+    out = dict(cases=[], err_f32=0.0, err_bf16_vs_plain=0.0,
+               worst_block_share=0.0, lse_err=0.0)
+    for case in K3_BWD_CASES:
+        causal, w = case[6], case[7]
+        args32 = _k3_bwd_inputs(gen, case, torch.float32)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (x.to(dtype) for x in args32)
+            o, lse = flash_attention_lse(q, k, v, causal, w)
+            if not torch.equal(o, flash_attention(q, k, v, causal, w)):
+                raise AssertionError(f"flash_attention with lse differs from "
+                                     f"without, {dtype} {case}")
+            lse_ref = flash_attention_lse_ref(q.float(), k.float(), v.float(),
+                                              causal, w)
+            torch.testing.assert_close(
+                lse, lse_ref, atol=1e-4, rtol=1e-4,
+                msg=lambda m: f"flash_attention lse {dtype} {case}: {m}")
+            out["lse_err"] = max(out["lse_err"],
+                                 float((lse - lse_ref).abs().max()))
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal, w)
+            plain = flash_attention_bwd_ref(q, k, v, do, causal, w)
+            if dtype == torch.float32:
+                # held to the plain version run in float64: its own fp32
+                # backward sums up to G * S products per entry in cuBLAS's
+                # order and errs by more than TOL_F32 at these shapes (by
+                # 7.6e-6 at granite's, where the kernel errs by 3.7e-6)
+                ref64 = flash_attention_bwd_ref(q.double(), k.double(),
+                                                v.double(), do.double(),
+                                                causal, w)
+                for name, g, p, r in zip(("dq", "dk", "dv"), got, plain,
+                                         ref64):
+                    r = r.float()
+                    out["err_f32"] = max(out["err_f32"],
+                                         float((g - r).abs().max()))
+                    out["plain_err_f32"] = max(out.get("plain_err_f32", 0.0),
+                                               float((p - r).abs().max()))
+                    out["err_vs_plain_f32"] = max(
+                        out.get("err_vs_plain_f32", 0.0),
+                        float((g - p).abs().max()))
+                    torch.testing.assert_close(
+                        g, r, **TOL_F32, msg=lambda m: f"flash_attention_bwd "
+                        f"fp32 {name} {case} against the plain version in "
+                        f"float64: {m}")
+                continue
+            ref32 = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                            do.float(), causal, w)
+            torch.cuda.synchronize()
+            for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref32):
+                if not torch.isfinite(g.float()).all():
+                    raise AssertionError(f"flash_attention_bwd {name} "
+                                         f"non-finite, bf16 {case}")
+                h = held_bf16("flash_attention_bwd", f"{name} {case}", g, p,
+                              r, K3_TILE)
+                out["err_bf16_vs_plain"] = max(out["err_bf16_vs_plain"],
+                                               h["err_vs_plain"])
+                out["worst_block_share"] = max(out["worst_block_share"],
+                                               h["worst_block_share"])
+        out["cases"].append(list(case))
+    return out
+
+
+def _k3_bwd_timed(name, case, gen):
+    """Device times of K3's backward, the plain version's backward (autograd
+    of the plain forward, its graph kept) and SDPA's backward (the same),
+    at one bf16 shape; its bound: ``10 * D * Hq * B * live pairs`` FLOP
+    against one read of q, k, v, out, dout and lse and one write of dq, dk,
+    dv."""
+    b, hq, hkv, s, t, d, causal, w = case
+    q, k, v, do = _k3_bwd_inputs(gen, case, torch.bfloat16)
+    o, lse = flash_attention_lse(q, k, v, causal, w)
+    leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+    ref_out = flash_attention_ref(*leaves, causal, w)
+    sdpa_out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              enable_gqa=hq != hkv)
+    t_ = timings(name,
+                 lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, w),
+                 lambda: torch.autograd.grad(ref_out, leaves, do,
+                                             retain_graph=True),
+                 lambda: torch.autograd.grad(sdpa_out, leaves, do,
+                                             retain_graph=True))
+    pairs = live_pairs(s, t, causal, w)
+    flops = 10 * d * hq * b * pairs
+    # q, out and dout read and dq written; k and v read, dk and dv written
+    nbytes = ((4 * q.numel() + 2 * k.numel() + 2 * v.numel())
+              * q.element_size() + lse.numel() * 4)
+    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / HBM_BYTES_PER_S
+    return dict(**t_, bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                live_pairs_per_head=pairs,
+                shape=f"q[{b},{hq},{s},{d}] k/v[{b},{hkv},{t},{d}] bf16 "
+                      f"(strided views of [B,S,H,D]), causal, window {w}; "
+                      f"library: SDPA's backward (graph kept), "
+                      f"{'GQA' if hq != hkv else 'MHA'}")
+
+
+def time_k3_bwd():
+    """At train_dense's microbatch (stablelm-1.6b); granite-moe-3b-a800m's
+    under ``moe_shape``."""
+    row = _k3_bwd_timed("flash_attention_bwd", K3_BWD_CASES[0],
+                        timed_gen(180))
+    row["moe_shape"] = _k3_bwd_timed("flash_attention_bwd moe",
+                                     K3_BWD_CASES[1], timed_gen(181))
+    return row
+
+
+def _train_k1_inputs(gen, valid_share=1.0):
+    """K1 as ``dispatch_staged`` calls it under training for granite's
+    microbatch (4 x 512 tokens, top-8 of 40, capacity 512), with a
+    ``valid_share`` of the entries kept, and a cotangent of the expert
+    buffer (bf16)."""
+    dest, staging, dst, ok = _moe_k1_inputs(gen, TRAIN_MB * TRAIN["seq"])
+    if valid_share < 1.0:
+        ok = ok & (torch.rand(ok.shape, generator=gen, device=DEV)
+                   < valid_share)
+    grad = torch.randn(dest.shape, generator=gen, device=DEV).to(dest.dtype)
+    return dest, staging, dst, ok, grad
+
+
+def check_k1_adjoint(gen):
+    """At granite's training dispatch: ``staged_drain`` (K1 into a fresh
+    buffer) ``torch.equal`` to the plain drain; its adjoint
+    ``staged_gather`` ``torch.equal`` to the plain gather, int64 and int32
+    rows, all entries valid and about half, bf16 and fp32."""
+    out = []
+    for share in (1.0, 0.5):
+        dest, staging, dst, ok, grad = _train_k1_inputs(gen, share)
+        for dtype in (torch.bfloat16, torch.float32):
+            st, g = staging.to(dtype), grad.to(dtype)
+            want = staged_scatter_ref(dest.to(dtype), st, dst, ok)
+            if not torch.equal(staged_drain(st, dst, ok, dest.shape[0]),
+                               want):
+                raise AssertionError(f"staged_drain mismatch {dtype} "
+                                     f"{share}")
+            for rows in (dst, dst.to(torch.int32)):
+                got = staged_gather(g, rows, ok)
+                torch.cuda.synchronize()
+                if not torch.equal(got, staged_gather_ref(g, rows, ok)):
+                    raise AssertionError(f"staged_gather mismatch {dtype} "
+                                         f"{rows.dtype} {share}")
+        out.append(dict(src=list(grad.shape), rows=dst.shape[0],
+                        valid=int(ok.sum()), exact=True))
+    return out
+
+
+def time_k1_adjoint():
+    """``staged_gather`` at granite's training dispatch (bf16, int64 rows
+    as ``staging_plan`` gives them) beside its plain version and
+    ``index_select`` of the valid rows (a yardstick: it writes no zero
+    rows); bound: the valid rows read, every output row written and the
+    routing read, once."""
+    _, _, dst, ok, grad = _train_k1_inputs(timed_gen(182))
+    n, w = dst.shape[0], grad.shape[1]
+    n_valid = int(ok.sum())
+    rows = dst[ok]
+    t_ = timings("staged_gather", lambda: staged_gather(grad, dst, ok),
+                 lambda: staged_gather_ref(grad, dst, ok),
+                 lambda: grad.index_select(0, rows))
+    nbytes = ((n_valid + n) * w * grad.element_size()
+              + n * (dst.element_size() + 1))
+    ops = one_device_op(lambda: staged_gather(grad, dst, ok),
+                        "staged_gather, device ops", "staged_gather")
+    return dict(**t_, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes", device_op=ops,
+                shape=f"src[{grad.shape[0]},{w}] bf16 -> [{n},{w}], "
+                      f"{n_valid} valid int64 rows, warm")
+
+
 def timed_gen(seed):
     return torch.Generator(device=DEV).manual_seed(seed)
 
@@ -3170,6 +3456,11 @@ def phase_kernels():
     ring_checks = check_ring_lanes_shapes(timed_gen(175))
     k1_t["lanes_ring_shape"], k4_t["lanes_ring_shape"] = \
         time_ring_lanes_shapes()
+    # training: K3's backward (and K3 with lse) at the training phases'
+    # shapes, K1's drain into a fresh buffer and its adjoint
+    k3_bwd_checks = check_k3_bwd(timed_gen(185))
+    k1_adj_checks = check_k1_adjoint(timed_gen(186))
+    k3_bwd_t, k1_adj_t = time_k3_bwd(), time_k1_adjoint()
     say("cms_monitor_step", **step_t)
     say("kernel_checks", staged_scatter_cases=k1_cases,
         staged_scatter_exact=True, flash_decode_paged_cases=k2_cases,
@@ -3224,7 +3515,8 @@ def phase_kernels():
         lru_scan_equal=True, lru_scan_shape=lru_t.pop("shape"),
         moe_shapes=moe_checks, zamba_shapes=zamba_checks,
         whisper_shapes=whisper_checks, vlm_shapes=vlm_checks,
-        lanes_ring_shapes=ring_checks)
+        lanes_ring_shapes=ring_checks, flash_attention_bwd=k3_bwd_checks,
+        staged_drain_and_gather=k1_adj_checks)
     # the kernels line: the write engine's sketch (depth 4, k 16) at one
     # engine batch; all four timed sizes under "sizes"
     cms_main = CMS_TIMED.index((4, 16, 4096))
@@ -3268,7 +3560,23 @@ def phase_kernels():
              source="src/repro_torch/kernels/csrc/lru_scan.cu",
              replaces="no TPU kernel: the lax.scan at "
                       "src/repro/core/simulator.py:146",
-             launches=None, max_abs_err=0.0, **lru_t)]
+             launches=None, max_abs_err=0.0, **lru_t),
+        dict(name="flash_attention_bwd", route="cuda",
+             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+             wrapper="src/repro_torch/kernels/flash_attention.py",
+             replaces="no TPU kernel: the JAX package takes this gradient "
+                      "by autodiff of sdpa (src/repro/models/layers.py:194)",
+             launches=None,
+             max_abs_err=max(k3_bwd_checks["err_vs_plain_f32"],
+                             k3_bwd_checks["err_bf16_vs_plain"]),
+             **k3_bwd_t),
+        dict(name="staged_gather", route="cuda",
+             source="src/repro_torch/kernels/csrc/staged_scatter.cu",
+             wrapper="src/repro_torch/kernels/staged_scatter.py",
+             replaces="no TPU kernel: the JAX package takes this gradient "
+                      "by autodiff of .at[dst].set(mode='drop') "
+                      "(src/repro/models/moe.py:241)",
+             launches=None, max_abs_err=0.0, **k1_adj_t)]
 
 
 # ---------------------------------------------------------------------------
@@ -6122,16 +6430,17 @@ def _concat_ms(cfg):
 
 
 def phase_engine_ring_lanes(kernels):
-    """``ServeEngine`` on stablelm-1.6b at full width (24 layers, bf16,
-    weights from seed 0) over the dense lanes cache: 8 sequences of
+    """``ServeEngine`` on stablelm-1.6b at full width, cut to
+    ``RING_LANES_LAYERS`` of its 24 layers (bf16, weights from seed 0),
+    over the dense lanes cache: 8 sequences of
     512-token prompts, 128 new tokens, max_seq 1024, a ring of 8, pages of
     64, hot threshold 4; each of direct, staged and adaptive through
     ``decode`` (one loop, one readback) and ``decode_reference`` (a host
     read a step). Launch counts set to 0 just before each ``generate`` and
     read just after. Held: ``decode`` = ``decode_reference`` (tokens and
-    ``stats``); flash_attention 24 launches (the prefill), flash_decode 24
-    a decode step (the read of cache ∪ ring, or of the cache alone when
-    direct); staged_scatter one launch a ``maybe_drain`` call (every step:
+    ``stats``); flash_attention one launch a layer (the prefill),
+    flash_decode one a layer and decode step (the read of cache ∪ ring, or
+    of the cache alone when direct); staged_scatter one launch a ``maybe_drain`` call (every step:
     the drain decision rides in its validity) and one for the last drain on
     the ring modes, none when direct; every write staged in staged mode,
     none in direct; then the card = the CPU in fp32 at 2 layers (tokens and
@@ -6141,7 +6450,8 @@ def phase_engine_ring_lanes(kernels):
     share of a step (the ``torch.cat`` kernels in the step's trace; timed
     alone beside it), direct against staged streams (bf16: K4's key order
     differs)."""
-    cfg = get_config(RING_LANES["arch"])
+    cfg = dataclasses.replace(get_config(RING_LANES["arch"]),
+                              n_layers=RING_LANES_LAYERS)
     model = build_model(cfg, device=DEV).init(0)
     b, plen, new = RING_LANES["batch"], RING_LANES["prompt"], \
         RING_LANES["new"]
@@ -6240,6 +6550,372 @@ def phase_engine_ring_lanes(kernels):
         raise AssertionError("engine_ring_lanes: " + "; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# training on the card: parity with the CPU, then the dense and MoE families
+# at full width
+# ---------------------------------------------------------------------------
+
+
+def _train_launches(layers, steps, staged=False):
+    """The launches a training run makes (remat: K3's forward twice a layer
+    and microbatch, its backward once; a staged dispatch's drain likewise
+    twice, its adjoint once); every other kernel none."""
+    n = layers * TRAIN["microbatches"] * steps
+    want = dict(flash_attention=2 * n, flash_attention_bwd=n)
+    if staged:
+        want.update(staged_drain=2 * n, staged_gather=n)
+    return want
+
+
+def _launch_problems(what, counts, want):
+    return [f"{what}: {k} launched {n} times, want {want.get(k, 0)}"
+            for k, n in counts.items() if n != want.get(k, 0)]
+
+
+def _same(a, b):
+    """Both None, or equal tensors."""
+    return (a is None and b is None) or (
+        a is not None and b is not None and torch.equal(a, b))
+
+
+def _recorded(step):
+    """``step`` wrapped to keep each call's grad norm and lr and the MoE
+    counters and mask it leaves."""
+    rec = []
+
+    def run(state, batch):
+        state, met = step(state, batch)
+        rec.append(dict(
+            grad_norm=met["grad_norm"], lr=met["lr"],
+            counts=None if state.expert_counts is None
+            else state.expert_counts.clone(),
+            hot=None if state.hot_mask is None else state.hot_mask.clone()))
+        return state, met
+    return run, rec
+
+
+def _train_profile(tr, what):
+    """One more step of the trainer ``tr`` on its next batch: its host ms
+    (to the loss's read) untraced, then traced: the device ms (the kernels'
+    own times), the device's operations, the busy share (device ms over
+    host ms) and the largest kernels."""
+    batch = tr.put_batch(next(tr.pipeline))
+
+    def one():
+        tr.state, met = tr.train_step(tr.state, batch)
+        float(met["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    rows = trace_rows(one, what)
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    return dict(host_ms=host_ms, device_ms=dev_ms,
+                busy_share=dev_ms / host_ms if rows else None,
+                device_ops=device_ops(rows),
+                largest=[(r[2][:70], r[1], r[0] / 1e3) for r in rows[:6]])
+
+
+def _train_report(tr, rec, secs, tokens_a_step):
+    steady = sorted(tr.step_ms[1:]) or tr.step_ms
+    return dict(losses=tr.history,
+                grad_norms=[float(r["grad_norm"]) for r in rec],
+                lr=[float(r["lr"]) for r in rec], step_host_ms=tr.step_ms,
+                seconds=secs,
+                tokens_per_s=tokens_a_step / steady[len(steady) // 2] * 1e3)
+
+
+def _parity_train_arm(cfg, mode, n_hot):
+    """One model on the card (the kernels) and the CPU (the plain versions)
+    from the same weights and batches: the first batch's loss and
+    gradients, then ``PARITY_TRAIN["steps"]`` train steps each."""
+    P = PARITY_TRAIN
+    kw = {"dispatch_mode": mode} if mode else {}
+    card = build_model(cfg, device=DEV, **kw).init(0)
+    cpu = build_model(cfg, device="cpu", **kw)
+    cpu.load_state_dict(card.state_dict())
+    src = SyntheticSource(DataConfig(P["seq"], P["batch"], cfg.vocab))
+    runs, counts = {}, None
+    for name, m in (("card", card), ("cpu", cpu)):
+        opt = AdamW(lr=warmup_cosine(P["lr"], 1, P["steps"]))
+        st = init_train_state(m, opt, None, n_hot)
+
+        def put(i):
+            return {k: torch.as_tensor(v, device=m.device)
+                    for k, v in src.batch_at(i).items()}
+        loss = (m.loss(put(0), hot_mask=st.hot_mask) if mode
+                else m.loss(put(0)))
+        names, ps = zip(*m.named_parameters())
+        grads = {k: g.cpu() for k, g in zip(names,
+                                            torch.autograd.grad(loss, ps))}
+        step = make_train_step(m, opt, microbatches=P["microbatches"],
+                               n_hot_experts=n_hot)
+        if name == "card":
+            torch.cuda.synchronize()
+            reset_launch_counts()   # counts = 0 just before the main path
+        mets = []
+        for i in range(P["steps"]):
+            st, met = step(st, put(i))
+            mets.append(dict(
+                loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+                lr=float(met["lr"]),
+                counts=None if st.expert_counts is None
+                else st.expert_counts.cpu(),
+                hot=None if st.hot_mask is None else st.hot_mask.cpu()))
+        if name == "card":
+            counts = launch_counts()    # read just after
+        runs[name] = dict(loss0=float(loss.detach()), grads=grads, mets=mets,
+                          params={k: v.detach().cpu()
+                                  for k, v in m.named_parameters()})
+    del card, cpu
+    torch.cuda.empty_cache()
+    return runs, counts
+
+
+def phase_parity_train():
+    """Training on the card = on the CPU, fp32, at the kernels' geometry
+    (``PARITY_TRAIN_DENSE`` / ``_MOE``): stablelm-1.6b's family, and
+    granite-moe-3b-a800m's staged and adaptive (2 hot experts of 8).
+    Held: every gradient leaf of the first batch within 1e-4 of its largest
+    entry (every attention and expert weight's nonzero); per step the loss
+    within 1e-5 and the grad norm within 1e-4 (relative), lr within 1e-6,
+    ``expert_counts`` and the hot mask equal; the final parameters within
+    3 x lr, at most 0.1 % of the entries of a leaf past 1e-6 (Adam's
+    normalisation of near-zero gradients); the launches of K3, its backward,
+    K1's drain and its adjoint as remat makes them."""
+    P = PARITY_TRAIN
+    problems, report = [], {}
+    for tag, arch, over, mode, n_hot in (
+            ("dense", SLICE["arch"], PARITY_TRAIN_DENSE, None, 0),
+            ("moe_staged", MOE["arch"], PARITY_TRAIN_MOE, "staged", 0),
+            ("moe_adaptive", MOE["arch"], PARITY_TRAIN_MOE, "adaptive", 2)):
+        cfg = dataclasses.replace(get_config(arch), **over)
+        runs, counts = _parity_train_arm(cfg, mode, n_hot)
+        a, b = runs["card"], runs["cpu"]
+        grad_share, zero = 0.0, []
+        for k, g in a["grads"].items():
+            ref = b["grads"][k]
+            scale = float(ref.abs().max())
+            grad_share = max(grad_share, float((g - ref).abs().max())
+                             / max(1e-4 * scale, 1e-30))
+            if ("attn" in k or "moe" in k) and float(g.abs().max()) == 0:
+                zero.append(k)
+        if grad_share > 1.0:
+            problems.append(f"{tag}: a gradient leaf errs {grad_share} x "
+                            f"its tolerance")
+        if zero:
+            problems.append(f"{tag}: zero gradients on the card: {zero}")
+        if abs(a["loss0"] - b["loss0"]) > 1e-5 * abs(b["loss0"]):
+            problems.append(f"{tag}: loss {a['loss0']} != {b['loss0']}")
+        for i, (x, y) in enumerate(zip(a["mets"], b["mets"])):
+            if abs(x["loss"] - y["loss"]) > 1e-5 * abs(y["loss"]) or \
+                    abs(x["grad_norm"] - y["grad_norm"]) > \
+                    1e-4 * abs(y["grad_norm"]) or \
+                    abs(x["lr"] - y["lr"]) > 1e-6 * abs(y["lr"]):
+                problems.append(f"{tag} step {i}: card {x} cpu {y}")
+            if mode and not (_same(x["counts"], y["counts"])
+                             and _same(x["hot"], y["hot"])):
+                problems.append(f"{tag} step {i}: counts / mask differ")
+        worst, share_1e6 = 0.0, 0.0
+        for k, v in a["params"].items():
+            d = (v - b["params"][k]).abs()
+            worst = max(worst, float(d.max()))
+            share_1e6 = max(share_1e6, float((d > 1e-6).float().mean()))
+        if worst > 3 * P["lr"] or share_1e6 > 1e-3:
+            problems.append(f"{tag}: parameters part by {worst} "
+                            f"({share_1e6} of a leaf past 1e-6)")
+        problems += _launch_problems(tag, counts, _train_launches(
+            cfg.n_layers, P["steps"], staged=mode is not None))
+        report[tag] = dict(
+            config=over, losses=[m["loss"] for m in a["mets"]],
+            loss_diff=[x["loss"] - y["loss"]
+                       for x, y in zip(a["mets"], b["mets"])],
+            grad_leaf_worst_share_of_tol=grad_share,
+            param_max_diff=worst, param_share_past_1e6=share_1e6,
+            expert_counts=None if not mode
+            else a["mets"][-1]["counts"].tolist(), launches=counts)
+    say("parity_train", shape=P, **report)
+    if problems:
+        raise AssertionError("parity_train: " + "; ".join(problems))
+
+
+def _train_dir():
+    """Scratch space for train_dense's checkpoint: inside the checkout's
+    ignored ``build/``."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_train")
+
+
+def phase_train_dense(kernels):
+    """stablelm-1.6b at full width (d_model 2048, 32 heads of 64, vocab
+    100352), cut to ``TRAIN_DENSE_LAYERS`` of its 24 layers, bf16 compute
+    over fp32 masters: ``Trainer`` over ``SyntheticSource`` batches of 8 x
+    512 in 2 microbatches, remat, AdamW under ``warmup_cosine``. A
+    checkpoint at step 3 (written async while the run goes on to 6); then a
+    fresh model and ``Trainer`` resume from it and run to 6: their losses
+    within ``TRAIN_RESUME_RTOL`` of the first run's. Launch counts set to 0
+    just before the first run and read just after: K3 twice and its
+    backward once a layer, microbatch and step, nothing else. Reported:
+    losses, grad norms, step host ms, tokens/s, peak memory, and one more
+    step traced (device ms, busy share, device ops)."""
+    import shutil
+    cfg = dataclasses.replace(get_config(SLICE["arch"]),
+                              n_layers=TRAIN_DENSE_LAYERS)
+    steps, at = TRAIN_DENSE_STEPS, TRAIN_RESUME_AT
+    ckdir = _train_dir()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    dc = DataConfig(TRAIN["seq"], TRAIN["batch"], cfg.vocab)
+
+    def trainer(seed, total, ckpt_dir):
+        model = build_model(cfg, device=DEV)
+        opt = AdamW(lr=warmup_cosine(TRAIN["lr"], TRAIN["warmup"], steps))
+        step, rec = _recorded(make_train_step(
+            model, opt, microbatches=TRAIN["microbatches"]))
+        return Trainer(step, init_train_state(model, opt, seed),
+                       Pipeline(SyntheticSource(dc)).start(),
+                       TrainerConfig(total_steps=total, checkpoint_every=at,
+                                     checkpoint_dir=ckpt_dir,
+                                     log_every=10 ** 9)), rec
+
+    problems = []
+    t0 = time.perf_counter()
+    tr, rec = trainer(0, at, ckdir)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    reset_launch_counts()           # counts = 0 just before the main path
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr.run()                        # steps 0..2, the checkpoint at 3
+    ckpt_s = time.perf_counter() - t0
+    tr.cfg = dataclasses.replace(tr.cfg, total_steps=steps,
+                                 checkpoint_dir=None)
+    tr.run()                        # steps 3..5
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()        # read just after
+    peak = torch.cuda.max_memory_allocated()
+    problems += _launch_problems("train_dense", counts,
+                                 _train_launches(cfg.n_layers, steps))
+    report = _train_report(tr, rec, secs, TRAIN["batch"] * TRAIN["seq"])
+    profile = _train_profile(tr, "train_dense step")
+    tr.pipeline.stop()
+    first = tr.history
+    del tr, rec
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    tr2, _ = trainer(1, steps, ckdir)
+    tr2.maybe_resume()
+    restore_s = time.perf_counter() - t0
+    if tr2.state.step != at or tr2.pipeline.step != at:
+        problems.append(f"resumed at step {tr2.state.step}, pipeline "
+                        f"{tr2.pipeline.step}")
+    tr2.cfg = dataclasses.replace(tr2.cfg, checkpoint_dir=None)
+    tr2.run()
+    tr2.pipeline.stop()
+    resumed = tr2.history
+    rel = [abs(x - y) / abs(y) for x, y in zip(resumed, first[at:])]
+    if len(resumed) != steps - at or max(rel) > TRAIN_RESUME_RTOL:
+        problems.append(f"resumed losses {resumed} against {first[at:]}")
+    ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                     for dp, _, fs in os.walk(ckdir) for f in fs)
+    del tr2
+    torch.cuda.empty_cache()
+    shutil.rmtree(ckdir, ignore_errors=True)
+    say("train_dense", arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        shape=TRAIN, steps=steps, params_billions=cfg.param_count() / 1e9,
+        model_build_seconds=t_build, launches=counts, peak_mem_gb=peak / 1e9,
+        checkpoint_at=at, checkpoint_gb=ckpt_bytes / 1e9,
+        first_leg_seconds=ckpt_s, resume_seconds=restore_s,
+        resumed_losses=resumed, resumed_rel_diff=rel,
+        resume_rtol=TRAIN_RESUME_RTOL, profile=profile, **report)
+    take_launches(kernels, counts, ("flash_attention_bwd",))
+    for k in kernels:
+        if k["name"] == "flash_attention":
+            k["train_dense_launches"] = counts["flash_attention"]
+    if problems:
+        raise AssertionError("train_dense: " + "; ".join(problems))
+
+
+def phase_train_moe(kernels):
+    """granite-moe-3b-a800m at full width (d_model 1536, 40 experts top-8,
+    24 heads over 8), cut to ``TRAIN_MOE_LAYERS`` of its 32 layers, bf16
+    over fp32 masters, ``train_dense``'s batches: 3 steps with staged
+    dispatch (the unload path: every assignment drains through K1), then 3
+    adaptive with ``TRAIN_N_HOT`` hot experts, the mask recalibrated after
+    every step. Held per arm: ``expert_counts`` sums to tokens x top-8 x
+    layers x steps; each step's mask equals ``expert_hot_mask`` of that
+    step's counts taken on the CPU; K3, its backward, the drain and its
+    adjoint launched as remat makes them, nothing else. Reported as
+    ``train_dense``."""
+    cfg = dataclasses.replace(get_config(MOE["arch"]),
+                              n_layers=TRAIN_MOE_LAYERS)
+    steps = TRAIN_MOE_STEPS
+    dc = DataConfig(TRAIN["seq"], TRAIN["batch"], cfg.vocab)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=DEV)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    problems, arms, drains = [], {}, {}
+    want = _train_launches(cfg.n_layers, steps, staged=True)
+    for mode, n_hot in (("staged", 0), ("adaptive", TRAIN_N_HOT)):
+        model.dispatch_mode = mode
+        opt = AdamW(lr=warmup_cosine(TRAIN["lr"], TRAIN["warmup"], steps))
+        step, rec = _recorded(make_train_step(
+            model, opt, microbatches=TRAIN["microbatches"],
+            n_hot_experts=n_hot))
+        tr = Trainer(step, init_train_state(model, opt, 0, n_hot),
+                     Pipeline(SyntheticSource(dc)).start(),
+                     TrainerConfig(total_steps=steps, log_every=10 ** 9))
+        reset_launch_counts()       # counts = 0 just before the main path
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = launch_counts()    # read just after
+        peak = torch.cuda.max_memory_allocated()
+        problems += _launch_problems(f"train_moe {mode}", counts, want)
+        total = int(tr.state.expert_counts.sum())
+        if total != TRAIN["batch"] * TRAIN["seq"] * cfg.top_k * \
+                cfg.n_layers * steps:
+            problems.append(f"{mode}: expert_counts sum to {total}")
+        masks_ok = True
+        for r in rec:
+            if n_hot and not torch.equal(
+                    r["hot"].cpu(), expert_hot_mask(r["counts"].cpu(), n_hot)):
+                masks_ok = False
+        if not masks_ok:
+            problems.append(f"{mode}: a step's mask is not expert_hot_mask "
+                            f"of its counts")
+        report = _train_report(tr, rec, secs, TRAIN["batch"] * TRAIN["seq"])
+        profile = _train_profile(tr, f"train_moe {mode} step")
+        tr.pipeline.stop()
+        arms[mode] = dict(report, launches=counts, peak_mem_gb=peak / 1e9,
+                          expert_counts=tr.state.expert_counts.tolist(),
+                          hot_masks=[None if r["hot"] is None
+                                     else r["hot"].nonzero()[:, 0].tolist()
+                                     for r in rec],
+                          masks_equal_expert_hot_mask=masks_ok,
+                          profile=profile)
+        drains[mode] = counts["staged_drain"]
+        if mode == "staged":
+            take_launches(kernels, counts, ("staged_gather",))
+        del tr, rec
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    for k in kernels:
+        if k["name"] == "staged_scatter":
+            k["train_moe_drain_launches"] = drains
+    say("train_moe", arch=cfg.name, n_layers=cfg.n_layers, dtype=cfg.dtype,
+        shape=TRAIN, steps=steps, n_experts=cfg.n_experts, top_k=cfg.top_k,
+        n_hot=TRAIN_N_HOT, params_billions=cfg.param_count() / 1e9,
+        model_build_seconds=t_build, **arms)
+    if problems:
+        raise AssertionError("train_moe: " + "; ".join(problems))
+
+
 PHASE_SECONDS = {}
 
 
@@ -6282,6 +6958,9 @@ PHASES = (
     ("engine_vlm", phase_engine_vlm, ("kernels",)),
     ("parity_vlm", phase_parity_vlm, ()),
     ("engine_ring_lanes", phase_engine_ring_lanes, ("kernels",)),
+    ("parity_train", phase_parity_train, ()),
+    ("train_dense", phase_train_dense, ("kernels",)),
+    ("train_moe", phase_train_moe, ("kernels",)),
 )
 
 

@@ -1,20 +1,30 @@
-"""Port of repro/data/pipeline.py (the serving path's share).
+"""Port of repro/data/pipeline.py.
 
-``Request``, the FIFO ``RequestQueue`` that feeds the serve scheduler's
-admissions, and ``synthetic_requests``, the deterministic request workload
-(splitmix-hashed prompts: every (seed, i) pair reproduces the same request on
-any host, and the same prompts as the JAX package's generator). The training
-token pipeline (``SyntheticSource``/``MemmapSource``/``Pipeline``) is not
-ported yet.
+Serving: ``Request``, the FIFO ``RequestQueue`` that feeds the serve
+scheduler's admissions, and ``synthetic_requests``, the deterministic
+request workload (splitmix-hashed prompts: every (seed, i) pair reproduces
+the same request on any host, and the same prompts as the JAX package's
+generator).
+
+Training: the sharded, deterministic, restartable token pipeline.
+``SyntheticSource`` (token i = splitmix hash of its global index, so every
+(step, host) pair gives the JAX package's batch bit for bit, with no files),
+``MemmapSource`` (a flat int32 token file, rows drawn round-robin) and
+``Pipeline``, a prefetching iterator over a source whose batches are a pure
+function of the step: ``skip_to(step)`` resumes in O(1). Batches are numpy
+(``tokens`` / ``labels`` int32 ``[host_batch, seq_len]``); the trainer moves
+them to the device.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import math
+import queue
+import threading
 import time
 import warnings
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Dict, Iterator, Optional, Sequence, Union
 
 import numpy as np
 
@@ -27,6 +37,140 @@ def _splitmix(x: np.ndarray) -> np.ndarray:
     x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
     x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
     return (x ^ (x >> np.uint64(31))).astype(np.int64)
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    seq_len: int
+    global_batch: int
+    vocab: int
+    # sharding over hosts: this host handles [host_index, num_hosts)
+    num_hosts: int = 1
+    host_index: int = 0
+    seed: int = 0
+
+    @property
+    def host_batch(self) -> int:
+        if self.global_batch % self.num_hosts:
+            raise ValueError(f"global_batch {self.global_batch} does not "
+                             f"split over {self.num_hosts} hosts")
+        return self.global_batch // self.num_hosts
+
+
+class SyntheticSource:
+    """Deterministic token stream: token[i] = splitmix-style hash of i."""
+
+    def __init__(self, cfg: DataConfig):
+        self.cfg = cfg
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        b, s = cfg.host_batch, cfg.seq_len
+        # global token offsets for this host's rows at this step
+        row0 = step * cfg.global_batch + cfg.host_index * b
+        rows = row0 + np.arange(b, dtype=np.int64)[:, None]
+        idx = rows * (s + 1) + np.arange(s + 1, dtype=np.int64)[None, :]
+        toks = _splitmix(idx + cfg.seed) % cfg.vocab
+        return {
+            "tokens": toks[:, :-1].astype(np.int32),
+            "labels": toks[:, 1:].astype(np.int32),
+        }
+
+
+class MemmapSource:
+    """Flat int32 token file; rows are drawn round-robin over the file."""
+
+    def __init__(self, cfg: DataConfig, path: str):
+        self.cfg = cfg
+        self.tokens = np.memmap(path, dtype=np.int32, mode="r")
+        self.n_rows = (len(self.tokens) - 1) // cfg.seq_len
+        if self.n_rows <= 0:
+            raise ValueError(f"{path}: too few tokens for seq_len={cfg.seq_len}")
+
+    def batch_at(self, step: int) -> Dict[str, np.ndarray]:
+        cfg = self.cfg
+        b, s = cfg.host_batch, cfg.seq_len
+        row0 = step * cfg.global_batch + cfg.host_index * b
+        out_t = np.empty((b, s), np.int32)
+        out_l = np.empty((b, s), np.int32)
+        for i in range(b):
+            r = (row0 + i) % self.n_rows
+            chunk = self.tokens[r * s: r * s + s + 1]
+            out_t[i] = chunk[:-1]
+            out_l[i] = chunk[1:]
+        return {"tokens": out_t, "labels": out_l}
+
+
+class Pipeline:
+    """Prefetching iterator over a source, restartable at any step. Without
+    ``start()`` it reads each batch when asked; started, a thread keeps up
+    to ``prefetch`` batches ready."""
+
+    def __init__(self, source, start_step: int = 0, prefetch: int = 2):
+        self.source = source
+        self.step = start_step
+        self._q: "queue.Queue" = queue.Queue(maxsize=max(prefetch, 1))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+
+    def _worker(self, stop: threading.Event, q: "queue.Queue"):
+        # stop / q are bound at thread start: a worker that outlives its
+        # epoch (join timeout in stop()) keeps seeing its own set event and
+        # its own orphaned queue, and never publishes a stale batch into a
+        # restarted pipeline
+        s = self.step
+        while not stop.is_set():
+            batch = self.source.batch_at(s)
+            while not stop.is_set():
+                try:
+                    q.put((s, batch), timeout=0.1)
+                    break
+                except queue.Full:
+                    continue
+            s += 1
+
+    def start(self) -> "Pipeline":
+        self._thread = threading.Thread(
+            target=self._worker, args=(self._stop, self._q), daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        if self._thread is not None:
+            # unblock a put() stuck on a full queue
+            try:
+                while True:
+                    self._q.get_nowait()
+            except queue.Empty:
+                pass
+            self._thread.join(timeout=2)
+            self._thread = None
+            # retire this epoch's queue: the worker may still complete one
+            # put() on its way out; a restart must never serve it
+            self._q = queue.Queue(maxsize=self._q.maxsize)
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        if self._thread is None:
+            batch = self.source.batch_at(self.step)
+            self.step += 1
+            return batch
+        s, batch = self._q.get()
+        self.step = s + 1
+        return batch
+
+    def skip_to(self, step: int):
+        """O(1) resume: the source is a pure function of step."""
+        was_running = self._thread is not None
+        if was_running:
+            self.stop()
+            self._stop = threading.Event()
+        self.step = step
+        if was_running:
+            self.start()
 
 
 @dataclasses.dataclass

@@ -12,7 +12,13 @@ hot spots of the serving path, each with a plain PyTorch version beside it.
                       the same under a mesh: one K2 launch per device over
                       the head shards there
   flash_attention     causal / sliding-window prefill attention, GQA by
-                      index (``csrc/flash_attention.cu``)
+                      index (``csrc/flash_attention.cu``); under autograd
+                      ``FlashAttentionFunction``, whose backward is
+                      ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``)
+  staged_drain        the functional drain for training's staged MoE
+                      dispatch (one K1 launch into a fresh zero buffer),
+                      its adjoint ``staged_gather`` a row gather over the
+                      same routing (``csrc/staged_scatter.cu``)
   flash_decode        one-query decode over a dense per-slot cache, the
                       lanes layout's read (``csrc/flash_decode.cu``)
   cms_update          count-min-sketch update, the CMS monitor's counters
@@ -34,6 +40,7 @@ python -m pytest -q tests/test_torch_cms.py`` (the sketch kernels) and
 times every kernel.
 """
 from .ops import (
+    FlashAttentionFunction,
     cms_query,
     cms_query_ref,
     cms_update,
@@ -41,6 +48,10 @@ from .ops import (
     cms_update_query_ref,
     cms_update_ref,
     flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_ref,
+    flash_attention_lse,
+    flash_attention_lse_ref,
     flash_attention_ref,
     flash_decode,
     flash_decode_paged,
@@ -54,6 +65,9 @@ from .ops import (
     lru_scan,
     lru_scan_ref,
     reset_launch_counts,
+    staged_drain,
+    staged_gather,
+    staged_gather_ref,
     staged_scatter,
     staged_scatter_layers,
     staged_scatter_planes,
@@ -62,13 +76,16 @@ from .ops import (
 )
 
 __all__ = [
-    "cms_query", "cms_query_ref", "cms_update", "cms_update_query",
-    "cms_update_query_ref", "cms_update_ref",
-    "flash_attention", "flash_attention_ref", "flash_decode",
+    "FlashAttentionFunction", "cms_query", "cms_query_ref", "cms_update",
+    "cms_update_query", "cms_update_query_ref", "cms_update_ref",
+    "flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
+    "flash_attention_lse", "flash_attention_lse_ref", "flash_attention_ref",
+    "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
     "kernel_launch_counts", "launch_counts", "lru_buckets_ref", "lru_scan",
     "lru_scan_ref",
-    "reset_launch_counts", "staged_scatter", "staged_scatter_layers",
+    "reset_launch_counts", "staged_drain", "staged_gather",
+    "staged_gather_ref", "staged_scatter", "staged_scatter_layers",
     "staged_scatter_planes", "staged_scatter_planes_ref", "staged_scatter_ref",
 ]

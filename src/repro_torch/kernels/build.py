@@ -174,6 +174,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.staged_scatter_launch.restype = i32
     lib.staged_scatter_launch.argtypes = [
         i32, vp, vp, vp, vp, vp, vp, vp, vp, i32, i64, vp, i64, i32, i32, vp]
+    lib.staged_gather_launch.restype = i32
+    lib.staged_gather_launch.argtypes = [
+        vp, vp, i64, i32, vp, i32, i64, vp, i64, i32, i32, vp]
     lib.flash_decode_paged_launch.restype = i32
     lib.flash_decode_paged_launch.argtypes = [
         vp, i32, vp, vp, vp, vp, vp, vp, vp, vp,
@@ -183,7 +186,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_decode_paged_prepare.argtypes = []
     lib.flash_attention_launch.restype = i32
     lib.flash_attention_launch.argtypes = (
-        [vp] * 4 + [i32] * 6 + [i64] * 12 + [i32, i32, ctypes.c_float, i32, vp])
+        [vp] * 4 + [i32] * 6 + [i64] * 12
+        + [vp, i32, i32, ctypes.c_float, i32, vp])
+    lib.flash_attention_bwd_launch.restype = i32
+    lib.flash_attention_bwd_launch.argtypes = (
+        [vp] * 10 + [i32] * 6 + [vp, i32, i32, ctypes.c_float, i32, vp])
     lib.flash_decode_launch.restype = i32
     lib.flash_decode_launch.argtypes = (
         [vp] * 5 + [i32] * 7 + [ctypes.c_float, i32, vp])

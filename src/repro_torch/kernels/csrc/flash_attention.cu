@@ -46,6 +46,12 @@
 //
 // float32 inputs take a plain CUDA-core path (one key per lane for Q.K^T,
 // probabilities broadcast by shuffles for P.V), used by the fp32 parity runs.
+//
+// Given a pointer for it, either path also writes each row's log-sum-exp of
+// the scaled scores, lse[b, h, i] = log sum_j exp(q.k * scale) over the keys
+// the row sees, fp32, [B, Hq, S] dense: what the backward
+// (flash_attention_bwd.cu) needs to recompute P without a second softmax.
+// The serving launch passes none, and stores nothing more.
 #include <cuda.h>  // CUtensorMap; the encoder comes through cudaGetDriverEntryPoint
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +62,7 @@ namespace {
 
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 128;
 
@@ -255,7 +262,8 @@ __device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
 template <int kNB>
 __global__ void __launch_bounds__(kThreadsWS, 1) attn_wgmma_kernel(
     const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
-    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, Geom g) {
+    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o,
+    float* __restrict__ lse, Geom g) {
   using L = Smem<kNB>;
   constexpr int kDp = kNB * kBox;  // padded head_dim: the P.V product's N
   constexpr int kStages = L::kStages;
@@ -468,7 +476,8 @@ __global__ void __launch_bounds__(kThreadsWS, 1) attn_wgmma_kernel(
     release(empty_v, st);
 
     // l is a per-thread partial over its columns: sum the quad, normalise,
-    // store the real columns of the real rows
+    // store the real columns of the real rows (and, where asked, each row's
+    // log-sum-exp: m is its max in base-2 units of the scaled score)
     if (active) {
       float inv[2];
 #pragma unroll
@@ -482,6 +491,8 @@ __global__ void __launch_bounds__(kThreadsWS, 1) attn_wgmma_kernel(
       for (int r = 0; r < 2; ++r) {
         const int row = r0 + warp * 16 + gid + 8 * r;
         if (row >= g.S) continue;
+        if (lse != nullptr && tig == 0)
+          lse[((long long)b * g.Hq + h) * g.S + row] = (m[r] + log2f(l[r])) * kLn2;
         __nv_bfloat16* orow = op + (long long)row * g.o_ss;
 #pragma unroll
         for (int j = 0; j < kDp / 8; ++j) {
@@ -503,7 +514,8 @@ constexpr int kBQ32 = 32, kBK32 = 32, kRowsPerWarp = kBQ32 / (kThreads / 32);
 
 __global__ void __launch_bounds__(kThreads) attn_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, float* __restrict__ o, Geom g) {
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse, Geom g) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int D = g.D, ks = D + 1;  // K rows padded by one: lanes own rows
   float* Qs = reinterpret_cast<float*>(smem_raw);  // [kBQ32][D]
@@ -576,6 +588,8 @@ __global__ void __launch_bounds__(kThreads) attn_f32_kernel(
   for (int j = 0; j < kRowsPerWarp; ++j) {
     const int row = q0 + warp * kRowsPerWarp + j;
     if (row >= g.S) continue;
+    if (lse != nullptr && lane == 0)
+      lse[((long long)b * g.Hq + h) * g.S + row] = m[j] + logf(l[j]);
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       const int d = lane + 32 * c;
@@ -635,8 +649,8 @@ int make_map(CUtensorMap* map, const void* ptr, int D, int rows, int heads,
 }
 
 template <int kNB>
-int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
-                const Geom& g, cudaStream_t s) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, const Geom& g, cudaStream_t s) {
   CUtensorMap tq, tk, tv;
   int e = make_map(&tq, q, g.D, g.S, g.Hq, B, g.q_ss, g.q_sh, g.q_sb, kBM);
   if (!e) e = make_map(&tk, k, g.D, g.T, g.Hkv, B, g.k_st, g.k_sh, g.k_sb, kBN);
@@ -647,14 +661,15 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o, int B,
   if (e) return e;
   dim3 grid((g.S + kBM - 1) / kBM, g.Hq, B);
   attn_wgmma_kernel<kNB><<<grid, kThreadsWS, bytes, s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), g);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, g);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B,Hq,S,D], k/v [B,Hkv,T,D], out like q, each with its own element strides
-// (the last dim dense). dtype: 0 = float32, 1 = bfloat16. D <= 128, a multiple
+// (the last dim dense). lse: null, or fp32 [B,Hq,S] dense for each row's
+// log-sum-exp. dtype: 0 = float32, 1 = bfloat16. D <= 128, a multiple
 // of 8 (bf16) or any (fp32); bf16 pointers and strides 16-byte aligned (the
 // tensor maps' rule). Causal needs S <= T. Returns 0 when launched, a CUDA
 // error, or 10000 + the CUresult of cuTensorMapEncodeTiled when a tensor map
@@ -664,7 +679,7 @@ extern "C" int flash_attention_launch(
     int Hkv, int S, int T, int D, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_st, long long v_sb,
     long long v_sh, long long v_st, long long o_sb, long long o_sh,
-    long long o_ss, int causal, int window, float scale, int dtype,
+    long long o_ss, float* lse, int causal, int window, float scale, int dtype,
     void* stream) {
   if (B <= 0 || Hkv <= 0 || Hq % Hkv || S <= 0 || T <= 0 || D <= 0 || D > 128 ||
       B > 65535 || Hq > 65535 || (causal && S > T))
@@ -686,13 +701,13 @@ extern "C" int flash_attention_launch(
     dim3 grid((S + kBQ32 - 1) / kBQ32, Hq, B);
     attn_f32_kernel<<<grid, kThreads, bytes, s>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), g);
+        static_cast<const float*>(v), static_cast<float*>(out), lse, g);
     return (int)cudaGetLastError();
   }
   if (dtype == 1) {
     if (D % 8) return (int)cudaErrorInvalidValue;
-    return D <= kBox ? launch_bf16<1>(q, k, v, out, B, g, s)
-                     : launch_bf16<2>(q, k, v, out, B, g, s);
+    return D <= kBox ? launch_bf16<1>(q, k, v, out, lse, B, g, s)
+                     : launch_bf16<2>(q, k, v, out, lse, B, g, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -37,6 +37,19 @@
 //     does (at least the element size).
 // Valid destination rows are unique within one drain, so blocks never write
 // the same bytes.
+//
+// staged_gather: the drain's adjoint, for training's staged MoE dispatch.
+// It replaces no TPU kernel: the JAX package takes this gradient by autodiff
+// of its .at[dst].set(mode="drop"). For a drain of one plane
+// (dest[dst_row[i]] = staging[i] where valid[i]) the gradient of the staging
+// rows is
+//   grad_staging[i][:] = valid[i] && 0 <= dst_row[i] < n_rows
+//                        ? grad_dest[dst_row[i]][:] : 0,
+// a row gather over the same routing list, read as the caller holds it
+// (int32 or int64, any stride), in one launch. Bound: bytes, the valid rows
+// read once and every output row written once, plus the routing. One block
+// a staged entry, the drain's vector widths and block size; a dropped entry
+// writes its zeros without reading.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -125,7 +138,97 @@ int launch_idx(const Table& t, int n_planes, int max_layers, int threads,
   return (int)cudaErrorInvalidValue;
 }
 
+template <typename U, typename I>
+__global__ void __launch_bounds__(kMaxThreads) gather_rows_kernel(
+    U* __restrict__ out, const U* __restrict__ src, int n_vec, int n_rows,
+    const I* __restrict__ dst_row, long long row_stride,
+    const unsigned char* __restrict__ valid, long long valid_stride) {
+  const long long i = blockIdx.x;
+  const unsigned char ok = valid[i * valid_stride];
+  const long long r = (long long)dst_row[i * row_stride];
+  U* dst = out + i * n_vec;
+  if (!ok || r < 0 || r >= n_rows) {
+    const U zero = U();
+    for (int j = threadIdx.x; j < n_vec; j += blockDim.x) dst[j] = zero;
+    return;
+  }
+  const U* row = src + r * n_vec;
+  const int step = kPer * blockDim.x;
+  for (int base = threadIdx.x; base < n_vec; base += step) {
+    U v[kPer];
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = base + k * blockDim.x;
+      if (j < n_vec) v[k] = row[j];
+    }
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      const int j = base + k * blockDim.x;
+      if (j < n_vec) dst[j] = v[k];
+    }
+  }
+}
+
+template <typename U>
+int launch_gather(void* out, const void* src, int n_vec, int n_rows,
+                  const void* dst_row, int idx_bytes, long long row_stride,
+                  const unsigned char* valid, long long valid_stride, int n,
+                  int threads, cudaStream_t s) {
+  if (idx_bytes == 8) {
+    gather_rows_kernel<U, long long><<<n, threads, 0, s>>>(
+        static_cast<U*>(out), static_cast<const U*>(src), n_vec, n_rows,
+        static_cast<const long long*>(dst_row), row_stride, valid, valid_stride);
+  } else if (idx_bytes == 4) {
+    gather_rows_kernel<U, int><<<n, threads, 0, s>>>(
+        static_cast<U*>(out), static_cast<const U*>(src), n_vec, n_rows,
+        static_cast<const int*>(dst_row), row_stride, valid, valid_stride);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The drain's adjoint: out[i] = src[dst_row[i]] where valid[i] and
+// 0 <= dst_row[i] < n_rows, else zeros. out [n, row_bytes] and src [n_rows,
+// row_bytes] row-contiguous; the routing as staged_scatter_launch takes it.
+// Returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int staged_gather_launch(
+    void* out, const void* src, long long row_bytes, int n_rows,
+    const void* dst_row, int idx_bytes, long long row_stride,
+    const unsigned char* valid, long long valid_stride, int n, int elem_size,
+    void* stream) {
+  if (n <= 0 || n_rows < 0 || row_bytes <= 0 || (elem_size != 2 && elem_size != 4) ||
+      row_bytes % elem_size)
+    return (int)cudaErrorInvalidValue;
+  int unit = 16;
+  const unsigned long long bits = (unsigned long long)row_bytes |
+                                  reinterpret_cast<uintptr_t>(out) |
+                                  reinterpret_cast<uintptr_t>(src);
+  while (unit > elem_size && (bits & (unit - 1))) unit >>= 1;
+  const long long vecs = row_bytes / unit;
+  if (vecs > (1LL << 30)) return (int)cudaErrorInvalidValue;
+  long long threads = ((vecs + kPer - 1) / kPer + 31) / 32 * 32;
+  if (threads > kMaxThreads) threads = kMaxThreads;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nv = (int)vecs, th = (int)threads;
+  switch (unit) {
+    case 16:
+      return launch_gather<uint4>(out, src, nv, n_rows, dst_row, idx_bytes,
+                                  row_stride, valid, valid_stride, n, th, s);
+    case 8:
+      return launch_gather<uint2>(out, src, nv, n_rows, dst_row, idx_bytes,
+                                  row_stride, valid, valid_stride, n, th, s);
+    case 4:
+      return launch_gather<unsigned int>(out, src, nv, n_rows, dst_row, idx_bytes,
+                                         row_stride, valid, valid_stride, n, th, s);
+    default:
+      return launch_gather<unsigned short>(out, src, nv, n_rows, dst_row,
+                                           idx_bytes, row_stride, valid,
+                                           valid_stride, n, th, s);
+  }
+}
 
 // One drain of n_planes planes (at most kMaxPlanes) over one routing list:
 // per plane its dest and staging base pointers, row bytes, bytes from one

@@ -32,8 +32,23 @@ strides must be whole 16-byte units.
 On a CPU tensor the wrapper runs the plain version (over blocks of 1024
 query rows once S * T passes 4096 * 2048, as the JAX package's ``sdpa``
 does); on a CUDA tensor it launches the kernel or raises.
+
+Training: ``FlashAttentionFunction`` runs K3 under autograd. Its forward
+asks K3 for each row's log-sum-exp too (``flash_attention_lse``: the same
+launch, given a pointer it stores ``lse``; the serving launch passes none);
+its backward is ``flash_attention_bwd``, the hand-written
+``csrc/flash_attention_bwd.cu`` (FlashAttention-2: delta, a dK / dV pass a
+64-key tile and KV head summing its GQA group inside the block, a dQ pass a
+64-row query tile; fp32 accumulation on CUDA cores). It replaces no TPU
+kernel: the JAX package takes this gradient by autodiff of ``sdpa``. Bound:
+the larger of ``10 * D * Hq * live pairs`` FLOP at the tensor cores' rate
+and one read of q, k, v, out, dout and lse and one write of dq, dk and dv
+(bytes at the training shapes, S = 512 and D = 64). Its plain version is
+autograd through the plain forward, on CPU tensors only.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -59,18 +74,25 @@ def _repeat_kv(k, v, hq):
     return k.repeat_interleave(g, dim=1), v.repeat_interleave(g, dim=1)
 
 
+def _mask(s, t, q0, causal, window, device):
+    """bool ``[S, T]``: the keys each query row at absolute position ``q0 +
+    i`` may see."""
+    qpos = torch.arange(s, device=device)[:, None] + q0
+    kpos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos       # queries may sit at the end of kv
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
 def _ref_rows(q, k, v, causal, window, q0):
     """The plain version for query rows at absolute positions ``q0 ..``
     against heads already matched (``Hq`` K/V heads)."""
     s, t, d = q.shape[2], k.shape[2], q.shape[3]
     logits = torch.einsum("bhsd,bhtd->bhst", q, k).float() * (d ** -0.5)
-    qpos = torch.arange(s, device=q.device)[:, None] + q0
-    kpos = torch.arange(t, device=q.device)[None, :]
-    mask = torch.ones((s, t), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos <= qpos       # queries may sit at the end of kv
-    if window > 0:
-        mask &= kpos > qpos - window
+    mask = _mask(s, t, q0, causal, window, q.device)
     logits = torch.where(mask, logits, torch.tensor(-1e30, device=q.device))
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.einsum("bhst,bhtd->bhsd", probs, v)
@@ -141,13 +163,9 @@ def _check(q, k, v):
         raise ValueError("all flash_attention operands must share a device")
 
 
-def flash_attention(q, k, v, causal: bool = True,
-                    window: int = 0) -> torch.Tensor:
-    """Tiled causal (optionally sliding-window) attention; q ``[B,Hq,S,D]``,
-    k/v ``[B,Hkv,T,D]`` -> ``[B,Hq,S,D]`` in ``q.dtype``."""
-    _check(q, k, v)
-    if q.device.type == "cpu":
-        return _ref_blocked(q, k, v, causal, window)
+def _forward(q, k, v, causal, window, lse):
+    """One K3 launch on CUDA operands (checked by ``_check``); ``lse``, an
+    fp32 ``[B, Hq, S]`` tensor or None, receives each row's log-sum-exp."""
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash_attention takes float32 or bfloat16, got "
                         f"{q.dtype}")
@@ -173,8 +191,8 @@ def flash_attention(q, k, v, causal: bool = True,
         err = build.load_library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, hq, hkv, s, t, d, *strides[0], *strides[1], *strides[2],
-            *strides[3], int(causal), int(window),
-            float(d ** -0.5), _DTYPES[q.dtype],
+            *strides[3], None if lse is None else lse.data_ptr(),
+            int(causal), int(window), float(d ** -0.5), _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     if err >= build.MAP_ERROR:
         raise RuntimeError(f"flash_attention: cuTensorMapEncodeTiled refused a "
@@ -185,4 +203,124 @@ def flash_attention(q, k, v, causal: bool = True,
     return out
 
 
+def flash_attention(q, k, v, causal: bool = True,
+                    window: int = 0) -> torch.Tensor:
+    """Tiled causal (optionally sliding-window) attention; q ``[B,Hq,S,D]``,
+    k/v ``[B,Hkv,T,D]`` -> ``[B,Hq,S,D]`` in ``q.dtype``."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return _ref_blocked(q, k, v, causal, window)
+    return _forward(q, k, v, causal, window, None)
+
+
+def flash_attention_lse_ref(q, k, v, causal: bool = True,
+                            window: int = 0) -> torch.Tensor:
+    """Plain version of K3's ``lse``: the fp32 log-sum-exp of each row's
+    scaled, masked scores ``[B, Hq, S]``."""
+    k, _ = _repeat_kv(k, k, q.shape[1])
+    s, t, d = q.shape[2], k.shape[2], q.shape[3]
+    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float()) * d ** -0.5
+    mask = _mask(s, t, t - s, causal, window, q.device)
+    return torch.logsumexp(logits.masked_fill(~mask, float("-inf")), dim=-1)
+
+
+def flash_attention_lse(q, k, v, causal: bool = True, window: int = 0):
+    """K3 that also returns each row's log-sum-exp (fp32 ``[B, Hq, S]``),
+    what the backward needs: ``(out, lse)``. One K3 launch on a CUDA tensor
+    (counted as ``flash_attention``'s), the plain versions on a CPU one."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return (_ref_blocked(q, k, v, causal, window),
+                flash_attention_lse_ref(q, k, v, causal, window))
+    b, hq, s, _ = q.shape
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, window, lse), lse
+
+
+def flash_attention_bwd_ref(q, k, v, dout, causal: bool = True,
+                            window: int = 0):
+    """Plain version of the backward: autograd through the plain forward
+    (``_ref_blocked``) on the same operands -> ``(dq, dk, dv)``."""
+    with torch.enable_grad():
+        qq, kk, vv = (x.detach().requires_grad_() for x in (q, k, v))
+        out = _ref_blocked(qq, kk, vv, causal, window)
+        return torch.autograd.grad(out, (qq, kk, vv), dout)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                        window: int = 0):
+    """The gradients ``(dq, dk, dv)`` of one ``flash_attention`` call, from
+    its operands, its output and its ``lse`` (``flash_attention_lse``), in
+    the operands' dtype and strides. On a CUDA tensor one call of
+    ``csrc/flash_attention_bwd.cu`` (three launches: delta, dK / dV, dQ,
+    counted as one); on a CPU tensor the plain version, which ignores
+    ``out`` and ``lse``."""
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_ref(q, k, v, dout, causal, window)
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention_bwd takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    b, hq, s, d = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    if causal and s > t:
+        raise ValueError(f"causal attention needs S <= T, got S={s}, T={t}")
+    if d > 128:
+        raise ValueError(f"head_dim {d}: the kernel takes <= 128")
+    if out.shape != q.shape or dout.shape != q.shape \
+            or out.dtype != q.dtype or dout.dtype != q.dtype:
+        raise ValueError("out and dout must be like q")
+    if lse.shape != (b, hq, s) or lse.dtype != torch.float32:
+        raise ValueError(f"lse must be fp32 [{b}, {hq}, {s}]")
+    if dout.stride(3) != 1:
+        dout = dout.contiguous()
+    lse = lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ts = (q, k, v, out, dout, dq, dk, dv)
+    if any(x.stride(3) != 1 for x in ts):
+        raise ValueError("flash_attention_bwd needs a dense last dimension")
+    delta = torch.empty((b * hq * s,), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[st for x in ts
+                                         for st in x.stride()[:3]])
+    with build.on_device(q.device):
+        err = build.load_library().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, t, d, strides,
+            int(causal), int(window), float(d ** -0.5), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K3 under autograd: the forward is ``flash_attention_lse`` (one K3
+    launch, saving q, k, v, out and lse), the backward
+    ``flash_attention_bwd`` (the hand-written backward on the card; on the
+    CPU autograd through the plain version). ``apply(q, k, v, causal,
+    window)`` in ``flash_attention``'s layout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        if q.device.type == "cpu":
+            # the plain backward recomputes the plain forward: no lse needed
+            out, lse = _ref_blocked(q, k, v, causal, window), None
+        else:
+            out, lse = flash_attention_lse(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout, ctx.causal,
+                                         ctx.window)
+        return dq, dk, dv, None, None
+
+
 flash_attention.launches = 0
+flash_attention_bwd.launches = 0

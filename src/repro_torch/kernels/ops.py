@@ -11,12 +11,16 @@ from typing import Dict
 
 from .cms import (cms_query, cms_query_ref, cms_update, cms_update_query,
                   cms_update_query_ref, cms_update_ref)
-from .flash_attention import flash_attention, flash_attention_ref
+from .flash_attention import (FlashAttentionFunction, flash_attention,
+                              flash_attention_bwd, flash_attention_bwd_ref,
+                              flash_attention_lse, flash_attention_lse_ref,
+                              flash_attention_ref)
 from .flash_decode import (flash_decode, flash_decode_paged,
                            flash_decode_paged_ref, flash_decode_paged_sharded,
                            flash_decode_paged_sharded_ref, flash_decode_ref)
 from .lru_scan import lru_buckets_ref, lru_scan, lru_scan_ref
-from .staged_scatter import (staged_scatter, staged_scatter_layers,
+from .staged_scatter import (staged_drain, staged_gather, staged_gather_ref,
+                             staged_scatter, staged_scatter_layers,
                              staged_scatter_planes, staged_scatter_planes_ref,
                              staged_scatter_ref)
 
@@ -26,6 +30,10 @@ _WRAPPERS = {
     "flash_decode_paged": (flash_decode_paged,),
     "flash_decode_paged_sharded": (flash_decode_paged_sharded,),
     "flash_attention": (flash_attention,),
+    # training: K3's backward, K1 as the functional drain, and its adjoint
+    "flash_attention_bwd": (flash_attention_bwd,),
+    "staged_drain": (staged_drain,),
+    "staged_gather": (staged_gather,),
     "flash_decode": (flash_decode,),
     "cms_update": (cms_update,),
     "cms_query": (cms_query,),
@@ -54,11 +62,15 @@ def reset_launch_counts() -> None:
 
 
 __all__ = [
-    "cms_query", "cms_query_ref", "cms_update", "cms_update_query",
-    "cms_update_query_ref", "cms_update_ref", "flash_attention", "flash_attention_ref", "flash_decode",
+    "FlashAttentionFunction", "cms_query", "cms_query_ref", "cms_update",
+    "cms_update_query", "cms_update_query_ref", "cms_update_ref",
+    "flash_attention", "flash_attention_bwd", "flash_attention_bwd_ref",
+    "flash_attention_lse", "flash_attention_lse_ref", "flash_attention_ref",
+    "flash_decode",
     "flash_decode_ref", "flash_decode_paged", "flash_decode_paged_ref",
     "flash_decode_paged_sharded", "flash_decode_paged_sharded_ref",
     "lru_buckets_ref", "lru_scan", "lru_scan_ref",
+    "staged_drain", "staged_gather", "staged_gather_ref",
     "staged_scatter", "staged_scatter_layers", "staged_scatter_planes",
     "staged_scatter_planes_ref", "staged_scatter_ref", "kernel_launch_counts", "launch_counts",
     "reset_launch_counts",

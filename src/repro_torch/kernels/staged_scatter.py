@@ -22,6 +22,16 @@ dtype. The table goes to the kernel by value; one block per (staged entry,
 in-range entry only, keeps up to 16 16-byte loads a thread in flight
 before its stores, the block sized to the widest row.
 
+Training's staged MoE dispatch drains through ``staged_drain``, the
+functional form (a fresh zero buffer, one K1 launch) under autograd. Its
+backward is the adjoint ``staged_gather``, ``grad_staging[i] =
+grad_dest[dst_row[i]]`` for a valid, in-range entry, else zeros: a row
+gather over the same routing list in one launch
+(``csrc/staged_scatter.cu::gather_rows_kernel``). It replaces no TPU kernel
+(the JAX package takes that gradient by autodiff of ``.at[].set``); bound:
+bytes, the valid rows read and every output row written once, plus the
+routing.
+
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise.
 """
@@ -192,6 +202,98 @@ def staged_scatter_layers(dest, staging, dst_row, valid) -> torch.Tensor:
     return dest
 
 
+def staged_gather_ref(src: torch.Tensor, dst_row: torch.Tensor,
+                      valid: torch.Tensor) -> torch.Tensor:
+    """Plain version of the drain's adjoint: ``out[i] = src[dst_row[i]]``
+    where ``valid[i]`` and the row lies in ``[0, R)``, else zeros; ``src
+    [R, W]`` -> ``[N, W]``."""
+    keep = valid.bool() & (dst_row >= 0) & (dst_row < src.shape[0])
+    rows = torch.where(keep, dst_row, 0).long()
+    return torch.where(keep[:, None], src[rows], torch.zeros((), dtype=src.dtype,
+                                                             device=src.device))
+
+
+def staged_gather(src: torch.Tensor, dst_row: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """The drain's adjoint, a row gather over the drain's routing list:
+    ``out[i] = src[dst_row[i]]`` where ``valid[i]`` and ``0 <= dst_row[i] <
+    R``, else zeros; ``src [R, W]`` row-contiguous -> a fresh ``[N, W]``. One
+    launch of ``csrc/staged_scatter.cu::gather_rows_kernel`` on a CUDA
+    tensor (the routing read as given, int32 or int64), the plain version on
+    a CPU one."""
+    n = dst_row.shape[0]
+    if src.dim() != 2 or valid.shape != (n,) or dst_row.dim() != 1:
+        raise ValueError(f"staged_gather: src [R, W], dst_row / valid [N]; "
+                         f"got {tuple(src.shape)}, {tuple(dst_row.shape)}, "
+                         f"{tuple(valid.shape)}")
+    if dst_row.device != src.device or valid.device != src.device:
+        raise ValueError("all staged_gather operands must share a device")
+    if src.device.type == "cpu":
+        return staged_gather_ref(src, dst_row, valid)
+    if src.element_size() not in (2, 4):
+        raise TypeError(f"staged_gather takes 2- or 4-byte elements, got "
+                        f"{src.dtype}")
+    if dst_row.dtype not in _INDEX_DTYPES or valid.dtype != torch.bool:
+        raise TypeError(f"staged_gather takes int32 or int64 rows and bool "
+                        f"valid on the GPU, got {dst_row.dtype} / "
+                        f"{valid.dtype}")
+    src = src.contiguous()
+    out = torch.empty((n, src.shape[1]), dtype=src.dtype, device=src.device)
+    if n == 0 or src.shape[1] == 0:
+        return out.zero_()
+    e = src.element_size()
+    with build.on_device(src.device):
+        err = build.load_library().staged_gather_launch(
+            out.data_ptr(), src.data_ptr(), src.shape[1] * e, src.shape[0],
+            dst_row.data_ptr(), dst_row.element_size(), dst_row.stride(0),
+            valid.data_ptr(), valid.stride(0), n, e,
+            torch.cuda.current_stream(src.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"staged_gather launch failed: CUDA error {err}")
+    staged_gather.launches += 1
+    return out
+
+
+class StagedDrainFunction(torch.autograd.Function):
+    """``staged_drain`` under autograd: the forward is one K1 launch into a
+    fresh zero buffer, the backward the adjoint ``staged_gather`` (the
+    destination's gradient read back to the staging rows; a dropped entry
+    gets zeros, as JAX's ``mode="drop"`` gives)."""
+
+    @staticmethod
+    def forward(ctx, staging, dst_row, valid, n_rows):
+        ctx.save_for_backward(dst_row, valid)
+        return _drain(staging, dst_row, valid, n_rows)
+
+    @staticmethod
+    def backward(ctx, grad_buf):
+        dst_row, valid = ctx.saved_tensors
+        return staged_gather(grad_buf, dst_row, valid), None, None, None
+
+
+def _drain(staging, dst_row, valid, n_rows):
+    dest = torch.zeros((n_rows, staging.shape[1]), dtype=staging.dtype,
+                       device=staging.device)
+    _check(dest, staging, dst_row, valid, lead=0)
+    if dest.device.type == "cpu":
+        return staged_scatter_ref(dest, staging, dst_row, valid, inplace=True)
+    staged_drain.launches += _launch(
+        [(dest.unsqueeze(0), staging.unsqueeze(0))], dst_row, valid)
+    return dest
+
+
+def staged_drain(staging: torch.Tensor, dst_row: torch.Tensor,
+                 valid: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The functional drain, JAX's ``zeros.at[dst].set(staging,
+    mode="drop")``: a fresh zero ``[n_rows, W]`` buffer with each valid,
+    in-range ``staging[i]`` at row ``dst_row[i]``. One K1 launch on a CUDA
+    tensor (counted as ``staged_drain``'s), differentiable in ``staging``:
+    its backward is ``staged_gather``."""
+    return StagedDrainFunction.apply(staging, dst_row, valid, int(n_rows))
+
+
 staged_scatter.launches = 0
 staged_scatter_layers.launches = 0
 staged_scatter_planes.launches = 0
+staged_drain.launches = 0
+staged_gather.launches = 0

@@ -18,6 +18,11 @@ Conventions
   compute type at each use (``.astype(dtype)``), the modules here keep one
   compute-type copy cast once (``tensors(dtype)``): same values, no cast per
   step. The functions still call ``.to(dtype)``, a no-op on such a copy.
+  Training (``set_trainable(model)``: ``requires_grad`` on the masters)
+  casts at each use instead, inside autograd, as the JAX package does, so
+  the gradient reaches the fp32 master; the serving path (under
+  ``no_grad``) keeps its cached copy, which ``drop_casts(model)`` discards
+  after every optimizer step so that serving reads the new weights.
 
 The attention cores run through the hand-written kernels: prefill through
 ``flash_attention`` (causal, sliding window, GQA by index), decode through
@@ -28,8 +33,10 @@ each runs its plain version, which keeps the JAX package's ``_sdpa_once`` op
 order (fp32 logits, -1e30 mask, fp32 softmax, cast to ``q.dtype``, then
 P.V).
 
-TP head padding, ``shard_batch`` and ``cross_entropy_loss`` (training) are
-not ported yet.
+Under grad mode ``attention_core`` runs K3 through
+``FlashAttentionFunction`` (its backward the hand-written
+``flash_attention_bwd``); ``cross_entropy_loss`` is the training loss. TP
+head padding and ``shard_batch`` are not ported yet.
 """
 from __future__ import annotations
 
@@ -48,7 +55,9 @@ Tensors = Mapping[str, torch.Tensor]
 class ParamGroup(nn.Module):
     """A bag of named fp32 master parameters in the JAX package's layout.
     ``tensors(dtype)`` is the mapping the layer functions consume: the
-    masters themselves for float32, else a copy cast ONCE and kept."""
+    masters themselves for float32; else, while grad mode is on and the
+    masters require grad (training), a cast made at this use inside
+    autograd; else a copy cast ONCE and kept (serving)."""
 
     def __init__(self, shapes: Dict[str, tuple], device):
         super().__init__()
@@ -61,6 +70,10 @@ class ParamGroup(nn.Module):
     def tensors(self, dtype=torch.float32) -> Dict[str, torch.Tensor]:
         if dtype == torch.float32:
             return dict(self.named_parameters(recurse=False))
+        own = dict(self.named_parameters(recurse=False))
+        if torch.is_grad_enabled() and any(v.requires_grad
+                                           for v in own.values()):
+            return {k: v.to(dtype) for k, v in own.items()}
         if dtype not in self._cast:
             self._cast[dtype] = {
                 k: v.detach().to(dtype)
@@ -80,6 +93,24 @@ class ParamGroup(nn.Module):
                                      f"{tuple(own[k].shape)}")
                 own[k].copy_(v)
         self._cast.clear()
+
+
+def set_trainable(model: nn.Module, trainable: bool = True) -> nn.Module:
+    """Training mode: ``requires_grad`` on every fp32 master of ``model``
+    (its ``ParamGroup``s then cast at each use under grad mode); ``False``
+    turns it off again. Returns ``model``."""
+    for p in model.parameters():
+        p.requires_grad_(trainable)
+    return model
+
+
+def drop_casts(model: nn.Module) -> None:
+    """Discard every cached compute-type copy of ``model``'s masters (after an
+    optimizer step changed them in place): the next serving call casts the
+    new values."""
+    for m in model.modules():
+        if isinstance(m, ParamGroup):
+            m._cast.clear()
 
 
 def _normal(shape, scale: float, gen: torch.Generator, device) -> torch.Tensor:
@@ -218,13 +249,17 @@ def attention_core(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor,
     """Prefill attention core: q ``[B, S, Hq, Dh]`` against k/v
     ``[B, T, Hkv, Dh]`` -> ``[B, S, Hq, Dh]`` through ``flash_attention``
     (its plain version on a CPU tensor), causal with the model's sliding
-    window, GQA by index. The tensors go in transposed, without a copy."""
-    from ..kernels import flash_attention
+    window, GQA by index. The tensors go in transposed, without a copy.
+    Under grad mode, with an operand that requires grad, the call is
+    ``FlashAttentionFunction`` (K3 saving its ``lse``; its backward the
+    hand-written ``flash_attention_bwd``)."""
+    from ..kernels import FlashAttentionFunction, flash_attention
 
-    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                          v.transpose(1, 2), causal=causal,
-                          window=cfg.sliding_window if causal else 0)
-    return out.transpose(1, 2)
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal,
+            cfg.sliding_window if causal else 0)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return FlashAttentionFunction.apply(*args).transpose(1, 2)
+    return flash_attention(*args).transpose(1, 2)
 
 
 def attention(cfg: ModelConfig, p: Tensors, x: torch.Tensor,
@@ -469,3 +504,17 @@ def lm_logits(cfg: ModelConfig, p: Tensors, x: torch.Tensor) -> torch.Tensor:
     """Final logits in float32, against the fp32 master head."""
     w = p["tok"] if cfg.tie_embeddings else p["head"]
     return torch.einsum("bsd,vd->bsv", x.float(), w.float())
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy: logits fp32 ``[B, S, V]``, labels int
+    ``[B, S]``; ``logsumexp - gold logit``, then the mean, or the sum over
+    ``mask`` divided by ``max(sum(mask), 1)``."""
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / mask.sum().clamp(min=1)
+    return nll.mean()

@@ -19,6 +19,11 @@ buffer, and both paths are here:
   assignments direct and cold ones staged, into disjoint slots of one
   buffer.
 
+Training differentiates all three: under grad the staged drain is
+``staged_drain`` (one K1 launch into a fresh buffer; its backward the
+adjoint gather ``staged_gather``), the direct scatter stays a plain
+``index_copy_``, whose gradient autograd takes (an XLA scatter in JAX too).
+
 Capacity is per call: ``expert_capacity(cfg, T)`` from the call's token
 count, and assignments past it are dropped (slot -1, weight 0). Routing
 takes the top-k of the router's softmax with the lower expert first on
@@ -34,7 +39,7 @@ import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
-from ..kernels import staged_scatter
+from ..kernels import staged_drain, staged_scatter
 from . import layers as L
 
 DISPATCH_MODES = ("direct", "staged", "adaptive")
@@ -203,9 +208,13 @@ def dispatch_staged(x: torch.Tensor, expert_idx: torch.Tensor,
     k = expert_idx.shape[1]
     perm, dst, ok, slot = staging_plan(expert_idx, keep, capacity, n_experts)
     staged = x[perm // k]                 # [T*K, D], the staging content
-    buf = torch.zeros((n_experts * capacity, x.shape[1]), dtype=x.dtype,
-                      device=x.device)
-    staged_scatter(buf, staged, dst, ok)  # the drain: K1
+    if torch.is_grad_enabled() and staged.requires_grad:
+        # training: the functional drain (K1), its backward the adjoint
+        buf = staged_drain(staged, dst, ok, n_experts * capacity)
+    else:
+        buf = torch.zeros((n_experts * capacity, x.shape[1]), dtype=x.dtype,
+                          device=x.device)
+        staged_scatter(buf, staged, dst, ok)  # the drain: K1
     return buf.reshape(n_experts, capacity, x.shape[1]), perm, slot
 
 
@@ -251,17 +260,3 @@ def moe_ffn_layer(cfg: ModelConfig, moe: MoEMLP, x: torch.Tensor,
         y = (combine_direct(out, idx, slot_h, weights)
              + combine_direct(out, idx, slot_c, weights))
     return y.reshape(b, s, d), aux, load
-
-
-def moe_block(cfg: ModelConfig, blk: MoEBlock, x: torch.Tensor,
-              positions: torch.Tensor, mode: str = "staged",
-              hot_mask: Optional[torch.Tensor] = None,
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Full MoE transformer block: causal GQA attention (the model's window)
-    through ``flash_attention``, then the MoE FFN."""
-    dtype = x.dtype
-    x = x + L.attention(cfg, blk.attn.tensors(dtype),
-                        L.apply_norm(cfg, blk.ln1.tensors(), x), positions)
-    h, aux, load = moe_ffn_layer(
-        cfg, blk.moe, L.apply_norm(cfg, blk.ln2.tensors(), x), mode, hot_mask)
-    return x + h, aux, load

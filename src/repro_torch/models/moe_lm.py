@@ -8,9 +8,11 @@ scheduler drives both models alike; each layer's FFN is
 ``moe.moe_ffn_layer`` in ``dispatch_mode`` (``"staged"`` by default, as in
 the JAX package: every layer of every call drains through K1). The JAX
 package threads the adaptive mode's hot-expert mask through each call; here
-it is the attribute ``hot_mask`` (``forward_with_stats`` also takes it as
-an argument). MoE serves from the lanes layout only (as in JAX): the paged
-steps refuse. ``loss`` / ``loss_with_stats`` (training) are not ported yet.
+it is the attribute ``hot_mask`` (``forward_with_stats``, ``forward``,
+``loss`` and ``loss_with_stats`` also take it as an argument). MoE serves
+from the lanes layout only (as in JAX): the paged steps refuse. Training:
+``loss`` = cross-entropy + the routers' aux loss, and ``loss_with_stats``
+also returns the expert loads ``[L, E]`` that feed the monitor.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from ..configs.base import MOE, ModelConfig
 from . import layers as L
 from . import moe as MOE_L
-from .transformer import DecoderLM, compute_dtype
+from .transformer import DecoderLM
 
 
 class MoELM(DecoderLM):
@@ -40,44 +42,62 @@ class MoELM(DecoderLM):
         self.dispatch_mode = dispatch_mode
         self.hot_mask: Optional[torch.Tensor] = None  # bool[E], adaptive
 
-    def _ffn(self, blk, x: torch.Tensor) -> torch.Tensor:
+    def _moe(self, blk, x: torch.Tensor, mode: str,
+             hot_mask: Optional[torch.Tensor]):
+        """The block's MoE FFN on the residual stream ``x`` (pre-norm):
+        ``(y, aux_loss, expert_load [E])``."""
         cfg = self.cfg
-        y, _, _ = MOE_L.moe_ffn_layer(
-            cfg, blk.moe, L.apply_norm(cfg, blk.ln2.tensors(), x),
-            self.dispatch_mode, self.hot_mask)
-        return y
+        return MOE_L.moe_ffn_layer(cfg, blk.moe,
+                                   L.apply_norm(cfg, blk.ln2.tensors(), x),
+                                   mode, hot_mask)
 
-    # -- full forward --------------------------------------------------------
-    @torch.no_grad()
+    def _ffn(self, blk, x: torch.Tensor) -> torch.Tensor:
+        return self._moe(blk, x, self.dispatch_mode, self.hot_mask)[0]
+
+    def _ffn_stats(self, blk, x: torch.Tensor, mode: str = "staged",
+                   hot_mask: Optional[torch.Tensor] = None):
+        y, aux, load = self._moe(blk, x, mode, hot_mask)
+        return x + y, aux, load
+
+    # -- full forward (training) ---------------------------------------------
     def forward_with_stats(self, tokens: torch.Tensor,
                            hot_mask: Optional[torch.Tensor] = None,
-                           mode: Optional[str] = None,
+                           remat: bool = False, mode: Optional[str] = None,
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
         """tokens [B, S] -> (logits fp32 [B, S, V], aux_loss fp32 scalar,
-        expert_load int64 [L, E]), causal over the whole sequence.
-        ``hot_mask`` / ``mode`` default to the model's."""
-        cfg = self.cfg
+        expert_load int64 [L, E]), causal over the whole sequence, each
+        layer ``DecoderLM._block`` (under ``torch.utils.checkpoint`` with
+        ``remat``). ``hot_mask`` / ``mode`` default to the model's.
+        Differentiable: under grad the staged drains run through
+        ``staged_drain`` (K1, its adjoint ``staged_gather``)."""
         mode = mode or self.dispatch_mode
         hot_mask = self.hot_mask if hot_mask is None else hot_mask
-        dtype = compute_dtype(cfg)
-        b, s = tokens.shape
-        x = L.embed_tokens(cfg, self.embed.tensors(), tokens, dtype)
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
-        loads = []
-        for blk in self.blocks:
-            x, a, load = MOE_L.moe_block(cfg, blk, x, positions, mode,
-                                         hot_mask)
+        x, positions = self._embed_positions(tokens)
+        x, stats = self._trunk(x, positions, remat, mode=mode,
+                               hot_mask=hot_mask)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for a, _ in stats:
             aux = aux + a
-            loads.append(load)
-        x = L.apply_norm(cfg, self.ln_f.tensors(), x)
-        return (L.lm_logits(cfg, self.embed.tensors(), x), aux,
-                torch.stack(loads))
+        return self._logits(x), aux, torch.stack([ld for _, ld in stats])
 
-    def forward(self, tokens: torch.Tensor,
+    def forward(self, tokens: torch.Tensor, media=None, remat: bool = False,
                 hot_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return self.forward_with_stats(tokens, hot_mask)[0]
+        return self.forward_with_stats(tokens, hot_mask, remat)[0]
+
+    def loss(self, batch, remat: bool = True,
+             hot_mask: Optional[torch.Tensor] = None,
+             mode: Optional[str] = None) -> torch.Tensor:
+        """Cross-entropy plus the routers' aux loss."""
+        return self.loss_with_stats(batch, remat, hot_mask, mode)[0]
+
+    def loss_with_stats(self, batch, remat: bool = True,
+                        hot_mask: Optional[torch.Tensor] = None,
+                        mode: Optional[str] = None):
+        """``(loss, expert_load [L, E])``: the loads feed the monitor."""
+        logits, aux, loads = self.forward_with_stats(
+            batch["tokens"], hot_mask, remat, mode)
+        return self._ce(logits, batch) + aux, loads
 
     # -- the paged layout serves the dense family only -----------------------
     def decode_step_paged(self, *args, **kwargs):

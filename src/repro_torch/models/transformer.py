@@ -5,7 +5,9 @@ Dense decoder-only transformer as an ``nn.Module``: ``init`` (the JAX
 package's scales, from a seeded ``torch.Generator``), ``init_cache``,
 ``prefill`` (attention through the ``flash_attention`` kernel, causal with
 the sliding window; a sliding-window cache keeps the last ``cache_len``
-positions at slot ``pos % cache_len``), the dense-lane ``decode_step`` (the
+positions at slot ``pos % cache_len``), ``forward`` / ``loss`` (training:
+the attention body of ``prefill`` without a cache, each layer under
+``torch.utils.checkpoint`` with ``remat``), the dense-lane ``decode_step`` (the
 lanes layout: one cache lane per slot, read by the ``flash_decode`` kernel)
 and ``decode_step_paged`` with ``attention="reference"`` (gather the
 per-slot view from the pool, concatenate the ring, read it through
@@ -173,19 +175,24 @@ def dense_ffn(cfg: ModelConfig, ln2, pm, x: torch.Tensor) -> torch.Tensor:
 
 
 def attend_prefill(cfg: ModelConfig, ln1, pa, x: torch.Tensor,
-                   positions: torch.Tensor, kc: torch.Tensor,
-                   vc: torch.Tensor, use_rope: bool = True) -> torch.Tensor:
+                   positions: torch.Tensor, kc: Optional[torch.Tensor] = None,
+                   vc: Optional[torch.Tensor] = None,
+                   use_rope: bool = True) -> torch.Tensor:
     """``x`` plus the prompt's causal attention (``flash_attention``); the
     prompt's K/V written into the lanes in one dense slice. A prompt longer
     than the lanes (sliding window) keeps its last ``clen`` positions, each
     at slot ``pos % clen``. ``use_rope=False``: learned positions (whisper's
-    decoder), no rotary."""
-    s, clen = x.shape[1], kc.shape[1]
+    decoder), no rotary. Without lanes (``kc`` / ``vc`` None: training's
+    forward) nothing is written."""
+    s = x.shape[1]
     hn = L.apply_norm(cfg, ln1, x)
     # q/k/v once: the values layers.attention would recompute
     q = L.project_q(cfg, pa, hn, positions, use_rope)
     k, v = L.project_kv(cfg, pa, hn, positions if use_rope else None)
     for dst, kv in ((kc, k), (vc, v)):
+        if dst is None:
+            continue
+        clen = dst.shape[1]
         if s <= clen:
             dst[:, :s] = kv
         else:
@@ -390,6 +397,80 @@ class DecoderLM(nn.Module):
             cache["cross_k"] = zeros(self.n_groups, cfg.n_image_tokens)
             cache["cross_v"] = zeros(self.n_groups, cfg.n_image_tokens)
         return cache
+
+    # -- full forward (training) ---------------------------------------------
+    def _block(self, blk, x: torch.Tensor, positions: torch.Tensor, **kw):
+        """One self layer over a whole sequence, without a cache: the
+        attention body ``prefill`` runs (``attend_prefill``), then the
+        block's FFN. Returns ``(x,)``; a subclass adds its FFN's statistics
+        (``MoELM``: the aux loss and the expert loads)."""
+        x = attend_prefill(self.cfg, blk.ln1.tensors(),
+                           blk.attn.tensors(x.dtype), x, positions)
+        return self._ffn_stats(blk, x, **kw)
+
+    def _ffn_stats(self, blk, x: torch.Tensor):
+        """``(x + the block's FFN,)``: the dense family has no statistics."""
+        return (x + self._ffn(blk, x),)
+
+    def _trunk(self, x: torch.Tensor, positions: torch.Tensor, remat: bool,
+               **kw):
+        """Every self layer in order; under ``remat`` each one is
+        ``torch.utils.checkpoint`` (non-reentrant), its activations
+        recomputed in the backward. Returns ``(x, [the stats of each
+        layer])``."""
+        from torch.utils.checkpoint import checkpoint
+
+        stats = []
+        for blk in self.blocks:
+            if remat:
+                x, *st = checkpoint(self._block, blk, x, positions,
+                                    use_reentrant=False, **kw)
+            else:
+                x, *st = self._block(blk, x, positions, **kw)
+            stats.append(st)
+        return x, stats
+
+    def _embed_positions(self, tokens):
+        """(embeddings in the compute dtype, positions ``0..S-1``) of
+        ``tokens [B, S]``, taken onto the model's device."""
+        if self.is_vlm:
+            raise NotImplementedError(
+                f"not ported yet: the VLM's forward / loss (training) "
+                f"({self.cfg.name})")
+        tokens = torch.as_tensor(tokens, device=self.device)
+        b, s = tokens.shape
+        x = L.embed_tokens(self.cfg, self.embed.tensors(), tokens,
+                           compute_dtype(self.cfg))
+        return x, torch.arange(s, device=self.device).expand(b, s)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = L.apply_norm(self.cfg, self.ln_f.tensors(), x)
+        return L.lm_logits(self.cfg, self.embed.tensors(), x)
+
+    def forward(self, tokens: torch.Tensor, media=None,
+                remat: bool = False) -> torch.Tensor:
+        """tokens [B, S] -> logits fp32 [B, S, V], causal over the whole
+        sequence (positions ``0..S-1``): embed in the compute dtype, the
+        trunk, ``ln_f``, the fp32 head. Differentiable: the training path.
+        ``media`` is the JAX signature's (the VLM, the one family that
+        reads it, is not ported for training and raises)."""
+        x, positions = self._embed_positions(tokens)
+        x, _ = self._trunk(x, positions, remat)
+        return self._logits(x)
+
+    def loss(self, batch, remat: bool = True) -> torch.Tensor:
+        """Mean token cross-entropy of ``batch`` (``tokens``, ``labels``,
+        optional ``loss_mask``), fp32 scalar."""
+        logits = self.forward(batch["tokens"], batch.get("media"),
+                              remat=remat)
+        return self._ce(logits, batch)
+
+    def _ce(self, logits: torch.Tensor, batch) -> torch.Tensor:
+        mask = batch.get("loss_mask")
+        return L.cross_entropy_loss(
+            logits, torch.as_tensor(batch["labels"], device=self.device),
+            None if mask is None else torch.as_tensor(mask,
+                                                      device=self.device))
 
     # -- prefill -----------------------------------------------------------
     @torch.no_grad()

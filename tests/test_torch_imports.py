@@ -64,7 +64,9 @@ def test_package_has_every_ported_module():
             "models/moe_lm.py", "kernels/lru_scan.py",
             "kernels/csrc/lru_scan.cu", "configs/mamba2_130m.py",
             "configs/zamba2_2_7b.py", "models/mamba2.py",
-            "models/ssm_lm.py"]
+            "models/ssm_lm.py", "models/layout.py", "optim/adamw.py",
+            "train/trainer.py", "launch/train.py",
+            "kernels/csrc/flash_attention_bwd.cu"]
     missing = [w for w in want if not os.path.isfile(os.path.join(PKG, w))]
     assert not missing, missing
 
@@ -175,9 +177,11 @@ def test_chip_smoke_fails_without_a_gpu():
 def test_unported_archs_and_families_raise():
     """Every architecture the JAX package registers is ported (the VLM
     llama-3.2-vision-90b last), so ``NOT_PORTED`` is empty and only an
-    unknown arch raises. What stays unported is training: the SSM's and
-    the encoder-decoder's ``forward`` / ``loss`` raise "not ported yet";
-    and the dense class takes the dense and VLM families only."""
+    unknown arch raises. Training is ported for the dense and MoE families
+    (``DecoderLM.loss``, ``MoELM.loss`` / ``loss_with_stats``); the SSM's,
+    the hybrid's and the encoder-decoder's ``forward`` / ``loss`` and the
+    VLM's ``forward`` raise "not ported yet"; and the dense class takes
+    the dense and VLM families only."""
     from repro_torch.configs import ARCHS, NOT_PORTED, get_config
     from repro_torch.configs.base import VLM
     from repro_torch.models import DecoderLM, build_model
@@ -197,11 +201,20 @@ def test_unported_archs_and_families_raise():
     model = build_model(vlm, device="cpu")
     assert type(model) is DecoderLM and model.is_vlm
     tokens = torch.zeros((1, 4), dtype=torch.int64)
+    batch = {"tokens": tokens, "labels": tokens}
+    for fn, arg in ((model.forward, tokens), (model.loss, batch)):
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            fn(arg)
     for arch in ("mamba2-130m", "zamba2-2.7b", "whisper-medium"):
         m = build_model(get_config(arch).reduced(), device="cpu")
         for fn in (m.forward, m.loss):
             with pytest.raises(NotImplementedError, match="not ported yet"):
                 fn(tokens)
+    for arch in ("stablelm-1.6b", "granite-moe-3b-a800m"):
+        m = build_model(get_config(arch).reduced(), device="cpu")
+        assert m.loss(batch).shape == ()
+        assert m.forward(tokens).shape == (1, 4, m.cfg.vocab)
+    assert len(m.loss_with_stats(batch)[1]) == m.cfg.n_layers
     # the dense class takes the dense and vlm families only
     with pytest.raises(NotImplementedError, match="not ported yet"):
         DecoderLM(get_config("granite-moe-3b-a800m").reduced(), device="cpu")
@@ -298,3 +311,84 @@ def test_launcher_samples_on_cpu_when_asked():
     res = _run(code)
     assert res.returncode == 0, res.stderr
     assert "served 3 requests / 15 tokens" in res.stdout
+
+
+def test_training_modules_import_no_jax_when_loaded():
+    """The optimizer, the trainer, the checkpoint writer, the training
+    pipeline, the layout table and the train launcher load without JAX or
+    the JAX package."""
+    res = _run(
+        "import sys\n"
+        "import repro_torch.optim, repro_torch.train, repro_torch.checkpoint\n"
+        "import repro_torch.launch.train, repro_torch.models.layout\n"
+        "from repro_torch.data import Pipeline, SyntheticSource, MemmapSource\n"
+        "from repro_torch.kernels import FlashAttentionFunction, staged_drain\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{BANNED!r})\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "clean"
+    for rel in ("optim/adamw.py", "train/trainer.py", "launch/train.py",
+                "models/layout.py", "checkpoint/checkpoint.py",
+                "data/pipeline.py"):
+        assert not _imported_roots(os.path.join(PKG, rel)) & set(BANNED)
+
+
+def test_train_launcher_runs_on_cpu_and_refuses_otherwise(monkeypatch):
+    """``python -m repro_torch.launch.train`` trains on the CPU when asked
+    (a second run resumes from the first's checkpoint), raises without a
+    GPU by default, and refuses where the JAX launcher would take its
+    multi-device branch (more than one visible GPU)."""
+    import tempfile
+
+    import torch
+    from repro_torch.launch.train import main
+    with tempfile.TemporaryDirectory() as d:
+        args = ("['--arch', 'granite-moe-3b-a800m', '--device', 'cpu', "
+                "'--seq', '16', '--batch', '4', '--microbatches', '2', "
+                f"'--dispatch-mode', 'adaptive', '--checkpoint-dir', {d!r}, "
+                "'--steps', ")
+        res = _run("from repro_torch.launch.train import main\n"
+                   f"main({args}'4'])\n"
+                   f"main({args}'6'])\n")
+        assert res.returncode == 0, res.stderr
+        first, second = res.stdout.strip().splitlines()
+        assert "'steps': 4" in first and "'steps': 2" in second
+        assert "resuming from checkpoint step 4" in res.stderr
+        assert sorted(os.listdir(d))[-1] == "step_000000006"
+    with pytest.raises(RuntimeError, match="is_available"):
+        main(["--arch", "stablelm-1.6b", "--steps", "1"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError,
+                       match="not ported yet: the train half"):
+        main(["--arch", "stablelm-1.6b"])
+
+
+def test_adamw_decays_by_the_rank_of_the_jax_layout():
+    """Known difference, pinned: the JAX package decays a leaf of
+    ``ndim > 1``, and it stacks each block's norms into ``[L, D]`` leaves,
+    so they are decayed and only ``ln_f`` is not. The port keeps a ``[D]``
+    norm a layer and decides by the rank in the JAX layout (one more for a
+    block's leaf): with zero gradients only the decay moves a parameter,
+    and it moves every block norm and every matrix, never ``ln_f``."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.layout import jax_ndim
+    from repro_torch.optim import AdamW
+    m = build_model(get_config("stablelm-1.6b").reduced(), device="cpu")
+    params = dict(m.named_parameters())
+    before = {k: v.detach().clone() for k, v in params.items()}
+    opt = AdamW(lr=0.1, weight_decay=0.5)
+    opt.update({k: torch.zeros_like(v) for k, v in params.items()},
+               opt.init(params), params)
+    moved = {k for k, v in params.items() if not torch.equal(v, before[k])
+             and before[k].abs().sum() > 0}
+    nonzero = {k for k in params if before[k].abs().sum() > 0}
+    assert "blocks.0.ln1.scale" in moved and "blocks.1.ln2.scale" in moved
+    assert "ln_f.scale" not in moved
+    assert jax_ndim("blocks.0.ln1.scale", params["blocks.0.ln1.scale"].shape) \
+        == 2
+    assert jax_ndim("ln_f.scale", params["ln_f.scale"].shape) == 1
+    assert moved == {k for k in nonzero if k != "ln_f.scale"}

@@ -258,8 +258,17 @@ def test_launch_counters_count_kernel_launches_only():
     K.flash_decode_paged_sharded(Mesh([torch.device("cpu")] * 2, (2,),
                                       ("model",)), *args)
     K.lru_scan(torch.arange(5), torch.tensor([0, 1, 0, 1, 0]).bool())
+    q = torch.zeros(1, 2, 4, 8)
+    out, lse = K.flash_attention_lse(q, q[:, :1], q[:, :1])
+    K.flash_attention_bwd(q, q[:, :1], q[:, :1], out, lse, out)
+    K.staged_drain(torch.ones(2, 8), torch.tensor([1, 2]),
+                   torch.tensor([True, True]), 4)
+    K.staged_gather(torch.ones(4, 8), torch.tensor([1, 2]),
+                    torch.tensor([True, True]))
     assert K.launch_counts() == {"staged_scatter": 0, "flash_decode_paged": 0,
                                  "flash_decode_paged_sharded": 0,
-                                 "flash_attention": 0, "flash_decode": 0,
+                                 "flash_attention": 0,
+                                 "flash_attention_bwd": 0, "staged_drain": 0,
+                                 "staged_gather": 0, "flash_decode": 0,
                                  "cms_update": 0, "cms_query": 0,
                                  "cms_update_query": 0, "lru_scan": 0}
