@@ -84,9 +84,12 @@ line. Phases, each failing the run on any exception or mismatch:
            ``lse``) against autograd of the plain version at the training
            microbatch of stablelm-1.6b ``q[4,32,512,64]`` and
            granite-moe-3b-a800m ``q[4,24,512,64]`` over 8 KV heads, a
-           window shorter than S, S < T and a non-causal read, fp32 within
-           TOL_F32 of the plain version in float64 and bf16 by
-           ``held_bf16``; K3 with ``lse`` bit-equal to
+           window shorter than S, S < T, a non-causal read, the VLM's
+           head_dim 128 over GQA group 8 at S = 333 and its cross read of
+           64 queries over 1601 keys, fp32 within TOL_F32 of the plain
+           version in float64 and bf16 by ``held_bf16`` (two bf16 calls
+           ``torch.equal``); timed with each of its three launches' share
+           (``sub_kernels``); K3 with ``lse`` bit-equal to
            K3 without; K1's functional drain (``staged_drain``) and its
            adjoint ``staged_gather`` ``torch.equal`` to their plain versions
            at granite's training dispatch; both timed (rows
@@ -716,14 +719,16 @@ def phase_build():
     info = kbuild.build_info()
     ptxas = [ln.strip() for ln in str(info["log"]).splitlines()
              if "registers" in ln or "spill" in ln.lower()]
-    # -Xptxas -v of the three attention kernels in full: registers, shared
-    # memory, spills and any wgmma serialisation warning
+    # -Xptxas -v of the attention kernels (K3, its backward, K4, K2) in
+    # full: registers, shared memory, spills and any wgmma serialisation
+    # warning
     attn, keep = [], False
     for ln in str(info["log"]).splitlines():
         if ln.startswith("== "):
-            keep = ln[3:] in ("flash_attention.cu", "flash_decode.cu",
-                              "flash_decode_paged.cu")
-        if keep and ("ptxas" in ln or "warning" in ln.lower()):
+            keep = ln[3:] in ("flash_attention.cu", "flash_attention_bwd.cu",
+                              "flash_decode.cu", "flash_decode_paged.cu")
+        if keep and ("ptxas" in ln or "spill" in ln
+                     or "warning" in ln.lower()):
             attn.append(ln.strip())
     lru = _ptxas_of(str(info["log"]), "lru_scan.cu")
     frames = [ln for ln in lru if "stack frame" in ln]
@@ -3209,13 +3214,17 @@ def time_ring_lanes_shapes():
 
 # b, hq, hkv, s, t, d, causal, window: the training phases' microbatch for
 # stablelm-1.6b (32 heads of 64) and granite-moe-3b-a800m (24 over 8),
-# a window shorter than S at head_dim 120, S < T, and a non-causal read at
-# head_dim 80
+# a window shorter than S at head_dim 120, S < T, a non-causal read at
+# head_dim 80, and llama-3.2-vision-90b's geometry (head_dim 128, GQA group
+# 8): causal with S no multiple of 64, and its cross read of 64 queries over
+# 1601 image keys (the last key tile holds one key)
 K3_BWD_CASES = [(TRAIN_MB, 32, 32, TRAIN["seq"], TRAIN["seq"], 64, True, 0),
                 (TRAIN_MB, 24, 8, TRAIN["seq"], TRAIN["seq"], 64, True, 0),
                 (1, 8, 2, 700, 700, 120, True, 256),
                 (2, 4, 1, 100, 300, 64, True, 0),
-                (2, 4, 2, 64, 200, 80, False, 0)]
+                (2, 4, 2, 64, 200, 80, False, 0),
+                (1, 16, 2, 333, 333, 128, True, 0),
+                (1, 16, 2, 64, 1601, 128, False, 0)]
 
 
 def _k3_bwd_inputs(gen, case, dtype):
@@ -3234,14 +3243,16 @@ def check_k3_bwd(gen):
     TOL_F32 of the plain version run in float64 (the plain fp32 version's
     own error there is reported beside the kernel's), bf16 by ``held_bf16``
     (each of dq, dk, dv, block by block of 64 rows) against the plain
-    version in fp32 on the upcast operands. K3
-    with ``lse`` equal to K3 without, bit for bit; ``lse`` within 1e-4
-    (absolute and relative) of the plain version's on the same (upcast)
-    operands."""
+    version in fp32 on the upcast operands, each case's largest share of
+    its block limit reported; a second bf16 call ``torch.equal`` to the
+    first (no atomics: the sums run in a fixed order). K3 with ``lse``
+    equal to K3 without, bit for bit; ``lse`` within 1e-4 (absolute and
+    relative) of the plain version's on the same (upcast) operands."""
     out = dict(cases=[], err_f32=0.0, err_bf16_vs_plain=0.0,
-               worst_block_share=0.0, lse_err=0.0)
+               worst_block_share=0.0, lse_err=0.0, bf16_repeat_equal=True)
     for case in K3_BWD_CASES:
         causal, w = case[6], case[7]
+        share = 0.0
         args32 = _k3_bwd_inputs(gen, case, torch.float32)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do = (x.to(dtype) for x in args32)
@@ -3283,7 +3294,12 @@ def check_k3_bwd(gen):
                 continue
             ref32 = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
                                             do.float(), causal, w)
+            again = flash_attention_bwd(q, k, v, o, lse, do, causal, w)
             torch.cuda.synchronize()
+            for name, g, g2 in zip(("dq", "dk", "dv"), got, again):
+                if not torch.equal(g, g2):
+                    raise AssertionError(f"flash_attention_bwd bf16 {name} "
+                                         f"{case}: a second call differs")
             for name, g, p, r in zip(("dq", "dk", "dv"), got, plain, ref32):
                 if not torch.isfinite(g.float()).all():
                     raise AssertionError(f"flash_attention_bwd {name} "
@@ -3292,18 +3308,51 @@ def check_k3_bwd(gen):
                               r, K3_TILE)
                 out["err_bf16_vs_plain"] = max(out["err_bf16_vs_plain"],
                                                h["err_vs_plain"])
-                out["worst_block_share"] = max(out["worst_block_share"],
-                                               h["worst_block_share"])
-        out["cases"].append(list(case))
+                share = max(share, h["worst_block_share"])
+        out["worst_block_share"] = max(out["worst_block_share"], share)
+        out["cases"].append(dict(case=list(case), worst_block_share=share))
+    return out
+
+
+# the backward's three launches in a trace, by what each computes
+K3_BWD_LAUNCHES = (("delta", "attn_bwd_prep_kernel"),
+                   ("dk_dv", "attn_bwd_dkdv_wgmma_kernel"),
+                   ("dq", "attn_bwd_dq_wgmma_kernel"))
+
+
+def k3_bwd_sub_kernels(fn, what, reps=20):
+    """Per call of the bf16 backward, over one profiler trace of ``reps``
+    calls: each of its three launches' device ms (the trace's mean a
+    launch; each runs once a call), the launches the trace holds, and its
+    share of the three's sum. ``None`` where no trace held device time."""
+    fn()
+
+    def run():
+        for _ in range(reps):
+            fn()
+    rows = trace_rows(run, what)
+    if not rows:
+        return None
+    out = {}
+    for tag, kernel in K3_BWD_LAUNCHES:
+        mine = [(us, c) for us, c, k in rows if us > 0 and kernel in k]
+        traced = sum(c for _, c in mine)
+        out[tag] = dict(traced_launches=traced,
+                        ms=(sum(us for us, _ in mine) / traced / 1e3
+                            if traced else None))
+    total = sum(v["ms"] for v in out.values() if v["ms"])
+    for v in out.values():
+        v["share"] = v["ms"] / total if v["ms"] else None
     return out
 
 
 def _k3_bwd_timed(name, case, gen):
     """Device times of K3's backward, the plain version's backward (autograd
     of the plain forward, its graph kept) and SDPA's backward (the same),
-    at one bf16 shape; its bound: ``10 * D * Hq * B * live pairs`` FLOP
-    against one read of q, k, v, out, dout and lse and one write of dq, dk,
-    dv."""
+    at one bf16 shape, and the backward's time split among its three
+    launches (``sub_kernels``); its bound: ``10 * D * Hq * B * live pairs``
+    FLOP against one read of q, k, v, out, dout and lse and one write of
+    dq, dk, dv."""
     b, hq, hkv, s, t, d, causal, w = case
     q, k, v, do = _k3_bwd_inputs(gen, case, torch.bfloat16)
     o, lse = flash_attention_lse(q, k, v, causal, w)
@@ -3317,6 +3366,9 @@ def _k3_bwd_timed(name, case, gen):
                                              retain_graph=True),
                  lambda: torch.autograd.grad(sdpa_out, leaves, do,
                                              retain_graph=True))
+    t_["sub_kernels"] = k3_bwd_sub_kernels(
+        lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, w),
+        f"{name} sub-kernels")
     pairs = live_pairs(s, t, causal, w)
     flops = 10 * d * hq * b * pairs
     # q, out and dout read and dq written; k and v read, dk and dv written

@@ -37,14 +37,24 @@ Training: ``FlashAttentionFunction`` runs K3 under autograd. Its forward
 asks K3 for each row's log-sum-exp too (``flash_attention_lse``: the same
 launch, given a pointer it stores ``lse``; the serving launch passes none);
 its backward is ``flash_attention_bwd``, the hand-written
-``csrc/flash_attention_bwd.cu`` (FlashAttention-2: delta, a dK / dV pass a
-64-key tile and KV head summing its GQA group inside the block, a dQ pass a
-64-row query tile; fp32 accumulation on CUDA cores). It replaces no TPU
-kernel: the JAX package takes this gradient by autodiff of ``sdpa``. Bound:
-the larger of ``10 * D * Hq * live pairs`` FLOP at the tensor cores' rate
-and one read of q, k, v, out, dout and lse and one write of dq, dk and dv
-(bytes at the training shapes, S = 512 and D = 64). Its plain version is
-autograd through the plain forward, on CPU tensors only.
+``csrc/flash_attention_bwd.cu``. It replaces no TPU kernel: the JAX package
+takes this gradient by autodiff of ``sdpa``, while the port runs K3 there.
+Bound: the larger of ``10 * D * Hq * live pairs`` FLOP at the tensor cores'
+rate and one read of q, k, v, out, dout and lse and one write of dq, dk and
+dv (bytes at the training shapes, S = 512 and D = 64). FlashAttention-2's
+form recomputes both score products in each pass (14 D FLOP a pair), more
+than the bound allows on CUDA cores, so in bf16 every product is ``wgmma``
+on TMA-fed tiles, on K3's forward's machinery: a prep launch (delta =
+rowsum(dout * out) and the lse in base 2, 16-byte loads), a dK / dV pass
+(a block per 64 keys and KV head; the Q and dO tiles of every head of the
+group streamed through a ring; S^T, dP^T from shared memory, P^T and dS^T
+rounded to bf16 in registers as the A operands of dV and dK; GQA summed in
+the block) and a dQ pass (a block per 64 query rows; K and V streamed),
+two blocks an SM. No atomics: the result repeats bit for bit. Each bf16
+operand must be one a tensor map takes (``tensor_map_geometry``). float32
+runs the same passes on CUDA cores, the design the fp32 parity runs are
+held on. Its plain version is autograd through the plain forward, on CPU
+tensors only.
 """
 from __future__ import annotations
 
@@ -253,8 +263,8 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     its operands, its output and its ``lse`` (``flash_attention_lse``), in
     the operands' dtype and strides. On a CUDA tensor one call of
     ``csrc/flash_attention_bwd.cu`` (three launches: delta, dK / dV, dQ,
-    counted as one); on a CPU tensor the plain version, which ignores
-    ``out`` and ``lse``."""
+    counted as one; in bf16 every operand must be one a tensor map takes);
+    on a CPU tensor the plain version, which ignores ``out`` and ``lse``."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_bwd_ref(q, k, v, dout, causal, window)
@@ -265,8 +275,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     hkv, t = k.shape[1], k.shape[2]
     if causal and s > t:
         raise ValueError(f"causal attention needs S <= T, got S={s}, T={t}")
-    if d > 128:
-        raise ValueError(f"head_dim {d}: the kernel takes <= 128")
+    vec = 16 // q.element_size()
+    if d > 128 or (q.dtype == torch.bfloat16 and d % vec):
+        raise ValueError(f"head_dim {d} in {q.dtype}: the kernel takes "
+                         f"<= 128, a multiple of {vec} in bfloat16")
     if out.shape != q.shape or dout.shape != q.shape \
             or out.dtype != q.dtype or dout.dtype != q.dtype:
         raise ValueError("out and dout must be like q")
@@ -279,16 +291,25 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     ts = (q, k, v, out, dout, dq, dk, dv)
     if any(x.stride(3) != 1 for x in ts):
         raise ValueError("flash_attention_bwd needs a dense last dimension")
-    delta = torch.empty((b * hq * s,), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 24)(*[st for x in ts
-                                         for st in x.stride()[:3]])
+    if q.dtype == torch.bfloat16:
+        strides = [tensor_map_geometry(x)["strides"] for x in ts]
+    else:
+        strides = [x.stride()[:3] for x in ts]
+    # delta and the lse in base 2, [B * Hq] rows of S rounded up to 64
+    scratch = torch.empty((2 * b * hq * -(-s // 64) * 64,),
+                          dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[st for x in strides for st in x])
     with build.on_device(q.device):
         err = build.load_library().flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, t, d, strides,
-            int(causal), int(window), float(d ** -0.5), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+            dout.data_ptr(), lse.data_ptr(), scratch.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, hq, hkv, s, t, d,
+            strides, int(causal), int(window), float(d ** -0.5),
+            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
+    if err >= build.MAP_ERROR:
+        raise RuntimeError(f"flash_attention_bwd: cuTensorMapEncodeTiled "
+                           f"refused a tensor map (CUresult "
+                           f"{err - build.MAP_ERROR})")
     if err != 0:
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{err}")

@@ -66,7 +66,8 @@ def test_package_has_every_ported_module():
             "configs/zamba2_2_7b.py", "models/mamba2.py",
             "models/ssm_lm.py", "models/layout.py", "optim/adamw.py",
             "train/trainer.py", "launch/train.py",
-            "kernels/csrc/flash_attention_bwd.cu"]
+            "kernels/csrc/flash_attention_bwd.cu",
+            "kernels/csrc/tma_wgmma.cuh"]
     missing = [w for w in want if not os.path.isfile(os.path.join(PKG, w))]
     assert not missing, missing
 

@@ -166,10 +166,13 @@ def test_build_hash_covers_the_headers(tmp_path, monkeypatch):
     for f in list(build.CSRC.glob("*.cu")) + list(build.CSRC.glob("*.cuh")):
         (tmp_path / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
-    assert [h.name for h in build.headers()] == ["decode_common.cuh"]
-    before = build._source_hash(build.sources())
-    hdr = tmp_path / "decode_common.cuh"
-    hdr.write_bytes(hdr.read_bytes() + b"\n// edited\n")
-    after = build._source_hash(build.sources())
-    assert before != after
+    assert [h.name for h in build.headers()] == ["decode_common.cuh",
+                                                 "tma_wgmma.cuh"]
+    seen = {build._source_hash(build.sources())}
+    for name in ("decode_common.cuh", "tma_wgmma.cuh"):
+        hdr = tmp_path / name
+        hdr.write_bytes(hdr.read_bytes() + b"\n// edited\n")
+        after = build._source_hash(build.sources())
+        assert after not in seen, name
+        seen.add(after)
     assert build._source_hash(build.sources()) == after

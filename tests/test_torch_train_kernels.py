@@ -17,7 +17,13 @@
   values unchanged).
 * On CPU tensors the new wrappers run their plain versions: no launch is
   counted.
+* The bf16 backward on the card makes a TMA tensor map of each of its eight
+  operands: each, in the layout the attention layer gives it under
+  autograd, is one ``tensor_map_geometry`` takes, at head_dim 64, 80, 120
+  and 128.
 """
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -27,9 +33,13 @@ import torch
 from repro.kernels import ref as JR
 from repro.models import moe as JM
 from repro_torch import kernels as K
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as TL
 from repro_torch.models import moe as TM
 
 torch.set_num_threads(1)
+
+FA = importlib.import_module("repro_torch.kernels.flash_attention")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -190,3 +200,38 @@ def test_training_wrappers_count_no_launch_on_the_cpu():
                                       "staged_drain", "staged_gather")} == \
         dict(flash_attention=0, flash_attention_bwd=0, staged_drain=0,
              staged_gather=0)
+
+
+@pytest.mark.parametrize("d", [64, 80, 120, 128])
+def test_backward_operands_take_tensor_maps(d, monkeypatch):
+    """Through ``layers.attention`` under autograd in bf16 (a causal self
+    read, GQA group 2): q, k and v as the layer hands them to the backward
+    (transposed ``[B, S, H, D]`` views), ``dout`` as autograd delivers it
+    through the output projection, and ``out``, dq, dk and dv as the card's
+    wrappers make them (``empty_like``) are each a layout a TMA tensor map
+    takes. A layout refused here would be a refused map on the card."""
+    cfg = ModelConfig(name="maps", family="dense", n_layers=1, d_model=32,
+                      vocab=8, n_heads=4, n_kv_heads=2, head_dim=d)
+    gen = torch.Generator().manual_seed(d)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen).to(torch.bfloat16)
+    p = dict(wq=w(32, 4, d), wk=w(32, 2, d), wv=w(32, 2, d), wo=w(4, d, 32))
+    x = w(2, 12, 32).requires_grad_()
+    seen = {}
+    real = FA.flash_attention_bwd
+
+    def spy(q, k, v, out, lse, dout, causal=True, window=0):
+        seen.update(q=q, k=k, v=v, dout=dout)
+        return real(q, k, v, out, lse, dout, causal, window)
+    monkeypatch.setattr(FA, "flash_attention_bwd", spy)
+    y = TL.attention(cfg, p, x, torch.arange(12).expand(2, 12))
+    y.float().square().sum().backward()
+    ops = dict(seen, out=torch.empty_like(seen["q"]),
+               dq=torch.empty_like(seen["q"]), dk=torch.empty_like(seen["k"]),
+               dv=torch.empty_like(seen["v"]))
+    for name, t in ops.items():
+        assert t.dtype == torch.bfloat16 and t.shape[-1] == d, name
+        geo = FA.tensor_map_geometry(t)   # raises where no map can be made
+        assert geo["boxes"] == (1 if d <= 64 else 2), name
+
