@@ -1,11 +1,15 @@
 """Port of repro/launch/train.py: ``python -m repro_torch.launch.train --arch
 <id> [...]``.
 
-Trains the architecture's dense or MoE model (the reduced variant unless
-``--full``) on the synthetic token stream with AdamW under a warmup-cosine
-schedule, microbatching, checkpoints (every quarter of the run, with
+Trains the architecture's model (the reduced variant unless ``--full``) on
+the synthetic token stream with AdamW under a warmup-cosine schedule,
+microbatching, checkpoints (every quarter of the run, with
 ``--checkpoint-dir``; a run resumes from the latest) and the Trainer's
-fault tolerance, as the JAX launcher does. Runs on the GPU unless
+fault tolerance, as the JAX launcher does. The stream carries tokens only:
+the VLM trains with its cross layers over the text (its ``forward`` without
+media, as the JAX launcher trains it), and whisper-medium, which takes
+frames, refuses at its first step with the ``ValueError`` "takes media"
+(the JAX launcher fails there with a ``KeyError``). Runs on the GPU unless
 ``--device cpu`` is given (no GPU: it raises). One device: where the JAX
 launcher sees more than one device it takes its multi-device branch (a
 production mesh and sharded state), which is not ported, so with more than

@@ -35,6 +35,11 @@ Tensors = Mapping[str, torch.Tensor]
 # leaves the JAX block functions use as fp32 masters (never cast)
 _FP32_LEAVES = ("A_log", "dt_bias", "norm")
 
+# the profiler range around each ``ssd_chunked`` call of a block: a trace
+# reads the SSD's device time from it (its forward and remat's recomputes,
+# and the backward of the operators run inside it)
+SSD_SPAN = "mamba2.ssd_chunked"
+
 
 # ---------------------------------------------------------------------------
 # Parameters
@@ -279,9 +284,10 @@ def _ssd_out(cfg: ModelConfig, p: Tensors, u: torch.Tensor, z, xbc, dt,
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     xs = xs.reshape(b, s, h, pd)
-    y, final_state = ssd_chunked(xs, dt, A, bb.reshape(b, s, g, n),
-                                 cc.reshape(b, s, g, n), cfg.ssm_chunk,
-                                 init_state)
+    with torch.profiler.record_function(SSD_SPAN):
+        y, final_state = ssd_chunked(xs, dt, A, bb.reshape(b, s, g, n),
+                                     cc.reshape(b, s, g, n), cfg.ssm_chunk,
+                                     init_state)
     y = y + p["D"].to(dtype)[None, None, :, None] * xs
     y = gated_rmsnorm(y.reshape(b, s, cfg.d_inner), z, p["norm"],
                       cfg.norm_eps)
@@ -359,6 +365,7 @@ def init_mamba_state(cfg: ModelConfig, batch: int, dtype,
     }
 
 
-__all__ = ["MambaBlock", "segsum", "ssd_chunked", "ssd_decode_step",
-           "causal_conv", "conv_decode_step", "gated_rmsnorm", "mamba_block",
-           "mamba_block_chunk", "mamba_decode_step", "init_mamba_state"]
+__all__ = ["MambaBlock", "SSD_SPAN", "segsum", "ssd_chunked",
+           "ssd_decode_step", "causal_conv", "conv_decode_step",
+           "gated_rmsnorm", "mamba_block", "mamba_block_chunk",
+           "mamba_decode_step", "init_mamba_state"]

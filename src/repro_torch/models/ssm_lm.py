@@ -20,8 +20,13 @@ The shared block's attention runs through the hand-written kernels, as the
 dense model's does: prefill and each lanes chunk through
 ``flash_attention`` (K3), decode through ``flash_decode`` (K4). The SSD has
 no kernel in the JAX package (``jnp`` code), so it is plain PyTorch here
-(``models.mamba2``). ``forward`` and ``loss`` (training) are not ported
-yet.
+(``models.mamba2``). ``forward`` / ``loss`` (training) run the whole
+sequence under autograd: the SSD's plain PyTorch, the shared block's
+attention through K3 (``FlashAttentionFunction``, its backward the
+hand-written ``flash_attention_bwd``). Under ``remat`` each mamba layer is
+checkpointed and, in zamba, each group too (the mamba layers checkpointed
+inside it), as the reference nests ``jax.checkpoint``: a zamba mamba layer
+runs three times in a step, the shared block twice an application.
 """
 from __future__ import annotations
 
@@ -35,8 +40,9 @@ from ..core.paths import resolve_device
 from . import layers as L
 from . import mamba2 as M
 from .transformer import (DenseBlock, attend_chunk, attend_decode,
-                          attend_prefill, cache_slots, compute_dtype,
-                          dense_ffn, lane_write_plan, valid_mask)
+                          attend_prefill, batch_loss, cache_slots,
+                          compute_dtype, dense_ffn, lane_write_plan,
+                          remat_call, valid_mask)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -77,12 +83,34 @@ class MambaLM(nn.Module):
     def _init_order(self):
         return list(self.blocks)
 
-    def forward(self, tokens, remat: bool = False):
-        raise NotImplementedError(
-            f"not ported yet: {type(self).__name__}.forward / loss "
-            f"(training)")
+    # -- full forward (training) -------------------------------------------
+    def forward(self, tokens: torch.Tensor,
+                remat: bool = False) -> torch.Tensor:
+        """tokens [B, S] -> logits fp32 [B, S, V] over the whole sequence:
+        embed in the compute dtype, the trunk, ``ln_f``, the fp32 head (the
+        embedding itself where tied, so its gradient sums both uses).
+        Differentiable: the training path."""
+        tokens = torch.as_tensor(tokens, device=self.device)
+        x = self._trunk(self._embed(tokens), remat)
+        x = L.apply_norm(self.cfg, self.ln_f.tensors(), x)
+        return L.lm_logits(self.cfg, self.embed.tensors(), x)
 
-    loss = forward
+    def loss(self, batch, remat: bool = True) -> torch.Tensor:
+        """Mean token cross-entropy of ``batch`` (``tokens``, ``labels``,
+        optional ``loss_mask``), fp32 scalar."""
+        return batch_loss(self.forward(batch["tokens"], remat=remat), batch,
+                          self.device)
+
+    def _layer(self, x: torch.Tensor, blk: M.MambaBlock) -> torch.Tensor:
+        """One mamba layer over a whole sequence, its weights cast at this
+        use (inside autograd while training)."""
+        return M.mamba_block(self.cfg, blk.params(compute_dtype(self.cfg)),
+                             x)[0]
+
+    def _trunk(self, x: torch.Tensor, remat: bool) -> torch.Tensor:
+        for blk in self.blocks:
+            x = remat_call(remat, self._layer, x, blk)
+        return x
 
     # -- shared pieces -----------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -187,6 +215,26 @@ class ZambaLM(MambaLM):
         sh, dtype = self.shared, compute_dtype(self.cfg)
         return (sh.ln1.tensors(), sh.attn.tensors(dtype), sh.ln2.tensors(),
                 sh.mlp.tensors(dtype))
+
+    def _group(self, x: torch.Tensor, positions: torch.Tensor, g: int,
+               remat: bool) -> torch.Tensor:
+        """Group ``g`` over a whole sequence: its mamba layers (each
+        checkpointed under ``remat``), then the shared block over a causal
+        mask, its attention through K3."""
+        for blk in self.blocks[g * self.per_group:(g + 1) * self.per_group]:
+            x = remat_call(remat, self._layer, x, blk)
+        ln1, pa, ln2, pm = self._shared_params()
+        x = attend_prefill(self.cfg, ln1, pa, x, positions)
+        return x + dense_ffn(self.cfg, ln2, pm, x)
+
+    def _trunk(self, x: torch.Tensor, remat: bool) -> torch.Tensor:
+        """The groups in order, each checkpointed under ``remat`` (the
+        shared block's gradient sums over its applications)."""
+        b, s = x.shape[:2]
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        for g in range(self.n_groups):
+            x = remat_call(remat, self._group, x, positions, g, remat)
+        return x
 
     # -- caches ------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> Cache:

@@ -43,7 +43,10 @@ Dh]``, projected from the media by ``prefill`` and by every
 ``chunk_prefill`` call (as the JAX package does); a decode step reads them
 through ``flash_decode`` with every image token valid. The cross read of a
 prompt or a chunk is one non-causal ``flash_attention`` call, shared with
-whisper's decoder (:func:`attend_cross`).
+whisper's decoder (:func:`attend_cross`). ``forward`` / ``loss`` (training)
+walk the groups, each checkpointed under ``remat`` with its self layers
+checkpointed inside it, as the reference nests them; without media a cross
+layer attends causally over the text, as the reference's ``forward`` does.
 """
 from __future__ import annotations
 
@@ -269,6 +272,27 @@ def attend_cross_decode(cfg: ModelConfig, ln, pa, x: torch.Tensor,
     return x + (h if gate is None else gate * h)
 
 
+def remat_call(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, under ``torch.utils.checkpoint``
+    (non-reentrant: its activations recomputed in the backward, a
+    checkpoint inside it recomputed again there) when ``remat``: the JAX
+    package's ``jax.checkpoint`` of a scan body."""
+    if not remat:
+        return fn(*args, **kwargs)
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+
+
+def batch_loss(logits: torch.Tensor, batch, device) -> torch.Tensor:
+    """Mean token cross-entropy of fp32 ``logits`` [B, S, V] against
+    ``batch["labels"]`` (under ``batch["loss_mask"]`` where given), both
+    taken onto ``device``."""
+    mask = batch.get("loss_mask")
+    return L.cross_entropy_loss(
+        logits, torch.as_tensor(batch["labels"], device=device),
+        None if mask is None else torch.as_tensor(mask, device=device))
+
+
 class DecoderLM(nn.Module):
     """Dense decoder-only LM, with or without a sliding window, and the VLM
     (``cfg.cross_attn_every > 0``: groups of self layers, each followed by
@@ -343,19 +367,31 @@ class DecoderLM(nn.Module):
         return torch.as_tensor(media, device=self.device).to(
             compute_dtype(cfg))
 
-    def _cross_prompt(self, cb: CrossBlock, x: torch.Tensor,
-                      media: torch.Tensor, cache: Cache,
-                      g: int) -> torch.Tensor:
-        """Cross layer ``g`` over a prompt or a chunk: its image K/V
-        projected from the media (not normed) into ``cache`` and read by
-        every query (one non-causal K3 call), then its gated MLP."""
+    def _cross_layer(self, cb: CrossBlock, x: torch.Tensor,
+                     media: Optional[torch.Tensor],
+                     cache: Optional[Cache] = None,
+                     g: int = 0) -> torch.Tensor:
+        """A cross layer over a whole sequence, a prompt or a chunk: its
+        image K/V projected from the media (not normed; into ``cache``'s
+        group ``g`` where a cache is given) and read by every query (one
+        non-causal K3 call), then its gated MLP. Without media (training's
+        ``forward`` only) the layer is what the reference computes there,
+        ``layers.attention`` with no ``kv_x``: gated CAUSAL self-attention
+        over ``x``, no rotary (ROADMAP.md, "Known differences")."""
         cfg, dtype = self.cfg, x.dtype
         pa = cb.attn.tensors(dtype)
-        ck, cv = L.project_kv(cfg, pa, media, None)
-        cache["cross_k"][g].copy_(ck)
-        cache["cross_v"][g].copy_(cv)
         g_attn, g_mlp = cb.gates(dtype)
-        x = attend_cross(cfg, cb.ln1.tensors(), pa, x, ck, cv, gate=g_attn)
+        if media is None:
+            h = L.attention(cfg, pa, L.apply_norm(cfg, cb.ln1.tensors(), x),
+                            None, use_rope=False)
+            x = x + g_attn * h
+        else:
+            ck, cv = L.project_kv(cfg, pa, media, None)
+            if cache is not None:
+                cache["cross_k"][g].copy_(ck)
+                cache["cross_v"][g].copy_(cv)
+            x = attend_cross(cfg, cb.ln1.tensors(), pa, x, ck, cv,
+                             gate=g_attn)
         return x + g_mlp * dense_ffn(cfg, cb.ln2.tensors(),
                                      cb.mlp.tensors(dtype), x)
 
@@ -418,25 +454,37 @@ class DecoderLM(nn.Module):
         ``torch.utils.checkpoint`` (non-reentrant), its activations
         recomputed in the backward. Returns ``(x, [the stats of each
         layer])``."""
-        from torch.utils.checkpoint import checkpoint
-
         stats = []
         for blk in self.blocks:
-            if remat:
-                x, *st = checkpoint(self._block, blk, x, positions,
-                                    use_reentrant=False, **kw)
-            else:
-                x, *st = self._block(blk, x, positions, **kw)
+            x, *st = remat_call(remat, self._block, blk, x, positions, **kw)
             stats.append(st)
         return x, stats
+
+    def _vlm_group(self, x: torch.Tensor, positions: torch.Tensor,
+                   media: Optional[torch.Tensor], g: int,
+                   remat: bool) -> torch.Tensor:
+        """Group ``g`` of the VLM: its self layers (each checkpointed under
+        ``remat``), then its cross layer."""
+        nspg = self.n_self_per_group
+        for blk in self.blocks[g * nspg:(g + 1) * nspg]:
+            x, = remat_call(remat, self._block, blk, x, positions)
+        return self._cross_layer(self.cross_blocks[g], x, media)
+
+    def _vlm_trunk(self, x: torch.Tensor, positions: torch.Tensor,
+                   media: Optional[torch.Tensor], remat: bool) -> torch.Tensor:
+        """The VLM's groups in order. Under ``remat`` each group is
+        checkpointed and so is each self layer inside it, as the reference
+        nests ``jax.checkpoint``: a self layer runs three times in a step
+        (the forward, the group's recompute, its own), a cross layer
+        twice."""
+        for g in range(self.n_groups):
+            x = remat_call(remat, self._vlm_group, x, positions, media, g,
+                           remat)
+        return x
 
     def _embed_positions(self, tokens):
         """(embeddings in the compute dtype, positions ``0..S-1``) of
         ``tokens [B, S]``, taken onto the model's device."""
-        if self.is_vlm:
-            raise NotImplementedError(
-                f"not ported yet: the VLM's forward / loss (training) "
-                f"({self.cfg.name})")
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
         x = L.embed_tokens(self.cfg, self.embed.tensors(), tokens,
@@ -452,25 +500,28 @@ class DecoderLM(nn.Module):
         """tokens [B, S] -> logits fp32 [B, S, V], causal over the whole
         sequence (positions ``0..S-1``): embed in the compute dtype, the
         trunk, ``ln_f``, the fp32 head. Differentiable: the training path.
-        ``media`` is the JAX signature's (the VLM, the one family that
-        reads it, is not ported for training and raises)."""
+        The VLM reads ``media`` [B, n_image_tokens, D] (cast to the compute
+        dtype on entry) in its cross layers; with ``media`` None they
+        attend causally over the text, as the reference's ``forward``
+        does. Other models ignore ``media``."""
         x, positions = self._embed_positions(tokens)
-        x, _ = self._trunk(x, positions, remat)
+        if self.is_vlm:
+            media = None if media is None else self._media(media)
+            x = self._vlm_trunk(x, positions, media, remat)
+        else:
+            x, _ = self._trunk(x, positions, remat)
         return self._logits(x)
 
     def loss(self, batch, remat: bool = True) -> torch.Tensor:
         """Mean token cross-entropy of ``batch`` (``tokens``, ``labels``,
-        optional ``loss_mask``), fp32 scalar."""
+        optional ``loss_mask``; the VLM's ``media`` where given), fp32
+        scalar."""
         logits = self.forward(batch["tokens"], batch.get("media"),
                               remat=remat)
         return self._ce(logits, batch)
 
     def _ce(self, logits: torch.Tensor, batch) -> torch.Tensor:
-        mask = batch.get("loss_mask")
-        return L.cross_entropy_loss(
-            logits, torch.as_tensor(batch["labels"], device=self.device),
-            None if mask is None else torch.as_tensor(mask,
-                                                      device=self.device))
+        return batch_loss(logits, batch, self.device)
 
     # -- prefill -----------------------------------------------------------
     @torch.no_grad()
@@ -493,7 +544,7 @@ class DecoderLM(nn.Module):
         cache = self.init_cache(b, max_seq, dtype)
         for i, blk, cb in self._stack():
             if cb is not None:
-                x = self._cross_prompt(cb, x, media, cache, i)
+                x = self._cross_layer(cb, x, media, cache, i)
                 continue
             x = attend_prefill(cfg, blk.ln1.tensors(), blk.attn.tensors(dtype),
                                x, positions, cache["k"][i], cache["v"][i])
@@ -527,7 +578,7 @@ class DecoderLM(nn.Module):
                      + torch.arange(c, device=tokens.device)).expand(b, c)
         for i, blk, cb in self._stack():
             if cb is not None:
-                x = self._cross_prompt(cb, x, media, cache, i)
+                x = self._cross_layer(cb, x, media, cache, i)
                 continue
             x = attend_chunk(cfg, blk.ln1.tensors(), blk.attn.tensors(dtype),
                              x, positions, cache["k"][i], cache["v"][i],

@@ -27,8 +27,17 @@ chunk (non-causal, its queries against every frame) through
 ``flash_attention`` (K3); a decode step's self and cross reads through
 ``flash_decode`` (K4, the cross read under an all-true mask). The cross
 reads are ``transformer.attend_cross`` / ``attend_cross_decode``, which the
-VLM's gated cross layers share. ``forward``
-and ``loss`` (training) are not ported yet.
+VLM's gated cross layers share.
+
+``forward`` / ``loss`` (training) run the encoder and the decoder under
+autograd, every attention through K3 (``FlashAttentionFunction``, its
+backward the hand-written ``flash_attention_bwd``): the causal encoder, each
+decoder layer's causal self-attention and its non-causal cross read of the
+encoder's output, the cross K/V projected inside the layer, so the encoder's
+gradient sums over every decoder layer. Under ``remat`` each encoder and
+each decoder layer is checkpointed, as in the reference. ``loss`` needs
+``batch["media"]``: without it it raises prefill's ``ValueError`` (the
+reference fails there with a ``KeyError``).
 """
 from __future__ import annotations
 
@@ -42,8 +51,8 @@ from ..core.paths import resolve_device
 from . import layers as L
 from .transformer import (DenseBlock, attend_chunk, attend_cross,
                           attend_cross_decode, attend_decode, attend_prefill,
-                          cache_slots, compute_dtype, dense_ffn,
-                          lane_write_plan, valid_mask)
+                          batch_loss, cache_slots, compute_dtype, dense_ffn,
+                          lane_write_plan, remat_call, valid_mask)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -115,12 +124,46 @@ class WhisperModel(nn.Module):
             blk.init_(self.cfg, gen)
         return self
 
-    def forward(self, tokens, media=None, remat: bool = False):
-        raise NotImplementedError(
-            f"not ported yet: {type(self).__name__}.forward / loss "
-            f"(training)")
+    # -- full forward (training) -------------------------------------------
+    def forward(self, tokens: torch.Tensor, media=None,
+                remat: bool = False) -> torch.Tensor:
+        """tokens [B, S] and media (the frames [B, F, D]) -> logits fp32
+        [B, S, V]: the encoder, then the decoder over the tokens plus
+        ``dec_pos[:S]``, ``ln_f``, the fp32 head. Differentiable: the
+        training path."""
+        enc_out = self._encode(media, remat)
+        tokens = torch.as_tensor(tokens, device=self.device)
+        x = self._embed(tokens, self.dec_pos[:tokens.shape[1]])
+        for blk in self.dec_blocks:
+            x = remat_call(remat, self._dec_layer, x, enc_out, blk)
+        x = L.apply_norm(self.cfg, self.ln_f.tensors(), x)
+        return L.lm_logits(self.cfg, self.embed.tensors(), x)
 
-    loss = forward
+    def loss(self, batch, remat: bool = True) -> torch.Tensor:
+        """Mean token cross-entropy of ``batch`` (``tokens``, ``labels``,
+        ``media``, optional ``loss_mask``), fp32 scalar."""
+        logits = self.forward(batch["tokens"], batch.get("media"), remat)
+        return batch_loss(logits, batch, self.device)
+
+    def _dec_layer(self, x: torch.Tensor, enc_out: torch.Tensor,
+                   blk: DecoderBlock, cache: Optional[Cache] = None,
+                   i: int = 0) -> torch.Tensor:
+        """Decoder layer ``i`` over a whole sequence (a prompt): causal
+        self-attention (no rotary), the cross read of ``enc_out`` (its K/V
+        projected here), the MLP; with a ``cache``, the prompt's K/V and
+        the cross K/V written into layer ``i``'s leaves."""
+        cfg, dtype = self.cfg, x.dtype
+        kc, vc = (None, None) if cache is None else (cache["k"][i],
+                                                     cache["v"][i])
+        x = attend_prefill(cfg, blk.ln1.tensors(),
+                           blk.self_attn.tensors(dtype), x, None, kc, vc,
+                           use_rope=False)
+        ck, cv = self._cross_kv(blk, enc_out)
+        if cache is not None:
+            cache["cross_k"][i], cache["cross_v"][i] = ck, cv
+        x = attend_cross(cfg, blk.ln2.tensors(), blk.cross_attn.tensors(dtype),
+                         x, ck, cv)
+        return x + dense_ffn(cfg, blk.ln3.tensors(), blk.mlp.tensors(dtype), x)
 
     # -- shared pieces -----------------------------------------------------
     def _embed(self, tokens: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -156,9 +199,15 @@ class WhisperModel(nn.Module):
     @torch.no_grad()
     def encode(self, frames: Optional[torch.Tensor]) -> torch.Tensor:
         """frames [B, F, D] stub embeddings -> encoder output [B, F, D] in
-        the compute dtype. The frames are cast to it BEFORE ``enc_pos`` is
-        added, as the reference does. Each layer's self-attention is causal
-        (``layers.attention`` without ``kv_x``)."""
+        the compute dtype (serving: no graph)."""
+        return self._encode(frames)
+
+    def _encode(self, frames: Optional[torch.Tensor],
+                remat: bool = False) -> torch.Tensor:
+        """The encoder, differentiable. The frames are cast to the compute
+        dtype BEFORE ``enc_pos`` is added, as the reference does. Each
+        layer's self-attention is causal (``layers.attention`` without
+        ``kv_x``); under ``remat`` each layer is checkpointed."""
         cfg = self.cfg
         if frames is None:
             raise ValueError(
@@ -168,12 +217,16 @@ class WhisperModel(nn.Module):
         frames = torch.as_tensor(frames, device=self.device)
         x = frames.to(dtype) + self.enc_pos.to(dtype)[None, :frames.shape[1]]
         for blk in self.enc_blocks:
-            x = x + L.attention(cfg, blk.attn.tensors(dtype),
-                                L.apply_norm(cfg, blk.ln1.tensors(), x),
-                                None, use_rope=False)
-            x = x + dense_ffn(cfg, blk.ln2.tensors(), blk.mlp.tensors(dtype),
-                              x)
+            x = remat_call(remat, self._enc_layer, x, blk)
         return L.apply_norm(cfg, self.ln_enc.tensors(), x)
+
+    def _enc_layer(self, x: torch.Tensor, blk: DenseBlock) -> torch.Tensor:
+        cfg, dtype = self.cfg, x.dtype
+        x = x + L.attention(cfg, blk.attn.tensors(dtype),
+                            L.apply_norm(cfg, blk.ln1.tensors(), x),
+                            None, use_rope=False)
+        return x + dense_ffn(cfg, blk.ln2.tensors(), blk.mlp.tensors(dtype),
+                             x)
 
     # -- caches ------------------------------------------------------------
     def init_cache(self, batch: int, max_seq: int, dtype=None) -> Cache:
@@ -197,23 +250,12 @@ class WhisperModel(nn.Module):
         """Encode the media, run the whole prompt; returns the last-token
         logits (fp32 [B, V]) and the cache: the prompt's K/V at slots
         ``0 .. S-1`` of ``max_seq`` and each layer's cross K/V."""
-        cfg = self.cfg
-        dtype = compute_dtype(cfg)
         enc_out = self.encode(media)
         b, s = tokens.shape
         x = self._embed(tokens, self.dec_pos[:s])
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        cache = self.init_cache(b, max_seq, dtype)
+        cache = self.init_cache(b, max_seq, compute_dtype(self.cfg))
         for i, blk in enumerate(self.dec_blocks):
-            x = attend_prefill(cfg, blk.ln1.tensors(),
-                               blk.self_attn.tensors(dtype), x, positions,
-                               cache["k"][i], cache["v"][i], use_rope=False)
-            ck, cv = self._cross_kv(blk, enc_out)
-            cache["cross_k"][i], cache["cross_v"][i] = ck, cv
-            x = attend_cross(cfg, blk.ln2.tensors(),
-                             blk.cross_attn.tensors(dtype), x, ck, cv)
-            x = x + dense_ffn(cfg, blk.ln3.tensors(), blk.mlp.tensors(dtype),
-                              x)
+            x = self._dec_layer(x, enc_out, blk, cache, i)
         return self._logits(x), cache
 
     @torch.no_grad()

@@ -8,6 +8,9 @@ train_step
   loss likewise);
 * remat: each layer under ``torch.utils.checkpoint`` inside the model
   (``remat=True``): K3's forward runs twice a layer, its backward once;
+  zamba's and the VLM's groups are checkpointed around their checkpointed
+  layers, as the JAX package nests them (a layer nested so runs three
+  times);
 * MoE monitor: the expert loads of the step add to
   ``TrainState.expert_counts``, and the NEXT step's adaptive hot mask is
   ``core.decision.expert_hot_mask`` of them, taken between steps (the
@@ -140,7 +143,8 @@ def init_train_state(model, optimizer: AdamW, seed: Optional[int] = 0,
 
 
 def _split(batch: Dict[str, torch.Tensor], m: int):
-    """The M microbatches of ``batch``, rows in order (JAX's reshape)."""
+    """The M microbatches of ``batch``, rows in order (JAX's reshape): every
+    key by its rows, the media of whisper and the VLM too."""
     out = [{} for _ in range(m)]
     for k, a in batch.items():
         b = a.shape[0]
@@ -158,7 +162,8 @@ def make_train_step(model, optimizer: AdamW, *, microbatches: int = 1,
     """The (state, batch) -> (state, metrics) step: loss and gradients (over
     ``microbatches`` in turn, accumulated in fp32 and divided by M), one
     AdamW update, and for MoE the counters and the next hot mask. ``batch``:
-    ``tokens`` / ``labels`` (and ``loss_mask``) on the model's device.
+    ``tokens`` / ``labels`` (and ``loss_mask``; ``media`` for the families
+    that read them) on the model's device.
     Metrics: ``loss``, ``grad_norm``, ``lr`` (fp32 0-d tensors), ``step``."""
     is_moe = getattr(model.cfg, "n_experts", 0) > 0
 
@@ -229,6 +234,7 @@ class Trainer:
         self.pipeline = pipeline
         self.cfg = cfg
         dev = state.model.device
+        # every key of a batch onto the model's device, media included
         self.put_batch = put_batch or (lambda b: {
             k: torch.as_tensor(v, device=dev) for k, v in b.items()})
         self.ewma_ms: Optional[float] = None

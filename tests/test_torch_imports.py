@@ -178,11 +178,12 @@ def test_chip_smoke_fails_without_a_gpu():
 def test_unported_archs_and_families_raise():
     """Every architecture the JAX package registers is ported (the VLM
     llama-3.2-vision-90b last), so ``NOT_PORTED`` is empty and only an
-    unknown arch raises. Training is ported for the dense and MoE families
-    (``DecoderLM.loss``, ``MoELM.loss`` / ``loss_with_stats``); the SSM's,
-    the hybrid's and the encoder-decoder's ``forward`` / ``loss`` and the
-    VLM's ``forward`` raise "not ported yet"; and the dense class takes
-    the dense and VLM families only."""
+    unknown arch raises. Training is ported for every family: ``forward``
+    and ``loss`` give logits ``[B, S, V]`` and a scalar for the dense, MoE,
+    SSM, hybrid and VLM families (the VLM with or without media, as the
+    reference), and for the encoder-decoder with its frames (without them
+    it raises prefill's "takes media"); the dense class takes the dense
+    and VLM families only."""
     from repro_torch.configs import ARCHS, NOT_PORTED, get_config
     from repro_torch.configs.base import VLM
     from repro_torch.models import DecoderLM, build_model
@@ -203,15 +204,21 @@ def test_unported_archs_and_families_raise():
     assert type(model) is DecoderLM and model.is_vlm
     tokens = torch.zeros((1, 4), dtype=torch.int64)
     batch = {"tokens": tokens, "labels": tokens}
-    for fn, arg in ((model.forward, tokens), (model.loss, batch)):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
+    image = torch.zeros((1, 3, vlm.d_model))
+    assert model.loss(batch).shape == ()
+    assert model.loss(dict(batch, media=image)).shape == ()
+    for media in (None, image):
+        assert model.forward(tokens, media).shape == (1, 4, vlm.vocab)
+    wcfg = get_config("whisper-medium").reduced()
+    m = build_model(wcfg, device="cpu")
+    for fn, arg in ((m.forward, tokens), (m.loss, batch)):
+        with pytest.raises(ValueError, match="takes media"):
             fn(arg)
-    for arch in ("mamba2-130m", "zamba2-2.7b", "whisper-medium"):
-        m = build_model(get_config(arch).reduced(), device="cpu")
-        for fn in (m.forward, m.loss):
-            with pytest.raises(NotImplementedError, match="not ported yet"):
-                fn(tokens)
-    for arch in ("stablelm-1.6b", "granite-moe-3b-a800m"):
+    frames = torch.zeros((1, wcfg.n_audio_frames, wcfg.d_model))
+    assert m.loss(dict(batch, media=frames)).shape == ()
+    assert m.forward(tokens, frames).shape == (1, 4, wcfg.vocab)
+    for arch in ("mamba2-130m", "zamba2-2.7b", "stablelm-1.6b",
+                 "granite-moe-3b-a800m"):
         m = build_model(get_config(arch).reduced(), device="cpu")
         assert m.loss(batch).shape == ()
         assert m.forward(tokens).shape == (1, 4, m.cfg.vocab)

@@ -252,17 +252,22 @@ def _cache_close(tc, jc):
 
 
 def test_model_class_and_cache_layout(pair):
-    jcfg, jmodel, _, tmodel = pair
+    jcfg, jmodel, jparams, tmodel = pair
     want = ZambaLM if jcfg.family == "hybrid" else MambaLM
     assert type(tmodel) is want and tmodel.device.type == "cpu"
     jc = jmodel.init_cache(3, 32)
     tc = tmodel.init_cache(3, 32)
     assert {k: tuple(v.shape) for k, v in tc.items()} == {
         k: tuple(v.shape) for k, v in jc.items()}
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmodel.forward(torch.zeros((1, 4), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmodel.loss(torch.zeros((1, 4), dtype=torch.int64))
+    # forward / loss (training) are ported: logits [B, S, V] and the loss
+    # equal to the JAX package's
+    toks = _prompt(91, 1, 4)
+    close(tmodel.forward(T(toks).long()).detach(),
+          jmodel.forward(jparams, jnp.asarray(toks)), "forward logits")
+    batch = {"tokens": toks, "labels": toks}
+    close(float(tmodel.loss({k: T(v) for k, v in batch.items()})),
+          float(jmodel.loss(jparams, {k: jnp.asarray(v)
+                                      for k, v in batch.items()})), "loss")
 
 
 def _prompt(seed, b, s):

@@ -88,12 +88,20 @@ def test_model_class_and_cache_layout(pair):
     # the learned table grows with max_seq past max_position, as in JAX
     big = build_model(get_config(ARCH).reduced(), device="cpu", max_seq=5000)
     assert big.dec_pos.shape[0] == 5000
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmodel.forward(torch.zeros((1, 4), dtype=torch.int64))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        tmodel.loss(torch.zeros((1, 4), dtype=torch.int64))
+    # forward / loss (training) are ported and, like prefill, take media:
+    # without them they raise prefill's ValueError
+    toks = torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="takes media"):
-        tmodel.prefill(torch.zeros((1, 4), dtype=torch.int64), MAX_SEQ)
+        tmodel.forward(toks)
+    with pytest.raises(ValueError, match="takes media"):
+        tmodel.loss({"tokens": toks, "labels": toks})
+    with pytest.raises(ValueError, match="takes media"):
+        tmodel.prefill(toks, MAX_SEQ)
+    frames = pair[4][:1]
+    with torch.no_grad():
+        got = tmodel.forward(toks, torch.from_numpy(frames))
+    close(got, jmodel.forward(jparams, jnp.zeros((1, 4), jnp.int32),
+                              jnp.asarray(frames)), "forward logits")
 
 
 def test_encode(pair):
