@@ -285,7 +285,7 @@ line. Phases, each failing the run on any exception or mismatch:
            from a seed: the engine on the card and the same weights on the
            CPU give identical greedy streams, blocking and chunked at 64
   engine_ring_lanes  ``ServeEngine`` on stablelm-1.6b at full width, cut
-           to 12 of its 24 layers (``RING_LANES_LAYERS``, bf16), over the
+           to 4 of its 24 layers (``RING_LANES_LAYERS``, bf16), over the
            dense lanes cache with its staging ring:
            8 prompts of 512 tokens, 128 new tokens, max_seq 1024, a ring of
            8, direct / staged / adaptive, each through ``decode`` and
@@ -338,6 +338,16 @@ line. Phases, each failing the run on any exception or mismatch:
            (``TRAIN_ENCDEC_SEQ``), each row with frames [1500, 1024] from a
            seed, likewise; K3 = 2 x and its backward 1 x (24 + 2 x 24) x
            microbatches x steps
+  train_sharded  training on meshes of virtual devices of the card
+           (``TRAIN_SHARDED_ARMS``): stablelm-1.6b on (data 2, model 2),
+           granite-moe-3b-a800m staged on (2, 2) and stablelm-1.6b on (1,
+           3) (its 32 heads padded to 33, the vocab to 100353), full width,
+           4 layers: one fp32 step sharded and unsharded on the same weights
+           and batch, held to parity_train's rule; K3, its backward, the
+           drain and its adjoint once per device for each unsharded launch;
+           each collective's bytes equal to those the specs give
+           (``models.parallel.expected_collective_bytes``); then bf16
+           steps: host ms, device ms, busy share, device ops, peak memory
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
@@ -386,7 +396,8 @@ from repro_torch.data import (DataConfig, Pipeline,  # noqa: E402
                               synthetic_requests)
 from repro_torch.distributed import (VIRTUAL_DEVICES_ENV, Mesh,  # noqa: E402
                                      NamedSharding, ParallelConfig,
-                                     ShardedTensor)
+                                     ShardedTensor, collective_bytes,
+                                     reset_collective_counts)
 from repro_torch.kernels import build as kbuild  # noqa: E402
 from repro_torch.kernels import (cms_query, cms_query_ref,  # noqa: E402
                                  cms_update, cms_update_query,
@@ -415,6 +426,7 @@ from repro_torch.kernels.lru_scan import (LRU_KERNELS,  # noqa: E402
 from repro_torch.models import (build_model, media_spec,  # noqa: E402
                                 needs_media, remat_calls)
 from repro_torch.models import moe as MOE_L  # noqa: E402
+from repro_torch.models import parallel as PARALLEL  # noqa: E402
 from repro_torch.models import mamba2 as MAMBA  # noqa: E402
 from repro_torch.kvcache import paged as PG  # noqa: E402
 from repro_torch.models import prng  # noqa: E402
@@ -632,8 +644,18 @@ PARITY_TRAIN_VLM = dict(VLM_PARITY_WIDTH, n_layers=4, head_dim=128,
 # the script under 800 of its 1200 s once the training phases came: they
 # and the kernels' training checks added about 48 s (688.2 s in all on an
 # H100 80GB HBM3 at 700 W; 965.7 s on a host about 37 % slower), and this
-# phase is the largest (90.8 s at 24 layers); every check is kept
-RING_LANES_LAYERS = 12
+# phase is the largest (90.8 s at 24 layers, 42.8 s at 12); 4 since the
+# sharded training phase (train_sharded) came, the script at 770.3 s
+# before it; every check is kept
+RING_LANES_LAYERS = 4
+# train_sharded: each arm one fp32 step sharded and unsharded on the same
+# weights and TRAIN batch (2 microbatches), then bf16 steps on the mesh
+# (virtual devices of the card): (tag, arch, layers, mesh shape, dispatch)
+TRAIN_SHARDED_ARMS = (
+    ("dense_2x2", "stablelm-1.6b", TRAIN_DENSE_LAYERS, (2, 2), None),
+    ("moe_2x2", "granite-moe-3b-a800m", TRAIN_MOE_LAYERS, (2, 2), "staged"),
+    ("dense_1x3", "stablelm-1.6b", TRAIN_DENSE_LAYERS, (1, 3), None),
+)
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
 WRITE = dict(log2_regions=20, region_elems=1024, batches=64, batch=4096,
@@ -6826,18 +6848,21 @@ def _train_report(tr, rec, secs, tokens_a_step):
 
 
 class _KeptGrads:
-    """An optimizer that keeps a host copy of the gradients of every
-    ``update`` (before the clip scales them) in ``kept``."""
+    """An optimizer that keeps a copy of the gradients of every ``update``
+    (before the clip scales them) in ``kept``, on ``device`` (the host by
+    default; a placed gradient gathered whole)."""
 
-    def __init__(self, opt):
-        self.opt, self.kept = opt, []
+    def __init__(self, opt, device="cpu"):
+        self.opt, self.kept, self.device = opt, [], device
 
     def __getattr__(self, name):
         return getattr(self.opt, name)
 
     def update(self, grads, state, params):
-        self.kept.append({k: g.detach().to("cpu", torch.float32, copy=True)
-                          for k, g in grads.items()})
+        self.kept.append({
+            k: (g.gather(self.device) if isinstance(g, ShardedTensor)
+                else g).detach().to(self.device, torch.float32, copy=True)
+            for k, g in grads.items()})
         return self.opt.update(grads, state, params)
 
 
@@ -7296,6 +7321,205 @@ def phase_train_encdec(kernels):
                   TRAIN_ENCDEC_SEQ)
 
 
+def _sharded_fp32_arm(cfg, shape, mode):
+    """One fp32 step of ``cfg`` unsharded and on a ``(data, model)`` mesh of
+    ``shape`` virtual devices from the same weights and TRAIN batch: the
+    launches and collective bytes of the sharded step (counts set to 0 just
+    before it, read just after), and ``parity_train``'s rule between the
+    two (the unsharded step standing where the CPU stood)."""
+    P = TRAIN
+    n_hot = 0
+    n_dev = math.prod(shape)
+    kw = {"dispatch_mode": mode} if mode else {}
+    base = build_model(cfg, device=DEV, **kw).init(0)
+    other = build_model(cfg, device=DEV, **kw)
+    other.load_state_dict(base.state_dict())
+    src = SyntheticSource(DataConfig(P["seq"], P["batch"], cfg.vocab))
+    batch = {k: torch.as_tensor(v, device=DEV)
+             for k, v in src.batch_at(0).items()}
+    lr = warmup_cosine(P["lr"], P["warmup"], 1)
+    runs = {}
+    for name, m, par in (("unsharded", base, None),
+                         ("sharded", other, ParallelConfig(
+                             shape, ("data", "model")))):
+        opt = _KeptGrads(AdamW(lr=lr), device=DEV)
+        with virtual_devices(n_dev):
+            st = init_train_state(m, opt, None, n_hot, parallel=par)
+        step = make_train_step(m, opt, microbatches=P["microbatches"],
+                               mesh=st.mesh)
+        torch.cuda.synchronize()
+        reset_launch_counts()           # counts = 0 just before the step
+        reset_collective_counts()
+        st, met = step(st, batch)
+        torch.cuda.synchronize()
+        counts, moved = launch_counts(), collective_bytes()   # just after
+        runs[name] = dict(
+            loss=float(met["loss"]), grad_norm=float(met["grad_norm"]),
+            lr=float(met["lr"]), grads=opt.kept[0], launches=counts,
+            bytes=moved, plan=None if st.mesh is None
+            else PARALLEL.MeshPlan(m, st.mesh),
+            counts=None if st.expert_counts is None
+            else st.expert_counts.cpu(),
+            params={k: (v.gather() if isinstance(v, ShardedTensor)
+                        else v).detach().clone()
+                    for k, v in st.params.items()})
+        del st, step, opt
+    del base, other
+    torch.cuda.empty_cache()
+    a, b = runs["sharded"], runs["unsharded"]
+    problems, grad_share = [], 0.0
+    for k, g in a["grads"].items():
+        ref = b["grads"][k]
+        grad_share = max(grad_share, float((g - ref).abs().max())
+                         / max(PARITY_GRAD_RTOL * float(ref.abs().max()),
+                               1e-30))
+    if grad_share > 1.0:
+        problems.append(f"a gradient leaf errs {grad_share} x its tolerance")
+    if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]) or \
+            abs(a["grad_norm"] - b["grad_norm"]) > 1e-4 * b["grad_norm"] or \
+            abs(a["lr"] - b["lr"]) > 1e-6 * abs(b["lr"]):
+        problems.append(f"sharded {a['loss'], a['grad_norm'], a['lr']} "
+                        f"unsharded {b['loss'], b['grad_norm'], b['lr']}")
+    if mode and not torch.equal(a["counts"], b["counts"]):
+        problems.append("expert counts differ")
+    worst, held, over = 0.0, 0.0, []
+    for k, v in a["params"].items():
+        d = (v.detach() - b["params"][k]).abs().reshape(-1)
+        worst = max(worst, float(d.max()))
+        g = b["grads"][k].reshape(-1).abs()
+        pinned = g > PARITY_GRAD_RTOL * g.max()
+        n_held = int(((d > 1e-6) & pinned).sum())
+        held = max(held, n_held / d.numel())
+        if n_held > 1e-3 * d.numel():
+            over.append((k, n_held, d.numel()))
+    if worst > 3 * b["lr"] or over:
+        problems.append(f"parameters part by {worst} (pinned entries past "
+                        f"1e-6: {over})")
+    want = {k: v * n_dev for k, v in _train_launches(
+        cfg, 1, staged=mode == "staged").items()}
+    problems += _launch_problems("sharded fp32 step", a["launches"], want)
+    spec_bytes = PARALLEL.expected_collective_bytes(
+        a["plan"], TRAIN_MB, P["seq"], P["microbatches"])
+    if a["bytes"] != spec_bytes:
+        problems.append(f"collective bytes {a['bytes']} != the specs' "
+                        f"{spec_bytes}")
+    plan = a["plan"]
+    report = dict(
+        loss=a["loss"], loss_unsharded=b["loss"],
+        loss_rel_diff=abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+        grad_norm=a["grad_norm"], grad_norm_unsharded=b["grad_norm"],
+        grad_leaf_worst_share_of_tol=grad_share, param_max_diff=worst,
+        param_share_past_1e6_pinned=held, launches=a["launches"],
+        launches_want=want, collective_bytes=a["bytes"],
+        collective_bytes_spec=spec_bytes, scheme=plan.scheme,
+        heads_run=plan.hp, vocab_lanes=plan.vp,
+        experts_run=plan.ep or None)
+    return report, problems
+
+
+def _sharded_bf16_arm(cfg, shape, mode):
+    """bf16 steps on the mesh (virtual devices of the card): one untimed
+    (launches and collective bytes against the specs), one on the host
+    clock, one traced (device ms, busy share, device ops, the largest
+    kernels); the peak memory of the two timed steps."""
+    P = TRAIN
+    n_dev = math.prod(shape)
+    kw = {"dispatch_mode": mode} if mode else {}
+    model = build_model(cfg, device=DEV, **kw)
+    opt = AdamW(lr=warmup_cosine(P["lr"], P["warmup"], 3))
+    with virtual_devices(n_dev):
+        st = init_train_state(model, opt, 0, 0, parallel=ParallelConfig(
+            shape, ("data", "model")))
+    step = make_train_step(model, opt, microbatches=P["microbatches"],
+                           mesh=st.mesh)
+    src = SyntheticSource(DataConfig(P["seq"], P["batch"], cfg.vocab))
+    holder = [st]
+
+    def one(i):
+        batch = {k: torch.as_tensor(v, device=DEV)
+                 for k, v in src.batch_at(i).items()}
+        holder[0], met = step(holder[0], batch)
+        return float(met["loss"])
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    reset_collective_counts()
+    losses = [one(0)]
+    torch.cuda.synchronize()
+    counts, moved = launch_counts(), collective_bytes()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses.append(one(1))
+    host_ms = (time.perf_counter() - t0) * 1e3
+    rows = trace_rows(lambda: losses.append(one(2)), "train_sharded step")
+    peak = torch.cuda.max_memory_allocated()
+    dev_ms = sum(r[0] for r in rows) / 1e3
+    spec_bytes = PARALLEL.expected_collective_bytes(
+        PARALLEL.MeshPlan(model, st.mesh), TRAIN_MB, P["seq"],
+        P["microbatches"])
+    problems = []
+    if moved != spec_bytes:
+        problems.append(f"bf16 collective bytes {moved} != the specs' "
+                        f"{spec_bytes}")
+    want = {k: v * n_dev for k, v in _train_launches(
+        cfg, 1, staged=mode == "staged").items()}
+    problems += _launch_problems("sharded bf16 step", counts, want)
+    if not all(math.isfinite(x) for x in losses):
+        problems.append(f"losses {losses}")
+    del holder, st, step, model
+    torch.cuda.empty_cache()
+    return dict(losses=losses, step_host_ms=host_ms, device_ms=dev_ms,
+                busy_share=dev_ms / host_ms if rows else None,
+                device_ops=device_ops(rows), peak_mem_gb=peak / 1e9,
+                tokens_per_s=P["batch"] * P["seq"] / host_ms * 1e3,
+                launches=counts, collective_bytes=moved,
+                collective_bytes_spec=spec_bytes,
+                largest=[(r[2][:70], r[1], r[0] / 1e3) for r in rows[:6]]), \
+        problems
+
+
+def phase_train_sharded(kernels):
+    """Training on a mesh of virtual devices of the card
+    (``REPRO_TORCH_VIRTUAL_DEVICES``), three arms (``TRAIN_SHARDED_ARMS``):
+    stablelm-1.6b at full width on ``(data 2, model 2)`` (scheme ``heads``,
+    the vocab split as it is), granite-moe-3b-a800m at full width, staged,
+    on ``(2, 2)`` (24 q / 8 kv heads, 20 of the 40 experts a rank) and
+    stablelm-1.6b on ``(1, 3)`` (scheme ``replicate``: 32 heads run as 33,
+    the vocab as 100353 lanes), each cut to 4 layers. Per arm: one fp32
+    step sharded and unsharded from the same weights and TRAIN batch held
+    to ``parity_train``'s rule (the loss within 1e-5 and the grad norm
+    within 1e-4 relative; every gradient leaf within ``PARITY_GRAD_RTOL`` of
+    its largest entry; the new parameters within 3 x lr, at most 0.1 % of a
+    leaf's entries past 1e-6 among those whose gradient is above
+    ``PARITY_GRAD_RTOL`` of the leaf's largest; the expert counts equal);
+    K3, its backward, the drain and its adjoint launched once per device
+    for each unsharded launch (``remat_calls``); every collective's bytes
+    equal to those the specs give (``expected_collective_bytes``); then
+    bf16 steps: host ms, device ms, busy share, device ops, peak memory,
+    tokens/s, launches and bytes again."""
+    problems, arms = [], {}
+    for tag, arch, layers, shape, mode in TRAIN_SHARDED_ARMS:
+        base = dataclasses.replace(get_config(arch), n_layers=layers)
+        fp32, found = _sharded_fp32_arm(
+            dataclasses.replace(base, dtype="float32"), shape, mode)
+        problems += [f"{tag} fp32: {p}" for p in found]
+        bf16, found = _sharded_bf16_arm(base, shape, mode)
+        problems += [f"{tag} bf16: {p}" for p in found]
+        arms[tag] = dict(arch=arch, n_layers=layers, mesh=dict(
+            zip(("data", "model"), shape)), dispatch=mode, fp32=fp32,
+            bf16=bf16)
+    # the launches of each arm's fp32 sharded step (K1 as its drain)
+    for k in kernels:
+        name = {"staged_scatter": "staged_drain"}.get(k["name"], k["name"])
+        if name in ("flash_attention", "flash_attention_bwd",
+                    "staged_drain", "staged_gather"):
+            k["train_sharded_launches"] = {
+                t: a["fp32"]["launches"].get(name, 0)
+                for t, a in arms.items()}
+    say("train_sharded", shape=TRAIN, virtual_devices=True, **arms)
+    if problems:
+        raise AssertionError("train_sharded: " + "; ".join(problems))
+
+
 PHASE_SECONDS = {}
 
 
@@ -7344,6 +7568,7 @@ PHASES = (
     ("train_ssm", phase_train_ssm, ("kernels",)),
     ("train_hybrid", phase_train_hybrid, ("kernels",)),
     ("train_encdec", phase_train_encdec, ("kernels",)),
+    ("train_sharded", phase_train_sharded, ("kernels",)),
 )
 
 

@@ -63,6 +63,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..distributed.sharding import ShardedTensor
 from ..models.layout import numpy_leaf
 
 _MANIFEST = "manifest.json"
@@ -157,7 +158,7 @@ _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64,
 
 
 def _spec(x) -> _Spec:
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, ShardedTensor)):
         return _Spec(x.shape, _NP_DTYPES[x.dtype])
     x = np.asarray(x) if not hasattr(x, "dtype") else x
     return _Spec(x.shape, x.dtype)

@@ -10,12 +10,14 @@ the VLM trains with its cross layers over the text (its ``forward`` without
 media, as the JAX launcher trains it), and whisper-medium, which takes
 frames, refuses at its first step with the ``ValueError`` "takes media"
 (the JAX launcher fails there with a ``KeyError``). Runs on the GPU unless
-``--device cpu`` is given (no GPU: it raises). One device: where the JAX
-launcher sees more than one device it takes its multi-device branch (a
-production mesh and sharded state), which is not ported, so with more than
-one visible GPU this raises (``CUDA_VISIBLE_DEVICES`` picks one). The
-weights are drawn from seed 0 with ``torch.Generator`` (the JAX launcher's
-from ``jax.random.key(0)``).
+``--device cpu`` is given (no GPU: it raises). Where more than one device
+is visible (distinct cards, or ``REPRO_TORCH_VIRTUAL_DEVICES`` virtual
+ones on ``--device``), it takes the JAX launcher's multi-device branch: the
+state placed on ``make_production_mesh()`` by ``state_shardings`` and the
+sharded step (the dense and MoE families; the others raise
+``NotImplementedError``; too few devices for the mesh raise its
+``ValueError``). The weights are drawn from seed 0 with
+``torch.Generator`` (the JAX launcher's from ``jax.random.key(0)``).
 """
 from __future__ import annotations
 
@@ -27,8 +29,11 @@ import torch
 from ..configs import get_config
 from ..data import DataConfig, Pipeline, SyntheticSource
 from ..models import build_model
+from ..models.parallel import check_family
 from ..optim import AdamW, warmup_cosine
-from ..train import Trainer, TrainerConfig, init_train_state, make_train_step
+from ..train import (Trainer, TrainerConfig, init_train_state,
+                     make_train_step, place_train_state)
+from .mesh import make_production_mesh, visible_devices
 
 
 def main(argv=None) -> dict:
@@ -49,11 +54,6 @@ def main(argv=None) -> dict:
                     help="cuda (default; raises without a GPU) or cpu")
     args = ap.parse_args(argv)
 
-    if torch.device(args.device).type == "cuda" and \
-            torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "not ported yet: the train half of distributed/sharding.py "
-            "(the JAX launcher's branch for more than one device)")
     logging.basicConfig(level=logging.INFO, format="%(message)s")
     cfg = get_config(args.arch)
     if args.reduced:
@@ -63,9 +63,15 @@ def main(argv=None) -> dict:
     n_hot = max(1, cfg.n_experts // 4) if cfg.n_experts else 0
 
     opt = AdamW(lr=warmup_cosine(args.lr, max(args.steps // 20, 1), args.steps))
+    mesh = None
+    if visible_devices(args.device) > 1:
+        check_family(cfg)
+        mesh = make_production_mesh(device=args.device)
     state = init_train_state(model, opt, 0, n_hot)
+    if mesh is not None:
+        state = place_train_state(state, mesh)
     step = make_train_step(model, opt, microbatches=args.microbatches,
-                           n_hot_experts=n_hot)
+                           n_hot_experts=n_hot, mesh=mesh)
 
     dc = DataConfig(seq_len=args.seq, global_batch=args.batch, vocab=cfg.vocab)
     pipe = Pipeline(SyntheticSource(dc)).start()

@@ -35,8 +35,17 @@ P.V).
 
 Under grad mode ``attention_core`` runs K3 through
 ``FlashAttentionFunction`` (its backward the hand-written
-``flash_attention_bwd``); ``cross_entropy_loss`` is the training loss. TP
-head padding and ``shard_batch`` are not ported yet.
+``flash_attention_bwd``); ``cross_entropy_loss`` is the training loss.
+
+Under a mesh (the sharded train step, ``models.parallel``), each piece is a
+function on one device's tensors plus an explicit collective of
+``distributed.collectives``: ``pad_to_multiple`` / ``pad_axis`` (the TP
+padding of heads, vocab and experts with zeros, JAX's ``_tp_head_pad``),
+``shard_batch`` (each device's rows), ``embed_tokens_sharded`` (the lookup
+on a ``tok`` split on D, then D gathered over ``model``),
+``lm_logits_sharded`` (each device's vocab lanes, the padded ones at -1e30)
+and ``vocab_parallel_nll`` (the cross entropy over logits split on their
+vocab).
 """
 from __future__ import annotations
 
@@ -518,3 +527,80 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         mask = mask.to(nll.dtype)
         return (nll * mask).sum() / mask.sum().clamp(min=1)
     return nll.mean()
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh: one device's share plus an explicit collective
+# ---------------------------------------------------------------------------
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """``n`` rounded up to a multiple of ``m``: the count of heads, vocab
+    lanes or experts a ``model`` axis of ``m`` runs (JAX's ``_tp_head_pad``,
+    the head padding of ``lm_logits`` and of the MoE layer)."""
+    return (n + m - 1) // m * m
+
+
+def pad_axis(x: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``x`` with zeros appended on ``dim`` up to length ``n`` (zero heads,
+    head rows or experts: their outputs and gradients are exactly zero)."""
+    extra = n - x.shape[dim]
+    if not extra:
+        return x
+    shape = list(x.shape)
+    shape[dim] = extra
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+def shard_batch(sm, x: torch.Tensor, axes):
+    """Each device's rows of the batch-leading ``x`` on its device: part
+    ``index(r, axes)`` of the split over the dp ``axes`` (JAX's
+    ``shard_batch`` constraint)."""
+    k = sm.size(axes)
+    w = x.shape[0] // k
+    return [x[sm.index(r, axes) * w:(sm.index(r, axes) + 1) * w].to(
+        sm.device(r)) for r in range(sm.n)]
+
+
+def embed_tokens_sharded(sm, tok, tokens, dtype, d_over_model: bool):
+    """The lookup on each device's piece of the table (``tok [V, D / m]``
+    where it is split on D over ``model``), then the residual stream's D
+    gathered over ``model``."""
+    from ..distributed.collectives import all_gather
+
+    x = [t[i.long()].to(dtype) for t, i in zip(tok, tokens)]
+    return all_gather(sm, x, "model", 2, "embed") if d_over_model else x
+
+
+def lm_logits_sharded(xs, w, first, vocab: int):
+    """Each device's fp32 logits over its vocab lanes ``[first, first +
+    rows)`` against its head rows ``w [rows, D]`` (zero rows past the
+    vocab), the lanes past ``vocab`` at -1e30 as ``lm_logits`` masks them."""
+    out = []
+    for x, wr, lo in zip(xs, w, first):
+        logits = torch.einsum("bsd,vd->bsv", x.float(), wr.float())
+        if lo + wr.shape[0] > vocab:
+            lane = torch.arange(lo, lo + wr.shape[0], device=x.device)
+            logits = torch.where(lane < vocab, logits,
+                                 torch.full((), -1e30, device=x.device))
+        out.append(logits)
+    return out
+
+
+def vocab_parallel_nll(sm, logits, first, labels):
+    """Each token's ``logsumexp - gold logit`` from fp32 logits split on
+    their vocab over ``model`` (device ``r`` holding lanes ``first[r] ..``):
+    the max and the sum of exponentials combined over ``model``, the gold
+    logit from the rank whose lanes hold the label."""
+    from ..distributed.collectives import pmax, psum
+
+    mx = pmax(sm, [lg.amax(dim=-1) for lg in logits], "model", "loss_max")
+    se, gold = [], []
+    for lg, m, lo, lab in zip(logits, mx, first, labels):
+        se.append(torch.exp(lg - m[..., None]).sum(dim=-1))
+        lane = torch.arange(lo, lo + lg.shape[-1], device=lg.device)
+        gold.append(torch.where(lane == lab.long()[..., None], lg,
+                                0.0).sum(dim=-1))
+    se = psum(sm, se, "model", "loss_sumexp")
+    gold = psum(sm, gold, "model", "loss_gold")
+    return [torch.log(s) + m - g for s, m, g in zip(se, mx, gold)]

@@ -60,8 +60,12 @@ def jax_tree(named: Iterable[Tuple[str, Any]],
 
 def numpy_leaf(values: List[Any], stacked: bool) -> np.ndarray:
     """A ``jax_tree`` leaf on the host, a copy that shares no memory with
-    the tensors (stacked on a new axis 0 for a stack)."""
-    arrs = [v.detach().cpu().numpy() if hasattr(v, "detach") else v
+    the tensors (stacked on a new axis 0 for a stack); a placed tensor
+    (``ShardedTensor``) is gathered whole onto the host first."""
+    from ..distributed.sharding import ShardedTensor
+
+    arrs = [v.gather("cpu").detach().numpy() if isinstance(v, ShardedTensor)
+            else v.detach().cpu().numpy() if hasattr(v, "detach") else v
             for v in values]
     return np.stack(arrs) if stacked else np.array(arrs[0])
 

@@ -27,9 +27,10 @@ adjoint gather ``staged_gather``), the direct scatter stays a plain
 Capacity is per call: ``expert_capacity(cfg, T)`` from the call's token
 count, and assignments past it are dropped (slot -1, weight 0). Routing
 takes the top-k of the router's softmax with the lower expert first on
-ties, as ``jax.lax.top_k`` does. The expert padding and sharding
-constraints of the JAX package act only under a mesh, which the MoE port
-does not take yet.
+ties, as ``jax.lax.top_k`` does. The JAX package's expert padding and
+buffer placement act only under a mesh: the sharded train step's
+counterpart is ``models.parallel.moe_ffn`` (expert parallelism over
+``model``, the routing of the whole microbatch).
 """
 from __future__ import annotations
 
@@ -85,19 +86,26 @@ class MoEBlock(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor,
-          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Top-k routing of flat tokens ``x [T, D]`` by the fp32 ``router
-    [D, E]``. Returns (expert_idx int64[T, K], weights [T, K] in x's dtype,
-    aux_loss fp32 scalar, expert_load int64[E], the monitor's counter
-    update)."""
+def topk_route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor):
+    """The router's fp32 softmax over ``x [T, D]`` and its top-k: ``(probs
+    [T, E], expert_idx int64 [T, K], weights [T, K] fp32, renormalized)``,
+    ties with the lower expert first."""
     logits = x.float() @ router.float()
     probs = torch.softmax(logits, dim=-1)
     # the first k of a stable descending sort: ties keep the lower expert
     # first, as jax.lax.top_k does (torch.topk promises no order)
     weights, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     weights, idx = weights[:, :cfg.top_k], idx[:, :cfg.top_k]
-    weights = weights / weights.sum(dim=-1, keepdim=True)
+    return probs, idx, weights / weights.sum(dim=-1, keepdim=True)
+
+
+def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor,
+          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Top-k routing of flat tokens ``x [T, D]`` by the fp32 ``router
+    [D, E]``. Returns (expert_idx int64[T, K], weights [T, K] in x's dtype,
+    aux_loss fp32 scalar, expert_load int64[E], the monitor's counter
+    update)."""
+    probs, idx, weights = topk_route(cfg, router, x)
     e = cfg.n_experts
     # load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
     f_e = nn.functional.one_hot(idx[:, 0], e).float().mean(dim=0)

@@ -24,6 +24,18 @@ commit leaves the state as it was, and a retry starts from it. After the
 commit the model's cached compute-type copies are dropped
 (``layers.drop_casts``), so serving after training reads the new weights.
 
+On a mesh (``init_train_state(..., parallel=)`` or ``place_train_state``,
+then ``make_train_step(..., mesh=)``): the dense and MoE families only
+(``models.parallel``). The masters and both AdamW moments live as pieces
+on their devices (``ShardedTensor``, placed by ``state_shardings``; the
+model keeps only ``meta`` tensors of their shapes); each microbatch (rows in
+JAX's order) is split over the dp axes by ``batch_pspec`` and its loss and
+gradients come from ``models.parallel.sharded_loss``; a leaf the batch axes
+do not split has its gradient summed over them; AdamW updates piece by
+piece. The MoE counters and the hot mask stay whole on the lead device, as
+the decision plane does in serving. The commit is still the last thing a
+step does.
+
 Trainer (host loop) fault tolerance
 -----------------------------------
 * a checkpoint every N steps (async, atomic, one write in flight) and
@@ -45,8 +57,11 @@ import torch
 from torch import nn
 
 from ..core.decision import expert_hot_mask
+from ..distributed.sharding import (Mesh, NamedSharding, ParallelConfig,
+                                    ShardedTensor, state_shardings,
+                                    tree_paths_and_leaves)
 from ..models.layers import drop_casts, set_trainable
-from ..models.layout import from_jax_tree, jax_tree
+from ..models.layout import from_jax_tree, jax_key, jax_tree
 from ..optim.adamw import AdamW, AdamWState
 
 log = logging.getLogger("repro_torch.train")
@@ -65,16 +80,22 @@ class _TrainTree(NamedTuple):
 class TrainState:
     """``model`` holds the parameters (its fp32 masters); ``opt`` the AdamW
     state by parameter name; ``step`` the steps taken; ``expert_counts``
-    (int64 [E]) and ``hot_mask`` (bool [E]) the MoE monitor's, else
-    None."""
+    (int64 [E]) and ``hot_mask`` (bool [E]) the MoE monitor's, else None.
+    On a mesh, ``shards`` holds the masters as ``ShardedTensor`` pieces by
+    parameter name (the model's own are ``meta`` tensors), ``opt``'s
+    moments likewise, and ``mesh`` is the mesh."""
     model: nn.Module
     opt: AdamWState
     step: int
     expert_counts: Optional[torch.Tensor] = None
     hot_mask: Optional[torch.Tensor] = None
+    shards: Optional[Dict[str, ShardedTensor]] = None
+    mesh: Optional[Mesh] = None
 
     @property
-    def params(self) -> Dict[str, torch.Tensor]:
+    def params(self) -> Dict[str, Any]:
+        if self.shards is not None:
+            return dict(self.shards)
         return dict(self.model.named_parameters())
 
     def jax_tree(self, leaf) -> _TrainTree:
@@ -85,7 +106,7 @@ class TrainState:
             return None if x is None else leaf([x], False)
         counts = self.expert_counts
         return _TrainTree(
-            params=jax_tree(self.model.named_parameters(), leaf),
+            params=jax_tree(self.params.items(), leaf),
             opt=AdamWState(one(np.asarray(self.opt.step, np.int32)),
                            jax_tree(self.opt.mu.items(), leaf),
                            jax_tree(self.opt.nu.items(), leaf)),
@@ -97,16 +118,30 @@ class TrainState:
     def from_jax_tree(self, tree: _TrainTree) -> "TrainState":
         """A state read from the JAX structure (``checkpoint.restore``): the
         parameters loaded into this state's model in place, the rest made
-        anew on its device."""
+        anew on its device; on a mesh every leaf placed by the rules
+        instead (the masters as new pieces)."""
         from ..checkpoint import params_from_numpy
 
-        params_from_numpy(tree.params, self.model)
         dev = self.model.device
         names = [n for n, _ in self.model.named_parameters()]
+        shards = None
+        if self.shards is not None:
+            shardings = {k: v.sharding for k, v in self.shards.items()}
 
-        def moments(t):
-            return {k: torch.tensor(np.asarray(v, np.float32), device=dev)
+            def moments(t):
+                return {k: ShardedTensor.place(torch.tensor(
+                    np.asarray(v, np.float32)), shardings[k])
                     for k, v in from_jax_tree(t, names).items()}
+            shards = moments(tree.params)
+            for v in shards.values():
+                for piece in v.shards:
+                    piece.requires_grad_(True)
+        else:
+            params_from_numpy(tree.params, self.model)
+
+            def moments(t):
+                return {k: torch.tensor(np.asarray(v, np.float32), device=dev)
+                        for k, v in from_jax_tree(t, names).items()}
 
         def vec(x, dtype):
             return None if x is None else torch.tensor(np.asarray(x),
@@ -115,16 +150,75 @@ class TrainState:
                           AdamWState(int(tree.opt.step), moments(tree.opt.mu),
                                      moments(tree.opt.nu)),
                           int(tree.step), vec(tree.expert_counts, torch.int64),
-                          vec(tree.hot_mask, torch.bool))
+                          vec(tree.hot_mask, torch.bool), shards, self.mesh)
 
 
 def init_train_state(model, optimizer: AdamW, seed: Optional[int] = 0,
-                     n_hot_experts: int = 0) -> TrainState:
+                     n_hot_experts: int = 0,
+                     parallel: Optional[ParallelConfig] = None) -> TrainState:
     """Training mode on ``model`` (``requires_grad`` on its masters), its
     weights drawn from ``seed`` (None keeps the weights it holds: the tests
     load the JAX package's), the optimizer's zero state, and for MoE zero
     expert counts and, with ``n_hot_experts``, a first hot mask of the
-    first ``max(n_hot_experts, 1)`` experts (as the JAX package starts)."""
+    first ``max(n_hot_experts, 1)`` experts (as the JAX package starts).
+    With an enabled ``parallel``, the state is then placed on its mesh
+    (``parallel.build_mesh(device=model.device)``) by
+    ``place_train_state``."""
+    on_mesh = parallel is not None and parallel.enabled
+    if on_mesh:
+        from ..models.parallel import check_family
+        check_family(model.cfg)
+    state = _init_state(model, optimizer, seed, n_hot_experts)
+    if on_mesh:
+        state = place_train_state(state, parallel.build_mesh(
+            device=model.device))
+    return state
+
+
+def place_train_state(state: TrainState, mesh: Mesh) -> TrainState:
+    """``state`` placed on ``mesh`` by ``state_shardings``: each master and
+    both its moments as a ``ShardedTensor`` of its spec (the layer's piece
+    of a stacked leaf), the masters' pieces requiring grad; the model's own
+    masters become ``meta`` tensors; the counters and the mask stay whole
+    on the lead device. The dense and MoE families only."""
+    from ..checkpoint.checkpoint import _spec_leaf
+    from ..models.parallel import check_family, release_masters
+
+    model = state.model
+    check_family(model.cfg)
+    if state.shards is not None:
+        raise ValueError("the state is placed already")
+    tree = state_shardings(model.cfg, mesh, state.jax_tree(_spec_leaf))
+    specs = dict(tree_paths_and_leaves(tree))
+
+    def spec(prefix, name):
+        key, layer = jax_key(name)
+        sp = specs[f"{prefix}/{key}"].spec
+        return NamedSharding(mesh, sp if layer is None else sp[1:])
+
+    with torch.no_grad():
+        shards = {}
+        for k, p in model.named_parameters():
+            st = ShardedTensor.place(p.detach(), spec("params", k))
+            for piece in st.shards:
+                piece.requires_grad_(True)
+            shards[k] = st
+        mu = {k: ShardedTensor.place(v, spec("opt/mu", k))
+              for k, v in state.opt.mu.items()}
+        nu = {k: ShardedTensor.place(v, spec("opt/nu", k))
+              for k, v in state.opt.nu.items()}
+    release_masters(model)
+    lead = mesh.lead
+    return TrainState(
+        model, AdamWState(state.opt.step, mu, nu), state.step,
+        None if state.expert_counts is None
+        else state.expert_counts.to(lead),
+        None if state.hot_mask is None else state.hot_mask.to(lead),
+        shards, mesh)
+
+
+def _init_state(model, optimizer: AdamW, seed: Optional[int],
+                n_hot_experts: int) -> TrainState:
     if seed is not None:
         model.init(seed)
     set_trainable(model)
@@ -158,13 +252,18 @@ def _split(batch: Dict[str, torch.Tensor], m: int):
 
 def make_train_step(model, optimizer: AdamW, *, microbatches: int = 1,
                     remat: bool = True, n_hot_experts: int = 0,
+                    mesh: Optional[Mesh] = None,
                     ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """The (state, batch) -> (state, metrics) step: loss and gradients (over
     ``microbatches`` in turn, accumulated in fp32 and divided by M), one
     AdamW update, and for MoE the counters and the next hot mask. ``batch``:
     ``tokens`` / ``labels`` (and ``loss_mask``; ``media`` for the families
-    that read them) on the model's device.
+    that read them) on the model's device. With ``mesh`` the sharded step
+    (the dense and MoE families, a state placed on that mesh).
     Metrics: ``loss``, ``grad_norm``, ``lr`` (fp32 0-d tensors), ``step``."""
+    if mesh is not None:
+        return _sharded_train_step(model, optimizer, mesh, microbatches,
+                                   remat, n_hot_experts)
     is_moe = getattr(model.cfg, "n_experts", 0) > 0
 
     def loss_fn(mb, hot):
@@ -205,6 +304,73 @@ def make_train_step(model, optimizer: AdamW, *, microbatches: int = 1,
         metrics = {"loss": loss, **om, "step": state.step + 1}
         return (TrainState(state.model, new_opt, state.step + 1, counts,
                            new_hot), metrics)
+
+    return train_step
+
+
+def _sharded_train_step(model, optimizer: AdamW, mesh: Mesh,
+                        microbatches: int, remat: bool, n_hot_experts: int):
+    """``make_train_step`` on ``mesh``: each microbatch's loss and gradients
+    from ``models.parallel.sharded_loss`` (every device's copy of the loss
+    seeded with 1), accumulated piece by piece in fp32; a leaf's gradient
+    then summed over the batch axes that do not split it (the data ranks of
+    a replicated leaf; the pods of every leaf); AdamW piece by piece."""
+    from ..distributed.collectives import psum
+    from ..distributed.sharding import entry_axes
+    from ..models import parallel
+
+    plan = parallel.MeshPlan(model, mesh)
+    is_moe = plan.n_experts > 0
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict]:
+        if state.shards is None or state.mesh is not mesh:
+            raise ValueError("the state is not placed on this step's mesh "
+                             "(init_train_state(..., parallel=) or "
+                             "place_train_state)")
+        names = list(state.shards)
+        params = {k: list(state.shards[k].shards) for k in names}
+        flat = [p for k in names for p in params[k]]
+        hot = state.hot_mask if state.hot_mask is not None \
+            else getattr(model, "hot_mask", None)
+        loss = loads = grads = sm = None
+        for mb in ([batch] if microbatches == 1
+                   else _split(batch, microbatches)):
+            losses, e, sm = parallel.sharded_loss(plan, params, mb,
+                                                  remat=remat, hot_mask=hot)
+            g = torch.autograd.grad(losses, flat)
+            l, e = losses[0].detach(), None if e is None else e.sum(dim=0)
+            if grads is None:
+                loss, loads = l, e
+                grads = [x.float() for x in g]
+            else:
+                loss = loss + l
+                loads = None if e is None else loads + e
+                torch._foreach_add_(grads, [x.float() for x in g])
+            del g, losses
+        if microbatches > 1:
+            torch._foreach_div_(grads, microbatches)
+            loss = loss / microbatches
+        placed, at = {}, 0
+        with torch.no_grad():
+            for k in names:
+                st = state.shards[k]
+                gk = grads[at:at + len(st.shards)]
+                at += len(st.shards)
+                split = {a for e_ in st.sharding.spec for a in entry_axes(e_)}
+                gk = psum(sm, gk, [a for a in sm.batch_axes
+                                   if a not in split], "grad")
+                placed[k] = ShardedTensor(gk, st.sharding)
+        del grads
+        counts, new_hot = state.expert_counts, state.hot_mask
+        if is_moe and counts is not None:
+            counts = counts + loads
+            if n_hot_experts:
+                # paper §3.2: recalibrate the hot set off the critical path
+                new_hot = expert_hot_mask(counts, n_hot_experts)
+        new_opt, om = optimizer.update(placed, state.opt, state.shards)
+        metrics = {"loss": loss, **om, "step": state.step + 1}
+        return (TrainState(state.model, new_opt, state.step + 1, counts,
+                           new_hot, state.shards, mesh), metrics)
 
     return train_step
 

@@ -345,12 +345,16 @@ def test_training_modules_import_no_jax_when_loaded():
 
 def test_train_launcher_runs_on_cpu_and_refuses_otherwise(monkeypatch):
     """``python -m repro_torch.launch.train`` trains on the CPU when asked
-    (a second run resumes from the first's checkpoint), raises without a
-    GPU by default, and refuses where the JAX launcher would take its
-    multi-device branch (more than one visible GPU)."""
+    (a second run resumes from the first's checkpoint) and raises without a
+    GPU by default. With more than one visible device it takes the JAX
+    launcher's multi-device branch: stablelm-1.6b trains on the production
+    mesh (here ``make_production_mesh`` gives a (2, 2) mesh of four
+    virtual CPU devices) to the one-device run's loss (fp32, within 1e-5
+    relative); too few devices for the mesh raise its ``ValueError``; a
+    family the sharded step does not take raises ``NotImplementedError``
+    naming itself."""
     import tempfile
 
-    import torch
     from repro_torch.launch.train import main
     with tempfile.TemporaryDirectory() as d:
         args = ("['--arch', 'granite-moe-3b-a800m', '--device', 'cpu', "
@@ -367,10 +371,30 @@ def test_train_launcher_runs_on_cpu_and_refuses_otherwise(monkeypatch):
         assert sorted(os.listdir(d))[-1] == "step_000000006"
     with pytest.raises(RuntimeError, match="is_available"):
         main(["--arch", "stablelm-1.6b", "--steps", "1"])
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    from repro_torch.distributed import ParallelConfig
+    from repro_torch.launch import train as launcher
+    args = ["--arch", "stablelm-1.6b", "--device", "cpu", "--steps", "3",
+            "--seq", "16", "--batch", "4", "--microbatches", "2"]
+    monkeypatch.delenv("REPRO_TORCH_VIRTUAL_DEVICES", raising=False)
+    one = main(args)
+    monkeypatch.setenv("REPRO_TORCH_VIRTUAL_DEVICES", "4")
+    with pytest.raises(ValueError, match="needs 256 devices"):
+        main(args)
+    meshes = []
+
+    def mesh_2x2(**kw):
+        meshes.append(ParallelConfig((2, 2), ("data", "model")).build_mesh(
+            device=kw["device"]))
+        return meshes[-1]
+    monkeypatch.setattr(launcher, "make_production_mesh", mesh_2x2)
+    sharded = main(args)
+    assert len(meshes) == 1 and meshes[0].shape == {"data": 2, "model": 2}
+    assert sharded["steps"] == one["steps"] == 3
+    assert sharded["final_loss"] == pytest.approx(one["final_loss"],
+                                                  rel=1e-5)
     with pytest.raises(NotImplementedError,
-                       match="not ported yet: the train half"):
-        main(["--arch", "stablelm-1.6b"])
+                       match="not ported yet: the ssm family .* on a mesh"):
+        main(["--arch", "mamba2-130m", "--device", "cpu", "--steps", "1"])
 
 
 def test_adamw_decays_by_the_rank_of_the_jax_layout():

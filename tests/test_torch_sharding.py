@@ -261,9 +261,12 @@ def test_sharded_tensor_place_gather_and_layers():
 
 
 def test_sharded_tensor_splits_one_axis_only():
+    # each MESH axis splits one tensor axis only (a train spec splits two
+    # tensor axes, each over its own mesh axes: tests/test_torch_sharding_
+    # train.py); naming one mesh axis twice raises
     mesh = Mesh([CPU] * 4, (2, 2), ("data", "model"))
     x = torch.zeros(2, 4)
-    for spec in (("data", "model"), (("data", "model"), None)):
+    for spec in (("model", "model"), (("data", "model"), "data")):
         with pytest.raises(ValueError, match="one tensor axis"):
             ShardedTensor.place(x, NamedSharding(mesh, spec))
     z = ShardedTensor.zeros((3, 4), NamedSharding(mesh, (None, "model")),
