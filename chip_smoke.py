@@ -101,14 +101,14 @@ line. Phases, each failing the run on any exception or mismatch:
            at granite's training dispatch; both timed (rows
            ``flash_attention_bwd``, ``staged_gather``)
   engine   stablelm-1.6b at full width (bf16, random weights from a seed),
-           cut to 12 of its 24 layers (``SLICE_LAYERS``, as engine_sharded
+           cut to 4 of its 24 layers (``SLICE_LAYERS``, as engine_sharded
            and engine_chunked), serves 16 requests through
            ``Engine.from_config`` on the paged layout; the launch counts of staged_scatter,
            flash_decode_paged and flash_attention must be non-zero
   engine_sharded  the engine's configuration with ``attention='fused'``
            on a tp-4 virtual mesh of the card (``ParallelConfig.tensor(4)``,
            ``REPRO_TORCH_VIRTUAL_DEVICES``): the pool and ring split on the
-           head axis ([12, n_blocks+1, 16, 8, 64] a shard); streams, stats
+           head axis ([SLICE_LAYERS, n_blocks+1, 16, 8, 64] a shard); streams, stats
            and path counts equal the engine phase's, K1 and the sharded K2
            launched once per device per drain or read (as often as the
            engine phase's K1 and K2), K2 alone never; a decode segment
@@ -120,9 +120,9 @@ line. Phases, each failing the run on any exception or mismatch:
            prefilled inside mixed-phase segments; staged_scatter and
            flash_decode_paged launched, flash_attention never; every prompt
            row counted as a prefill write; a mixed segment profiled
-  engine_prefix  the chunked slice, cut to 4 of its 24 layers, with the
-           prefix cache: 16 requests
-           opening with the same 1024 tokens, cold on a fresh engine, warm
+  engine_prefix  the chunked slice, cut to 2 of its 24 layers
+           (``MEMORY_LAYERS``, as the next three), with the prefix cache:
+           16 requests opening with the same 1024 tokens, cold on a fresh engine, warm
            (new suffixes: each takes its 1024 rows from the cache) and
            repeated (every full prompt page cached, a copy-on-write of each
            whole-page prompt's last block) after ``reset(keep_cache=True)``;
@@ -131,7 +131,7 @@ line. Phases, each failing the run on any exception or mismatch:
            on the staged path the cold and warm streams held equal to the
            engine's without the cache (exact by construction: see the
            phase); TTFT cold / warm / repeat and mixed-step device time
-  engine_host_tier  the slice, cut to 4 of its 24 layers, on the staged
+  engine_host_tier  the slice, cut to 2 of its 24 layers, on the staged
            path over a 320-block pool
            with the host tier (16 requests of 512-1792 tokens): blocking,
            chunked, and chunked with the prefix cache too, each against an
@@ -146,14 +146,14 @@ line. Phases, each failing the run on any exception or mismatch:
            and the CPU (differing tokens counted, greedy held equal);
            ``filtered`` twice on the card identical; each mode's device
            time per call
-  engine_sampled  the slice, cut to 4 of its 24 layers, serving 16
+  engine_sampled  the slice, cut to 2 of its 24 layers, serving 16
            requests with mixed sampling
            parameters (greedy, T = 0.8, top-k 40, top-p 0.9, explicit
            seeds), blocking and chunked at 16: a repeat run identical, an
            all-(T = 1, top_k = 1) run equal to an all-greedy run; a decode
            step with the mix against a greedy one (device ms, device
            operations, tok/s)
-  engine_spec  the slice, cut to 4 of its 24 layers, with
+  engine_spec  the slice, cut to 2 of its 24 layers, with
            ``SpecConfig(enabled=True, k=4)`` (self-draft) serving
            engine_sampled's requests: adaptive blocking greedy,
            staged chunked (chunks of 16) greedy, adaptive blocking with
@@ -175,7 +175,7 @@ line. Phases, each failing the run on any exception or mismatch:
            what was saved and its blocks read back bit-equal; streams
            against a FIFO run reported
   lanes    h2o-danube-3-4b at full width (bf16, sliding window 4096), cut
-           to 12 of its 24 layers (``LANES_LAYERS``), serves 12 requests with prompts up to 4608 tokens on the
+           to 6 of its 24 layers (``LANES_LAYERS``), serves 12 requests with prompts up to 4608 tokens on the
            lanes layout; flash_attention's and flash_decode's launch counts
            must be non-zero
   lanes_chunked  the same model with ``chunked=True, chunk_size=512``:
@@ -219,7 +219,7 @@ line. Phases, each failing the run on any exception or mismatch:
            microseconds are the paper's model constants); the 2^20 offload
            point equal to the CPU's; device ms per point
   engine_moe  granite-moe-3b-a800m at full width (40 experts top-8,
-           bf16, random weights from a seed), cut to 8 of its 32 layers
+           bf16, random weights from a seed), cut to 4 of its 32 layers
            (``MOE_LAYERS``), serves 16 requests of
            128-512 tokens through ``Engine.from_config`` on the lanes
            layout with staged expert dispatch, blocking and chunked at
@@ -237,10 +237,10 @@ line. Phases, each failing the run on any exception or mismatch:
            against chunked, a decode segment's profile with the SSD's share
            of the device time
   engine_hybrid  zamba2-2.7b at full width (d_model 2560, 32 heads of
-           80, bf16), cut to 24 of its 54 layers (``HYBRID_LAYERS``: the
-           shared attention block 4 times, not 9), the same traffic: the
-           same checks, and flash_attention launched 4 x the model's
-           prefill and chunk calls, flash_decode 4 x its decode calls,
+           80, bf16), cut to 12 of its 54 layers (``HYBRID_LAYERS``: the
+           shared attention block twice, not 9 times), the same traffic:
+           the same checks, and flash_attention launched 2 x the model's
+           prefill and chunk calls, flash_decode 2 x its decode calls,
            nothing else
   parity_ssm  mamba2-130m at 4 layers and zamba2-2.7b at 6 (one
            application), full width, fp32: the engine on the card and the
@@ -250,16 +250,18 @@ line. Phases, each failing the run on any exception or mismatch:
            speculative decoding on the card with the reduced mamba2 draft
            (snapshot rollback) for the reduced stablelm-1.6b equals the
            engine without it
-  engine_encdec  whisper-medium at full width (24 encoder and 24 decoder
-           layers, d_model 1024, 16 heads of 64, bf16, random weights from
-           seed 0), max_seq 448, serves 16 requests, each with its own
+  engine_encdec  whisper-medium at full width (d_model 1024, 16 heads of
+           64, bf16, random weights from seed 0), cut to 8 of its 24
+           encoder and 8 of its 24 decoder layers (``ENCDEC_LAYERS``),
+           max_seq 448, serves 16 requests, each with its own
            frames [1500, 1024], of 4-224 tokens, 32 new tokens each, on the
            lanes layout, direct writes, blocking and chunked at 64: every
            request's 32 tokens in the vocabulary with 31 direct writes and
            none staged, admitted = retired = 16, a repeat serve identical,
            the encoder run once an admission group, flash_attention
-           launched 24 x the encoder's calls + 48 x the prefill and chunk
-           calls, flash_decode 48 x the decode calls, nothing else; tok/s,
+           launched encoder layers x the encoder's calls + 2 x decoder
+           layers x the prefill and chunk calls, flash_decode 2 x decoder
+           layers x the decode calls, nothing else; tok/s,
            TTFT, peak memory, the encoder's device ms a request, blocking
            against chunked, a decode segment's profile with the cross
            reads' share
@@ -275,8 +277,8 @@ line. Phases, each failing the run on any exception or mismatch:
            embeddings [1601, 8192], of 16-480 tokens, 32 new tokens each, on
            the lanes layout, direct writes, blocking and chunked at 64 (the
            media on every chunk): the same checks as engine_encdec,
-           flash_attention launched 10 x the prefill and chunk calls,
-           flash_decode 10 x the decode calls, nothing else; tok/s, TTFT,
+           flash_attention launched layers x the prefill and chunk calls,
+           flash_decode layers x the decode calls, nothing else; tok/s, TTFT,
            peak memory, blocking against chunked, a decode segment's profile
            with the cross reads' share, the cross K/V projection's device ms
            a chunk
@@ -342,8 +344,14 @@ line. Phases, each failing the run on any exception or mismatch:
            (``TRAIN_SHARDED_ARMS``): stablelm-1.6b on (data 2, model 2),
            granite-moe-3b-a800m staged on (2, 2) and stablelm-1.6b on (1,
            3) (its 32 heads padded to 33, the vocab to 100353), full width,
-           4 layers: one fp32 step sharded and unsharded on the same weights
-           and batch, held to parity_train's rule; K3, its backward, the
+           4 layers; mamba2-130m (4 layers), zamba2-2.7b (12), whisper-medium
+           (4 + 4, 448 positions, frames from a seed) at full width and the
+           VLM at its kernel geometry (two groups, 1601 image tokens) on (2,
+           2): one fp32 step sharded and unsharded on the same weights
+           and batch, held to parity_train's rule (a 0-d leaf also within
+           twice its noise floor, the unsharded step's move from 2 to 4
+           microbatches, and a control with it summed twice over model
+           must fail); K3, its backward, the
            drain and its adjoint once per device for each unsharded launch;
            each collective's bytes equal to those the specs give
            (``models.parallel.expected_collective_bytes``); then bf16
@@ -457,11 +465,10 @@ SLICE = dict(arch="stablelm-1.6b", reduced=False, max_seq=2048, n_slots=8,
 N_REQUESTS, PROMPT_LENS, NEW_TOKENS = 16, [128, 256, 384, 512], 64
 ENGINE_RUNS = 3  # the timed serve is repeated so its spread is seen
 # engine, engine_sharded (both arms) and engine_chunked run the slice at
-# this depth (of its 24 layers), the three at one depth because they compare
-# streams: the archive proof of the VLM and lanes-ring phases took 803.7 s on
-# an H100 80GB HBM3 at 700 W with them at 24 (149.4 s together); every check
-# is kept
-SLICE_LAYERS = 12
+# this depth (of its 24 layers; one depth, as they compare streams) to keep
+# the script under 800 of its 1200 s: the three take 40.3 s at 4 layers,
+# 65.5 s at 6 (H100 80GB HBM3, 700 W); every check is kept
+SLICE_LAYERS = 4
 # chunked prefill on the paged slice: prompt tokens per mixed-phase step
 CHUNK = 16
 # the memory tier on the paged slice. The prefix cache: 16 requests opening
@@ -496,9 +503,9 @@ LANES = dict(arch="h2o-danube-3-4b", reduced=False, max_seq=6144, n_slots=8,
 LANES_REQUESTS, LANES_PROMPTS, LANES_NEW = 12, [512, 2048, 4608], 64
 LANES_GROUP = 2  # 4608-token prompts per prefill call (the first admission's)
 # the lanes phase runs h2o at this depth (of its 24 layers) to keep the
-# script under 800 of its 1200 s once the VLM and lanes-ring phases came
-# (about 150 s on an H100 80GB HBM3 at 700 W): every check is kept
-LANES_LAYERS = 12
+# script under 800 of its 1200 s: 12.4 s at 6 layers (H100 80GB HBM3,
+# 700 W); every check is kept
+LANES_LAYERS = 6
 # chunked prefill on the lanes slice: one prompt inside the window, one past
 LANES_CHUNK, LANES_CHUNKED_PROMPTS, LANES_CHUNKED_NEW = 512, [2048, 4608], 16
 
@@ -515,10 +522,9 @@ MOE = dict(arch="granite-moe-3b-a800m", reduced=False, max_seq=640,
            n_slots=8, segment_len=16, path="direct")
 MOE_REQUESTS, MOE_PROMPTS, MOE_NEW, MOE_CHUNK = 16, [128, 256, 384, 512], 32, 128
 # engine_moe runs granite at this depth (of its 32 layers) to keep the
-# script under 800 of its 1200 s: on an H100 80GB HBM3 at 700 W the whole
-# script took 851.1 s with the encoder-decoder phases and engine_hybrid cut
-# (engine_moe 87.6 s of it); every check is kept, K1 held at 8 x calls
-MOE_LAYERS = 8
+# script under 800 of its 1200 s: 12.4 s at 4 layers (H100 80GB HBM3,
+# 700 W); every check is kept, K1 held at layers x calls
+MOE_LAYERS = 4
 # the SSM and hybrid families at full width on the lanes layout: mamba2-130m
 # (24 layers, d_model 768) and zamba2-2.7b (54 layers, d_model 2560, the
 # shared attention block 9 times, 32 heads of 80), bf16, direct writes: 16
@@ -528,12 +534,11 @@ SSM = dict(arch="mamba2-130m", reduced=False, max_seq=2560, n_slots=8,
            segment_len=16, path="direct")
 HYBRID = dict(SSM, arch="zamba2-2.7b")
 SSM_REQUESTS, SSM_PROMPTS, SSM_NEW, SSM_CHUNK = 16, [256, 768, 1280, 2048], 32, 256
-# engine_hybrid runs zamba2 at this depth (of its 54 layers: 4 applications
-# of the shared block, not 9) to keep the script under 800 of its 1200 s
-# once the encoder-decoder phases came (on an H100 80GB HBM3 at 700 W the
-# script took 742.8 s before them, and they took 51.5 s): every check is
-# kept, the launches held at 4 x calls
-HYBRID_LAYERS = 24
+# engine_hybrid runs zamba2 at this depth (of its 54 layers: the shared
+# block twice, not 9 times) to keep the script under 800 of its 1200 s:
+# 14.9 s at 12 layers, 39.8 s at 24 (H100 80GB HBM3, 700 W); every check is
+# kept, the launches held at applications x calls
+HYBRID_LAYERS = 12
 # the encoder-decoder family at full width (whisper-medium: 24 encoder and
 # 24 decoder layers, d_model 1024, 16 heads of 64, bf16) on the lanes layout,
 # direct writes, max_seq 448 (the decoder's context): 16 requests, each with
@@ -544,6 +549,11 @@ ENCDEC = dict(arch="whisper-medium", reduced=False, max_seq=448, n_slots=8,
               segment_len=16, path="direct")
 ENCDEC_REQUESTS, ENCDEC_PROMPTS, ENCDEC_NEW, ENCDEC_CHUNK = \
     16, [4, 32, 96, 224], 32, 64
+# engine_encdec runs whisper at this depth (of its 24 encoder and 24
+# decoder layers, each) to keep the script under 800 of its 1200 s: 10.4 s
+# at 8 + 8, 24.2 s at 24 + 24 (H100 80GB HBM3, 700 W); every check is kept,
+# the launches held at layers x calls
+ENCDEC_LAYERS = 8
 # the VLM family at full width (llama-3.2-vision-90b: d_model 8192, 64 heads
 # of 128 over 8 KV heads, d_ff 28672, 1601 image tokens, bf16), cut to 2 of
 # its 20 groups (8 self + 2 cross layers): its fp32 masters and the bf16
@@ -566,13 +576,11 @@ VLM_PARITY_WIDTH = dict(d_model=1024, n_heads=8, n_kv_heads=1, d_ff=3584)
 # tokens, max_seq 1024, ring 8, pages of 64, hot threshold 4
 RING_LANES = dict(arch="stablelm-1.6b", batch=8, prompt=512, new=128,
                   max_seq=1024, ring_size=8, page_size=64, hot_threshold=4)
-# the memory tier's two phases, engine_sampled and engine_spec run the slice
-# at this depth (of its 24 layers) to keep the script under 800 of its
-# 1200 s (on an H100 80GB HBM3 at 700 W it took 817 s with engine_sampled
-# at 24 layers, 807 s with engine_spec at 24, 731.5 s with all four at 12
-# before the SSM and hybrid phases added about 90 s; 8 from PR 25, 4 since
-# the VLM and lanes-ring phases added about 150 s): every check is kept
-MEMORY_LAYERS = 4
+# the memory tier's two phases, engine_sampled and engine_spec run the
+# slice at this depth (of its 24 layers) to keep the script under 800 of
+# its 1200 s: the four take 88.3 s at 2 layers, 162.6 s at 4 (H100 80GB
+# HBM3, 700 W); every check is kept
+MEMORY_LAYERS = 2
 # training on the card (train_dense, train_moe): stablelm-1.6b and
 # granite-moe-3b-a800m at full width, bf16 compute over fp32 masters,
 # batches of 8 x 512 tokens from SyntheticSource in 2 microbatches of 4,
@@ -619,6 +627,13 @@ PARITY_TRAIN = dict(seq=128, batch=4, microbatches=2, steps=3, lr=1e-4)
 # entry of the CPU's; an entry whose CPU gradient is, on some step, within
 # this share of its leaf's largest is one that check cannot tell from 0
 PARITY_GRAD_RTOL = 1e-4
+# a 0-d gradient leaf (the VLM's gates) can be a sum that nearly cancels
+# (the first cross gate's, -1.97e-5 of 2M terms), which any other order of
+# its terms moves by more than PARITY_GRAD_RTOL of itself. train_sharded
+# also allows it this many times its own noise floor: how far the unsharded
+# step moves it between TRAIN's microbatches and twice as many (the same
+# function, its sums in another order)
+ZERO_D_NOISE_K = 2
 PARITY_TRAIN_DENSE = dict(n_layers=2, d_model=256, n_heads=4, n_kv_heads=4,
                           head_dim=64, d_ff=512, vocab=2048, dtype="float32")
 PARITY_TRAIN_MOE = dict(n_layers=2, d_model=384, n_heads=6, n_kv_heads=2,
@@ -641,20 +656,38 @@ PARITY_TRAIN_VLM = dict(VLM_PARITY_WIDTH, n_layers=4, head_dim=128,
                         cross_attn_every=2, n_image_tokens=65, vocab=2048,
                         dtype="float32")
 # engine_ring_lanes runs the slice at this depth (of its 24 layers) to keep
-# the script under 800 of its 1200 s once the training phases came: they
-# and the kernels' training checks added about 48 s (688.2 s in all on an
-# H100 80GB HBM3 at 700 W; 965.7 s on a host about 37 % slower), and this
-# phase is the largest (90.8 s at 24 layers, 42.8 s at 12); 4 since the
-# sharded training phase (train_sharded) came, the script at 770.3 s
-# before it; every check is kept
+# the script under 800 of its 1200 s: 27.4 s at 4 layers, 90.8 s at 24
+# (H100 80GB HBM3, 700 W); every check is kept
 RING_LANES_LAYERS = 4
 # train_sharded: each arm one fp32 step sharded and unsharded on the same
-# weights and TRAIN batch (2 microbatches), then bf16 steps on the mesh
-# (virtual devices of the card): (tag, arch, layers, mesh shape, dispatch)
+# weights and TRAIN batch (2 microbatches; whisper's over TRAIN_ENCDEC_SEQ
+# positions, each row with its frames, the VLM's with its image embeddings,
+# both drawn on the card from a seed), then bf16 steps on the mesh (virtual
+# devices of the card): (tag, arch, config changes, mesh shape, dispatch).
+# mamba2 and whisper at TRAIN_SHARDED_LAYERS (whisper's encoder and decoder
+# each), zamba2 at TRAIN_HYBRID_LAYERS (two applications of the shared
+# block: the fewest that sum its gradient over applications), the VLM at
+# its kernel geometry (VLM_PARITY_WIDTH, head_dim 128, two groups of a self
+# and a cross layer, 1601 image tokens, gates from a seed): a full-width
+# group is some 128 GB of training state, and a virtual mesh adds no memory
+TRAIN_SHARDED_LAYERS = 4
+TRAIN_SHARDED_VLM = dict(VLM_PARITY_WIDTH, n_layers=4, head_dim=128,
+                         cross_attn_every=2)
 TRAIN_SHARDED_ARMS = (
-    ("dense_2x2", "stablelm-1.6b", TRAIN_DENSE_LAYERS, (2, 2), None),
-    ("moe_2x2", "granite-moe-3b-a800m", TRAIN_MOE_LAYERS, (2, 2), "staged"),
-    ("dense_1x3", "stablelm-1.6b", TRAIN_DENSE_LAYERS, (1, 3), None),
+    ("dense_2x2", "stablelm-1.6b", dict(n_layers=TRAIN_DENSE_LAYERS), (2, 2),
+     None),
+    ("moe_2x2", "granite-moe-3b-a800m", dict(n_layers=TRAIN_MOE_LAYERS),
+     (2, 2), "staged"),
+    ("dense_1x3", "stablelm-1.6b", dict(n_layers=TRAIN_DENSE_LAYERS), (1, 3),
+     None),
+    ("ssm_2x2", "mamba2-130m", dict(n_layers=TRAIN_SHARDED_LAYERS), (2, 2),
+     None),
+    ("hybrid_2x2", "zamba2-2.7b", dict(n_layers=TRAIN_HYBRID_LAYERS), (2, 2),
+     None),
+    ("encdec_2x2", "whisper-medium", dict(n_layers=TRAIN_SHARDED_LAYERS,
+                                          n_enc_layers=TRAIN_SHARDED_LAYERS),
+     (2, 2), None),
+    ("vlm_2x2", "llama-3.2-vision-90b", TRAIN_SHARDED_VLM, (2, 2), None),
 )
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
@@ -6227,8 +6260,8 @@ def phase_engine_ssm(kernels):
 
 def phase_engine_hybrid(kernels):
     """zamba2-2.7b at full width (d_model 2560, 32 heads of 80), cut to
-    ``HYBRID_LAYERS`` of its 54 layers (the shared block 4 times): K3
-    launched 4 x the prefill and chunk calls, K4 4 x the decode calls
+    ``HYBRID_LAYERS`` of its 54 layers (the shared block twice): K3
+    launched 2 x the prefill and chunk calls, K4 2 x the decode calls
     (``_recurrent_engine_phase``)."""
     _recurrent_engine_phase(kernels, HYBRID, SSM_REQUESTS, "engine_hybrid",
                             n_layers=HYBRID_LAYERS)
@@ -6334,20 +6367,22 @@ def _cross_read_ms(cfg, slots):
 
 
 def phase_engine_encdec(kernels):
-    """whisper-medium at full width (24 encoder and 24 decoder layers,
-    d_model 1024, 16 heads of 64, bf16, random weights from seed 0), max_seq
-    448: ``ENCDEC_REQUESTS`` requests, each with its own frames [1500,
+    """whisper-medium at full width (d_model 1024, 16 heads of 64, bf16,
+    random weights from seed 0), cut to ``ENCDEC_LAYERS`` encoder and
+    decoder layers of its 24 + 24, max_seq 448: ``ENCDEC_REQUESTS`` requests, each with its own frames [1500,
     1024], of ``ENCDEC_PROMPTS`` tokens, ``ENCDEC_NEW`` new tokens each, 8
     slots, blocking and chunked at ``ENCDEC_CHUNK``
-    (``_lanes_family_runs``). Held besides: flash_attention launched 24
-    times an ``encode`` call (once an admission group: by ``prefill``
-    blocking, by the first chunk chunked) and 48 times a ``prefill`` or
-    ``chunk_prefill`` call (self and cross, a decoder layer each),
-    flash_decode 48 times a decode step (self and cross), nothing else.
+    (``_lanes_family_runs``). Held besides: flash_attention launched once
+    an encoder layer of an ``encode`` call (once an admission group: by
+    ``prefill`` blocking, by the first chunk chunked) and twice a decoder
+    layer of a ``prefill`` or ``chunk_prefill`` call (self and cross),
+    flash_decode twice a decoder layer of a decode step, nothing else.
     Reported: blocking against chunked, tok/s, TTFT, peak memory, the
     encoder's device ms a request, a decode segment's profile with the
     cross reads' share of its device ms."""
-    cfg = get_config(ENCDEC["arch"])
+    cfg = dataclasses.replace(get_config(ENCDEC["arch"]),
+                              n_layers=ENCDEC_LAYERS,
+                              n_enc_layers=ENCDEC_LAYERS)
     t0 = time.perf_counter()
     model = build_model(cfg, device=DEV, max_seq=ENCDEC["max_seq"]).init(0)
     torch.cuda.synchronize()
@@ -6478,13 +6513,13 @@ def _vlm_cross_ms(model, slots):
 def phase_engine_vlm(kernels):
     """llama-3.2-vision-90b at full width (d_model 8192, 64 heads of 128
     over 8 KV heads, d_ff 28672, bf16, random weights from seed 0, gates
-    from seed 1), cut to ``VLM_GROUPS`` of its 20 groups (8 self and 2
-    cross layers: memory decides), max_seq 1024: ``VLM_REQUESTS`` requests,
+    from seed 1), cut to ``VLM_GROUPS`` of its 20 groups (4 self and 1
+    cross layer each), max_seq 1024: ``VLM_REQUESTS`` requests,
     each with its own image embeddings [1601, 8192], of ``VLM_PROMPTS``
     tokens, ``VLM_NEW`` new tokens each, 8 slots, blocking and chunked at
     ``VLM_CHUNK`` (``_lanes_family_runs``). Held besides: flash_attention
-    launched 10 times a ``prefill`` or ``chunk_prefill`` call (8 self, 2
-    cross), flash_decode 10 times a decode step (8 self, 2 cross), nothing
+    launched once a layer of a ``prefill`` or ``chunk_prefill`` call (self
+    and cross), flash_decode once a layer of a decode step, nothing
     else. Reported: blocking against chunked, tok/s, TTFT, peak memory, a
     decode segment's profile with the cross reads' share of its device ms,
     the cross K/V projection's device ms a chunk."""
@@ -7321,32 +7356,99 @@ def phase_train_encdec(kernels):
                   TRAIN_ENCDEC_SEQ)
 
 
+def _sharded_seq(cfg):
+    """The tokens a row of ``cfg``'s train_sharded batches: TRAIN's, but
+    whisper's decoder context (``TRAIN_ENCDEC_SEQ``)."""
+    return TRAIN_ENCDEC_SEQ if cfg.n_enc_layers else TRAIN["seq"]
+
+
+def _sharded_model(cfg, mode):
+    """``cfg``'s model on the card, weights from seed 0 (the VLM's gates
+    from seed 9: at zero every cross gradient would be zero)."""
+    kw = {"dispatch_mode": mode} if mode else {}
+    model = build_model(cfg, device=DEV, max_seq=_sharded_seq(cfg),
+                        **kw).init(0)
+    return _seed_gates(model, 9) if model.is_vlm else model
+
+
+def _sharded_batches(cfg):
+    """``i -> `` the TRAIN batch ``i`` of ``cfg`` on the card, with frames or
+    image embeddings drawn on the card from seed ``7 + i`` where the model
+    reads them."""
+    src = SyntheticSource(DataConfig(_sharded_seq(cfg), TRAIN["batch"],
+                                     cfg.vocab))
+
+    def batch(i):
+        out = {k: torch.as_tensor(v, device=DEV)
+               for k, v in src.batch_at(i).items()}
+        if needs_media(cfg):
+            gen = torch.Generator(device=DEV).manual_seed(7 + i)
+            out["media"] = torch.randn(media_spec(cfg, TRAIN["batch"]),
+                                       generator=gen, device=DEV)
+        return out
+    return batch
+
+
+def _grad_tolerance(ref, noise=None):
+    """``parity_train``'s tolerance of a gradient leaf whose reference is
+    ``ref``: ``PARITY_GRAD_RTOL`` of its largest entry; for a 0-d leaf also
+    ``ZERO_D_NOISE_K`` x ``noise``, its own noise floor (the larger of the
+    two)."""
+    tol = PARITY_GRAD_RTOL * float(ref.abs().max())
+    if noise is not None:
+        tol = max(tol, ZERO_D_NOISE_K * noise)
+    return max(tol, 1e-30)
+
+
+def _grad_share(grads, ref, noise):
+    """The worst leaf of ``grads`` against ``ref``: (its largest difference
+    over its tolerance, its name); ``noise`` the 0-d leaves' floors."""
+    share, worst = 0.0, None
+    for k, g in grads.items():
+        x = float((g - ref[k]).abs().max()) / _grad_tolerance(
+            ref[k], noise.get(k))
+        if x > share:
+            share, worst = x, k
+    return share, worst
+
+
 def _sharded_fp32_arm(cfg, shape, mode):
     """One fp32 step of ``cfg`` unsharded and on a ``(data, model)`` mesh of
-    ``shape`` virtual devices from the same weights and TRAIN batch: the
-    launches and collective bytes of the sharded step (counts set to 0 just
-    before it, read just after), and ``parity_train``'s rule between the
-    two (the unsharded step standing where the CPU stood)."""
+    ``shape`` virtual devices from the same weights and TRAIN batch (media
+    included): the launches and collective bytes of the sharded step
+    (counts set to 0 just before it, read just after), and
+    ``parity_train``'s rule between the two (the unsharded step standing
+    where the CPU stood). Where the model has 0-d parameters (the VLM's
+    gates), the unsharded step again at twice the microbatches gives each
+    its noise floor (``ZERO_D_NOISE_K``), and a control must fail the same
+    comparison: the sharded gradients with each 0-d leaf's summed over
+    ``model`` once more (``model`` x its value)."""
     P = TRAIN
     n_hot = 0
     n_dev = math.prod(shape)
     kw = {"dispatch_mode": mode} if mode else {}
-    base = build_model(cfg, device=DEV, **kw).init(0)
-    other = build_model(cfg, device=DEV, **kw)
-    other.load_state_dict(base.state_dict())
-    src = SyntheticSource(DataConfig(P["seq"], P["batch"], cfg.vocab))
-    batch = {k: torch.as_tensor(v, device=DEV)
-             for k, v in src.batch_at(0).items()}
+    base = _sharded_model(cfg, mode)
+    copies = []
+    for _ in range(2 if any(p.dim() == 0 for p in base.parameters()) else 1):
+        copies.append(build_model(cfg, device=DEV,
+                                  max_seq=_sharded_seq(cfg), **kw))
+        copies[-1].load_state_dict(base.state_dict())
+    batch = _sharded_batches(cfg)(0)
     lr = warmup_cosine(P["lr"], P["warmup"], 1)
+    mb = P["microbatches"]
     runs = {}
-    for name, m, par in (("unsharded", base, None),
-                         ("sharded", other, ParallelConfig(
-                             shape, ("data", "model")))):
+    for name, m, par, k_mb in (
+            ("unsharded", base, None, mb),
+            ("sharded", copies[0], ParallelConfig(shape, ("data", "model")),
+             mb),
+            ("noise", copies[-1] if len(copies) > 1 else None, None,
+             2 * mb)):
+        if m is None:
+            continue
         opt = _KeptGrads(AdamW(lr=lr), device=DEV)
         with virtual_devices(n_dev):
             st = init_train_state(m, opt, None, n_hot, parallel=par)
-        step = make_train_step(m, opt, microbatches=P["microbatches"],
-                               mesh=st.mesh)
+        step = make_train_step(m, opt, microbatches=k_mb, mesh=st.mesh)
         torch.cuda.synchronize()
         reset_launch_counts()           # counts = 0 just before the step
         reset_collective_counts()
@@ -7364,17 +7466,25 @@ def _sharded_fp32_arm(cfg, shape, mode):
                         else v).detach().clone()
                     for k, v in st.params.items()})
         del st, step, opt
-    del base, other
+    del base, copies
     torch.cuda.empty_cache()
     a, b = runs["sharded"], runs["unsharded"]
-    problems, grad_share = [], 0.0
-    for k, g in a["grads"].items():
-        ref = b["grads"][k]
-        grad_share = max(grad_share, float((g - ref).abs().max())
-                         / max(PARITY_GRAD_RTOL * float(ref.abs().max()),
-                               1e-30))
+    problems = []
+    noise = {k: float((g - b["grads"][k]).abs())
+             for k, g in runs.get("noise", {"grads": {}})["grads"].items()
+             if g.dim() == 0}
+    grad_share, grad_worst = _grad_share(a["grads"], b["grads"], noise)
     if grad_share > 1.0:
-        problems.append(f"a gradient leaf errs {grad_share} x its tolerance")
+        problems.append(f"a gradient leaf ({grad_worst}) errs {grad_share} "
+                        f"x its tolerance")
+    control = None
+    if noise:
+        m_size = a["plan"].m
+        control = _grad_share({k: m_size * a["grads"][k] for k in noise},
+                              b["grads"], noise)[0]
+        if control <= 1.0:
+            problems.append(f"the 0-d leaves summed twice over model pass "
+                            f"({control} x their tolerance)")
     if abs(a["loss"] - b["loss"]) > 1e-5 * abs(b["loss"]) or \
             abs(a["grad_norm"] - b["grad_norm"]) > 1e-4 * b["grad_norm"] or \
             abs(a["lr"] - b["lr"]) > 1e-6 * abs(b["lr"]):
@@ -7399,7 +7509,7 @@ def _sharded_fp32_arm(cfg, shape, mode):
         cfg, 1, staged=mode == "staged").items()}
     problems += _launch_problems("sharded fp32 step", a["launches"], want)
     spec_bytes = PARALLEL.expected_collective_bytes(
-        a["plan"], TRAIN_MB, P["seq"], P["microbatches"])
+        a["plan"], TRAIN_MB, _sharded_seq(cfg), P["microbatches"])
     if a["bytes"] != spec_bytes:
         problems.append(f"collective bytes {a['bytes']} != the specs' "
                         f"{spec_bytes}")
@@ -7408,7 +7518,11 @@ def _sharded_fp32_arm(cfg, shape, mode):
         loss=a["loss"], loss_unsharded=b["loss"],
         loss_rel_diff=abs(a["loss"] - b["loss"]) / abs(b["loss"]),
         grad_norm=a["grad_norm"], grad_norm_unsharded=b["grad_norm"],
-        grad_leaf_worst_share_of_tol=grad_share, param_max_diff=worst,
+        grad_leaf_worst_share_of_tol=grad_share, grad_leaf_worst=grad_worst,
+        zero_d_grads={k: [float(b["grads"][k]), float(a["grads"][k]),
+                          float(runs["noise"]["grads"][k])] for k in noise},
+        zero_d_noise=noise, zero_d_control_share_of_tol=control,
+        param_max_diff=worst,
         param_share_past_1e6_pinned=held, launches=a["launches"],
         launches_want=want, collective_bytes=a["bytes"],
         collective_bytes_spec=spec_bytes, scheme=plan.scheme,
@@ -7424,21 +7538,19 @@ def _sharded_bf16_arm(cfg, shape, mode):
     kernels); the peak memory of the two timed steps."""
     P = TRAIN
     n_dev = math.prod(shape)
-    kw = {"dispatch_mode": mode} if mode else {}
-    model = build_model(cfg, device=DEV, **kw)
+    seq = _sharded_seq(cfg)
+    model = _sharded_model(cfg, mode)
     opt = AdamW(lr=warmup_cosine(P["lr"], P["warmup"], 3))
     with virtual_devices(n_dev):
-        st = init_train_state(model, opt, 0, 0, parallel=ParallelConfig(
+        st = init_train_state(model, opt, None, 0, parallel=ParallelConfig(
             shape, ("data", "model")))
     step = make_train_step(model, opt, microbatches=P["microbatches"],
                            mesh=st.mesh)
-    src = SyntheticSource(DataConfig(P["seq"], P["batch"], cfg.vocab))
+    batches = _sharded_batches(cfg)
     holder = [st]
 
     def one(i):
-        batch = {k: torch.as_tensor(v, device=DEV)
-                 for k, v in src.batch_at(i).items()}
-        holder[0], met = step(holder[0], batch)
+        holder[0], met = step(holder[0], batches(i))
         return float(met["loss"])
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -7454,8 +7566,7 @@ def _sharded_bf16_arm(cfg, shape, mode):
     peak = torch.cuda.max_memory_allocated()
     dev_ms = sum(r[0] for r in rows) / 1e3
     spec_bytes = PARALLEL.expected_collective_bytes(
-        PARALLEL.MeshPlan(model, st.mesh), TRAIN_MB, P["seq"],
-        P["microbatches"])
+        PARALLEL.MeshPlan(model, st.mesh), TRAIN_MB, seq, P["microbatches"])
     problems = []
     if moved != spec_bytes:
         problems.append(f"bf16 collective bytes {moved} != the specs' "
@@ -7470,7 +7581,7 @@ def _sharded_bf16_arm(cfg, shape, mode):
     return dict(losses=losses, step_host_ms=host_ms, device_ms=dev_ms,
                 busy_share=dev_ms / host_ms if rows else None,
                 device_ops=device_ops(rows), peak_mem_gb=peak / 1e9,
-                tokens_per_s=P["batch"] * P["seq"] / host_ms * 1e3,
+                tokens_per_s=P["batch"] * seq / host_ms * 1e3,
                 launches=counts, collective_bytes=moved,
                 collective_bytes_spec=spec_bytes,
                 largest=[(r[2][:70], r[1], r[0] / 1e3) for r in rows[:6]]), \
@@ -7479,34 +7590,50 @@ def _sharded_bf16_arm(cfg, shape, mode):
 
 def phase_train_sharded(kernels):
     """Training on a mesh of virtual devices of the card
-    (``REPRO_TORCH_VIRTUAL_DEVICES``), three arms (``TRAIN_SHARDED_ARMS``):
+    (``REPRO_TORCH_VIRTUAL_DEVICES``), seven arms (``TRAIN_SHARDED_ARMS``):
     stablelm-1.6b at full width on ``(data 2, model 2)`` (scheme ``heads``,
     the vocab split as it is), granite-moe-3b-a800m at full width, staged,
     on ``(2, 2)`` (24 q / 8 kv heads, 20 of the 40 experts a rank) and
     stablelm-1.6b on ``(1, 3)`` (scheme ``replicate``: 32 heads run as 33,
-    the vocab as 100353 lanes), each cut to 4 layers. Per arm: one fp32
-    step sharded and unsharded from the same weights and TRAIN batch held
-    to ``parity_train``'s rule (the loss within 1e-5 and the grad norm
-    within 1e-4 relative; every gradient leaf within ``PARITY_GRAD_RTOL`` of
-    its largest entry; the new parameters within 3 x lr, at most 0.1 % of a
-    leaf's entries past 1e-6 among those whose gradient is above
-    ``PARITY_GRAD_RTOL`` of the leaf's largest; the expert counts equal);
+    the vocab as 100353 lanes), each cut to ``TRAIN_DENSE_LAYERS``; then
+    on ``(2, 2)`` mamba2-130m at full width, 4 layers (``in_proj`` /
+    ``out_proj`` FSDP over ``data``, every model rank running its rows'
+    whole layer; the tied head the D-split table made whole over
+    ``model``, its 50280 lanes cut in two), zamba2-2.7b at full width, 12
+    layers (two applications of the shared block, 16 of its 32 heads of 80
+    a rank), whisper-medium at full width, 4 + 4 layers over 448
+    positions, each row with its frames [1500, 1024] (8 of 16 heads a rank
+    in the causal encoder, the decoder's self and cross reads; its 51865
+    vocab padded to 51866 lanes) and the VLM at its kernel geometry
+    (``TRAIN_SHARDED_VLM``: scheme ``qheads_kvrepl``, 4 of 8 q heads a rank
+    over the one kv head, 1601 image tokens, gates from a seed). Per arm:
+    one fp32 step sharded and unsharded from the same weights and TRAIN
+    batch held to ``parity_train``'s rule (the loss within 1e-5 and the
+    grad norm within 1e-4 relative; every gradient leaf within
+    ``PARITY_GRAD_RTOL`` of its largest entry, a 0-d leaf also within
+    ``ZERO_D_NOISE_K`` x its noise floor, and a control that sums the 0-d
+    leaves twice over ``model`` must fail; the new parameters within 3 x lr, at
+    most 0.1 % of a leaf's entries past 1e-6 among those whose gradient is
+    above ``PARITY_GRAD_RTOL`` of the leaf's largest; the expert counts
+    equal);
     K3, its backward, the drain and its adjoint launched once per device
     for each unsharded launch (``remat_calls``); every collective's bytes
     equal to those the specs give (``expected_collective_bytes``); then
     bf16 steps: host ms, device ms, busy share, device ops, peak memory,
     tokens/s, launches and bytes again."""
     problems, arms = [], {}
-    for tag, arch, layers, shape, mode in TRAIN_SHARDED_ARMS:
-        base = dataclasses.replace(get_config(arch), n_layers=layers)
+    for tag, arch, over, shape, mode in TRAIN_SHARDED_ARMS:
+        base = dataclasses.replace(get_config(arch), **over)
+        t0 = time.perf_counter()
         fp32, found = _sharded_fp32_arm(
             dataclasses.replace(base, dtype="float32"), shape, mode)
         problems += [f"{tag} fp32: {p}" for p in found]
         bf16, found = _sharded_bf16_arm(base, shape, mode)
         problems += [f"{tag} bf16: {p}" for p in found]
-        arms[tag] = dict(arch=arch, n_layers=layers, mesh=dict(
-            zip(("data", "model"), shape)), dispatch=mode, fp32=fp32,
-            bf16=bf16)
+        arms[tag] = dict(arch=arch, config=over, mesh=dict(
+            zip(("data", "model"), shape)), dispatch=mode,
+            seq=_sharded_seq(base), fp32=fp32, bf16=bf16,
+            seconds=round(time.perf_counter() - t0, 1))
     # the launches of each arm's fp32 sharded step (K1 as its drain)
     for k in kernels:
         name = {"staged_scatter": "staged_drain"}.get(k["name"], k["name"])

@@ -14,9 +14,8 @@ frames, refuses at its first step with the ``ValueError`` "takes media"
 is visible (distinct cards, or ``REPRO_TORCH_VIRTUAL_DEVICES`` virtual
 ones on ``--device``), it takes the JAX launcher's multi-device branch: the
 state placed on ``make_production_mesh()`` by ``state_shardings`` and the
-sharded step (the dense and MoE families; the others raise
-``NotImplementedError``; too few devices for the mesh raise its
-``ValueError``). The weights are drawn from seed 0 with
+sharded step, every family (whisper-medium then refuses at its first step
+as on one device; too few devices for the mesh raise its ``ValueError``). The weights are drawn from seed 0 with
 ``torch.Generator`` (the JAX launcher's from ``jax.random.key(0)``).
 """
 from __future__ import annotations
@@ -29,7 +28,6 @@ import torch
 from ..configs import get_config
 from ..data import DataConfig, Pipeline, SyntheticSource
 from ..models import build_model
-from ..models.parallel import check_family
 from ..optim import AdamW, warmup_cosine
 from ..train import (Trainer, TrainerConfig, init_train_state,
                      make_train_step, place_train_state)
@@ -65,7 +63,6 @@ def main(argv=None) -> dict:
     opt = AdamW(lr=warmup_cosine(args.lr, max(args.steps // 20, 1), args.steps))
     mesh = None
     if visible_devices(args.device) > 1:
-        check_family(cfg)
         mesh = make_production_mesh(device=args.device)
     state = init_train_state(model, opt, 0, n_hot)
     if mesh is not None:

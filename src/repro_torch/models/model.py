@@ -3,12 +3,13 @@ the family dispatch: dense and vlm -> ``DecoderLM`` (the VLM's gated cross
 layers when ``cross_attn_every > 0``), moe -> ``MoELM`` (``dispatch_mode``,
 staged by default), ssm -> ``MambaLM``, hybrid -> ``ZambaLM``, encdec ->
 ``WhisperModel``; ``media_spec`` / ``needs_media``, which say which
-families take media and in what shape; and ``remat_calls``, the attention
-and SSD calls a remat train step makes. The model lives on the GPU unless
+families take media and in what shape; ``trunk_parts``, how each family
+nests its layers under remat, and ``remat_calls``, the attention and SSD
+calls a remat train step makes. The model lives on the GPU unless
 the caller asks for ``device="cpu"``."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 from ..configs.base import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
 from .moe_lm import MoELM
@@ -49,38 +50,59 @@ def needs_media(cfg: ModelConfig) -> bool:
     return cfg.family in (VLM, ENCDEC)
 
 
+class TrunkPart(NamedTuple):
+    """One kind of layer in a family's trunk, as a remat train step runs a
+    microbatch through it: its parameters' prefix (``blocks``, ``shared``,
+    ...), its applications, the checkpoints around each (1, or 2 for a
+    layer checkpointed inside a checkpointed group), the sums it makes in
+    order (``attn``: a self read on K3; ``cross``: a K3 read of whisper's
+    encoder output; ``mlp``, ``moe``, ``ssd``), whether a gate scales its
+    outputs, and whether it runs over the audio frames (whisper's
+    encoder)."""
+    stack: str
+    count: int
+    depth: int
+    ops: Tuple[str, ...]
+    gated: bool = False
+    frames: bool = False
+
+
+def trunk_parts(cfg: ModelConfig) -> Tuple[TrunkPart, ...]:
+    """How ``cfg``'s family nests its trunk under remat: zamba2's mamba
+    layers nested in the G = L / every groups, the shared block under the
+    group's checkpoint only; whisper's encoder layers and decoder layers
+    (self read, cross read, MLP) under one checkpoint each; the VLM's self
+    layers nested in the G groups, the gated cross layer under the group's
+    checkpoint (with or without media); every other layer under one."""
+    n = cfg.n_layers
+    if cfg.family == SSM:
+        return (TrunkPart("blocks", n, 1, ("ssd",)),)
+    if cfg.family == HYBRID:
+        return (TrunkPart("blocks", n, 2, ("ssd",)),
+                TrunkPart("shared", n // cfg.hybrid_attn_every, 1,
+                          ("attn", "mlp")))
+    if cfg.family == ENCDEC:
+        return (TrunkPart("enc_blocks", cfg.n_enc_layers, 1, ("attn", "mlp"),
+                          frames=True),
+                TrunkPart("dec_blocks", n, 1, ("attn", "cross", "mlp")))
+    if cfg.family == VLM:
+        g = n // cfg.cross_attn_every
+        return (TrunkPart("blocks", n - g, 2, ("attn", "mlp")),
+                TrunkPart("cross_blocks", g, 1, ("attn", "mlp"), gated=True))
+    return (TrunkPart("blocks", n, 1,
+                      ("attn", "moe" if cfg.family == MOE else "mlp")),)
+
+
 def remat_calls(cfg: ModelConfig) -> Dict[str, int]:
     """The calls one microbatch of a remat train step (``loss(remat=True)``
     and its backward) makes of K3's forward (``flash_attention``), its
-    backward (``flash_attention_bwd``) and the SSD (``ssd_chunked``). A
-    layer under one checkpoint runs twice (the forward, its recompute), a
-    layer checkpointed inside a checkpointed group three times (the
-    forward, the group's recompute, its own), a backward once:
-
-    * dense and MoE: K3 2 L / L;
-    * mamba2: the SSD 2 L, no attention;
-    * zamba2 (its mamba layers nested in the G = L / every groups, the
-      shared block under the group's checkpoint only): K3 2 G / G, the
-      SSD 3 L;
-    * whisper (its encoder's self-attention and its decoder's self and
-      cross reads under one checkpoint each): K3 2 C / C for
-      C = L_enc + 2 L;
-    * the VLM (its self layers nested in the G groups, the cross layer
-      under the group's checkpoint, with or without media): K3
-      3 L_self + 2 G / L_self + G."""
+    backward (``flash_attention_bwd``) and the SSD (``ssd_chunked``), from
+    ``trunk_parts``: a layer runs once and again in the recompute of each
+    checkpoint around it, a backward once."""
     fwd = bwd = ssd = 0
-    if cfg.family == SSM:
-        ssd = 2 * cfg.n_layers
-    elif cfg.family == HYBRID:
-        g = cfg.n_layers // cfg.hybrid_attn_every
-        fwd, bwd, ssd = 2 * g, g, 3 * cfg.n_layers
-    elif cfg.family == ENCDEC:
-        c = cfg.n_enc_layers + 2 * cfg.n_layers
-        fwd, bwd = 2 * c, c
-    elif cfg.family == VLM:
-        g = cfg.n_layers // cfg.cross_attn_every
-        n_self = cfg.n_layers - g
-        fwd, bwd = 3 * n_self + 2 * g, n_self + g
-    else:
-        fwd, bwd = 2 * cfg.n_layers, cfg.n_layers
+    for p in trunk_parts(cfg):
+        runs = p.count * (p.depth + 1)
+        reads = sum(op in ("attn", "cross") for op in p.ops)
+        fwd, bwd = fwd + runs * reads, bwd + p.count * reads
+        ssd += runs * ("ssd" in p.ops)
     return dict(flash_attention=fwd, flash_attention_bwd=bwd, ssd_chunked=ssd)

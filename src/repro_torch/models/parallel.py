@@ -1,6 +1,8 @@
-"""The sharded train step's model side: the dense (``DecoderLM``) and MoE
-(``MoELM``) families on a ``(data, model)`` or ``(pod, data, model)`` mesh,
-one process, the mesh's devices distinct cards or virtual ones.
+"""The sharded train step's model side: every family (dense ``DecoderLM``,
+MoE ``MoELM``, SSM ``MambaLM``, hybrid ``ZambaLM``, encoder-decoder
+``WhisperModel`` and the VLM's ``DecoderLM``) on a ``(data, model)`` or
+``(pod, data, model)`` mesh, one process, the mesh's devices distinct cards
+or virtual ones.
 
 A sharded value is a list with one tensor per mesh device; each function
 here runs one device's share on that device's tensors and moves data only
@@ -10,32 +12,43 @@ their bytes. The parameters are the pieces the JAX package's rules give
 the unsharded model (the padding below adds only zeros).
 
 * Rows: each microbatch is split over the dp axes by ``batch_pspec``
-  (``layers.shard_batch``); every device computes the loss of the WHOLE
+  (``layers.shard_batch``), its media (whisper's frames, the VLM's image
+  embeddings) like its tokens; every device computes the loss of the WHOLE
   microbatch (the sums over its rows added over the dp axes and divided by
   the microbatch's mask count), so the loss is one number on every device.
 * FSDP: a leaf split over ``data`` is gathered over ``data`` inside its
   layer (its gradient reduce-scattered back); under remat the layer's
-  gather runs again in the backward. A leaf the batch axes do not split
-  has its gradient summed over them after the step's microbatches.
+  gather runs again in the backward, as often as the layer runs. A leaf the
+  batch axes do not split has its gradient summed over them after the
+  step's microbatches.
 * Embedding: the lookup runs on the table's own piece (``tok`` is split on
   D over ``model`` where D divides, never on its vocab), then the residual
   stream's D is gathered over ``model``: the only ``model``-axis gather of
   the Megatron paths.
 * Attention (Megatron): each model rank projects its q heads and the kv
-  heads they read, applies rotary, runs K3 forward and K3's backward on
-  those heads only, applies its rows of ``wo``, and the partial outputs are
-  summed over ``model``. Under ``heads`` the projections arrive split;
-  under ``qheads_kvrepl`` the q side does and the kv projections are whole
-  on every rank (each rank takes the kv heads its q heads read); under
-  ``headdim`` and ``replicate`` the projections are made whole over
-  ``model`` and their heads padded with zero heads to a multiple of it
-  (``layers.pad_to_multiple``, JAX's ``_tp_head_pad``), each rank running
-  its share; the padded heads' rows
+  heads they read, applies rotary (where the family has it), runs K3
+  forward and K3's backward on those heads only, applies its rows of
+  ``wo``, and the partial outputs are summed over ``model``. Under
+  ``heads`` the projections arrive split; under ``qheads_kvrepl`` the q
+  side does and the kv projections are whole on every rank (each rank takes
+  the kv heads its q heads read); under ``headdim`` and ``replicate`` the
+  projections are made whole over ``model`` and their heads padded with
+  zero heads to a multiple of it (``layers.pad_to_multiple``, JAX's
+  ``_tp_head_pad``), each rank running its share; the padded heads' rows
   are zeros, so their outputs and gradients are exactly zero and nothing of
-  them is kept.
+  them is kept. A cross read (whisper's decoder over the encoder's output,
+  the VLM's cross layers over the image embeddings) projects each rank's kv
+  heads from the whole source, which enters the rank's work through
+  ``copy_to`` (its gradient, where it has one, summed over ``model``), and
+  runs K3 non-causally. The VLM's gates multiply the SUMMED output, so
+  their gradient is the same on every model rank and is not summed there.
 * MLP: a column split of ``wi`` / ``wg`` over ff and a row split of
   ``wo``, then a sum over ``model`` (an ff that ``model`` does not divide
   runs whole on every rank).
+* Mamba (the SSM trunk, zamba2's too): the rules split ``in_proj`` and
+  ``out_proj`` on D over ``data`` and nothing of the layer over ``model``,
+  so each device gathers them over ``data`` and every model rank runs its
+  rows' whole layer, the SSD included; no ``model``-axis collective.
 * Head and loss (vocab parallel): each model rank makes ``[B, S, V/m]``
   fp32 logits (the head zero-padded to a multiple of ``model`` where V is
   not, its padded lanes at -1e30, as ``lm_logits`` does); the logsumexp
@@ -56,36 +69,31 @@ the unsharded model (the padding below adds only zeros).
   K1 into its shard's buffer (``staged_drain``, its adjoint
   ``staged_gather``), once per shard; the combined outputs are summed over
   ``model``.
+* Nesting: each family's checkpoints are the unsharded model's (zamba2's
+  and the VLM's groups around their checkpointed layers), so a layer's
+  kernels and collectives run as often as ``models.trunk_parts`` says
+  (``models.remat_calls`` counts the kernels' calls from it).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
-from ..configs.base import DENSE, MOE, ModelConfig
+from ..configs.base import ENCDEC, HYBRID, SSM
 from ..distributed.collectives import (StepMesh, all_gather, copy_to,
                                        exclusive_prefix, psum, scatter_to)
 from ..distributed.sharding import (attention_scheme, axis_size,
                                     batch_pspec, entry_axes, layer_pspec)
 from . import layers as L
 from .layout import jax_key
+from .model import trunk_parts
+from .transformer import remat_call
+from .whisper import check_frames
 
 Ranks = List[torch.Tensor]
-
-# the families whose train step runs on a mesh
-MESH_FAMILIES = (DENSE, MOE)
-
-
-def check_family(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg``'s family trains on a mesh."""
-    if cfg.family not in MESH_FAMILIES or cfg.cross_attn_every:
-        raise NotImplementedError(
-            f"not ported yet: the {cfg.family} family ({cfg.name}) on a "
-            f"mesh (a sharded train step takes the "
-            f"{' / '.join(MESH_FAMILIES)} families)")
-
 
 def release_masters(model: nn.Module) -> None:
     """Replace every master of ``model`` by a ``meta`` tensor of its shape:
@@ -104,31 +112,20 @@ class MeshPlan:
     """What a model's sharded step takes from the rules, worked out once
     for a model and a mesh: each parameter's spec, the attention scheme,
     each model rank's q heads and the kv heads they read, and the padded
-    head, vocab and expert counts."""
+    head, vocab and expert counts (no heads in the SSM family), and how the
+    family nests its trunk (``trunk_parts``)."""
 
     def __init__(self, model, mesh):
         cfg = model.cfg
-        check_family(cfg)
         self.model, self.cfg, self.mesh = model, cfg, mesh
         self.specs = {n: layer_pspec(cfg, mesh, n, p.shape)
                       for n, p in model.named_parameters()}
+        self.parts = trunk_parts(cfg)
         self.m = m = axis_size(mesh, "model")
         self.scheme = attention_scheme(cfg, mesh)
-        hq, hkv = cfg.n_heads, cfg.n_kv_heads
-        self.hp = hq if self.scheme in ("heads", "qheads_kvrepl") \
-            else L.pad_to_multiple(hq, m)
-        # each model rank's kv heads (an index per kv head it runs; hkv for
-        # a zero head) where the kv projections are whole on every rank
-        group, hq_m = hq // hkv, self.hp // m
-        self.kv_heads = []
-        for mi in range(m):
-            kv = [j // group if j < hq else hkv
-                  for j in range(mi * hq_m, (mi + 1) * hq_m)]
-            uniq = [x for i, x in enumerate(kv) if i == 0 or kv[i - 1] != x]
-            if hq_m % len(uniq) == 0 and kv == [
-                    u for u in uniq for _ in range(hq_m // len(uniq))]:
-                kv = uniq          # GQA by index within the rank
-            self.kv_heads.append(kv)
+        self.hp, self.kv_heads = 0, []
+        if cfg.n_heads:
+            self._heads(cfg, m)
         head = "embed.head" if "embed.head" in self.specs else "embed.tok"
         self.head_name = head
         self.vocab_split = self.specs[head][0] == "model" or m == 1
@@ -139,6 +136,22 @@ class MeshPlan:
         if self.n_experts:
             spec = self.specs["blocks.0.moe.wi"]
             self.expert_split = spec[0] == "model" or m == 1
+
+    def _heads(self, cfg, m):
+        hq, hkv = cfg.n_heads, cfg.n_kv_heads
+        self.hp = hq if self.scheme in ("heads", "qheads_kvrepl") \
+            else L.pad_to_multiple(hq, m)
+        # each model rank's kv heads (an index per kv head it runs; hkv for
+        # a zero head) where the kv projections are whole on every rank
+        group, hq_m = hq // hkv, self.hp // m
+        for mi in range(m):
+            kv = [j // group if j < hq else hkv
+                  for j in range(mi * hq_m, (mi + 1) * hq_m)]
+            uniq = [x for i, x in enumerate(kv) if i == 0 or kv[i - 1] != x]
+            if hq_m % len(uniq) == 0 and kv == [
+                    u for u in uniq for _ in range(hq_m // len(uniq))]:
+                kv = uniq          # GQA by index within the rank
+            self.kv_heads.append(kv)
 
     def model_index(self, sm: StepMesh, r: int) -> int:
         return sm.index(r, "model")
@@ -222,48 +235,96 @@ def attention_weights(plan: MeshPlan, sm: StepMesh, params, prefix: str):
 # ---------------------------------------------------------------------------
 
 
+def _norm(params, name: str, n: int):
+    """Each device's norm tensors of ``name`` (``blocks.0.ln1``)."""
+    return [{k: params[f"{name}.{k}"][r] for k in ("scale", "bias")
+             if f"{name}.{k}" in params} for r in range(n)]
+
+
 def attention(plan: MeshPlan, sm: StepMesh, params, prefix: str, xs: Ranks,
-              positions: Ranks) -> Ranks:
-    """``x`` plus the block's causal attention (pre-norm), Megatron-split
-    over ``model``: K3 and its backward on each rank's heads."""
+              positions: Optional[Ranks], *, attn: str = "attn",
+              ln: str = "ln1", kv: Optional[Ranks] = None,
+              gate: Optional[Ranks] = None) -> Ranks:
+    """``x`` plus the block's attention (pre-norm ``ln``, the weights under
+    ``prefix + attn``), Megatron-split over ``model``: K3 and its backward
+    on each rank's heads. Causal over ``x`` itself, with rotary at
+    ``positions`` (None: no rotary); with ``kv`` (a cross read: the
+    source's rows, not normed) every query reads every source row and
+    nothing is rotated. ``gate`` (each device's 0-d factor) scales the
+    output summed over ``model``."""
     cfg = plan.cfg
-    ln = [{k: params[prefix + "ln1." + k][r]
-           for k in ("scale", "bias") if prefix + "ln1." + k in params}
-          for r in range(sm.n)]
-    w = attention_weights(plan, sm, params, prefix + "attn.")
-    hn = copy_to(sm, [L.apply_norm(cfg, ln[r], x) for r, x in enumerate(xs)],
+    norm = _norm(params, prefix + ln, sm.n)
+    w = attention_weights(plan, sm, params, prefix + attn + ".")
+    hn = copy_to(sm, [L.apply_norm(cfg, norm[r], x) for r, x in enumerate(xs)],
                  "model", "attn_in")
+    if kv is not None:
+        kv = copy_to(sm, kv, "model", "cross_in")
+    rope = positions is not None and kv is None
     parts = []
     for r, x in enumerate(hn):
         pa = {k: v[r] for k, v in w.items()}
-        q = L.project_q(cfg, pa, x, positions[r])
-        k, v = L.project_kv(cfg, pa, x, positions[r])
-        o = L.attention_core(cfg, q, k, v)
+        pos = positions[r] if rope else None
+        q = L.project_q(cfg, pa, x, pos, rope)
+        k, v = L.project_kv(cfg, pa, x if kv is None else kv[r], pos)
+        o = L.attention_core(cfg, q, k, v, causal=kv is None)
         parts.append(torch.einsum("bshk,hkd->bsd", o, pa["wo"].to(x.dtype)))
     out = psum(sm, parts, "model", "attn_out")
+    if gate is not None:
+        out = [g * o for g, o in zip(gate, out)]
     return [x + o for x, o in zip(xs, out)]
 
 
 def mlp(plan: MeshPlan, sm: StepMesh, params, prefix: str,
-        xs: Ranks) -> Ranks:
-    """``x`` plus the block's MLP (pre-norm): ``wi`` / ``wg`` split by
-    columns over ff and ``wo`` by rows, the partial outputs summed over
-    ``model``; an ff ``model`` does not split runs whole on every rank."""
+        xs: Ranks, *, ln: str = "ln2",
+        gate: Optional[Ranks] = None) -> Ranks:
+    """``x`` plus the block's MLP (pre-norm ``ln``): ``wi`` / ``wg`` split
+    by columns over ff and ``wo`` by rows, the partial outputs summed over
+    ``model``; an ff ``model`` does not split runs whole on every rank.
+    ``gate`` scales the summed output."""
     cfg = plan.cfg
     split = plan.specs[prefix + "mlp.wi"][-1] == "model" and plan.m > 1
-    ln = [{k: params[prefix + "ln2." + k][r]
-           for k in ("scale", "bias") if prefix + "ln2." + k in params}
-          for r in range(sm.n)]
+    norm = _norm(params, prefix + ln, sm.n)
     w = {k: _fsdp(plan, sm, params, prefix + "mlp." + k)
          for k in ("wi", "wg", "wo") if prefix + "mlp." + k in params}
-    hn = [L.apply_norm(cfg, ln[r], x) for r, x in enumerate(xs)]
+    hn = [L.apply_norm(cfg, norm[r], x) for r, x in enumerate(xs)]
     if split:
         hn = copy_to(sm, hn, "model", "mlp_in")
     out = [L.apply_mlp(cfg, {k: v[r] for k, v in w.items()}, x)
            for r, x in enumerate(hn)]
     if split:
         out = psum(sm, out, "model", "mlp_out")
+    if gate is not None:
+        out = [g * o for g, o in zip(gate, out)]
     return [x + o for x, o in zip(xs, out)]
+
+
+# ---------------------------------------------------------------------------
+# mamba2: FSDP over data, the whole layer on every model rank
+# ---------------------------------------------------------------------------
+
+# a mamba layer's leaves the rules leave whole (``in_proj`` / ``out_proj``
+# are split on D over ``data``)
+_MAMBA_WHOLE = ("conv_w", "conv_b", "A_log", "dt_bias", "D", "norm")
+
+
+def mamba_layer(plan: MeshPlan, sm: StepMesh, params, i: int,
+                xs: Ranks) -> Ranks:
+    """Mamba layer ``i`` (``blocks.i``) on each device's rows: ``in_proj``
+    and ``out_proj`` gathered over ``data``, the rest whole, the layer's
+    math (``mamba2.mamba_block``: the SSD in plain PyTorch) that of one
+    device; the fp32 masters cast at each use, as the block does."""
+    from .mamba2 import mamba_block
+
+    prefix = f"blocks.{i}."
+    w = {k: _fsdp(plan, sm, params, prefix + k)
+         for k in ("in_proj", "out_proj")}
+    norm = _norm(params, prefix + "ln", sm.n)
+    out = []
+    for r, x in enumerate(xs):
+        p = {k: params[prefix + k][r] for k in _MAMBA_WHOLE}
+        p.update({k: v[r] for k, v in w.items()}, ln=norm[r])
+        out.append(mamba_block(plan.cfg, p, x)[0])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -477,15 +538,127 @@ def _layer(plan, sm, params, i, xs, positions, mode, hot_mask):
     return mlp(plan, sm, params, prefix, xs), None, None
 
 
+def _zamba_group(plan, sm, params, g, xs, positions, remat):
+    """zamba2's group ``g``: its mamba layers (each checkpointed under
+    ``remat``), then the shared block (``shared.``, Megatron-split)."""
+    per = plan.cfg.hybrid_attn_every
+    for i in range(g * per, (g + 1) * per):
+        xs = remat_call(remat, mamba_layer, plan, sm, params, i, xs)
+    xs = attention(plan, sm, params, "shared.", xs, positions)
+    return mlp(plan, sm, params, "shared.", xs)
+
+
+def _gates(params, name, dtype, n):
+    """Each device's ``tanh`` of a VLM gate, taken in fp32 and cast to the
+    compute dtype (``CrossBlock.gates``)."""
+    return [torch.tanh(params[name][r]).to(dtype) for r in range(n)]
+
+
+def _vlm_group(plan, sm, params, g, xs, positions, media, remat):
+    """The VLM's group ``g``: its self layers (each checkpointed under
+    ``remat``), then its gated cross layer over ``media`` (without media,
+    gated causal self-attention without rotary, as the reference's
+    ``forward`` computes it)."""
+    nspg = plan.cfg.cross_attn_every - 1
+    for i in range(g * nspg, (g + 1) * nspg):
+        xs = remat_call(remat, _layer, plan, sm, params, i, xs, positions,
+                        None, None)[0]
+    prefix = f"cross_blocks.{g}."
+    dtype = xs[0].dtype
+    xs = attention(plan, sm, params, prefix, xs, None, kv=media,
+                   gate=_gates(params, prefix + "gate_attn", dtype, sm.n))
+    return mlp(plan, sm, params, prefix, xs,
+               gate=_gates(params, prefix + "gate_mlp", dtype, sm.n))
+
+
+def _enc_layer(plan, sm, params, i, xs):
+    """whisper's encoder layer ``i``: causal self-attention without rotary
+    (as the reference computes it), then the MLP."""
+    prefix = f"enc_blocks.{i}."
+    xs = attention(plan, sm, params, prefix, xs, None)
+    return mlp(plan, sm, params, prefix, xs)
+
+
+def _dec_layer(plan, sm, params, i, xs, enc):
+    """whisper's decoder layer ``i``: causal self-attention, the cross read
+    of the encoder's output ``enc``, the MLP; no rotary."""
+    prefix = f"dec_blocks.{i}."
+    xs = attention(plan, sm, params, prefix, xs, None, attn="self_attn")
+    xs = attention(plan, sm, params, prefix, xs, None, attn="cross_attn",
+                   ln="ln2", kv=enc)
+    return mlp(plan, sm, params, prefix, xs, ln="ln3")
+
+
+def _encode(plan, sm, params, frames: Ranks, remat: bool) -> Ranks:
+    """whisper's encoder over each device's frames (in the compute dtype,
+    ``enc_pos`` added after the cast, as the reference does), each layer
+    checkpointed under ``remat``, then ``ln_enc``."""
+    cfg = plan.cfg
+    xs = [f + params["enc_pos"][r].to(f.dtype)[None, :f.shape[1]]
+          for r, f in enumerate(frames)]
+    for i in range(cfg.n_enc_layers):
+        xs = remat_call(remat, _enc_layer, plan, sm, params, i, xs)
+    norm = _norm(params, "ln_enc", sm.n)
+    return [L.apply_norm(cfg, norm[r], x) for r, x in enumerate(xs)]
+
+
+def _trunk(plan, sm, params, xs, positions, media, remat, mode, hot_mask):
+    """The family's layers over the embedded rows ``xs``, nested under
+    remat as the unsharded model nests them: ``(xs, aux, loads)`` (the MoE
+    aux loss and per-layer loads, else None)."""
+    model, cfg = plan.model, plan.cfg
+    if cfg.family == SSM:
+        for i in range(cfg.n_layers):
+            xs = remat_call(remat, mamba_layer, plan, sm, params, i, xs)
+    elif cfg.family == HYBRID:
+        for g in range(model.n_groups):
+            xs = remat_call(remat, _zamba_group, plan, sm, params, g, xs,
+                            positions, remat)
+    elif cfg.family == ENCDEC:
+        for i in range(cfg.n_layers):
+            xs = remat_call(remat, _dec_layer, plan, sm, params, i, xs,
+                            media)
+    elif model.is_vlm:
+        for g in range(model.n_groups):
+            xs = remat_call(remat, _vlm_group, plan, sm, params, g, xs,
+                            positions, media, remat)
+    else:
+        aux = [torch.zeros((), device=x.device) for x in xs]
+        loads = []
+        for i in range(len(model.blocks)):
+            xs, a, ld = remat_call(remat, _layer, plan, sm, params, i, xs,
+                                   positions, mode, hot_mask)
+            if a is not None:
+                aux = [x + y for x, y in zip(aux, a)]
+                loads.append(ld[0].to(plan.mesh.lead))
+        if plan.n_experts:
+            return xs, aux, loads
+    return xs, None, None
+
+
+def _media(plan, sm, mb, axes, dtype) -> Optional[Ranks]:
+    """Each device's rows of the microbatch's media in the compute dtype
+    (cast on entry, as the unsharded models do), or None. whisper without
+    media raises as its encoder does on one device."""
+    media = mb.get("media")
+    if plan.cfg.family == ENCDEC:
+        check_frames(plan.cfg, media)
+    if media is None:
+        return None
+    return [m.to(dtype) for m in L.shard_batch(sm, torch.as_tensor(media),
+                                               axes)]
+
+
 def sharded_loss(plan: MeshPlan, params: Dict[str, Ranks], mb, *,
                  remat: bool = True, mode: Optional[str] = None,
                  hot_mask: Optional[torch.Tensor] = None):
     """The loss of one microbatch ``mb`` (``tokens`` / ``labels`` /
-    optional ``loss_mask``, whole) on the mesh: ``(losses, loads, sm)``,
-    ``losses`` each device's copy of the whole microbatch's loss (the
-    backward starts from 1 on each), ``loads`` the MoE's ``[L, E]`` on the
-    lead device (None for the dense family), ``sm`` the step's mesh."""
-    from .transformer import compute_dtype, remat_call
+    optional ``loss_mask``, and ``media`` for whisper and the VLM, whole)
+    on the mesh: ``(losses, loads, sm)``, ``losses`` each device's copy of
+    the whole microbatch's loss (the backward starts from 1 on each),
+    ``loads`` the MoE's ``[L, E]`` on the lead device (None for the other
+    families), ``sm`` the step's mesh."""
+    from .transformer import compute_dtype
 
     cfg, model = plan.cfg, plan.model
     tokens = torch.as_tensor(mb["tokens"])
@@ -497,20 +670,20 @@ def sharded_loss(plan: MeshPlan, params: Dict[str, Ranks], mb, *,
     masks = None if mask is None else L.shard_batch(
         sm, torch.as_tensor(mask), axes)
     mode = mode or getattr(model, "dispatch_mode", "staged")
-    xs = embed(plan, sm, params, tok, compute_dtype(cfg))
+    dtype = compute_dtype(cfg)
+    media = _media(plan, sm, mb, axes, dtype)
+    if cfg.family == ENCDEC:
+        media = _encode(plan, sm, params, media, remat)
+    xs = embed(plan, sm, params, tok, dtype)
     b, s = tok[0].shape
+    if cfg.family == ENCDEC:
+        xs = [x + params["dec_pos"][r][:s].to(dtype)
+              for r, x in enumerate(xs)]
     positions = [torch.arange(s, device=x.device).expand(b, s) for x in xs]
-    aux = [torch.zeros((), device=x.device) for x in xs]
-    loads = []
-    for i in range(len(model.blocks)):
-        xs, a, ld = remat_call(remat, _layer, plan, sm, params, i, xs,
-                               positions, mode, hot_mask)
-        if a is not None:
-            aux = [x + y for x, y in zip(aux, a)]
-            loads.append(ld[0].to(plan.mesh.lead))
-    ln_f = [{k: params["ln_f." + k][r] for k in ("scale", "bias")
-             if "ln_f." + k in params} for r in range(sm.n)]
-    h = [L.apply_norm(cfg, ln_f[r], x) for r, x in enumerate(xs)]
+    xs, aux, loads = _trunk(plan, sm, params, xs, positions, media, remat,
+                            mode, hot_mask)
+    norm = _norm(params, "ln_f", sm.n)
+    h = [L.apply_norm(cfg, norm[r], x) for r, x in enumerate(xs)]
     logits, first = vocab_logits(plan, sm, params, h)
     nll = L.vocab_parallel_nll(sm, logits, first, labels)
     if masks is None:
@@ -522,7 +695,7 @@ def sharded_loss(plan: MeshPlan, params: Dict[str, Ranks], mb, *,
         count = psum(sm, [mk.to(torch.float32).sum() for mk in masks],
                      axes, "loss_count")
         losses = [t / c.clamp(min=1) for t, c in zip(total, count)]
-    if plan.n_experts:
+    if aux is not None:
         losses = [x + a for x, a in zip(losses, aux)]
         return losses, torch.stack(loads), sm
     return losses, None, sm
@@ -533,19 +706,74 @@ def sharded_loss(plan: MeshPlan, params: Dict[str, Ranks], mb, *,
 # ---------------------------------------------------------------------------
 
 
+def _attn_leaf(name: str) -> bool:
+    parts = name.split(".")
+    return len(parts) > 1 and parts[-2] in ("attn", "self_attn", "cross_attn")
+
+
+def _part(plan: MeshPlan, name: str):
+    """The trunk part whose parameters ``name`` is one of, and how many of
+    the part's applications use it (all of them for an unstacked part,
+    zamba2's ``shared.``; one for a layer of a stack); (None, 1) outside
+    the trunk."""
+    stack, _, rest = name.partition(".")
+    for p in plan.parts:
+        if p.stack == stack:
+            return p, 1 if rest.split(".")[0].isdigit() else p.count
+    return None, 1
+
+
+def _runs(plan: MeshPlan, name: str, remat: bool):
+    """How often a microbatch runs the layer that uses ``name`` forward
+    (its gathers: once an application, plus each recompute of a checkpoint
+    around it) and backward (its gathers' transposes: once an
+    application); the embedding (tied: also the head) and the head
+    once."""
+    part, apps = _part(plan, name)
+    if part is not None:
+        return apps * (part.depth + 1 if remat else 1), apps
+    if name == "embed.tok" and plan.head_name == name:
+        return 2, 2                 # the lookup and the tied head
+    return 1, 1
+
+
+def _applications(plan: MeshPlan, seq: int, remat: bool):
+    """A microbatch's attention applications ``(rows a query sequence,
+    runs of its output's sum over model, source rows of a cross read whose
+    source takes a gradient, else 0)`` and MLP applications ``(rows, runs
+    of its output's sum)``, from the trunk's parts. Under remat a sum runs
+    again in the recompute of each checkpoint around it, but a part's last
+    ungated one not in its own: the recompute stops after the last tensor
+    the backward saved (a gate's product saves its input)."""
+    frames = plan.cfg.n_audio_frames
+    attn, mlps = [], []
+    for p in plan.parts:
+        rows = frames if p.frames else seq
+        for _, op in itertools.product(range(p.count), p.ops):
+            runs = p.depth + 1 if remat else 1
+            if remat and op == p.ops[-1] and not p.gated:
+                runs -= 1
+            if op in ("attn", "cross"):
+                attn.append((rows, runs, frames if op == "cross" else 0))
+            elif op == "mlp":
+                mlps.append((rows, runs))
+    return attn, mlps
+
+
 def expected_collective_bytes(plan: MeshPlan, rows: int, seq: int,
                               microbatches: int, remat: bool = True,
                               masked: bool = False) -> Dict[str, int]:
     """The bytes a train step of ``microbatches`` microbatches of ``rows`` x
     ``seq`` tokens moves, by ``"op:axes"`` as ``collective_bytes`` counts
     them, worked out from the specs and shapes alone: the FSDP gathers of
-    every leaf split over ``data`` (twice a layer under remat) and their
-    reduce-scatters, the ``model``-axis wholes and their scatters' gathers,
-    the activations' sums over ``model`` (forward, twice under remat but a
-    layer's last: the recompute stops after the last tensor the backward
-    saved) and their copies' gradient sums (backward), the loss's and the MoE
-    routing's sums over the batch axes, and each leaf's gradient summed
-    over the batch axes that do not split it."""
+    every leaf split over ``data`` (as often as its layer runs,
+    ``_runs``) and their reduce-scatters, the ``model``-axis wholes and
+    their scatters' gathers, the activations' sums over ``model`` (forward,
+    as often as ``_applications`` counts) and their copies' gradient sums
+    (backward, once an application: the residual entering a tensor-parallel
+    region, whisper's encoder output entering a cross read), the loss's and
+    the MoE routing's sums over the batch axes, and each leaf's gradient
+    summed over the batch axes that do not split it."""
     from .transformer import compute_dtype
 
     cfg, mesh = plan.cfg, plan.mesh
@@ -582,81 +810,84 @@ def expected_collective_bytes(plan: MeshPlan, rows: int, seq: int,
             size *= d // k
         return size
 
-    def times_of(name):
-        return fwd if name.startswith("blocks.") else 1
+    def split(name):
+        return {a for e in plan.specs[name] for a in entry_axes(e)}
 
-    attn_leaves = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-    used = [k for k in names if (".attn." in k and k.split(".")[-1]
-                                 in attn_leaves) or ".mlp." in k
-            or ".moe." in k or k in ("embed.tok", plan.head_name)]
+    used = [k for k in names if _attn_leaf(k) or ".mlp." in k
+            or ".moe." in k or k in ("embed.tok", plan.head_name)
+            or k.split(".")[-1] in ("in_proj", "out_proj")]
     for k in used:
-        if "data" in {a for e in plan.specs[k] for a in entry_axes(e)}:
-            add("all_gather", ("data",), piece(k), times_of(k))
+        if "data" in split(k):
+            f, b = _runs(plan, k, remat)
+            add("all_gather", ("data",), piece(k), f)
             if "data" in axes:
-                add("reduce_scatter", ("data",), piece(k))
+                add("reduce_scatter", ("data",), piece(k), b)
     # model-axis wholes of parameters, and the scatters that cut them
-    d, s_ = cfg.d_model, seq
+    d = cfg.d_model
     for k in used:
         leaf = k.split(".")[-1]
-        split_model = "model" in {a for e in plan.specs[k]
-                                  for a in entry_axes(e)}
+        f, b = _runs(plan, k, remat)
+        split_model = "model" in split(k)
         whole = piece(k, over=("data", "model"))
-        if ".attn." in k and plan.scheme in ("headdim", "replicate"):
+        if _attn_leaf(k) and plan.scheme in ("headdim", "replicate"):
             if split_model:
-                add("all_gather", ("model",), piece(k, ("data",)),
-                    times_of(k))
+                add("all_gather", ("model",), piece(k, ("data",)), f)
             if leaf in ("wq", "wo", "bq"):
                 add("all_gather", ("model",), whole // cfg.n_heads
-                    * plan.hp // m)
+                    * plan.hp // m, b)
             else:
-                add("all_reduce", ("model",), whole)
-        elif ".attn." in k and plan.scheme == "qheads_kvrepl" and \
+                add("all_reduce", ("model",), whole, b)
+        elif _attn_leaf(k) and plan.scheme == "qheads_kvrepl" and \
                 leaf in ("wk", "wv", "bk", "bv"):
-            add("all_reduce", ("model",), whole)
+            add("all_reduce", ("model",), whole, b)
         elif ".moe." in k and leaf != "router" and not plan.expert_split:
             if split_model:
-                add("all_gather", ("model",), piece(k, ("data",)),
-                    times_of(k))
+                add("all_gather", ("model",), piece(k, ("data",)), f)
             add("all_gather", ("model",), whole // plan.n_experts * plan.ep
-                // m)
+                // m, b)
         elif k == plan.head_name and not plan.vocab_split:
             if split_model:
                 add("all_gather", ("model",), piece(k, ("data",)))
             add("all_gather", ("model",), whole // cfg.vocab * plan.vp // m)
-    act = r_local * s_ * d * cdt
+
+    def act(s_):
+        return r_local * s_ * d * cdt
+
     if plan.specs["embed.tok"][1] == "model":
-        add("all_gather", ("model",), act // m)
-    # a layer's last sum over model (its FFN's output) is not recomputed:
-    # the recompute stops after the last tensor the backward saved
-    layers = len(plan.model.blocks)
-    add("all_reduce", ("model",), act, layers * fwd)        # attn_out
-    add("all_reduce", ("model",), act, layers)              # attn_in grad
+        add("all_gather", ("model",), act(seq) // m)
+    attn, mlps = _applications(plan, seq, remat)
+    for s_, runs, src in attn:
+        add("all_reduce", ("model",), act(s_), runs)     # attn_out
+        add("all_reduce", ("model",), act(s_))           # attn_in grad
+        if src:
+            add("all_reduce", ("model",), act(src))      # cross_in grad
+    if mlps and plan.specs[next(k for k in names if k.endswith(
+            "mlp.wi"))][-1] == "model":
+        for s_, runs in mlps:
+            add("all_reduce", ("model",), act(s_), runs)  # mlp_out
+            add("all_reduce", ("model",), act(s_))        # mlp_in grad
     if plan.n_experts:
+        layers = len(plan.model.blocks)
         e, kk = plan.n_experts, cfg.top_k
-        add("all_reduce", ("model",), act, layers)          # moe_out
-        add("all_reduce", ("model",), act, layers)          # moe_in grad
-        add("all_reduce", ("model",), r_local * s_ * kk * cdt, layers)
+        add("all_reduce", ("model",), act(seq), layers)     # moe_out
+        add("all_reduce", ("model",), act(seq), layers)     # moe_in grad
+        add("all_reduce", ("model",), r_local * seq * kk * cdt, layers)
         add("all_reduce", axes, 4 * e, 2 * layers * fwd)    # fractions
         add("all_reduce", axes, 8 * e, layers * fwd)        # loads
         add("prefix", axes, 8 * e, layers * fwd)            # slot prefix
-    elif plan.specs["blocks.0.mlp.wi"][-1] == "model":
-        add("all_reduce", ("model",), act, layers)          # mlp_out
-        add("all_reduce", ("model",), act, layers)          # mlp_in grad
-    add("all_reduce", ("model",), act, 1)                   # head_in grad
-    add("all_reduce_max", ("model",), r_local * s_ * 4)
-    add("all_reduce", ("model",), r_local * s_ * 4, 2)      # sumexp, gold
+    add("all_reduce", ("model",), act(seq), 1)              # head_in grad
+    add("all_reduce_max", ("model",), r_local * seq * 4)
+    add("all_reduce", ("model",), r_local * seq * 4, 2)     # sumexp, gold
     add("all_reduce", axes, 4, 2 if masked else 1)          # loss sums
     for k in names:
-        split = {a for e in plan.specs[k] for a in entry_axes(e)}
-        add("all_reduce", tuple(a for a in axes if a not in split),
+        add("all_reduce", tuple(a for a in axes if a not in split(k)),
             piece(k), 1 / microbatches)
     return {k: int(round(v)) for k, v in out.items()}
 
 
 __all__ = [
-    "MESH_FAMILIES", "MeshPlan", "attention", "attention_weights",
-    "batch_axes", "check_family", "embed", "expected_collective_bytes",
-    "expert_weights", "global_slots",
-    "mlp", "moe_ffn", "release_masters", "route_whole", "sharded_loss",
-    "vocab_logits",
+    "MeshPlan", "attention", "attention_weights", "batch_axes", "embed",
+    "expected_collective_bytes", "expert_weights", "global_slots",
+    "mamba_layer", "mlp", "moe_ffn", "release_masters", "route_whole",
+    "sharded_loss", "vocab_logits",
 ]

@@ -57,6 +57,15 @@ from .transformer import (DenseBlock, attend_chunk, attend_cross,
 Cache = Dict[str, torch.Tensor]
 
 
+def check_frames(cfg, frames) -> None:
+    """Raise unless ``frames`` are given: whisper's encoder reads every
+    request's frames (on one device and on a mesh alike)."""
+    if frames is None:
+        raise ValueError(
+            f"{cfg.name} takes media: every request needs its frames "
+            f"[{cfg.n_audio_frames}, {cfg.d_model}]")
+
+
 class DecoderBlock(nn.Module):
     """One decoder layer's parameter groups, in the JAX package's names."""
 
@@ -209,10 +218,7 @@ class WhisperModel(nn.Module):
         layer's self-attention is causal (``layers.attention`` without
         ``kv_x``); under ``remat`` each layer is checkpointed."""
         cfg = self.cfg
-        if frames is None:
-            raise ValueError(
-                f"{cfg.name} takes media: every request needs its frames "
-                f"[{cfg.n_audio_frames}, {cfg.d_model}]")
+        check_frames(cfg, frames)
         dtype = compute_dtype(cfg)
         frames = torch.as_tensor(frames, device=self.device)
         x = frames.to(dtype) + self.enc_pos.to(dtype)[None, :frames.shape[1]]
@@ -328,4 +334,4 @@ class WhisperModel(nn.Module):
         return self._logits(x), cache
 
 
-__all__ = ["DecoderBlock", "WhisperModel", "attend_cross"]
+__all__ = ["DecoderBlock", "WhisperModel", "attend_cross", "check_frames"]

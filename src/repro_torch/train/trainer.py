@@ -25,8 +25,8 @@ commit the model's cached compute-type copies are dropped
 (``layers.drop_casts``), so serving after training reads the new weights.
 
 On a mesh (``init_train_state(..., parallel=)`` or ``place_train_state``,
-then ``make_train_step(..., mesh=)``): the dense and MoE families only
-(``models.parallel``). The masters and both AdamW moments live as pieces
+then ``make_train_step(..., mesh=)``): every family (``models.parallel``).
+The masters and both AdamW moments live as pieces
 on their devices (``ShardedTensor``, placed by ``state_shardings``; the
 model keeps only ``meta`` tensors of their shapes); each microbatch (rows in
 JAX's order) is split over the dp axes by ``batch_pspec`` and its loss and
@@ -164,12 +164,8 @@ def init_train_state(model, optimizer: AdamW, seed: Optional[int] = 0,
     With an enabled ``parallel``, the state is then placed on its mesh
     (``parallel.build_mesh(device=model.device)``) by
     ``place_train_state``."""
-    on_mesh = parallel is not None and parallel.enabled
-    if on_mesh:
-        from ..models.parallel import check_family
-        check_family(model.cfg)
     state = _init_state(model, optimizer, seed, n_hot_experts)
-    if on_mesh:
+    if parallel is not None and parallel.enabled:
         state = place_train_state(state, parallel.build_mesh(
             device=model.device))
     return state
@@ -180,12 +176,14 @@ def place_train_state(state: TrainState, mesh: Mesh) -> TrainState:
     both its moments as a ``ShardedTensor`` of its spec (the layer's piece
     of a stacked leaf), the masters' pieces requiring grad; the model's own
     masters become ``meta`` tensors; the counters and the mask stay whole
-    on the lead device. The dense and MoE families only."""
+    on the lead device. Every family: the leaves keyed by their JAX keys
+    (``models.layout.jax_key``: a stack's layer takes its piece of the
+    stacked leaf's spec; ``shared.*``, ``enc_pos`` and ``dec_pos`` have no
+    layer axis)."""
     from ..checkpoint.checkpoint import _spec_leaf
-    from ..models.parallel import check_family, release_masters
+    from ..models.parallel import release_masters
 
     model = state.model
-    check_family(model.cfg)
     if state.shards is not None:
         raise ValueError("the state is placed already")
     tree = state_shardings(model.cfg, mesh, state.jax_tree(_spec_leaf))
@@ -259,7 +257,7 @@ def make_train_step(model, optimizer: AdamW, *, microbatches: int = 1,
     AdamW update, and for MoE the counters and the next hot mask. ``batch``:
     ``tokens`` / ``labels`` (and ``loss_mask``; ``media`` for the families
     that read them) on the model's device. With ``mesh`` the sharded step
-    (the dense and MoE families, a state placed on that mesh).
+    (any family, a state placed on that mesh).
     Metrics: ``loss``, ``grad_norm``, ``lr`` (fp32 0-d tensors), ``step``."""
     if mesh is not None:
         return _sharded_train_step(model, optimizer, mesh, microbatches,

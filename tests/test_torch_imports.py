@@ -350,9 +350,9 @@ def test_train_launcher_runs_on_cpu_and_refuses_otherwise(monkeypatch):
     launcher's multi-device branch: stablelm-1.6b trains on the production
     mesh (here ``make_production_mesh`` gives a (2, 2) mesh of four
     virtual CPU devices) to the one-device run's loss (fp32, within 1e-5
-    relative); too few devices for the mesh raise its ``ValueError``; a
-    family the sharded step does not take raises ``NotImplementedError``
-    naming itself."""
+    relative); too few devices for the mesh raise its ``ValueError``; the
+    SSM family (mamba2-130m) takes the mesh branch too, to its one-device
+    run's loss."""
     import tempfile
 
     from repro_torch.launch.train import main
@@ -392,9 +392,14 @@ def test_train_launcher_runs_on_cpu_and_refuses_otherwise(monkeypatch):
     assert sharded["steps"] == one["steps"] == 3
     assert sharded["final_loss"] == pytest.approx(one["final_loss"],
                                                   rel=1e-5)
-    with pytest.raises(NotImplementedError,
-                       match="not ported yet: the ssm family .* on a mesh"):
-        main(["--arch", "mamba2-130m", "--device", "cpu", "--steps", "1"])
+    # the SSM family takes the mesh branch too, the loss that of one device
+    ssm = ["--arch", "mamba2-130m", "--device", "cpu", "--steps", "2",
+           "--seq", "16", "--batch", "4", "--microbatches", "2"]
+    on_mesh = main(ssm)
+    assert len(meshes) == 2
+    monkeypatch.delenv("REPRO_TORCH_VIRTUAL_DEVICES")
+    assert on_mesh["final_loss"] == pytest.approx(main(ssm)["final_loss"],
+                                                  rel=1e-5)
 
 
 def test_adamw_decays_by_the_rank_of_the_jax_layout():
