@@ -356,6 +356,16 @@ line. Phases, each failing the run on any exception or mismatch:
            each collective's bytes equal to those the specs give
            (``models.parallel.expected_collective_bytes``); then bf16
            steps: host ms, device ms, busy share, device ops, peak memory
+  roofline  the dry-run count of train_sharded's stablelm (2, 2) bf16 arm
+           (``launch.cells`` / ``launch.roofline`` on the meta device, no
+           card) against one untimed call of the same step on the card
+           under the same counters: FLOPs, bytes, collective bytes and each
+           kernel's would-be launches equal, the launches also the
+           wrappers' real ones; the arm's traced device ms at least the
+           bound of the four ranks on one card (a share over
+           ``ROOFLINE_SHARE_MAX`` fails); the card's peak of live bytes
+           over the step within ``ROOFLINE_PEAK_RTOL`` / ``_ATOL`` of the
+           meta count. No timed card run of its own
 
 Every kernel time in the ``kernels`` line (``ms``, ``plain_ms``,
 ``library_ms``) is device time: the sum of the kernels' own times in the
@@ -431,6 +441,10 @@ from repro_torch.kernels.staged_scatter import (  # noqa: E402
 from repro_torch.kernels.lru_scan import (LRU_KERNELS,  # noqa: E402
                                           bucket_keys, longest_chain,
                                           lru_scan_buckets)
+from repro_torch.configs.base import ShapeSpec  # noqa: E402
+from repro_torch.distributed.sharding import make_abstract_mesh  # noqa: E402
+from repro_torch.launch import cells as CELLS  # noqa: E402
+from repro_torch.launch import roofline as ROOF  # noqa: E402
 from repro_torch.models import (build_model, media_spec,  # noqa: E402
                                 needs_media, remat_calls)
 from repro_torch.models import moe as MOE_L  # noqa: E402
@@ -453,11 +467,14 @@ from repro_torch.serve.traffic import (MarkovModulatedArrivals,  # noqa: E402
 
 # the module of K2 / K4 (the package exports the wrappers under its name)
 FD = importlib.import_module("repro_torch.kernels.flash_decode")
+from repro_torch.kernels import cost as COST  # noqa: E402
 
 DEV = torch.device("cuda")
-# published peaks of one H100 SXM (NVIDIA data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# published peaks of one H100 SXM (NVIDIA data sheet, dense) and the kernels'
+# operation and byte counts: the formulas a dry-run cell's roofline counts
+# by (``repro_torch.kernels.cost``)
+HBM_BYTES_PER_S, PEAK_FLOPS = COST.HBM_BYTES_PER_S, COST.PEAK_FLOPS
+live_pairs = COST.live_pairs
 
 # the slice: what the engine phase runs
 SLICE = dict(arch="stablelm-1.6b", reduced=False, max_seq=2048, n_slots=8,
@@ -689,6 +706,18 @@ TRAIN_SHARDED_ARMS = (
      (2, 2), None),
     ("vlm_2x2", "llama-3.2-vision-90b", TRAIN_SHARDED_VLM, (2, 2), None),
 )
+
+# roofline: train_sharded's arm whose step the dry-run count is held to;
+# the measured device ms over the count's bound on one card may be at most
+# ROOFLINE_SHARE_MAX (a bound the card beats means the count is wrong); the
+# card's peak of live bytes over the step (max_memory_allocated after
+# reset_peak_memory_stats, less what was allocated before) within
+# ROOFLINE_PEAK_RTOL of the meta count plus ROOFLINE_PEAK_ATOL bytes: the
+# caching allocator keeps a large block whole where under 1 MB would be left
+# of it, and a library takes its workspace through the allocator at first use
+ROOFLINE_ARM = "dense_2x2"
+ROOFLINE_SHARE_MAX = 1.05
+ROOFLINE_PEAK_RTOL, ROOFLINE_PEAK_ATOL = 0.02, 64 << 20
 
 # the flat write engine (section 4 of the paper): 2^20 regions of 4 KB
 WRITE = dict(log2_regions=20, region_elems=1024, batches=64, batch=4096,
@@ -1133,8 +1162,7 @@ def time_k1(gen):
               for _ in range(2)]
     valid = torch.ones(n, dtype=torch.bool, device=DEV)
     none = torch.zeros(n, dtype=torch.bool, device=DEV)
-    routing = n * (8 + 1)
-    nbytes = 2 * 2 * n * w * 2 * l + routing
+    nbytes = COST.k1_cost(n, n, w, 2, 8, planes=2 * l)[1]
     sets = [([(st[:, :r], torch.randn((l, n, w), generator=gen,
                                       device=DEV).to(torch.bfloat16))
               for st in stores],
@@ -1167,7 +1195,7 @@ def time_k1(gen):
         rotating(planes1, lambda planes, rows: staged_scatter_planes_ref(
             planes, rows, valid)),
         rotating(planes1, library))
-    one["bound_ms"] = ((2 * n * w * 2 * l + routing)
+    one["bound_ms"] = (COST.k1_cost(n, n, w, 2, 8, planes=l)[1]
                        / HBM_BYTES_PER_S * 1e3)
     return dict(**t,
                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
@@ -2072,14 +2100,6 @@ def check_k3_slice(gen):
                 worst_block_share=h["worst_block_share"], out_rms=out_rms)
 
 
-def live_pairs(s, t, causal, window):
-    """(query, key) pairs the mask lets through, counted per head."""
-    qa = torch.arange(s, dtype=torch.int64) + (t - s)
-    hi = qa if causal else torch.full_like(qa, t - 1)
-    lo = (qa - window + 1).clamp(min=0) if window > 0 else torch.zeros_like(qa)
-    return int((hi.clamp(max=t - 1) - lo + 1).clamp(min=0).sum())
-
-
 def time_k3(gen):
     window = get_config(LANES["arch"]).sliding_window
     q, k, v = _k3_slice_inputs(gen)
@@ -2093,11 +2113,9 @@ def time_k3(gen):
                  lambda: F.scaled_dot_product_attention(
                      q, k, v, is_causal=True, enable_gqa=True))
     pairs = live_pairs(s, t, True, window)
-    flops = 4 * d * hq * b * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / HBM_BYTES_PER_S
-    return dict(**t_, bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+    bound, by = COST.bound_ms(*COST.k3_cost(
+        q.shape, k.shape, q.element_size(), True, window), q.dtype)
+    return dict(**t_, bound_ms=bound, bound_by=by,
                 live_pairs_per_head=pairs,
                 shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{t},{d}] "
                       f"bf16 (strided views of [B,S,H,D]), causal, window "
@@ -2164,11 +2182,9 @@ def time_k3_chunk(gen):
                  lambda: F.scaled_dot_product_attention(
                      q, k, v, attn_mask=mask, enable_gqa=True))
     pairs = live_pairs(s, t, True, window)
-    flops = 4 * d * hq * b * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / HBM_BYTES_PER_S
-    return dict(**t_, bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+    bound, by = COST.bound_ms(*COST.k3_cost(
+        q.shape, k.shape, q.element_size(), True, window), q.dtype)
+    return dict(**t_, bound_ms=bound, bound_by=by,
                 live_pairs_per_head=pairs,
                 shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{t},{d}] "
                       f"bf16 (strided views of [B,S,H,D]), causal, window "
@@ -2306,13 +2322,10 @@ def _k4_timed(name, args):
             attn_mask=mask[:, None, None, :], enable_gqa=True)
     t_ = timings(name, lambda: flash_decode(q, k, v, mask),
                  lambda: flash_decode_ref(q, k, v, mask), library)
-    es = q.element_size()
     n_live = int(mask.sum())      # the work depends on the data: live keys
-    nbytes = n_live * hkv * d * 2 * es + 2 * q.numel() * es + mask.numel()
-    flops = 4 * hq * n_live * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[q.dtype]
-    return dict(**t_, bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+    bound, by = COST.bound_ms(*COST.k4_cost(
+        q.shape, hkv, n_live, mask.numel(), q.element_size()), q.dtype)
+    return dict(**t_, bound_ms=bound, bound_by=by,
                 live_keys=n_live,
                 shape=f"q[{b},{hq},{d}] k/v[{b},{t},{hkv},{d}] bf16, "
                       f"{n_live} live keys")
@@ -2942,12 +2955,9 @@ def _k3_timed(name, args, causal, note):
                  lambda: F.scaled_dot_product_attention(
                      q, k, v, is_causal=causal,
                      enable_gqa=hq != k.shape[1]))
-    t_ops = (4 * d * hq * b * live_pairs(s, t, causal, 0)
-             / PEAK_FLOPS[q.dtype])
-    t_bytes = ((2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-               / HBM_BYTES_PER_S)
-    return dict(**t3, bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+    bound, by = COST.bound_ms(*COST.k3_cost(
+        q.shape, k.shape, q.element_size(), causal, 0), q.dtype)
+    return dict(**t3, bound_ms=bound, bound_by=by,
                 shape=f"q[{b},{hq},{s},{d}] k/v[{b},{k.shape[1]},{t},{d}] "
                       f"bf16, {note}")
 
@@ -3028,7 +3038,8 @@ def time_moe_shapes():
     shape (SDPA with a ``[B,1,1,T]`` mask)."""
     dest, staging, dst, ok = _moe_k1_inputs(timed_gen(121), MOE["n_slots"])
     n_valid, w = int(ok.sum()), staging.shape[1]
-    nbytes = 2 * n_valid * w * 2 + dst.numel() * (dst.element_size() + 1)
+    nbytes = COST.k1_cost(n_valid, dst.numel(), w, staging.element_size(),
+                          dst.element_size())[1]
     # timed cold (``cold_sets``): each call its own dest and staging, the
     # routing shared
     sets = [(dest.clone(), staging.clone()) for _ in range(cold_sets(nbytes))]
@@ -3355,8 +3366,7 @@ def time_ring_lanes_shapes():
     planes, rows, ok = ST.drain_plan(cache)
     (l, _, w), n = planes[0][0].shape, rows.shape[0]
     n_valid = int(ok.sum())
-    routing = n * (8 + 1)
-    nbytes = 2 * 2 * n_valid * w * 2 * l + routing
+    nbytes = COST.k1_cost(n_valid, n, w, 2, 8, planes=2 * l)[1]
     # each set its own staging planes and its slots 8 further on (the next
     # ring's worth of positions), so its destination rows differ too
     sets = [([(d, torch.randn(st.shape, generator=gen, device=DEV)
@@ -3558,13 +3568,10 @@ def _k3_bwd_timed(name, case, gen):
         lambda: flash_attention_bwd(q, k, v, o, lse, do, causal, w),
         f"{name} sub-kernels")
     pairs = live_pairs(s, t, causal, w)
-    flops = 10 * d * hq * b * pairs
     # q, out and dout read and dq written; k and v read, dk and dv written
-    nbytes = ((4 * q.numel() + 2 * k.numel() + 2 * v.numel())
-              * q.element_size() + lse.numel() * 4)
-    t_ops, t_bytes = flops / PEAK_FLOPS[q.dtype], nbytes / HBM_BYTES_PER_S
-    return dict(**t_, bound_ms=max(t_ops, t_bytes) * 1e3,
-                bound_by="operations" if t_ops >= t_bytes else "bytes",
+    bound, by = COST.bound_ms(*COST.k3_bwd_cost(
+        q.shape, k.shape, q.element_size(), causal, w), q.dtype)
+    return dict(**t_, bound_ms=bound, bound_by=by,
                 live_pairs_per_head=pairs,
                 shape=f"q[{b},{hq},{s},{d}] k/v[{b},{hkv},{t},{d}] bf16 "
                       f"(strided views of [B,S,H,D]), causal, window {w}; "
@@ -3637,8 +3644,8 @@ def time_k1_adjoint():
     t_ = timings("staged_gather", lambda: staged_gather(grad, dst, ok),
                  lambda: staged_gather_ref(grad, dst, ok),
                  lambda: grad.index_select(0, rows))
-    nbytes = ((n_valid + n) * w * grad.element_size()
-              + n * (dst.element_size() + 1))
+    nbytes = COST.k1_gather_cost(n_valid, n, w, grad.element_size(),
+                                 dst.element_size())[1]
     ops = one_device_op(lambda: staged_gather(grad, dst, ok),
                         "staged_gather, device ops", "staged_gather")
     return dict(**t_, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -7645,6 +7652,90 @@ def phase_train_sharded(kernels):
     say("train_sharded", shape=TRAIN, virtual_devices=True, **arms)
     if problems:
         raise AssertionError("train_sharded: " + "; ".join(problems))
+    return arms
+
+
+def phase_roofline(sharded):
+    """The dry-run count of ``ROOFLINE_ARM``'s step against the card. On
+    the meta device: ``cells.build_cell`` of the arm's config, rows,
+    sequence, microbatches and mesh shape, counted by
+    ``roofline.count_step`` (FLOPs, bytes, collective bytes, transient peak,
+    the kernels' would-be launches). On the card: the same step (the arm's
+    model, placed on virtual devices, an int32 batch as the cell's) once,
+    untimed, under the same counters. The bound of the four ranks on one
+    card is the larger of the step's FLOPs at the bf16 peak and its bytes at
+    the HBM rate (the virtual collectives are the sums and copies the byte
+    count holds); the arm's traced bf16 step is the measured time."""
+    tag, arch, over, shape, mode = next(
+        a for a in TRAIN_SHARDED_ARMS if a[0] == ROOFLINE_ARM)
+    cfg = dataclasses.replace(get_config(arch), **over)
+    P, n = TRAIN, math.prod(shape)
+    seq = _sharded_seq(cfg)
+    cell = ShapeSpec("train_sharded", seq, P["batch"], "train")
+    t0 = time.perf_counter()
+    step, args, _ = CELLS.build_cell(
+        cfg, cell, make_abstract_mesh(shape, ("data", "model")),
+        microbatches=P["microbatches"], dispatch_mode=mode or "staged")
+    meta, meta_launches = ROOF.count_step(step, args, n)
+    meta_s = time.perf_counter() - t0
+    del step, args
+    model = _sharded_model(cfg, mode)
+    opt = CELLS.make_optimizer()
+    with virtual_devices(n):
+        st = init_train_state(model, opt, None, 0, parallel=ParallelConfig(
+            shape, ("data", "model")))
+    step = make_train_step(model, opt, microbatches=P["microbatches"],
+                           mesh=st.mesh)
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    batch = {k: torch.randint(0, cfg.vocab, (P["batch"], seq), generator=gen,
+                              device=DEV, dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card, card_launches = ROOF.count_step(step, (st, batch), n)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated() - base
+    launched = {k: v for k, v in launch_counts().items() if v}
+    del st, step, model, opt, batch
+    torch.cuda.empty_cache()
+    problems = []
+    for k in sorted(set(meta) | set(card)):
+        if k != "peak_bytes" and meta.get(k) != card.get(k):
+            problems.append(f"{k}: meta {meta.get(k)} card {card.get(k)}")
+    if meta_launches != card_launches or card_launches != launched:
+        problems.append(f"launches: meta {meta_launches} card counter "
+                        f"{card_launches} wrappers {launched}")
+    meta_peak = meta["peak_bytes"] * n
+    if abs(card_peak - meta_peak) > ROOFLINE_PEAK_RTOL * meta_peak \
+            + ROOFLINE_PEAK_ATOL:
+        problems.append(f"peak bytes: card {card_peak} meta {meta_peak}")
+    flops, nbytes = meta["flops"] * n, meta["bytes"] * n
+    bound_ms = max(flops / ROOF.PEAK_FLOPS, nbytes / ROOF.HBM_BW) * 1e3
+    device = sharded[tag]["bf16"]["device_ms"]
+    share = bound_ms / device if device else None
+    if share is None or share > ROOFLINE_SHARE_MAX:
+        problems.append(f"bound {bound_ms} ms over device {device} ms")
+    cells = ROOF.roofline_terms(
+        meta, cfg, cell, mesh_shape=dict(zip(("data", "model"), shape)))
+    say("roofline", arm=tag, arch=arch, config=over,
+        mesh=dict(zip(("data", "model"), shape)), seq=seq,
+        rows=P["batch"], microbatches=P["microbatches"],
+        meta_count_s=meta_s, flops=flops, bytes=nbytes,
+        coll_bytes=meta["coll_bytes"] * n,
+        collectives={k: v * n for k, v in meta.items()
+                     if k.startswith("coll_") and ":" in k},
+        launches=meta_launches, peak_bytes_meta=meta_peak,
+        peak_bytes_card=card_peak,
+        peak_card_over_meta=card_peak / meta_peak if meta_peak else None,
+        bound_ms=bound_ms,
+        bound_by="operations" if flops / ROOF.PEAK_FLOPS
+        >= nbytes / ROOF.HBM_BW else "bytes",
+        device_ms=device, bound_share_of_device=share,
+        terms_per_rank=cells, card_counts_equal=not problems)
+    if problems:
+        raise AssertionError("roofline: " + "; ".join(problems))
 
 
 PHASE_SECONDS = {}
@@ -7696,6 +7787,7 @@ PHASES = (
     ("train_hybrid", phase_train_hybrid, ("kernels",)),
     ("train_encdec", phase_train_encdec, ("kernels",)),
     ("train_sharded", phase_train_sharded, ("kernels",)),
+    ("roofline", phase_roofline, ("train_sharded",)),
 )
 
 

@@ -1,6 +1,7 @@
 """Port of repro/configs/__init__.py.
 
-Config registry: ``get_config(arch)`` / ``ARCHS``. Ported so far: the dense
+Config registry: ``get_config(arch)`` / ``ARCHS`` / shape specs
+(``get_shape``, ``ALL_SHAPES``, ``shape_applicable``). Ported so far: the dense
 architectures (the three paged-capable ones and the sliding-window
 h2o-danube-3-4b, served from the lanes layout), the two MoE ones, the SSM
 mamba2-130m, the hybrid zamba2-2.7b, the encoder-decoder whisper-medium and
@@ -12,7 +13,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-from .base import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
+from .base import (ALL_SHAPES, DENSE, ENCDEC, HYBRID, MOE, SHAPES, SSM, VLM,
+                   ModelConfig, ShapeSpec, shape_applicable)
 from .granite_moe_3b_a800m import CONFIG as _granite
 from .h2o_danube_3_4b import CONFIG as _h2o
 from .llama_3_2_vision_90b import CONFIG as _llama_vision
@@ -25,9 +27,10 @@ from .stablelm_1_6b import CONFIG as _stablelm
 from .whisper_medium import CONFIG as _whisper
 from .zamba2_2_7b import CONFIG as _zamba2
 
+# in the JAX package's registry order (the dry-run report's row order)
 ARCHS: Dict[str, ModelConfig] = {
-    c.name: c for c in (_h2o, _nemotron, _qwen2, _stablelm, _granite,
-                        _qwen3moe, _mamba2, _zamba2, _whisper, _llama_vision)
+    c.name: c for c in (_nemotron, _h2o, _qwen2, _stablelm, _granite,
+                        _qwen3moe, _mamba2, _llama_vision, _whisper, _zamba2)
 }
 
 # architectures the JAX package registers that this port does not have yet:
@@ -47,6 +50,13 @@ def get_config(arch: str) -> ModelConfig:
         f"unknown arch {arch!r}; available: {', '.join(sorted(ARCHS))}")
 
 
-__all__ = ["ARCHS", "NOT_PORTED", "ModelConfig", "get_config",
+def get_shape(name: str) -> ShapeSpec:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; available: {', '.join(SHAPES)}")
+    return SHAPES[name]
+
+
+__all__ = ["ARCHS", "ALL_SHAPES", "NOT_PORTED", "SHAPES", "ModelConfig",
+           "ShapeSpec", "get_config", "get_shape", "shape_applicable",
            "FIG3_CLAIMS", "PAPER_WORKLOAD", "PaperWorkload",
            "DENSE", "MOE", "SSM", "HYBRID", "ENCDEC", "VLM"]

@@ -21,6 +21,7 @@ Design rules
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 # ---------------------------------------------------------------------------
 # Families
@@ -267,3 +268,41 @@ def _param_count(cfg: ModelConfig, active_only: bool = False) -> int:
     else:
         raise ValueError(cfg.family)
     return total
+
+
+# ---------------------------------------------------------------------------
+# Input shapes (assigned per-arch shape set)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell.
+
+    ``step``: which program a dry-run cell builds —
+      train  -> train_step(tokens[b,s], labels[b,s])
+      prefill-> chunk_prefill of the last chunk against a seq_len KV cache
+      decode -> decode_step (one new token against a KV cache of seq_len)
+    """
+
+    name: str
+    seq_len: int
+    global_batch: int
+    step: str  # train | prefill | decode
+
+
+TRAIN_4K = ShapeSpec("train_4k", 4_096, 256, "train")
+PREFILL_32K = ShapeSpec("prefill_32k", 32_768, 32, "prefill")
+DECODE_32K = ShapeSpec("decode_32k", 32_768, 128, "decode")
+LONG_500K = ShapeSpec("long_500k", 524_288, 1, "decode")
+
+ALL_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES = {s.name: s for s in ALL_SHAPES}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """(runnable?, reason-if-skipped) for an (arch x shape) cell."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, (
+            "long_500k needs sub-quadratic attention; "
+            f"{cfg.name} is pure full-attention (skip per DESIGN.md)"
+        )
+    return True, ""

@@ -205,7 +205,9 @@ class ParallelConfig:
         parameters and decision plane live: ``REPRO_TORCH_VIRTUAL_DEVICES=N``
         gives N virtual devices, each ``device``; else a CUDA ``device``
         takes the ``torch.cuda.device_count()`` distinct cards, starting at
-        its own index, and a CPU one the single CPU. Raises ``ValueError``
+        its own index, a ``meta`` one as many ``meta`` devices as the spec
+        needs (an abstract mesh), and a CPU one the single CPU. Raises
+        ``ValueError``
         when there are fewer devices than the spec needs: the mesh is never
         shrunk."""
         if not self.enabled:
@@ -219,6 +221,8 @@ class ParallelConfig:
             virtual = os.environ.get(VIRTUAL_DEVICES_ENV)
             if virtual:
                 devices = [dev] * int(virtual)
+            elif dev.type == "meta":
+                devices = [dev] * self.n_devices
             elif dev.type == "cuda":
                 devices = [torch.device("cuda", (dev.index + i) % n_cards)
                            for i in range(n_cards)]

@@ -31,7 +31,9 @@ strides must be whole 16-byte units.
 
 On a CPU tensor the wrapper runs the plain version (over blocks of 1024
 query rows once S * T passes 4096 * 2048, as the JAX package's ``sdpa``
-does); on a CUDA tensor it launches the kernel or raises.
+does); on a CUDA tensor it launches the kernel or raises; on a ``meta``
+tensor it makes the outputs, skips the launch and adds the kernel's cost
+(``cost.k3_cost``, ``cost.k3_bwd_cost``) to the active ``KernelCounter``.
 
 Training: ``FlashAttentionFunction`` runs K3 under autograd. Its forward
 asks K3 for each row's log-sum-exp too (``flash_attention_lse``: the same
@@ -63,6 +65,7 @@ import ctypes
 import torch
 
 from . import build
+from .cost import is_meta, k3_bwd_cost, k3_cost, record
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -197,6 +200,11 @@ def _forward(q, k, v, causal, window, lse):
         strides = [tensor_map_geometry(x)["strides"] for x in ts]
     else:
         strides = [x.stride()[:3] for x in ts]
+    cost = (k3_cost, q.shape, k.shape, q.element_size(), causal, window,
+            lse is not None)
+    if is_meta(q):
+        record("flash_attention", *cost)
+        return out
     with build.on_device(q.device):
         err = build.load_library().flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -210,6 +218,7 @@ def _forward(q, k, v, causal, window, lse):
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
+    record("flash_attention", *cost)
     return out
 
 
@@ -299,6 +308,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     scratch = torch.empty((2 * b * hq * -(-s // 64) * 64,),
                           dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[st for x in strides for st in x])
+    cost = (k3_bwd_cost, q.shape, k.shape, q.element_size(), causal, window)
+    if is_meta(q):
+        record("flash_attention_bwd", *cost)
+        return dq, dk, dv
     with build.on_device(q.device):
         err = build.load_library().flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -314,6 +327,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{err}")
     flash_attention_bwd.launches += 1
+    record("flash_attention_bwd", *cost)
     return dq, dk, dv
 
 

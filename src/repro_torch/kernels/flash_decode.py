@@ -85,6 +85,7 @@ from typing import Optional
 import torch
 
 from . import build
+from .cost import H100_SMS, is_meta, k4_cost, record
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # devices on which K2 may take its shared memory (``..._prepare`` ran)
@@ -603,9 +604,15 @@ def flash_decode(q, k, v, kv_mask) -> torch.Tensor:
         raise TypeError(f"flash_decode takes float32 or bfloat16, got "
                         f"{q.dtype}")
     mask = kv_mask.to(torch.bool).contiguous()
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    sms = H100_SMS if is_meta(q) else \
+        torch.cuda.get_device_properties(q.device).multi_processor_count
     n_split, kps = kernel_plan(q, k, v, sms)
     out = torch.empty_like(q)
+    # every key counted live: the shapes are all a meta tensor holds
+    cost = (k4_cost, q.shape, hkv, b * t, mask.numel(), q.element_size())
+    if is_meta(q):
+        record("flash_decode", *cost)
+        return out
     with build.on_device(q.device):
         err = build.load_library().flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
@@ -617,6 +624,7 @@ def flash_decode(q, k, v, kv_mask) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
     flash_decode.launches += 1
+    record("flash_decode", *cost)
     return out
 
 

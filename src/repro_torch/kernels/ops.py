@@ -1,9 +1,15 @@
 """Port of repro/kernels/ops.py: the public wrappers around the kernels.
 
 Dispatch rule: a CPU tensor runs the kernel's plain PyTorch version, a CUDA
-tensor launches the hand-written kernel or raises. There is no ``impl``
-switch and no fallback on the GPU. Each wrapper counts its launches
-(``wrapper.launches``); ``launch_counts`` sums them by kernel.
+tensor launches the hand-written kernel or raises, and a ``meta`` tensor
+(the dry-run cells of ``launch.cells``) shapes and counts but never
+computes a value: the wrapper makes every output and scratch tensor it
+makes on the card, skips the launch, and adds the kernel's operations and
+bytes (``cost``) to the active ``cost.KernelCounter``. There is no ``impl``
+switch and no fallback on the GPU. Each wrapper counts its real launches
+(``wrapper.launches``); ``launch_counts`` sums them by kernel. K3, its
+backward, K1's drains and gather and K4 take ``meta`` tensors; the paged
+reads (K2, K2s), the sketch's kernels and the LRU scan do not.
 """
 from __future__ import annotations
 

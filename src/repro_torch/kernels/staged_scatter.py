@@ -33,7 +33,11 @@ bytes, the valid rows read and every output row written once, plus the
 routing.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise.
+launch the kernel or raise; on a ``meta`` tensor they make the outputs,
+skip the launch and add the kernel's cost (``cost.k1_cost`` summed over a
+table's planes, ``cost.k1_gather_cost``; every staged row counted valid:
+the shapes are all a meta tensor holds) to the active
+``KernelCounter``.
 """
 from __future__ import annotations
 
@@ -43,6 +47,7 @@ from typing import Sequence, Tuple
 import torch
 
 from . import build
+from .cost import is_meta, k1_cost, k1_gather_cost, record
 
 # planes one launch takes (``csrc/staged_scatter.cu::kMaxPlanes``): the K
 # and V planes of 16 head shards, as K2s reads 16 shards a launch
@@ -107,10 +112,20 @@ def _check(dest, staging, dst_row, valid, lead):
             raise ValueError("all staged_scatter operands must share a device")
 
 
-def _launch(planes, dst_row, valid):
+def _table_cost(planes, dst_row):
+    """One launch's cost: its planes' rows (a plane of L layers counts L),
+    each staged row counted valid, and the routing once."""
+    n, idx = dst_row.shape[0], dst_row.element_size()
+    return 0, sum(k1_cost(n, 0 if j else n, d.shape[-1], d.element_size(),
+                          idx, planes=d.shape[0])[1]
+                  for j, (d, _) in enumerate(planes))
+
+
+def _launch(name, planes, dst_row, valid):
     """Launch the kernel once per ``MAX_PLANES`` planes of ``planes``
     (``(dest [L, R, W], staging [L, N, W])`` on one CUDA device, checked);
-    returns the launches made. The routing goes as the caller holds it."""
+    returns the launches made (none on ``meta``), each recorded under
+    ``name``. The routing goes as the caller holds it."""
     if dst_row.dtype not in _INDEX_DTYPES:
         raise TypeError(f"staged_scatter takes int32 or int64 rows on the "
                         f"GPU, got {dst_row.dtype}")
@@ -122,6 +137,10 @@ def _launch(planes, dst_row, valid):
     if n == 0 or not planes:
         return 0
     dev = planes[0][0].device
+    if dev.type == "meta":
+        for k in range(0, len(planes), MAX_PLANES):
+            record(name, _table_cost, planes[k:k + MAX_PLANES], dst_row)
+        return 0
     lib = build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     launches = 0
@@ -149,6 +168,7 @@ def _launch(planes, dst_row, valid):
         if err != 0:
             raise RuntimeError(f"staged_scatter launch failed: CUDA error "
                                f"{err}")
+        record(name, _table_cost, part, dst_row)
         launches += 1
     return launches
 
@@ -173,7 +193,8 @@ def staged_scatter_planes(planes: Sequence[Plane], dst_row: torch.Tensor,
     if dev.type == "cpu":
         staged_scatter_planes_ref(planes, dst_row, valid)
         return
-    staged_scatter_planes.launches += _launch(planes, dst_row, valid)
+    staged_scatter_planes.launches += _launch("staged_scatter", planes,
+                                              dst_row, valid)
 
 
 def staged_scatter(dest, staging, dst_row, valid) -> torch.Tensor:
@@ -184,7 +205,8 @@ def staged_scatter(dest, staging, dst_row, valid) -> torch.Tensor:
     if dest.device.type == "cpu":
         return staged_scatter_ref(dest, staging, dst_row, valid, inplace=True)
     staged_scatter.launches += _launch(
-        [(dest.unsqueeze(0), staging.unsqueeze(0))], dst_row, valid)
+        "staged_scatter", [(dest.unsqueeze(0), staging.unsqueeze(0))],
+        dst_row, valid)
     return dest
 
 
@@ -197,8 +219,8 @@ def staged_scatter_layers(dest, staging, dst_row, valid) -> torch.Tensor:
     if dest.device.type == "cpu":
         staged_scatter_planes_ref([(dest, staging)], dst_row, valid)
         return dest
-    staged_scatter_layers.launches += _launch([(dest, staging)], dst_row,
-                                              valid)
+    staged_scatter_layers.launches += _launch(
+        "staged_scatter", [(dest, staging)], dst_row, valid)
     return dest
 
 
@@ -242,6 +264,10 @@ def staged_gather(src: torch.Tensor, dst_row: torch.Tensor,
     if n == 0 or src.shape[1] == 0:
         return out.zero_()
     e = src.element_size()
+    cost = (k1_gather_cost, n, n, src.shape[1], e, dst_row.element_size())
+    if is_meta(src):
+        record("staged_gather", *cost)
+        return out
     with build.on_device(src.device):
         err = build.load_library().staged_gather_launch(
             out.data_ptr(), src.data_ptr(), src.shape[1] * e, src.shape[0],
@@ -251,6 +277,7 @@ def staged_gather(src: torch.Tensor, dst_row: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"staged_gather launch failed: CUDA error {err}")
     staged_gather.launches += 1
+    record("staged_gather", *cost)
     return out
 
 
@@ -278,7 +305,8 @@ def _drain(staging, dst_row, valid, n_rows):
     if dest.device.type == "cpu":
         return staged_scatter_ref(dest, staging, dst_row, valid, inplace=True)
     staged_drain.launches += _launch(
-        [(dest.unsqueeze(0), staging.unsqueeze(0))], dst_row, valid)
+        "staged_drain", [(dest.unsqueeze(0), staging.unsqueeze(0))],
+        dst_row, valid)
     return dest
 
 

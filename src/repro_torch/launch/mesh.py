@@ -2,9 +2,10 @@
 
 Functions, not module-level constants, so importing this module touches no
 device. A mesh is ``ParallelConfig.build_mesh`` over the devices of
-``device`` (the card's distinct devices, or ``REPRO_TORCH_VIRTUAL_DEVICES``
-virtual ones): with fewer devices than the mesh needs it raises
-``ValueError``, as ``jax.make_mesh`` does.
+``device`` (the card's distinct devices, ``REPRO_TORCH_VIRTUAL_DEVICES``
+virtual ones, or for ``device="meta"`` an abstract mesh that needs no
+device: the dry-run cells' ``launch.cells``): with fewer devices than the
+mesh needs it raises ``ValueError``, as ``jax.make_mesh`` does.
 """
 from __future__ import annotations
 

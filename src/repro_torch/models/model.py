@@ -3,15 +3,21 @@ the family dispatch: dense and vlm -> ``DecoderLM`` (the VLM's gated cross
 layers when ``cross_attn_every > 0``), moe -> ``MoELM`` (``dispatch_mode``,
 staged by default), ssm -> ``MambaLM``, hybrid -> ``ZambaLM``, encdec ->
 ``WhisperModel``; ``media_spec`` / ``needs_media``, which say which
-families take media and in what shape; ``trunk_parts``, how each family
+families take media and in what shape; ``input_specs`` / ``abstract_params``,
+the abstract inputs and parameters of a dry-run cell (``ShapeDtypeStruct``
+trees in the JAX package's layout, built on the ``meta`` device: no weight
+drawn, nothing allocated); ``trunk_parts``, how each family
 nests its layers under remat, and ``remat_calls``, the attention and SSD
 calls a remat train step makes. The model lives on the GPU unless
 the caller asks for ``device="cpu"``."""
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
-from ..configs.base import DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig
+import torch
+
+from ..configs.base import (DENSE, ENCDEC, HYBRID, MOE, SSM, VLM, ModelConfig,
+                            ShapeSpec)
 from .moe_lm import MoELM
 from .ssm_lm import MambaLM, ZambaLM
 from .transformer import DecoderLM
@@ -48,6 +54,58 @@ def media_spec(cfg: ModelConfig, batch: int) -> Tuple[int, int, int]:
 
 def needs_media(cfg: ModelConfig) -> bool:
     return cfg.family in (VLM, ENCDEC)
+
+
+def _spec(t) -> Any:
+    from ..distributed.sharding import ShapeDtypeStruct
+    return ShapeDtypeStruct(tuple(t.shape), t.dtype)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """Abstract inputs of one dry-run cell (``ShapeDtypeStruct``s, no
+    allocation), keyed as the JAX package keys them.
+
+    train:   {tokens, labels[, media]}
+    prefill: {tokens[, media]}
+    decode:  {tokens [B], pos [B], cache (the family's cache tree)}
+    """
+    from ..distributed.sharding import ShapeDtypeStruct
+    from .transformer import compute_dtype
+
+    dtype = compute_dtype(cfg)
+    b, s = shape.global_batch, shape.seq_len
+    tok = ShapeDtypeStruct((b, s), torch.int32)
+    if shape.step in ("train", "prefill"):
+        specs = {"tokens": tok}
+        if shape.step == "train":
+            specs["labels"] = ShapeDtypeStruct((b, s), torch.int32)
+        if needs_media(cfg):
+            specs["media"] = ShapeDtypeStruct(media_spec(cfg, b), dtype)
+        return specs
+    if shape.step == "decode":
+        model = build_model(cfg, device="meta", max_seq=s)
+        cache = model.init_cache(b, s, dtype)
+        return {"tokens": ShapeDtypeStruct((b,), torch.int32),
+                "pos": ShapeDtypeStruct((b,), torch.int32),
+                "cache": {k: _spec(v) for k, v in cache.items()}}
+    raise ValueError(shape.step)
+
+
+def abstract_params(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, Any]:
+    """The parameters of a cell as a ``ShapeDtypeStruct`` tree in the JAX
+    layout (``models.layout.jax_tree``: a stack's layers on a leading
+    axis), from a model built on ``meta`` (whisper's decoder positions
+    sized by ``max_seq = shape.seq_len``)."""
+    from ..distributed.sharding import ShapeDtypeStruct
+    from .layout import jax_tree
+
+    model = build_model(cfg, device="meta", max_seq=shape.seq_len)
+
+    def leaf(values, stacked):
+        one = values[0]
+        return ShapeDtypeStruct(((len(values),) if stacked else ())
+                                + tuple(one.shape), one.dtype)
+    return jax_tree(model.named_parameters(), leaf)
 
 
 class TrunkPart(NamedTuple):

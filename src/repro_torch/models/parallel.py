@@ -82,11 +82,12 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from ..configs.base import ENCDEC, HYBRID, SSM
+from ..configs.base import DENSE, ENCDEC, HYBRID, SSM
 from ..distributed.collectives import (StepMesh, all_gather, copy_to,
                                        exclusive_prefix, psum, scatter_to)
-from ..distributed.sharding import (attention_scheme, axis_size,
-                                    batch_pspec, entry_axes, layer_pspec)
+from ..distributed.sharding import (NamedSharding, ShardedTensor,
+                                    attention_scheme, axis_size, batch_pspec,
+                                    entry_axes, layer_pspec)
 from . import layers as L
 from .layout import jax_key
 from .model import trunk_parts
@@ -363,7 +364,10 @@ def route_whole(plan: MeshPlan, sm: StepMesh, router: Ranks, xt: Ranks,
         weights.append(w.to(x.dtype))
         f_sum.append(nn.functional.one_hot(i[:, 0], e).float().sum(dim=0))
         p_sum.append(probs.sum(dim=0))
-        load.append(torch.bincount(i.reshape(-1), minlength=e))
+        # bincount's output size depends on the data: no meta kernel
+        flat = i.reshape(-1)
+        load.append(torch.zeros(e, dtype=torch.int64, device=flat.device)
+                    .index_add_(0, flat, torch.ones_like(flat)))
     axes = sm.batch_axes
     f_sum = psum(sm, f_sum, axes, "moe_route_fraction")
     p_sum = psum(sm, p_sum, axes, "moe_route_prob")
@@ -702,6 +706,160 @@ def sharded_loss(plan: MeshPlan, params: Dict[str, Ranks], mb, *,
 
 
 # ---------------------------------------------------------------------------
+# serving under the training shardings (the dense family's dry-run cells)
+# ---------------------------------------------------------------------------
+
+
+class ServePlan(MeshPlan):
+    """A :class:`MeshPlan` whose parameters are placed by the training
+    rules (FSDP over ``data``, the Megatron split over ``model``), as the
+    JAX package's serving cells place them: ``params`` holds each
+    parameter's pieces, one a mesh device (the model keeps ``meta`` tensors
+    of their shapes). The KV cache is split over the batch axes and, over
+    ``model``, by the heads each rank's attention reads: its piece of the
+    heads (``cache_pspec``'s split) where the scheme is ``heads``, else the
+    kv heads its q heads read (``kv_heads``, a zero head for a padded q
+    head), so K4 or K3 reads the rank's own heads and no merge across ranks
+    is needed. (``cache_pspec`` splits such a cache's SEQUENCE over
+    ``model``; a read of that layout needs a log-sum-exp merge across the
+    ranks, the long_500k item of ROADMAP.md.)"""
+
+    def __init__(self, model, mesh):
+        super().__init__(model, mesh)
+        if self.cfg.family != DENSE:
+            raise NotImplementedError(
+                f"sharded serving is built for the dense family, not "
+                f"{self.cfg.family}")
+        with torch.no_grad():
+            self.params = {
+                k: list(ShardedTensor.place(
+                    p.detach(), NamedSharding(mesh, self.specs[k])).shards)
+                for k, p in model.named_parameters()}
+        release_masters(model)
+        self.cache_layout = "heads" if self.scheme == "heads" \
+            else "kv_of_rank"
+
+    def rank_kv_heads(self, r: int) -> int:
+        """How many kv heads device ``r``'s cache holds."""
+        if self.scheme == "heads":
+            return self.cfg.n_kv_heads // self.m
+        return len(self.kv_heads[self.mesh.index(r, ("model",))])
+
+    def place_cache(self, cache: Dict[str, torch.Tensor]):
+        """``{"k": ranks, "v": ranks}``: each device's rows (over the dp
+        axes ``cache_pspec`` splits them on) of its kv heads of the whole
+        ``[L, B, S, Hkv, Dh]`` cache."""
+        k = cache["k"]
+        dp = batch_axes(self, (k.shape[1],))
+        sm = StepMesh(self.mesh, dp)
+        out = {}
+        for name in ("k", "v"):
+            rows = L.shard_batch(sm, cache[name].transpose(0, 1), dp)
+            ranks = []
+            for r, x in enumerate(rows):
+                x = x.transpose(0, 1)
+                if self.scheme == "heads":
+                    n = x.shape[3] // self.m
+                    mi = self.mesh.index(r, ("model",))
+                    x = x.narrow(3, mi * n, n)
+                else:
+                    idx = torch.tensor(self.kv_heads[self.mesh.index(
+                        r, ("model",))], device=x.device)
+                    x = L.pad_axis(x, 3, x.shape[3] + 1).index_select(3, idx)
+                ranks.append(x.contiguous())
+            out[name] = ranks
+        return out
+
+
+def _serve_layer(plan: ServePlan, sm: StepMesh, i: int, xs: Ranks,
+                 read) -> Ranks:
+    """Dense layer ``i`` for serving: the attention (pre-norm, Megatron
+    split: ``read(r, pa, hn)`` gives device ``r``'s projected output over
+    its heads, summed over ``model``), then the MLP."""
+    prefix = f"blocks.{i}."
+    params = plan.params
+    norm = _norm(params, prefix + "ln1", sm.n)
+    w = attention_weights(plan, sm, params, prefix + "attn.")
+    hn = copy_to(sm, [L.apply_norm(plan.cfg, norm[r], x)
+                      for r, x in enumerate(xs)], "model", "attn_in")
+    parts = [read(r, {k: v[r] for k, v in w.items()}, x)
+             for r, x in enumerate(hn)]
+    out = psum(sm, parts, "model", "attn_out")
+    xs = [x + o for x, o in zip(xs, out)]
+    return mlp(plan, sm, params, prefix, xs)
+
+
+def _serve_logits(plan: ServePlan, sm: StepMesh, xs: Ranks) -> Ranks:
+    """Each device's fp32 logits ``[B, V / m]`` of the last position."""
+    norm = _norm(plan.params, "ln_f", sm.n)
+    h = [L.apply_norm(plan.cfg, norm[r], x[:, -1:]) for r, x in enumerate(xs)]
+    logits, _ = vocab_logits(plan, sm, plan.params, h)
+    return [lg[:, 0] for lg in logits]
+
+
+@torch.no_grad()
+def sharded_decode_step(plan: ServePlan, cache, tokens: torch.Tensor,
+                        pos: torch.Tensor):
+    """One decode step (``DecoderLM.decode_step``'s direct path) on the
+    mesh: tokens ``[B]``, pos ``[B]`` (whole) -> (each device's logits
+    ``[B_local, V / m]``, the cache updated in place). Each device writes
+    its rows' new K/V into its heads' lanes and reads them through K4
+    (``flash_decode``)."""
+    from .transformer import (cache_slots, compute_dtype, lane_write_plan,
+                              valid_mask, write_lanes)
+
+    cfg = plan.cfg
+    axes = batch_axes(plan, tuple(tokens.shape))
+    sm = StepMesh(plan.mesh, axes)
+    tok = L.shard_batch(sm, tokens[:, None], axes)
+    ps = L.shard_batch(sm, pos, axes)
+    xs = embed(plan, sm, plan.params, tok, compute_dtype(cfg))
+    clen = cache["k"][0].shape[2]
+    writes = [lane_write_plan(cache_slots(cfg, p, clen), clen) for p in ps]
+    masks = [valid_mask(cfg, p, clen) for p in ps]
+    for i in range(cfg.n_layers):
+        def read(r, pa, x, i=i):
+            kc, vc = cache["k"][r][i], cache["v"][r][i]
+            k_new, v_new = L.project_kv(cfg, pa, x, ps[r][:, None])
+            write_lanes(kc, vc, k_new, v_new, writes[r])
+            return L.decode_attention(cfg, pa, x, ps[r], kc, vc, masks[r])
+        xs = _serve_layer(plan, sm, i, xs, read)
+    return _serve_logits(plan, sm, xs), cache
+
+
+@torch.no_grad()
+def sharded_chunk_prefill(plan: ServePlan, cache, tokens: torch.Tensor,
+                          start_pos: int):
+    """One prompt chunk (``DecoderLM.chunk_prefill``) on the mesh: tokens
+    ``[B, C]`` (whole) at positions ``start_pos ..`` -> (each device's
+    last-token logits ``[B_local, V / m]``, the cache updated in place).
+    Each device's queries read its heads' lanes before the chunk's write
+    plus the chunk's own keys through K3 (``chunk_attention``), then the
+    chunk is written."""
+    from .transformer import compute_dtype
+
+    cfg = plan.cfg
+    axes = batch_axes(plan, tuple(tokens.shape))
+    sm = StepMesh(plan.mesh, axes)
+    tok = L.shard_batch(sm, tokens, axes)
+    xs = embed(plan, sm, plan.params, tok, compute_dtype(cfg))
+    b, c = tok[0].shape
+    positions = [(start_pos + torch.arange(c, device=x.device)).expand(b, c)
+                 for x in xs]
+    for i in range(cfg.n_layers):
+        def read(r, pa, x, i=i):
+            kc, vc = cache["k"][r][i], cache["v"][r][i]
+            k_new, v_new = L.project_kv(cfg, pa, x, positions[r])
+            out = L.chunk_attention(cfg, pa, x, positions[r], kc, vc, k_new,
+                                    v_new, start_pos)
+            L.write_chunk(kc, k_new, start_pos)
+            L.write_chunk(vc, v_new, start_pos)
+            return out
+        xs = _serve_layer(plan, sm, i, xs, read)
+    return _serve_logits(plan, sm, xs), cache
+
+
+# ---------------------------------------------------------------------------
 # the bytes the specs give
 # ---------------------------------------------------------------------------
 
@@ -886,8 +1044,9 @@ def expected_collective_bytes(plan: MeshPlan, rows: int, seq: int,
 
 
 __all__ = [
-    "MeshPlan", "attention", "attention_weights", "batch_axes", "embed",
-    "expected_collective_bytes", "expert_weights", "global_slots",
+    "MeshPlan", "ServePlan", "attention", "attention_weights", "batch_axes",
+    "embed", "expected_collective_bytes", "expert_weights", "global_slots",
     "mamba_layer", "mlp", "moe_ffn", "release_masters", "route_whole",
-    "sharded_loss", "vocab_logits",
+    "sharded_chunk_prefill", "sharded_decode_step", "sharded_loss",
+    "vocab_logits",
 ]
