@@ -359,10 +359,12 @@ line. Phases, each failing the run on any exception or mismatch:
   roofline  the dry-run count of train_sharded's stablelm (2, 2) bf16 arm
            (``launch.cells`` / ``launch.roofline`` on the meta device, no
            card) against one untimed call of the same step on the card
-           under the same counters: FLOPs, bytes, collective bytes and each
-           kernel's would-be launches equal, the launches also the
+           under the same counters: FLOPs (each dtype's and the slowest
+           rank's), bytes (the slowest rank's too), collective bytes and
+           each kernel's would-be launches equal, the launches also the
            wrappers' real ones; the arm's traced device ms at least the
-           bound of the four ranks on one card (a share over
+           bound of the four ranks on one card, each dtype's products at
+           its peak (a share over
            ``ROOFLINE_SHARE_MAX`` fails); the card's peak of live bytes
            over the step within ``ROOFLINE_PEAK_RTOL`` / ``_ATOL`` of the
            meta count. No timed card run of its own
@@ -7663,8 +7665,8 @@ def phase_roofline(sharded):
     the kernels' would-be launches). On the card: the same step (the arm's
     model, placed on virtual devices, an int32 batch as the cell's) once,
     untimed, under the same counters. The bound of the four ranks on one
-    card is the larger of the step's FLOPs at the bf16 peak and its bytes at
-    the HBM rate (the virtual collectives are the sums and copies the byte
+    card is the larger of the step's FLOPs, each dtype's at its peak (the
+    fp32 head at 67 TFLOP/s), and its bytes at the HBM rate (the virtual collectives are the sums and copies the byte
     count holds); the arm's traced bf16 step is the measured time."""
     tag, arch, over, shape, mode = next(
         a for a in TRAIN_SHARDED_ARMS if a[0] == ROOFLINE_ARM)
@@ -7712,7 +7714,8 @@ def phase_roofline(sharded):
             + ROOFLINE_PEAK_ATOL:
         problems.append(f"peak bytes: card {card_peak} meta {meta_peak}")
     flops, nbytes = meta["flops"] * n, meta["bytes"] * n
-    bound_ms = max(flops / ROOF.PEAK_FLOPS, nbytes / ROOF.HBM_BW) * 1e3
+    t_ops = ROOF.compute_seconds(meta) * n
+    bound_ms = max(t_ops, nbytes / ROOF.HBM_BW) * 1e3
     device = sharded[tag]["bf16"]["device_ms"]
     share = bound_ms / device if device else None
     if share is None or share > ROOFLINE_SHARE_MAX:
@@ -7729,9 +7732,11 @@ def phase_roofline(sharded):
         launches=meta_launches, peak_bytes_meta=meta_peak,
         peak_bytes_card=card_peak,
         peak_card_over_meta=card_peak / meta_peak if meta_peak else None,
-        bound_ms=bound_ms,
-        bound_by="operations" if flops / ROOF.PEAK_FLOPS
-        >= nbytes / ROOF.HBM_BW else "bytes",
+        flops_by_dtype={k[6:]: v * n for k, v in meta.items()
+                        if k.startswith("flops:")},
+        rank_balance=ROOF.rank_balance(meta), bound_ms=bound_ms,
+        bound_by="operations" if t_ops >= nbytes / ROOF.HBM_BW
+        else "bytes",
         device_ms=device, bound_share_of_device=share,
         terms_per_rank=cells, card_counts_equal=not problems)
     if problems:

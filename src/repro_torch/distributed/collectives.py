@@ -34,17 +34,52 @@ Each call counts its calls and bytes under ``(op, axes, what)``
 the kernels' launch counters: the bytes that arrive at the group's members
 from the others, by the ring algorithm (an all-gather or a reduce-scatter
 (k - 1) x the whole, an all-reduce 2 (k - 1) x one member's tensor, for a
-group of k); a group of one device moves nothing and is not counted.
+group of k); a group of one device moves nothing and is not counted. Each
+callable in ``OUTPUT_OBSERVERS`` is given every collective's outputs, one
+tensor a device, and ``emulating()`` is true while the sums and copies that
+stand in for a collective's transfers run (``launch.roofline`` counts a
+step device by device from them).
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import functools
+from typing import Callable, Dict, List, Sequence, Tuple
 
 import torch
 
 from .sharding import Mesh
 
 _COUNTS: Dict[Tuple[str, Tuple[str, ...], str], List[int]] = {}
+
+
+# each given every collective's outputs, one tensor a device
+OUTPUT_OBSERVERS: List[Callable[[Sequence[torch.Tensor]], None]] = []
+# the stand-ins for a collective's transfers running now (nested)
+_EMULATING = [0]
+
+
+def _observed(out):
+    for f in OUTPUT_OBSERVERS:
+        f(out)
+    return out
+
+
+def _emulated(fn):
+    """``fn``'s ops stand in for a collective's transfers: no device's own
+    work."""
+    @functools.wraps(fn)
+    def inner(*args, **kwargs):
+        _EMULATING[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _EMULATING[0] -= 1
+    return inner
+
+
+def emulating() -> bool:
+    """Whether a collective's stand-in sums and copies are running."""
+    return _EMULATING[0] > 0
 
 
 def _count(op: str, axes, what: str, nbytes: int) -> None:
@@ -114,6 +149,7 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+@_emulated
 def _sum_group(xs, group, dev):
     """The members' values of ``group`` summed in group order on ``dev``."""
     total = xs[group[0]].to(dev)
@@ -122,6 +158,7 @@ def _sum_group(xs, group, dev):
     return total
 
 
+@_emulated
 def _allreduce(sm: StepMesh, xs, axes, op: str, what: str):
     """Sum over each group, the result on every member (no autograd)."""
     out = [None] * len(xs)
@@ -134,7 +171,7 @@ def _allreduce(sm: StepMesh, xs, axes, op: str, what: str):
             out[r] = total if j == 0 else total.to(sm.device(r), copy=True)
         if len(g) > 1:
             _count(op, axes, what, 2 * (len(g) - 1) * _nbytes(xs[g[0]]))
-    return out
+    return _observed(out)
 
 
 class _Psum(torch.autograd.Function):
@@ -161,6 +198,7 @@ class _CopyTo(torch.autograd.Function):
         return (None, None, None) + tuple(out)
 
 
+@_emulated
 def _gather_group(xs, group, dim, dev):
     return torch.cat([xs[r].to(dev) for r in group], dim=dim)
 
@@ -178,7 +216,7 @@ class _AllGather(torch.autograd.Function):
                 whole = out[r]
             _count("all_gather", (axis,), what,
                    (len(g) - 1) * _nbytes(whole))
-        return tuple(out)
+        return tuple(_observed(out))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -204,7 +242,7 @@ class _AllGather(torch.autograd.Function):
             if reduce:
                 _count("reduce_scatter", (axis,), ctx.what,
                        (len(g) - 1) * _nbytes(gs[g[0]]))
-        return (None, None, None, None) + tuple(out)
+        return (None, None, None, None) + tuple(_observed(out))
 
 
 class _ScatterTo(torch.autograd.Function):
@@ -216,7 +254,7 @@ class _ScatterTo(torch.autograd.Function):
             k = sm.size(axis)
             w = x.shape[dim] // k
             out.append(x.narrow(dim, sm.index(r, axis) * w, w).contiguous())
-        return tuple(out)
+        return tuple(_observed(out))
 
     @staticmethod
     def backward(ctx, *gs):
@@ -230,7 +268,7 @@ class _ScatterTo(torch.autograd.Function):
                 out[r] = _gather_group(parts, g, dim, sm.device(r))
             _count("all_gather", (axis,), ctx.what,
                    (len(g) - 1) * _nbytes(out[g[0]]))
-        return (None, None, None, None) + tuple(out)
+        return (None, None, None, None) + tuple(_observed(out))
 
 
 def _trivial(sm: StepMesh, axes) -> bool:
@@ -272,7 +310,7 @@ def all_gather(sm: StepMesh, xs, axis: str, dim: int, what: str):
                 out[r] = _gather_group(xs, g, dim, sm.device(r))
             _count("all_gather", (axis,), what,
                    (len(g) - 1) * _nbytes(out[g[0]]))
-        return out
+        return _observed(out)
     return list(_AllGather.apply(sm, axis, dim, what, *xs))
 
 
@@ -285,6 +323,7 @@ def scatter_to(sm: StepMesh, xs, axis: str, dim: int, what: str):
 
 
 @torch.no_grad()
+@_emulated
 def pmax(sm: StepMesh, xs, axes, what: str):
     """The elementwise max over ``axes`` on every member; no gradient."""
     axes = _axes(sm, axes)
@@ -301,10 +340,11 @@ def pmax(sm: StepMesh, xs, axes, what: str):
             out[r] = m.to(sm.device(r))
         _count("all_reduce_max", axes, what,
                2 * (len(g) - 1) * _nbytes(xs[g[0]]))
-    return out
+    return _observed(out)
 
 
 @torch.no_grad()
+@_emulated
 def exclusive_prefix(sm: StepMesh, xs, axes, what: str):
     """Member ``j`` of each group gets the sum of members ``0..j-1``'s
     values (integers, added in group order); no gradient."""
@@ -318,11 +358,11 @@ def exclusive_prefix(sm: StepMesh, xs, axes, what: str):
         if len(g) > 1:
             _count("all_gather", axes, what,
                    len(g) * (len(g) - 1) * _nbytes(xs[g[0]]))
-    return out
+    return _observed(out)
 
 
 __all__ = [
-    "StepMesh", "all_gather", "collective_bytes",
-    "collective_counts", "copy_to", "exclusive_prefix", "pmax", "psum",
+    "OUTPUT_OBSERVERS", "StepMesh", "all_gather", "collective_bytes",
+    "collective_counts", "copy_to", "emulating", "exclusive_prefix", "pmax", "psum",
     "reset_collective_counts", "scatter_to",
 ]

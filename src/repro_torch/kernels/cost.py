@@ -11,8 +11,8 @@ kernel table the count of this run's data, a wrapper the count the shapes
 allow (every row valid, every key live), which is all a meta tensor holds.
 
 Peaks: one NVIDIA H100 SXM (NVIDIA's data sheet, dense, at its 700 W power
-limit): 989 TFLOP/s in bf16, 67 TFLOP/s in fp32 outside the tensor cores,
-3.35 TB/s of HBM3, 80 GB.
+limit): 989 TFLOP/s in bf16, 67 TFLOP/s in fp32 outside the tensor cores
+(the port keeps ``allow_tf32`` off), 3.35 TB/s of HBM3, 80 GB.
 
 :class:`KernelCounter` records, while it is active, each wrapper call that
 launches a kernel on a CUDA tensor or would launch it on a ``meta`` one:
@@ -21,8 +21,7 @@ apart from ``wrapper.launches``, which counts real launches only.
 """
 from __future__ import annotations
 
-import functools
-from typing import Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -33,16 +32,22 @@ HBM_BYTES = 80e9
 H100_SMS = 132
 
 
-@functools.lru_cache(maxsize=256)
+def _tri(n: int) -> int:
+    """1 + 2 + ... + n (0 for n <= 0)."""
+    return n * (n + 1) // 2 if n > 0 else 0
+
+
 def live_pairs(s: int, t: int, causal: bool, window: int) -> int:
     """(query, key) pairs the mask lets through, per head: ``s`` queries at
-    the end of ``t`` keys, causal or not, a sliding ``window`` (0: none)."""
-    total = 0
-    for qa in range(t - s, t):
-        hi = min(qa if causal else t - 1, t - 1)
-        lo = max(qa - window + 1, 0) if window > 0 else 0
-        total += max(hi - lo + 1, 0)
-    return total
+    the end of ``t`` keys (query ``q`` at position ``t - s .. t - 1``),
+    causal or not, a sliding ``window`` (0: none). Query ``q`` sees
+    ``max(q + 1, 0)`` keys causally, ``t`` otherwise, less the
+    ``max(q + 1 - window, 0)`` the window drops: sums of arithmetic
+    series."""
+    def clipped(c):    # sum over q of max(q + c, 0)
+        return _tri(t - 1 + c) - _tri(t - s - 1 + c)
+    seen = clipped(1) if causal else s * t
+    return seen - (clipped(1 - window) if window > 0 else 0)
 
 
 def bound_ms(flops: float, nbytes: float, dtype) -> Tuple[float, str]:
@@ -109,16 +114,23 @@ class KernelCounter:
     """While active (``with KernelCounter() as kc:``), every wrapper call
     that launches or would launch a kernel adds here: ``counts[name] =
     {"launches", "flops", "bytes"}``. Counters nest; each active one
-    records."""
+    records. ``observer``, where given, is also called as ``observer(x,
+    flops, nbytes)`` for each call, ``x`` the tensor the kernel runs on
+    (``launch.roofline`` prices the operations in ``x``'s dtype and counts
+    the call to ``x``'s rank)."""
 
-    def __init__(self):
+    def __init__(self, observer: Optional[Callable] = None):
         self.counts: Dict[str, Dict[str, int]] = {}
+        self.observer = observer
 
-    def add(self, name: str, flops: int, nbytes: int) -> None:
+    def add(self, name: str, x: torch.Tensor, flops: int,
+            nbytes: int) -> None:
         c = self.counts.setdefault(name, dict(launches=0, flops=0, bytes=0))
         c["launches"] += 1
         c["flops"] += int(flops)
         c["bytes"] += int(nbytes)
+        if self.observer is not None:
+            self.observer(x, int(flops), int(nbytes))
 
     def total(self, key: str) -> int:
         return sum(c[key] for c in self.counts.values())
@@ -137,15 +149,16 @@ class KernelCounter:
 _ACTIVE: List[KernelCounter] = []
 
 
-def record(name: str, cost_fn, *args) -> None:
-    """One call of kernel ``name``, launched or (on ``meta``) not: its
-    ``(flops, bytes) = cost_fn(*args)`` added to every active
-    :class:`KernelCounter` (worked out only while one is active, so a launch
-    on the card pays nothing for it otherwise)."""
+def record(name: str, x: torch.Tensor, cost_fn, *args) -> None:
+    """One call of kernel ``name`` on ``x`` (the tensor whose dtype its
+    operations run in), launched or (on ``meta``) not: its ``(flops,
+    bytes) = cost_fn(*args)`` added to every active :class:`KernelCounter`
+    (worked out only while one is active, so a launch on the card pays
+    nothing for it otherwise)."""
     if _ACTIVE:
         flops, nbytes = cost_fn(*args)
         for c in _ACTIVE:
-            c.add(name, flops, nbytes)
+            c.add(name, x, flops, nbytes)
 
 
 def is_meta(t: torch.Tensor) -> bool:

@@ -200,10 +200,9 @@ def _forward(q, k, v, causal, window, lse):
         strides = [tensor_map_geometry(x)["strides"] for x in ts]
     else:
         strides = [x.stride()[:3] for x in ts]
-    cost = (k3_cost, q.shape, k.shape, q.element_size(), causal, window,
-            lse is not None)
+    record("flash_attention", q, k3_cost, q.shape, k.shape,
+           q.element_size(), causal, window, lse is not None)
     if is_meta(q):
-        record("flash_attention", *cost)
         return out
     with build.on_device(q.device):
         err = build.load_library().flash_attention_launch(
@@ -218,7 +217,6 @@ def _forward(q, k, v, causal, window, lse):
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     flash_attention.launches += 1
-    record("flash_attention", *cost)
     return out
 
 
@@ -308,9 +306,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     scratch = torch.empty((2 * b * hq * -(-s // 64) * 64,),
                           dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[st for x in strides for st in x])
-    cost = (k3_bwd_cost, q.shape, k.shape, q.element_size(), causal, window)
+    record("flash_attention_bwd", q, k3_bwd_cost, q.shape, k.shape,
+           q.element_size(), causal, window)
     if is_meta(q):
-        record("flash_attention_bwd", *cost)
         return dq, dk, dv
     with build.on_device(q.device):
         err = build.load_library().flash_attention_bwd_launch(
@@ -327,7 +325,6 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
         raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
                            f"{err}")
     flash_attention_bwd.launches += 1
-    record("flash_attention_bwd", *cost)
     return dq, dk, dv
 
 

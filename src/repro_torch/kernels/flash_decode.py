@@ -609,9 +609,9 @@ def flash_decode(q, k, v, kv_mask) -> torch.Tensor:
     n_split, kps = kernel_plan(q, k, v, sms)
     out = torch.empty_like(q)
     # every key counted live: the shapes are all a meta tensor holds
-    cost = (k4_cost, q.shape, hkv, b * t, mask.numel(), q.element_size())
+    record("flash_decode", q, k4_cost, q.shape, hkv, b * t, mask.numel(),
+           q.element_size())
     if is_meta(q):
-        record("flash_decode", *cost)
         return out
     with build.on_device(q.device):
         err = build.load_library().flash_decode_launch(
@@ -624,7 +624,6 @@ def flash_decode(q, k, v, kv_mask) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"flash_decode launch failed: CUDA error {err}")
     flash_decode.launches += 1
-    record("flash_decode", *cost)
     return out
 
 

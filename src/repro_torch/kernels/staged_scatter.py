@@ -137,15 +137,15 @@ def _launch(name, planes, dst_row, valid):
     if n == 0 or not planes:
         return 0
     dev = planes[0][0].device
-    if dev.type == "meta":
-        for k in range(0, len(planes), MAX_PLANES):
-            record(name, _table_cost, planes[k:k + MAX_PLANES], dst_row)
-        return 0
-    lib = build.load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    meta = is_meta(planes[0][0])
     launches = 0
     for k in range(0, len(planes), MAX_PLANES):
         part = planes[k:k + MAX_PLANES]
+        record(name, part[0][0], _table_cost, part, dst_row)
+        if meta:
+            continue
+        lib = build.load_library()
+        stream = torch.cuda.current_stream(dev).cuda_stream
         m = len(part)
         es = [d.element_size() for d, _ in part]
 
@@ -168,7 +168,6 @@ def _launch(name, planes, dst_row, valid):
         if err != 0:
             raise RuntimeError(f"staged_scatter launch failed: CUDA error "
                                f"{err}")
-        record(name, _table_cost, part, dst_row)
         launches += 1
     return launches
 
@@ -264,9 +263,9 @@ def staged_gather(src: torch.Tensor, dst_row: torch.Tensor,
     if n == 0 or src.shape[1] == 0:
         return out.zero_()
     e = src.element_size()
-    cost = (k1_gather_cost, n, n, src.shape[1], e, dst_row.element_size())
+    record("staged_gather", src, k1_gather_cost, n, n, src.shape[1], e,
+           dst_row.element_size())
     if is_meta(src):
-        record("staged_gather", *cost)
         return out
     with build.on_device(src.device):
         err = build.load_library().staged_gather_launch(
@@ -277,7 +276,6 @@ def staged_gather(src: torch.Tensor, dst_row: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"staged_gather launch failed: CUDA error {err}")
     staged_gather.launches += 1
-    record("staged_gather", *cost)
     return out
 
 

@@ -12,7 +12,9 @@ state (masters, AdamW moments, KV cache, batch; exact from the specs,
 ``cells.resident_bytes``) plus the peak of the step's live transient bytes
 (counted on the meta depth probes and extrapolated in depth,
 ``roofline.probe_cell``). The roofline terms come from the single-pod
-probes. ``build_s`` is the seconds the full-depth cell takes to build on
+probes, priced at the slowest device's counts (``rank_balance``: its
+products and bytes over the mean, and the unattributed shares).
+``build_s`` is the seconds the full-depth cell takes to build on
 the host's CPU (JAX's ``compile_s``).
 
 Usage (CPU only, no GPU needed):
@@ -61,6 +63,7 @@ def run_cell(arch: str, shape_name: str, *, probes: bool = True,
             if not multi_pod:
                 rec["metrics"] = metrics
                 rec["roofline"] = R.roofline_terms(metrics, cfg, shape)
+                rec["rank_balance"] = R.rank_balance(metrics)
         total = sum(memory.values())
         one.update(memory=memory, per_device_gb=round(total / 2**30, 3),
                    resident_gb=round(resident / 2**30, 3),

@@ -736,8 +736,6 @@ class ServePlan(MeshPlan):
                     p.detach(), NamedSharding(mesh, self.specs[k])).shards)
                 for k, p in model.named_parameters()}
         release_masters(model)
-        self.cache_layout = "heads" if self.scheme == "heads" \
-            else "kv_of_rank"
 
     def rank_kv_heads(self, r: int) -> int:
         """How many kv heads device ``r``'s cache holds."""

@@ -10,12 +10,16 @@ branch, and the dense family's sharded serving steps.
 * per-device resident bytes on 16 x 16 and 2 x 16 x 16 equal those JAX's
   specs give for the same trees (the train state and batch of every train
   cell; the parameters and tokens of the dense serving cells, and their
-  KV cache where the scheme splits heads);
+  KV cache where the scheme splits heads); every serving cache equals a
+  hand count of the kv heads a device holds;
 * on ``meta`` each wrapper makes outputs of its plain version's shape and
   dtype, never loads the library (``build.load_library`` raises here), and
   counts its cost as the hand count;
 * the serving steps of ``models.parallel`` on a CPU mesh of 2 x 2 virtual
-  devices equal the single-device model's (fp32, reduced configs).
+  devices equal the single-device model's, and on 2 x 2 and 1 x 3 (padded
+  heads, a zero kv head) JAX's ``chunk_prefill`` / ``decode_step`` on the
+  same weights (fp32, reduced configs);
+* ``cost.live_pairs``'s closed form equals a loop over the queries.
 
 CPU; exact unless a tolerance is stated. The JAX trees are made once per
 module."""
@@ -246,24 +250,56 @@ def test_resident_bytes_equal_jax_train(arch):
         assert got == _jax_resident(arch, "train_4k", ms), (arch, ms)
 
 
+# kv heads a device's cache holds on the 16-wide ``model`` axis, by hand:
+# stablelm 32 / 32 heads split 2 a device (JAX's piece); qwen2's 28 q heads
+# padded to 32 run 2 a device in GQA groups of 7, so devices 3 (q 6, 7) and
+# 10 (q 20, 21) read two kv heads; nemotron's 3 q heads a device (48 / 8:
+# groups of 6) and h2o-danube's 2 (32 / 8: groups of 4) read one
+SERVE_KV_HEADS = {"stablelm-1.6b": 2, "qwen2-7b": 2, "nemotron-4-15b": 1,
+                  "h2o-danube-3-4b": 1}
+
+
+def _hand_cache_bytes(arch, shape_name, mesh_shape):
+    """K and V of JAX's cache ``[L, B, S, Hkv, Dh]``, each device holding
+    the rows of JAX's batch split and ``SERVE_KV_HEADS`` heads whole."""
+    cfg, shape = jget(arch), get_shape_j(shape_name)
+    mesh = jax_abstract_mesh(mesh_shape, _axes(mesh_shape))
+    cache = jax.eval_shape(lambda: j_build_model(cfg).init_cache(
+        shape.global_batch, shape.seq_len, jnp.dtype(cfg.dtype)))
+    total = 0
+    for k in ("k", "v"):
+        n_l, b, s, _, dh = cache[k].shape
+        rows = j_cache_pspec(cfg, mesh, k, cache[k].shape)[1]
+        for a in () if rows is None else (rows,) if isinstance(rows, str) \
+                else rows:
+            b //= mesh.shape[a]
+        total += n_l * b * s * SERVE_KV_HEADS[arch] * dh * \
+            np.dtype(cache[k].dtype).itemsize
+    return total
+
+
 @pytest.mark.parametrize("arch", DENSE_SERVE)
 def test_resident_bytes_equal_jax_serve(arch):
-    """The cache of a ``heads`` scheme is JAX's piece; the others hold the
-    kv heads of their q heads whole (``ServePlan``), not JAX's sequence
-    split: at least as many bytes."""
+    """Every cache equals the hand count (JAX's rows a device, the kv heads
+    of its q heads whole: ``ServePlan``); a ``heads`` scheme's is also
+    JAX's piece, the others' more than JAX's sequence split."""
     cfg = get_config(arch)
     for ms in MESHES:
         mesh = make_abstract_mesh(ms, _axes(ms))
+        plan = P.MeshPlan(build_model(cfg, device="meta"), mesh)
+        assert max(len(h) for h in plan.kv_heads) == SERVE_KV_HEADS[arch] \
+            or plan.scheme == "heads"
         for s in ("decode_32k", "prefill_32k"):
             got = C.resident_bytes(cfg, get_shape(s), mesh)
             want = _jax_resident(arch, s, ms)
             assert got["params"] == want["params"]
             assert got["batch"] == want["batch"]
-            plan = P.MeshPlan(build_model(cfg, device="meta"), mesh)
+            assert got["cache"] == _hand_cache_bytes(arch, s, ms), \
+                (arch, ms, s)
             if plan.scheme == "heads":
                 assert got["cache"] == want["cache"], (arch, ms, s)
             else:
-                assert got["cache"] >= want["cache"], (arch, ms, s)
+                assert got["cache"] > want["cache"], (arch, ms, s)
 
 
 # ---------------------------------------------------------------------------
@@ -367,6 +403,27 @@ def test_k4_meta_branch(no_library):
         bytes=b * t * hkv * d * 2 * 4 + 2 * b * hq * d * 4 + b * t)
 
 
+def _live_pairs_by_loop(s, t, causal, window):
+    total = 0
+    for qa in range(t - s, t):
+        hi = qa if causal else t - 1
+        lo = max(qa - window + 1, 0) if window > 0 else 0
+        total += max(hi - lo + 1, 0)
+    return total
+
+
+def test_live_pairs_closed_form_equals_a_loop():
+    for s in range(0, 12):
+        for t in range(0, 12):
+            for causal in (True, False):
+                for window in range(0, 14):
+                    assert COST.live_pairs(s, t, causal, window) == \
+                        _live_pairs_by_loop(s, t, causal, window), \
+                        (s, t, causal, window)
+    assert COST.live_pairs(4096, 32768, True, 4096) == \
+        _live_pairs_by_loop(4096, 32768, True, 4096)
+
+
 def test_cost_formulas_by_hand():
     assert COST.live_pairs(4, 4, True, 0) == 10
     assert COST.live_pairs(2, 6, True, 3) == 6
@@ -436,8 +493,6 @@ def test_sharded_serving_equals_single_device(arch):
     model = build_model(cfg, device="cpu")
     model.load_state_dict(weights)
     plan = P.ServePlan(model, mesh)
-    assert plan.cache_layout == ("heads" if plan.scheme == "heads"
-                                 else "kv_of_rank")
     gen = torch.Generator().manual_seed(4)
     b, s = 4, 48
     toks = torch.randint(0, cfg.vocab, (b, 32), generator=gen)
@@ -456,3 +511,58 @@ def test_sharded_serving_equals_single_device(arch):
     got, _ = P.sharded_decode_step(plan, placed, tok, pos)
     torch.testing.assert_close(_whole(got, mesh, b, cfg.vocab), want,
                                atol=1e-5, rtol=1e-5)
+
+
+JAX_TOL = dict(atol=2e-4, rtol=1e-4)   # the two frameworks sum in orders
+SERVE_MESHES = ((2, 2), (1, 3))
+
+
+@pytest.mark.parametrize("mesh_shape", SERVE_MESHES, ids=lambda m: "x".join(
+    map(str, m)))
+@pytest.mark.parametrize("arch", DENSE_SERVE)
+def test_sharded_serving_equals_jax(arch, mesh_shape):
+    """The last prompt chunk and a decode step on a CPU mesh against the
+    JAX package's ``chunk_prefill`` / ``decode_step`` with the same weights
+    (initialised by JAX, nonzero qkv biases), fp32. On (1, 3) the 4 reduced
+    q heads pad to 6: device 2 runs two zero q heads on a zero kv head."""
+    from repro_torch.checkpoint import params_from_numpy
+
+    jcfg = jget(arch).reduced()
+    jmodel = j_build_model(jcfg)
+    jparams = jmodel.init(jax.random.key(5), 48)
+    if jcfg.qkv_bias:
+        rng = np.random.RandomState(0)
+        attn = {k: (jnp.asarray(rng.randn(*v.shape).astype(np.float32) * 0.1)
+                    if k in ("bq", "bk", "bv") else v)
+                for k, v in jparams["blocks"]["attn"].items()}
+        jparams = dict(jparams, blocks=dict(jparams["blocks"], attn=attn))
+    cfg = get_config(arch).reduced()
+    model = params_from_numpy(jax.tree.map(np.asarray, jparams),
+                              build_model(cfg, device="cpu"))
+    mesh = Mesh([torch.device("cpu")] * int(np.prod(mesh_shape)),
+                mesh_shape, ("data", "model"))
+    plan = P.ServePlan(model, mesh)
+    if mesh_shape == (1, 3):
+        assert plan.hp == 6 and plan.kv_heads[2] == [cfg.n_kv_heads]
+    rng = np.random.RandomState(4)
+    b, s = 4, 48
+    toks = rng.randint(0, cfg.vocab, (b, 32)).astype(np.int32)
+    jcache = jmodel.init_cache(b, s)
+    _, jcache = jmodel.chunk_prefill(jparams, jcache, jnp.asarray(toks[:, :16]),
+                                     0)
+    placed = plan.place_cache({k: torch.from_numpy(np.array(v))
+                               for k, v in jcache.items()})
+    want, jcache = jmodel.chunk_prefill(jparams, jcache,
+                                        jnp.asarray(toks[:, 16:]), 16)
+    got, _ = P.sharded_chunk_prefill(plan, placed,
+                                     torch.from_numpy(toks[:, 16:]), 16)
+    np.testing.assert_allclose(_whole(got, mesh, b, cfg.vocab).numpy(),
+                               np.asarray(want), **JAX_TOL)
+    tok = rng.randint(0, cfg.vocab, (b,)).astype(np.int32)
+    pos = np.full((b,), 32, np.int32)
+    want, _ = jmodel.decode_step(jparams, jcache, jnp.asarray(tok),
+                                 jnp.asarray(pos))
+    got, _ = P.sharded_decode_step(plan, placed, torch.from_numpy(tok),
+                                   torch.from_numpy(pos))
+    np.testing.assert_allclose(_whole(got, mesh, b, cfg.vocab).numpy(),
+                               np.asarray(want), **JAX_TOL)

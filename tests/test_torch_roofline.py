@@ -9,9 +9,11 @@ JAX package's and against direct counts on the ``meta`` device.
 * the affine reconstruction: ``probe_cell`` at depth 4 on a 2 x 2 abstract
   mesh against a direct meta count of the depth-4 cell. Serving cells
   (decode, the last prefill chunk) agree on every count. Train cells (a
-  dense, an MoE and an enc-dec reduced config) agree on FLOPs, the
-  transient peak of the dense ones and every collective but the gradient
-  sum over the batch axes; their bytes and that sum differ by at most M
+  dense, an MoE and an enc-dec reduced config) agree on FLOPs (each
+  dtype's and the slowest device's too), the transient peak of the dense
+  ones and every collective but the gradient sum over the batch axes;
+  their bytes (the mean, the slowest device's and the unattributed) and
+  that sum differ by at most M
   times the optimizer part (the per-step part outside the microbatches),
   the JAX package's method carrying two known biases: it scales that part
   by the ``param_count`` ratio (the part is not proportional to the count:
@@ -24,12 +26,27 @@ JAX package's and against direct counts on the ``meta`` device.
   and at least ``XLA_SHARE`` of them (0.884 at depth 1, 0.874 at depth 2
   when measured).
 
+* products by dtype: the per-dtype counts sum to the total, which equals
+  ``FlopCounterMode``'s plus the kernels' own; a bf16 stablelm's fp32
+  products are its vocab head's by hand, and the terms price each dtype at
+  its peak on the slowest device's counts;
+* device by device: on a (1, 3) mesh where qwen2's 4 reduced q heads pad
+  to 6 (device 2 runs two zero q heads on a zero kv head) the slowest
+  device's products equal the mean when serving and its bytes are within
+  ``SERVE_BYTES_SPREAD`` (the vocab's padded lanes masked on the last
+  device); a train step's within ``TRAIN_SPREAD`` (1.021 products, 1.018
+  bytes when measured): the emulation recomputes every device's
+  checkpointed layer in one region and stops after the last device's last
+  saved value, so only that device skips its tail; at 256 devices one in
+  256 does.
+
 The JAX test ``test_scan_undercounts_unroll_doesnt`` has no twin: the port
 has no scan. CPU."""
 import dataclasses
 
 import jax
 import pytest
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro.compat import cost_analysis_dict
 from repro.configs import get_config as jget
@@ -41,10 +58,15 @@ from repro.launch.mesh import make_host_mesh
 from repro_torch.configs import ARCHS, get_config, get_shape
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.distributed.sharding import make_abstract_mesh
+from repro_torch.kernels import cost as COST
 from repro_torch.launch import cells as C
 from repro_torch.launch import roofline as R
+from repro_torch.models import parallel as P
+from repro_torch.models.model import build_model
 
 XLA_SHARE = 0.8
+SERVE_BYTES_SPREAD = 1.005
+TRAIN_SPREAD = 1.03
 
 
 def test_combine_equals_jax():
@@ -136,7 +158,8 @@ def test_affine_reconstruction_train(arch, depth, monkeypatch):
     ext = R.probe_cell(cfg, shape, mesh)
     direct = _direct(cfg, shape, mesh)
     assert ext["flops"] == direct["flops"]
-    approx = ("bytes", "coll_bytes", "coll_all_reduce:data", "peak_bytes")
+    approx = ("bytes", "bytes_rank_max", "bytes_unattributed", "coll_bytes",
+              "coll_all_reduce:data", "peak_bytes")
     for k in set(ext) | set(direct):
         if k not in approx:
             assert ext.get(k) == direct.get(k), k
@@ -149,7 +172,8 @@ def test_affine_reconstruction_train(arch, depth, monkeypatch):
     p11 = probes[at + (shape.global_batch // mb, 1)]
     p12 = probes[at + (2 * shape.global_batch // mb, 2)]
     ratio = cfg.param_count() / probe.param_count()
-    for k in ("bytes", "coll_bytes", "coll_all_reduce:data"):
+    for k in ("bytes", "bytes_rank_max", "bytes_unattributed", "coll_bytes",
+              "coll_all_reduce:data"):
         opt = abs(2 * p11.get(k, 0) - p12.get(k, 0)) * ratio
         assert abs(ext[k] - direct[k]) <= mb * opt, (k, ext[k], direct[k],
                                                       opt)
@@ -173,3 +197,57 @@ def test_flops_at_most_xla():
                                 make_abstract_mesh((1, 1), ("data", "model")),
                                 microbatches=1)["flops"]
         assert XLA_SHARE * xla <= ours <= xla, (depth, ours, xla)
+
+
+def test_flops_by_dtype_equal_flop_counter():
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(),
+                              n_layers=2, dtype="bfloat16")
+    mesh = make_abstract_mesh(*MESH22)
+    shape = ShapeSpec("train_4k", 16, 8, "train")
+    n = len(mesh.devices)
+    got = R.count_step(*C.build_cell(cfg, shape, mesh, microbatches=2)[:2],
+                       n)[0]
+    step, args, _ = C.build_cell(cfg, shape, mesh, microbatches=2)
+    with FlopCounterMode(display=False) as fc, COST.KernelCounter() as kc:
+        step(*args)
+    assert got["flops"] * n == fc.get_total_flops() + kc.total("flops")
+    assert got["flops:bf16"] + got["flops:fp32"] == got["flops"]
+    # the fp32 head: its logits and their two gradients, 2 x tokens x D x V
+    tokens = shape.global_batch * shape.seq_len
+    assert got["flops:fp32"] * n == 3 * 2 * tokens * cfg.d_model * cfg.vocab
+    terms = R.roofline_terms(got, cfg, shape)
+    assert terms["compute_s"] == pytest.approx(
+        got["flops_rank_max:bf16"] / 989e12
+        + got["flops_rank_max:fp32"] / 67e12, rel=1e-12)
+    assert terms["memory_s"] == pytest.approx(got["bytes_rank_max"] / 3.35e12,
+                                              rel=1e-12)
+
+
+def test_compute_seconds_by_dtype():
+    m = {"flops": 3e12, "flops:bf16": 2e12, "flops:fp32": 1e12}
+    assert R.compute_seconds(m) == pytest.approx(2e12 / 989e12 + 1e12 / 67e12)
+    assert R.compute_seconds({"flops": 3e12}) == 3e12 / 989e12
+    with pytest.raises(ValueError, match="float64"):
+        R.compute_seconds({"flops": 1.0, "flops:float64": 1.0})
+
+
+@pytest.mark.parametrize("step", ("decode", "prefill", "train"))
+def test_rank_balance_on_a_padded_mesh(step):
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), n_layers=2)
+    mesh = make_abstract_mesh((1, 3), ("data", "model"))
+    plan = P.MeshPlan(build_model(cfg, device="meta"), mesh)
+    assert plan.hp == 6 and plan.kv_heads[2] == [cfg.n_kv_heads]
+    shape = {"decode": ShapeSpec("decode_32k", 64, 6, "decode"),
+             "prefill": ShapeSpec("prefill_32k", 64, 6, "prefill"),
+             "train": ShapeSpec("train_4k", 16, 12, "train")}[step]
+    got = _direct(cfg, shape, mesh) if step != "train" else \
+        R.count_step(*C.build_cell(cfg, shape, mesh, microbatches=2)[:2],
+                     3)[0]
+    bal = R.rank_balance(got)
+    if step == "train":
+        assert 1.0 <= bal["flops_max_over_mean"] <= TRAIN_SPREAD, bal
+        assert 1.0 <= bal["bytes_max_over_mean"] <= TRAIN_SPREAD, bal
+    else:
+        assert bal["flops_max_over_mean"] == 1.0, bal
+        assert 1.0 <= bal["bytes_max_over_mean"] <= SERVE_BYTES_SPREAD, bal
+    assert bal["flops_unattributed_share"] < 0.05, bal
